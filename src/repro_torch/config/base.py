@@ -1,0 +1,127 @@
+"""Config dataclasses of the SVM path, copied from ``repro.config.base``.
+
+Same field names, defaults and methods as the reference (a test compares
+them). The LM-side configs (model, mesh, optimizer, checkpoint, fault
+tolerance, train) arrive with the LM slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class SyncConfig:
+    """The paper's contribution as config: model-synchronization schedule.
+
+    ``strategy``:
+      * ``"sync_every_step"`` — canonical DDP (paper's MSF=1 analog).
+      * ``"periodic"``        — H local steps between parameter averages
+                                (paper's DMS / local SGD). ``period=H``.
+      * ``"hierarchical"``    — every-step sync on the data axis, periodic
+                                sync on the replica (pod) axis.
+
+    ``overlap`` — how the residual sync cost is taken off the critical path:
+      * ``"none"``    — blocking collective at the block boundary (paper).
+      * ``"delayed"`` — stale-by-one averaging: block *i*'s averaged delta is
+                        applied at the end of block *i+1*, so the collective
+                        overlaps block *i+1*'s compute (Stich 2018 local-SGD
+                        staleness regime).
+      * ``"chunked"`` — round-robin the parameter tree into ``chunks`` shards
+                        and sync one shard per block: each leaf syncs every
+                        ``chunks·period`` steps and per-sync wire bytes shrink
+                        ``chunks``×.
+
+    ``topology`` — which replicas a sync point couples:
+      * ``"all"``      — global collective (pmean/psum/all-gather); one
+                         straggler stalls every replica.
+      * ``"ring"``     — each replica averages with its two ``ppermute``
+                         neighbors (mixing weight 1/3 each); O(1) neighbor
+                         bytes per sync, no global barrier.
+      * ``"pairwise"`` — rotating disjoint pairs (odd–even pairing by sync
+                         round) average with weight 1/2; needs an even
+                         replica count. Gossip reaches consensus only
+                         geometrically (factor λ₂ per round — see
+                         :func:`repro_torch.core.costmodel.gossip_lambda2`), so the
+                         auto-tuner caps H tighter for sparse topologies.
+    """
+
+    strategy: str = "sync_every_step"
+    period: int = 1                # H — data points/steps per sync (block size)
+    compression: str = "none"      # none | int8
+    error_feedback: bool = True    # residual accumulation for compression
+    slowmo: float = 0.0            # outer momentum on sync delta (0 => off)
+    slowmo_lr: float = 1.0
+    eval_at_sync: bool = False     # paper's per-sync CV-accuracy computation
+    overlap: str = "none"          # none | delayed | chunked
+    chunks: int = 4                # R — shard count for overlap="chunked"
+    topology: str = "all"          # all | ring | pairwise (gossip)
+    # Asynchronous (unsynchronized-round) gossip: each replica mixes with
+    # the *last received* neighbor model instead of the current-round one —
+    # a double-buffered ppermute exchange (send this boundary, consume at
+    # the next, bounded staleness = 1 round on the compiled path). Requires
+    # a gossip topology; the exchange is already a full block off the
+    # critical path, so overlap modes are rejected (they would compound the
+    # staleness past the 1-round bound). The auto-tuner caps H by the
+    # staleness-aware effective spectral gap
+    # (:func:`repro_torch.core.costmodel.effective_spectral_gap`).
+    gossip_async: bool = False
+    # --- adaptive MSF (repro.core.autotune.AdaptiveController; not ported) -
+    # When ``adaptive`` is on, the training driver re-solves the period
+    # online from measured T_step/T_sync every ``adapt_every`` blocks
+    # (``period`` is the starting H). ``adapt_hysteresis`` is the relative
+    # change required before H actually moves (every move recompiles the
+    # train block); target/drift mirror choose_period's knobs.
+    adaptive: bool = False
+    adapt_every: int = 16          # R — blocks between controller re-solves
+    adapt_hysteresis: float = 0.25
+    adapt_target_overhead: float = 0.05
+    adapt_max_drift: float = 0.01
+    # --- H-ladder runtime (repro.runtime.ladder.LadderRuntime; not ported) --
+    # The live trainer pre-compiles the train block for a *ladder* of
+    # periods sharing one state layout, so an adaptive H move mid-run is
+    # a flush + pick-another-compiled-callable — no recompilation. The
+    # ladder is geometric {1, ladder_base, ladder_base², …, adapt_h_max}
+    # (plus ``period`` so the starting rung always exists) unless
+    # ``adapt_ladder`` pins explicit rungs. ``adapt_rung_hysteresis`` is
+    # the controller's move threshold in *rung units*: the re-solved H
+    # must snap at least that many rungs away before the schedule moves
+    # (geometric spacing already absorbs sub-factor-of-base noise).
+    adapt_h_max: int = 64          # top rung of the geometric ladder
+    adapt_ladder: Tuple[int, ...] = ()   # explicit rungs (overrides h_max)
+    ladder_base: int = 2           # geometric ladder ratio
+    adapt_rung_hysteresis: int = 1
+
+    def ladder_rungs(self) -> Tuple[int, ...]:
+        """The pre-compiled H ladder: sorted, unique, start rung included."""
+        if self.adapt_ladder:
+            rungs = set(int(h) for h in self.adapt_ladder)
+        else:
+            rungs, h = set(), 1
+            while h <= max(1, self.adapt_h_max):
+                rungs.add(h)
+                h *= max(2, self.ladder_base)
+        rungs.add(max(1, self.period))
+        return tuple(sorted(rungs))
+
+    @property
+    def msf_label(self) -> str:
+        tail = "" if self.overlap == "none" else f",overlap={self.overlap}"
+        if self.topology != "all":
+            tail += f",topo={self.topology}"
+        if self.gossip_async:
+            tail += ",async"
+        if self.adaptive:
+            tail += ",adaptive"
+        return f"{self.strategy}(H={self.period},comp={self.compression}{tail})"
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "synthetic_lm"  # synthetic_lm | ijcnn1 | webspam | epsilon
+    seq_len: int = 1024
+    global_batch: int = 8
+    seed: int = 0
+    num_samples: int = 0           # 0 => dataset default
+    features: int = 0
+    sparsity: float = 0.0
