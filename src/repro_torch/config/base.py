@@ -1,13 +1,84 @@
-"""Config dataclasses of the SVM path, copied from ``repro.config.base``.
+"""Config dataclasses, copied from ``repro.config.base``.
 
 Same field names, defaults and methods as the reference (a test compares
-them). The LM-side configs (model, mesh, optimizer, checkpoint, fault
-tolerance, train) arrive with the LM slice.
+them): the SVM path's ``SyncConfig`` and ``DataConfig``, and the model
+configs of the serving path. The mesh, optimizer, checkpoint, fault
+tolerance and train configs arrive with the trainer slice.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block config (dense-routing einsum formulation)."""
+
+    num_experts: int = 0           # 0 => dense FFN
+    top_k: int = 2
+    router_jitter: float = 0.0
+    load_balance_coef: float = 0.01
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) block config."""
+
+    state_dim: int = 128           # N — SSM state size per head
+    head_dim: int = 64             # P — channels per SSD head
+    expand: int = 2                # d_inner = expand * d_model
+    chunk_size: int = 256          # SSD chunk length
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Unified architecture description covering every assigned family
+    (the port builds ``family="dense"`` so far)."""
+
+    name: str = "unnamed"
+    family: str = "dense"          # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_ff: int = 512
+    vocab_size: int = 1024
+    head_dim: int = 0              # 0 => d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    norm_type: str = "rms"         # rms | layer (whisper)
+    tie_embeddings: bool = False
+    # seq-chunked cross-entropy: cap the materialized logits to
+    # (B, ce_chunk, V) per step (0 ⇒ unchunked)
+    ce_chunk: int = 0
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    # hybrid (zamba2-style): a shared attention+MLP block applied every
+    # `shared_block_every` backbone layers.
+    shared_block_every: int = 0
+    # enc-dec (whisper-style)
+    n_encoder_layers: int = 0
+    # stubbed audio frontend: number of precomputed frame embeddings the
+    # encoder consumes (whisper: 1500 = 30 s at 50 Hz post-conv)
+    n_audio_frames: int = 0
+    # vlm (paligemma-style): number of image-prefix positions provided by the
+    # (stubbed) vision frontend.
+    num_image_tokens: int = 0
+    # long-context capability flag: sub-quadratic step cost in seq_len.
+    subquadratic: bool = False
+    dtype: str = "bfloat16"        # activation/computation dtype
+    param_dtype: str = "float32"   # master parameter dtype
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe.num_experts > 0
 
 
 @dataclass(frozen=True)

@@ -31,21 +31,12 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.hinge import ops as hinge_ops
 from repro_torch.kernels.hinge import ref as hinge_ref
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
 OVERLAPS = ("none", "delayed", "chunked")
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """``device`` as a :class:`torch.device`; raises for CUDA without a card
-    rather than running on the CPU unasked."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    return dev
 
 
 def _alpha(t: int, dtype: torch.dtype) -> torch.Tensor:
@@ -69,9 +60,13 @@ def hinge_objective(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
 def accuracy(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Share of correct signs, as float32 in every working dtype (the
-    reference's ``jnp.mean`` of a bool array is float32 even under x64)."""
+    reference's ``jnp.mean`` of a bool array is float32 even under x64).
+
+    Computed as the reference computes it, the count times ``float32(1/n)``:
+    a division rounds differently at some counts, by one float32 ulp."""
     pred = torch.where(x @ w >= 0, 1.0, -1.0).to(y.dtype)
-    return (pred == y).to(torch.float32).mean()
+    count = (pred == y).sum().to(torch.float32)
+    return count * torch.tensor(1.0 / y.numel(), dtype=torch.float32)
 
 
 def _padded_width(d: int, chunks: int) -> int:

@@ -1,17 +1,20 @@
-"""Carry the reference's SVM state into the port.
+"""Carry the reference's state into the port.
 
 ``repro`` hands its state out as JAX arrays, which ``np.asarray`` turns into
-numpy; :func:`svm_state_to_torch` turns that into the port's tensors on a
-given device, keeping each dtype. The state is a model ``w`` or a DMS carry
-dict (``repro.core.svm.dms_stepper_init``'s keys). This module imports no
-JAX: the caller converts to numpy.
+numpy. :func:`svm_state_to_torch` turns an SVM model ``w`` or a DMS carry
+dict (``repro.core.svm.dms_stepper_init``'s keys) into the port's tensors on
+a given device; :func:`lm_params_from_jax` turns an LM param pytree into the
+port's state dict. Both keep each dtype. This module imports no JAX: the
+caller converts to numpy (``jax.tree.map(np.asarray, params)``).
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
+
+from repro_torch.config.base import ModelConfig
 
 CARRY_KEYS = ("w", "pending", "sent", "mixbuf", "cnt")
 
@@ -30,6 +33,49 @@ def svm_state_to_torch(state: State, device: Union[str, torch.device]
             raise KeyError(f"not a DMS carry key: {unknown}; "
                            f"known: {list(CARRY_KEYS)}")
         return {k: svm_state_to_torch(v, device) for k, v in state.items()}
-    arr = np.asarray(state)
+    return _tensor(state, device)
+
+
+def _tensor(value, device=None) -> torch.Tensor:
+    """A numpy array (bfloat16 from ``ml_dtypes`` too) as a tensor that owns
+    its memory, dtype kept."""
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
+        bits = torch.tensor(arr.view(np.uint16), device=device)
+        return bits.view(torch.bfloat16)
     return torch.tensor(arr, dtype=getattr(torch, arr.dtype.name),
                         device=device)
+
+
+def lm_params_from_jax(params: Mapping[str, Any], cfg: ModelConfig
+                       ) -> Dict[str, torch.Tensor]:
+    """The reference's LM param pytree (``DecoderLM.init``'s nested dict,
+    as numpy) as the port's state dict: nested keys joined by dots, and the
+    scanned ``layers`` subtree (every leaf with a leading ``n_layers`` dim)
+    split into one entry per layer, ``layers.<i>.<key>``. Load it with
+    :meth:`repro_torch.models.transformer.DecoderLM.load`."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, node, layer=None):
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(f"{prefix}{key}.", value, layer)
+                continue
+            arr = np.asarray(value)
+            if layer is not None:
+                if arr.shape[:1] != (cfg.n_layers,):
+                    raise ValueError(f"{prefix}{key}: leading dim "
+                                     f"{arr.shape[:1]} is not n_layers "
+                                     f"{cfg.n_layers}")
+                arr = arr[layer]
+            out[prefix + key] = _tensor(arr)
+
+    for key, value in params.items():
+        if key == "layers":
+            for i in range(cfg.n_layers):
+                walk(f"layers.{i}.", value, i)
+        elif isinstance(value, Mapping):
+            walk(f"{key}.", value)
+        else:
+            out[key] = _tensor(value)
+    return out

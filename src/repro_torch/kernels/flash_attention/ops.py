@@ -1,0 +1,115 @@
+"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``):
+checks, dispatch and launch count.
+
+A CPU tensor goes to the plain version
+(:func:`repro_torch.kernels.flash_attention.ref.flash_attention`); a CUDA
+tensor goes to the kernel, or the call raises. There is no fallback from the
+kernel to the plain version. The kernel is built and loaded at its first
+launch (:mod:`repro_torch.kernels.nvcc`), so this module imports without
+``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import nvcc
+from repro_torch.kernels.flash_attention import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+MAX_HEAD_DIM = 256  # the TPU kernel's limit, and the kernel's largest tile
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches so far: one per call on CUDA tensors, none for the CPU
+# path. A run sets it to 0 and reads it after.
+LAUNCHES = 0
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at the first call) and load the kernel's library."""
+    global _LIB
+    if _LIB is None:
+        lib = nvcc.load("flash_attention", [SOURCE])
+        fn = lib.flash_attention_fwd
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [ptr, i64, i64, i64, ptr, i64, i64, i64,
+                       ptr, i64, i64, i64, ptr,
+                       i32, i32, i32, i32, i32, i32, i32, i32, i32,
+                       ctypes.c_float, ptr]
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           prefix_len: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, S, H, dh), (B, T, KV, dh); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    b, s, h, dh = q.shape
+    if k.shape[0] != b or k.shape[3] != dh:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)} in batch or head_dim")
+    if k.shape[2] == 0 or h % k.shape[2]:
+        raise ValueError(f"{h} query heads are not a multiple of "
+                         f"{k.shape[2]} kv heads")
+    if not 0 < dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {dh} outside 1..{MAX_HEAD_DIM}")
+    if s == 0 or k.shape[1] == 0:
+        raise ValueError("empty sequence: q and k need at least one row")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len {prefix_len} < 0")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must all be float32 or all bfloat16; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a unit last stride, got "
+                             f"{t.stride()}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
+    """q: (B, S, H, dh) · k/v: (B, T, KV, dh) → (B, S, H, dh), in q's dtype.
+
+    The counterpart of ``repro.kernels.flash_attention.ops.flash_attention``.
+    Masks as :mod:`repro_torch.kernels.flash_attention.ref` states them;
+    keys at or beyond T are never attended. On CUDA tensors it launches the
+    kernel: float32 or bfloat16 (all three alike), unit last stride, any
+    other strides (q, k and v are read in place).
+    """
+    _check(q, k, v, prefix_len)
+    devices = {q.device, k.device, v.device}
+    if devices == {torch.device("cpu")}:
+        return ref.flash_attention(q, k, v, causal=causal,
+                                   prefix_len=prefix_len)
+    if len(devices) != 1 or not q.is_cuda:
+        raise ValueError(f"q, k and v must lie on one CUDA device or all on "
+                         f"the CPU; got {sorted(map(str, devices))}")
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), qs[0], qs[1], qs[2],
+        k.data_ptr(), ks[0], ks[1], ks[2],
+        v.data_ptr(), vs[0], vs[1], vs[2], out.data_ptr(),
+        b, s, t, h, kvh, dh, int(causal), int(prefix_len), DTYPES[q.dtype],
+        1.0 / dh ** 0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
+                           f"error {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,231 @@
+"""Attention: GQA/MQA/MHA, RoPE, causal/prefix masks, KV-cache decode.
+
+The port of ``repro.models.attention`` on one device (no mesh, so decode is
+the reference's single-shard math). Layouts are the reference's: activations
+(B, S, H, hd), caches (B, S, KV, hd).
+
+``full_attention(impl=…)`` selects the attention of a full sequence:
+``"kernel"`` (the default) goes through
+:func:`repro_torch.kernels.flash_attention.ops.flash_attention`, the CUDA
+kernel on CUDA tensors and its plain version on CPU tensors;
+``"torch"`` takes the plain twins of the reference's ``attn_impl="jnp"``
+(:func:`_sdpa`, and :func:`_sdpa_chunked` from ``_CHUNK_THRESHOLD`` rows on).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+# seq length at/beyond which the q-chunked path replaces full-score SDPA,
+# and its chunk (the reference's values)
+_CHUNK_THRESHOLD = 2048
+_Q_CHUNK = 512
+IMPLS = ("kernel", "torch")
+
+
+def attn_defs(cfg: ModelConfig) -> L.ParamDefs:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    defs: L.ParamDefs = {
+        "wq": L.Param((d, cfg.n_heads, hd), init="fan_in"),
+        "wk": L.Param((d, cfg.n_kv_heads, hd), init="fan_in"),
+        "wv": L.Param((d, cfg.n_kv_heads, hd), init="fan_in"),
+        "wo": L.Param((cfg.n_heads, hd, d), init="fan_in"),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = L.Param((cfg.n_heads, hd), init="zeros")
+        defs["bk"] = L.Param((cfg.n_kv_heads, hd), init="zeros")
+        defs["bv"] = L.Param((cfg.n_kv_heads, hd), init="zeros")
+    return defs
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk")`` as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _project_qkv(params: L.Params, x: torch.Tensor):
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    return q, k, v
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshd,hdm->bsm")`` as one matrix product."""
+    h, hd, d = wo.shape
+    return out.flatten(-2) @ wo.to(out.dtype).reshape(h * hd, d)
+
+
+def make_mask(q_len: int, kv_len: int, mode: str, prefix_len: int = 0,
+              q_offset: int = 0, device=None) -> Optional[torch.Tensor]:
+    """Boolean (q_len, kv_len) mask; True = attend. ``mode``: causal|prefix|full."""
+    if mode == "full":
+        return None
+    rows = torch.arange(q_len, device=device)[:, None] + q_offset
+    cols = torch.arange(kv_len, device=device)[None, :]
+    causal = cols <= rows
+    if mode == "causal":
+        return causal
+    if mode == "prefix":
+        return causal | (cols < prefix_len)
+    raise ValueError(mode)
+
+
+def _sdpa(q, k, v, mask) -> torch.Tensor:
+    """Grouped-query scaled-dot-product attention, the twin of the
+    reference's ``_sdpa_jnp``: scores in the activation dtype, then the
+    scale and softmax in f32, probabilities back in the activation dtype.
+
+    q: (B,S,H,hd) · k/v: (B,T,KV,hd) → (B,S,H,hd). H = KV·G.
+    """
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / (hd ** 0.5)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, hd)
+
+
+def _sdpa_chunked(q, k, v, mask_mode: str, prefix_len: int,
+                  q_chunk: int = _Q_CHUNK) -> torch.Tensor:
+    """Query-chunked SDPA: a loop over q blocks with the full softmax row
+    per block (f32), so scores live at (B,KV,G,q_chunk,T) per step. The
+    twin of the reference's ``_sdpa_chunked_jnp`` in its grouped layout
+    (the flat-head and context-parallel layouts serve a mesh only)."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    if s % q_chunk != 0:
+        return _sdpa(q, k, v, make_mask(s, t, mask_mode, prefix_len,
+                                        device=q.device))
+    outs = []
+    for iq in range(s // q_chunk):
+        rows = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        mask = make_mask(q_chunk, t, mask_mode, prefix_len,
+                         q_offset=iq * q_chunk, device=q.device)
+        outs.append(_sdpa(q[:, rows], k, v, mask))
+    return torch.cat(outs, dim=1)
+
+
+def full_attention(params: L.Params, x: torch.Tensor,
+                   positions: torch.Tensor, cfg: ModelConfig,
+                   mask_mode: str = "causal", prefix_len: int = 0,
+                   impl: str = "kernel", return_kv: bool = False):
+    """Training / prefill self-attention over a full sequence (the
+    reference's cross-attention, ``kv_x``, comes with the enc-dec family).
+
+    ``return_kv=True`` also returns the (post-RoPE) k, v: the prefill path
+    stores them as the decode cache. Under ``impl="kernel"`` the prefix mode
+    is causal ∪ prefix, as ``make_mask`` has it (the reference's Pallas
+    path attends to the prefix only there).
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r} "
+                         f"({' | '.join(IMPLS)})")
+    q, k, v = _project_qkv(params, x)
+    cos, sin = rotary_cos_sin(positions, cfg)
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
+    if impl == "kernel":
+        out = fa_ops.flash_attention(
+            q, k, v, causal=mask_mode != "full",
+            prefix_len=prefix_len if mask_mode == "prefix" else 0)
+    elif q.shape[1] >= _CHUNK_THRESHOLD:
+        out = _sdpa_chunked(q, k, v, mask_mode, prefix_len)
+    else:
+        mask = make_mask(q.shape[1], k.shape[1], mask_mode, prefix_len,
+                         device=q.device)
+        out = _sdpa(q, k, v, mask)
+    y = _out_proj(out, params["wo"])
+    if return_kv:
+        return y, k, v
+    return y
+
+
+def rotary_cos_sin(positions: torch.Tensor, cfg: ModelConfig):
+    return L.rotary_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device=None) -> Dict[str, torch.Tensor]:
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _decode_attn_chunk(q, k_chunk, v_chunk, index: int, chunk_offset: int):
+    """Flash-decode partial of one cache chunk: returns (o, l), the
+    unnormalised output and the softmax denominator. (The reference also
+    returns the running max for its lse merge across cache shards; one
+    device has one shard.)
+
+    q: (B,1,KV,G,hd) · k/v_chunk: (B,Sc,KV,hd); positions chunk_offset+i
+    valid iff <= index.
+    """
+    sc = k_chunk.shape[1]
+    scores = torch.einsum("bqkgd,btkd->bkgqt", q, k_chunk).float()
+    scores = scores / (q.shape[-1] ** 0.5)
+    pos = chunk_offset + torch.arange(sc, device=q.device)
+    scores = torch.where(pos <= index, scores, -torch.inf)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(scores - m_safe)
+    p = torch.where(torch.isfinite(scores), p, 0.0)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bkgqt,btkd->bkgqd", p.to(v_chunk.dtype), v_chunk)
+    return o, l
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, index: int) -> torch.Tensor:
+    """One-token attention against the cache, the reference's single-shard
+    math: q (B,1,H,hd) · k/v_cache (B,S,KV,hd), positions ≤ index valid."""
+    b, _, h, hd = q.shape
+    kv = k_cache.shape[2]
+    qg = q.reshape(b, 1, kv, h // kv, hd)
+    o, l = _decode_attn_chunk(qg, k_cache, v_cache, index, 0)
+    out = (o / torch.clamp(l, min=1e-30)).to(q.dtype)    # (B,KV,G,1,hd)
+    return out.reshape(b, 1, h, hd)
+
+
+def decode_step_attention(params: L.Params, x: torch.Tensor,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          index: int, cfg: ModelConfig
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token self-attention step; returns (y, cache_k, cache_v).
+
+    x: (B,1,d). cache_k/v: (B,S,KV,hd). The new k, v are written into the
+    caches in place at ``index`` (the reference donates the cache buffers
+    and updates them functionally; in place is the same result without a
+    second cache in memory). The reference's ``cross=True`` (enc-dec
+    cross-attention) comes with the enc-dec family.
+    """
+    q, k_new, v_new = _project_qkv(params, x)
+    pos = torch.full((x.shape[0], 1), index, dtype=torch.int32,
+                     device=x.device)
+    cos, sin = rotary_cos_sin(pos, cfg)
+    q = L.apply_rope(q, cos, sin)
+    k_new = L.apply_rope(k_new, cos, sin)
+    cache_k[:, index] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, index] = v_new[:, 0].to(cache_v.dtype)
+    out = decode_attention(q, cache_k, cache_v, index)
+    return _out_proj(out, params["wo"]), cache_k, cache_v

@@ -1,0 +1,210 @@
+"""Shared building blocks: param declarations, norms, RoPE, embeddings, MLP.
+
+The port of ``repro.models.layers``. Parameters are declared through
+:class:`Param` and drawn by :func:`init_params` into a nested dict of
+tensors; :class:`ParamTree` turns that dict into ``nn.Module``s whose
+parameter names are the reference's dict keys (``attn.wq``, ``mlp.w_up``,
+…), with a list of layers as an ``nn.ModuleList``. The functions read their
+parameters as ``params["wq"]``, so they take a ``ParamTree`` or a plain dict
+of tensors alike.
+
+There is no mesh: the sharded and one-hot embedding paths of the reference
+serve a mesh only, and the plain gather computes the same lookup.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Mapping, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class Param:
+    """Declaration of one parameter leaf (the reference's, without the
+    logical sharding axes)."""
+
+    shape: Tuple[int, ...]
+    init: str = "normal"       # normal | zeros | ones | fan_in
+    scale: float = 0.02
+
+
+ParamDefs = Dict[str, Any]  # nested dict of Param, a list for a layer stack
+
+
+def _init_leaf(p: Param, gen: torch.Generator, dtype: torch.dtype
+               ) -> torch.Tensor:
+    dev = gen.device
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=dev)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=dev)
+    if p.init == "fan_in":
+        fan_in = p.shape[0] if len(p.shape) == 1 else math.prod(p.shape[:-1])
+        scale = 1.0 / max(1.0, fan_in) ** 0.5
+    elif p.init == "normal":
+        scale = p.scale
+    else:
+        raise ValueError(f"unknown init {p.init!r}")
+    x = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=dev)
+    return (x * scale).to(dtype)
+
+
+def _map_defs(defs: ParamDefs, leaf) -> Dict[str, Any]:
+    if isinstance(defs, Param):
+        return leaf(defs)
+    if isinstance(defs, list):
+        return [_map_defs(d, leaf) for d in defs]
+    return {k: _map_defs(d, leaf) for k, d in defs.items()}
+
+
+def init_params(defs: ParamDefs, gen: torch.Generator,
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """Draw a param tree from ``defs`` on ``gen``'s device: normal·scale,
+    normal/√fan_in, zeros or ones, as the reference draws them. The leaves
+    are drawn in declaration order from one generator, so a seed fixes the
+    tree (it does not give JAX's numbers)."""
+    return _map_defs(defs, lambda p: _init_leaf(p, gen, dtype))
+
+
+def empty_params(defs: ParamDefs, dtype: torch.dtype, device
+                 ) -> Dict[str, Any]:
+    """An uninitialised param tree of ``defs``' shapes, to load values into."""
+    return _map_defs(defs, lambda p: torch.empty(p.shape, dtype=dtype,
+                                                 device=device))
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as modules: a tensor becomes a parameter of
+    that name, a dict a child ``ParamTree``, a list an ``nn.ModuleList``.
+    ``tree["name"]`` reads a parameter or child as ``tree.name`` does."""
+
+    def __init__(self, tree: Mapping[str, Any]):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, torch.Tensor):
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+            elif isinstance(value, list):
+                self.add_module(name, nn.ModuleList(
+                    ParamTree(x) for x in value))
+            else:
+                self.add_module(name, ParamTree(value))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+Params = Union[ParamTree, Mapping[str, Any]]
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return (x * scale.float() + bias.float()).to(dtype)
+
+
+def norm_defs(d: int, norm_type: str = "rms") -> ParamDefs:
+    if norm_type == "layer":
+        return {"scale": Param((d,), init="ones"),
+                "bias": Param((d,), init="zeros")}
+    return {"scale": Param((d,), init="ones")}
+
+
+def apply_norm(params: Params, x: torch.Tensor, norm_type: str,
+               eps: float) -> torch.Tensor:
+    if norm_type == "layer":
+        return layer_norm(x, params["scale"], params["bias"], eps)
+    return rms_norm(x, params["scale"], eps)
+
+
+def rotary_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                   dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) int → cos/sin of shape (..., head_dim//2)."""
+    half = head_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32,
+                            device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exponent)
+    angles = positions[..., None].float() * freqs
+    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); cos/sin: (..., seq, head_dim//2).
+    The products are in cos's dtype (f32), as in the reference, where a
+    bf16 x promotes against the f32 tables."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = cos[..., None, :]  # broadcast over heads
+    sin = sin[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_defs(vocab: int, d_model: int) -> ParamDefs:
+    return {"embedding": Param((vocab, d_model))}
+
+
+def embed(params: Params, tokens: torch.Tensor, dtype: torch.dtype
+          ) -> torch.Tensor:
+    """Token embedding lookup: a gather of the rows, in ``dtype``."""
+    return F.embedding(tokens, params["embedding"]).to(dtype)
+
+
+def unembed(params: Params, x: torch.Tensor, tied: bool) -> torch.Tensor:
+    table = params["embedding"] if tied else params["out_embedding"]
+    return x @ table.to(x.dtype).T
+
+
+def unembed_defs(vocab: int, d_model: int, tied: bool) -> ParamDefs:
+    if tied:
+        return {}
+    return {"out_embedding": Param((vocab, d_model))}
+
+
+# ---------------------------------------------------------------------------
+# dense (SwiGLU) MLP
+# ---------------------------------------------------------------------------
+
+def mlp_defs(d_model: int, d_ff: int) -> ParamDefs:
+    return {
+        "w_gate": Param((d_model, d_ff), init="fan_in"),
+        "w_up": Param((d_model, d_ff), init="fan_in"),
+        "w_down": Param((d_ff, d_model), init="fan_in"),
+    }
+
+
+def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    dtype = x.dtype
+    gate = x @ params["w_gate"].to(dtype)
+    up = x @ params["w_up"].to(dtype)
+    return (F.silu(gate) * up) @ params["w_down"].to(dtype)

@@ -1,0 +1,177 @@
+"""Decoder-only transformer LM, dense family: the serving path.
+
+The port of ``repro.models.transformer.DecoderLM`` with the reference's
+duck-typed model API, parameters passed in:
+
+    param_defs()                          → nested dict of Param
+    init(generator)                       → ParamTree (the params)
+    load(state_dict, device)              → ParamTree
+    prefill(params, batch)                → (last_logits, cache)
+    decode_step(params, batch)            → (logits, cache)
+    init_cache(batch, max_len, dtype, …)  → cache dict
+
+The layer stack is a Python loop over ``params["layers"]``, an
+``nn.ModuleList`` (the reference scans stacked layer params). MoE, the
+prefix-LM VLM and the training loss come with later slices.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+
+def layer_defs(cfg: ModelConfig) -> L.ParamDefs:
+    return {
+        "ln1": L.norm_defs(cfg.d_model, cfg.norm_type),
+        "attn": A.attn_defs(cfg),
+        "ln2": L.norm_defs(cfg.d_model, cfg.norm_type),
+        "mlp": L.mlp_defs(cfg.d_model, cfg.d_ff),
+    }
+
+
+def layer_fwd(lp: L.Params, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig, mask_mode: str, prefix_len: int,
+              attn_impl: str, return_kv: bool = False):
+    """One transformer block. Returns x, or (x, k, v) if return_kv."""
+    h = L.apply_norm(lp["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    attn_out = A.full_attention(lp["attn"], h, positions, cfg,
+                                mask_mode=mask_mode, prefix_len=prefix_len,
+                                impl=attn_impl, return_kv=return_kv)
+    if return_kv:
+        attn_out, k, v = attn_out
+    x = x + attn_out
+    h = L.apply_norm(lp["ln2"], x, cfg.norm_type, cfg.norm_eps)
+    x = x + L.mlp(lp["mlp"], h)
+    if return_kv:
+        return x, k, v
+    return x
+
+
+def layer_decode(lp: L.Params, x: torch.Tensor, cache_k: torch.Tensor,
+                 cache_v: torch.Tensor, index: int, cfg: ModelConfig):
+    """One block, single-token decode. Returns (x, cache_k, cache_v); the
+    caches are updated in place."""
+    h = L.apply_norm(lp["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    attn_out, cache_k, cache_v = A.decode_step_attention(
+        lp["attn"], h, cache_k, cache_v, index, cfg)
+    x = x + attn_out
+    h = L.apply_norm(lp["ln2"], x, cfg.norm_type, cfg.norm_eps)
+    return x + L.mlp(lp["mlp"], h), cache_k, cache_v
+
+
+class DecoderLM:
+    """Dense decoder-only LM. ``attn_impl``: ``"kernel"`` (the CUDA
+    flash-attention kernel on the card) or ``"torch"`` (the plain twins)."""
+
+    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "kernel"):
+        if cfg.family != "dense" or cfg.is_moe:
+            raise NotImplementedError(
+                f"family {cfg.family!r} (MoE: {cfg.is_moe}) is not ported "
+                f"yet (ROADMAP §1 item 16)")
+        if attn_impl not in A.IMPLS:
+            raise ValueError(f"unknown attention impl {attn_impl!r} "
+                             f"({' | '.join(A.IMPLS)})")
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        self.dtype = getattr(torch, cfg.dtype)
+
+    # ----------------------------------------------------------- parameters
+    def param_defs(self) -> L.ParamDefs:
+        cfg = self.cfg
+        defs = {
+            "embed": L.embed_defs(cfg.vocab_size, cfg.d_model),
+            "layers": [layer_defs(cfg)] * cfg.n_layers,
+            "final_norm": L.norm_defs(cfg.d_model, cfg.norm_type),
+        }
+        defs.update(L.unembed_defs(cfg.vocab_size, cfg.d_model,
+                                   cfg.tie_embeddings))
+        return defs
+
+    def init(self, gen: torch.Generator) -> L.ParamTree:
+        """Fresh params drawn from ``gen``, on its device."""
+        return L.ParamTree(L.init_params(
+            self.param_defs(), gen, getattr(torch, self.cfg.param_dtype)))
+
+    def load(self, state_dict: Mapping[str, torch.Tensor],
+             device) -> L.ParamTree:
+        """Params from a state dict (keys ``embed.embedding``,
+        ``layers.<i>.attn.wq``, …): every key and shape is checked against
+        :meth:`param_defs`, the values are cast to ``param_dtype``."""
+        params = L.ParamTree(L.empty_params(
+            self.param_defs(), getattr(torch, self.cfg.param_dtype), device))
+        params.load_state_dict(state_dict, strict=True)
+        return params
+
+    # ------------------------------------------------------------- forward
+    def _embed_inputs(self, params: L.Params, batch) -> torch.Tensor:
+        return L.embed(params["embed"], batch["tokens"], self.dtype)
+
+    def backbone(self, params: L.Params, x: torch.Tensor,
+                 return_cache: bool = False,
+                 cache: Optional[Dict[str, torch.Tensor]] = None):
+        """x: (B, S, D) embedded inputs → final hidden (+ cache), causal
+        (the prefix-LM mask of the reference's VLM comes with that family).
+        With ``return_cache`` each layer's k, v is written into
+        ``cache[name][i, :, :S]``: the given cache (e.g. of ``max_len``), or
+        one of length S in the activations' dtype.
+        """
+        cfg = self.cfg
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        if return_cache and cache is None:
+            cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
+        for i, lp in enumerate(params["layers"]):
+            out = layer_fwd(lp, x, positions, cfg, "causal", 0,
+                            self.attn_impl, return_kv=return_cache)
+            if return_cache:
+                x, k, v = out
+                cache["k"][i, :, :s] = k
+                cache["v"][i, :, :s] = v
+            else:
+                x = out
+        x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+        if return_cache:
+            return x, cache
+        return x
+
+    # ------------------------------------------------------------- serving
+    def _logits_last(self, params: L.Params, x_last: torch.Tensor
+                     ) -> torch.Tensor:
+        table = params["embed"]["embedding"] if self.cfg.tie_embeddings \
+            else params["out_embedding"]
+        return x_last @ table.to(x_last.dtype).T
+
+    def prefill(self, params: L.Params, batch,
+                cache: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"tokens": (B,S) int} → (last-position logits (B,V),
+        cache {"k","v"}: (L,B,S,KV,hd)). Given a ``cache`` (e.g. from
+        :meth:`init_cache` at ``max_len``), the prompt's k, v are written
+        into its first S positions and it is returned."""
+        x = self._embed_inputs(params, batch)
+        x, cache = self.backbone(params, x, return_cache=True, cache=cache)
+        return self._logits_last(params, x[:, -1]), cache
+
+    def init_cache(self, batch_size: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device=None) -> Dict[str, torch.Tensor]:
+        return A.init_cache(self.cfg, batch_size, max_len, self.cfg.n_layers,
+                            dtype, device)
+
+    def decode_step(self, params: L.Params, batch
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"token": (B,1) int, "cache": {...}, "index": int}. The
+        cache is updated in place and returned."""
+        cfg = self.cfg
+        x = L.embed(params["embed"], batch["token"], self.dtype)
+        cache, index = batch["cache"], batch["index"]
+        for i, lp in enumerate(params["layers"]):
+            x, _, _ = layer_decode(lp, x, cache["k"][i], cache["v"][i],
+                                   index, cfg)
+        x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+        return self._logits_last(params, x[:, -1]), cache

@@ -45,9 +45,26 @@ def _fields(cls):
     return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
 
-@pytest.mark.parametrize("cls", ["DataConfig", "SyncConfig"])
+@pytest.mark.parametrize("cls", ["DataConfig", "SyncConfig", "MoEConfig",
+                                 "SSMConfig", "ModelConfig"])
 def test_config_fields_and_defaults(cls):
     assert _fields(getattr(tbase, cls)) == _fields(getattr(jbase, cls))
+    # the defaults made by a factory (ModelConfig.moe/ssm) too
+    assert (dataclasses.asdict(getattr(tbase, cls)())
+            == dataclasses.asdict(getattr(jbase, cls)()))
+
+
+@pytest.mark.parametrize("kw", [{}, {"head_dim": 48}, {"d_model": 960,
+                                                      "n_heads": 15},
+                                {"moe": {"num_experts": 4}}])
+def test_model_config_properties(kw):
+    def make(base):
+        extra = ({"moe": base.MoEConfig(**kw["moe"])} if "moe" in kw
+                 else kw)
+        return base.ModelConfig(**extra)
+    got, want = make(tbase), make(jbase)
+    assert got.resolved_head_dim == want.resolved_head_dim
+    assert got.is_moe == want.is_moe
 
 
 def test_svm_dataset_configs():

@@ -57,6 +57,22 @@ def test_objective_accuracy_block_grad(ds):
         tsvm.block_grad(tw, tx[:64], ty[:64], 1.0, impl="pallas")
 
 
+@pytest.mark.parametrize("correct", [2001, 2004, 2007])
+def test_accuracy_bitwise_equal(correct):
+    """At n=4000 these counts give float32(count/n) one ulp away from the
+    reference's count·float32(1/n); the port must give the reference's bits."""
+    rng = np.random.default_rng(correct)
+    x = rng.normal(size=(4000, 3)).astype(np.float32)
+    w = rng.normal(size=3).astype(np.float32)
+    pred = np.where(x @ w >= 0, 1.0, -1.0).astype(np.float32)
+    y = -pred
+    y[:correct] = pred[:correct]
+    got = _np(tsvm.accuracy(*map(torch.from_numpy, (w, x, y))))
+    want = np.asarray(jsvm.accuracy(*map(jnp.asarray, (w, x, y))))
+    assert got.dtype == want.dtype == np.float32
+    assert got.tobytes() == want.tobytes(), (got, want)
+
+
 def test_seq_sgd(ds):
     d = ds.features
     x, y = ds.x_train[:1000], ds.y_train[:1000]
@@ -287,8 +303,8 @@ ww, (wobj, wacc) = J.srdms(jz, jnp.asarray(x), jnp.asarray(y), epochs=3,
 close("srdms", gw, ww)
 close("srdms objective", gobj, wobj)
 # accuracy is float32 in both packages under x64 too (JAX's mean of a bool
-# array); JAX multiplies by 1/n where torch divides: one float32 ulp apart
-close("srdms accuracy", gacc, wacc, rtol=2 ** -23)
+# array), the count times float32(1/n) in both
+close("srdms accuracy", gacc, wacc, rtol=0)
 def chunked_fp64(k, bs, epochs, topo, chunks=4, c=1.0):
     # independent numpy chunked DMS: the reference's chunked path raises
     # under x64 (int32 round counter against int64 slice indices)
