@@ -5,7 +5,7 @@
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` with
 nvcc (one compiler per source, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's two paths through
+plain PyTorch version on the card, then drives the port's three paths through
 their entry points and holds every run to its plain-version twin:
 
 1. device, versions, kernel build times and the compiler's register report;
@@ -24,7 +24,23 @@ their entry points and holds every run to its plain-version twin:
 6. the serving path: ``ServeEngine.generate`` on smollm-360m at full width
    (32 layers, bf16, seeded random weights), 4 prompts of 1,920 tokens and
    128 new tokens each, flash launches counted (one per layer per prefill),
-   and the kernel path against the plain path (``attn_impl="torch"``).
+   and the kernel path against the plain path (``attn_impl="torch"``);
+7. the int8 quant kernels against their plain version at the ``TestQuant``
+   shapes, a K-batched (4, 1,000,003) case and the trainer's largest leaf
+   (4, 78,643,200): int8 payload, scale, residual and dequantized values
+   bitwise equal, round-trip error at most scale/2, two launches bitwise
+   equal; with their time, the plain version's, ``torch.quantize_per_channel``
+   / ``torch.dequantize``'s as a yardstick, and the bound;
+8. the LM trainer: local SGD on smollm-360m at full width (32 layers, bf16
+   compute, f32 master params), K = 4 replicas, H = 4, int8 sync with error
+   feedback, AdamW, 2 sequences of 2,048 tokens per replica a step: 2 blocks
+   on the kernel path (quant launches counted: one quantize and one
+   dequantize per leaf per sync) and 2 on the plain path from the same state
+   and batches, held to each other (losses relative 1e-3, params relative L2
+   1e-3) and the first sync's int8 payloads bitwise; then one profiled
+   block, and 4 ``make_ddp_step`` steps (MSF = 1) at the same global batch;
+9. every other sync mode (delayed, chunked, ring, pairwise, async ring,
+   int16) at smoke width, kernel path against plain path.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -50,6 +66,18 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 L2_BYTES = 50 * 2 ** 20
 RTOL, ATOL = 1e-4, 1e-5       # tests/test_kernels.py::TestHinge
+# tests/test_kernels.py::TestQuant's shapes (one scale each), then stacked
+# rows (one scale each): a ragged K-batched case and the trainer's largest
+# leaf, mlp.w_up of smollm-360m (32 · 960 · 2,560) for K = 4 replicas
+QUANT_SHAPES = [((100,), False), ((33, 7), False), ((2, 3, 5), False),
+                ((4096,), False), ((128, 128), False),
+                ((4, 1_000_003), True)]
+QUANT_MAIN = ((4, 32 * 960 * 2560), True)
+# trainer, kernel path against plain path: the two differ only where CUDA's
+# embedding backward (atomics) makes a rounding flip in a gradient and a
+# later int8 value moves one step; a wrong scale or sync is O(1)
+TRAIN_LOSS_REL, TRAIN_PARAMS_REL_L2 = 1e-3, 1e-3
+TRAIN_K, TRAIN_H, TRAIN_SEQ, TRAIN_BATCH = 4, 4, 2048, 8
 W_REL_L2, ACC_DIFF = 1e-3, 0.005
 HINGE_SHAPES = [(8, 8), (100, 22), (257, 254), (512, 2000), (64, 128), (33, 7)]
 # tests/test_kernels.py::TestFlashAttention: (b, sq, sk, h, kv, dh, causal,
@@ -205,7 +233,9 @@ def phase_device(torch):
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.hinge import ops as hinge_ops
-    kernels = {"hinge": hinge_ops, "flash_attention": flash_ops}
+    from repro_torch.kernels.quant import ops as quant_ops
+    kernels = {"hinge": hinge_ops, "flash_attention": flash_ops,
+               "quant": quant_ops}
 
     def build(name):
         t0 = time.perf_counter()
@@ -629,6 +659,333 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen):
     return launches
 
 
+def event_ms(torch, fn, args, runs: int = 11) -> float:
+    """Device time of one ``fn(*args)`` call from CUDA events around each of
+    ``runs`` calls after one warm-up call (no CUDA graph, for a library call
+    that may not be capturable); the median."""
+    fn(*args)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def quant_bound(numel: int, residual: bool):
+    """(bound_ms, bound_by) of one quantize call (4 bytes read, 1 written an
+    element, 4 more written with the residual) and of one dequantize call
+    (1 read, 4 written): bytes over the HBM rate."""
+    q_bytes = numel * (4 + 1 + (4 if residual else 0))
+    return 1e3 * q_bytes / HBM_BYTES_PER_S, 1e3 * 5 * numel / HBM_BYTES_PER_S
+
+
+def phase_quant(torch, dev):
+    """The quant kernels against their plain version; returns the main
+    row: one quantize (with the residual, as the sync calls it) and one
+    dequantize of the trainer's largest leaf."""
+    import warnings
+    from repro_torch.kernels.quant import ops, ref
+    main_row = None
+    for i, (shape, rows) in enumerate(QUANT_SHAPES + [QUANT_MAIN]):
+        numel = int(np.prod(shape))
+        copies = int(min(16, max(1, -(-2 * L2_BYTES // (4 * numel)))))
+        rng = np.random.default_rng(300 + i)
+        sets = [(torch.from_numpy((rng.normal(size=shape) * 0.01)
+                                  .astype(np.float32)).to(dev),)
+                for _ in range(copies)]
+        x = sets[0][0]
+        q, s, res = ops.quantize(x, rows=rows, residual=True)
+        q2, s2, res2 = ops.quantize(x, rows=rows, residual=True)
+        deq = ops.dequantize(q, s)
+        qr, sr = ref.quantize(x, rows=rows)
+        deqr = ref.dequantize(qr, sr)
+        torch.cuda.synchronize()
+        label = f"{'rows ' if rows else ''}{shape}"
+        for name, a, b in (("int8", q, qr), ("scale", s, sr),
+                           ("dequantized", deq, deqr),
+                           ("residual", res, x - deqr)):
+            check(torch.equal(a, b), f"quant {label}: {name} differs from the "
+                  f"plain version")
+        check(torch.equal(q, q2) and torch.equal(s, s2)
+              and torch.equal(res, res2), f"quant {label}: two launches differ")
+        half = s.reshape(s.shape + (1,) * (x.dim() - s.dim())) / 2
+        check(bool(((deq - x).abs() <= half + 1e-6).all()),
+              f"quant {label}: round-trip error above scale/2")
+        err = float((deq - deqr).abs().max())
+        del q, s, res, q2, s2, res2, deq, qr, sr, deqr
+
+        def kernel_q(t):
+            return ops.quantize(t, rows=rows, residual=True)
+
+        def plain_q(t):
+            qq, ss = ref.quantize(t, rows=rows)
+            return qq, ss, t - ref.dequantize(qq, ss)
+
+        ms_q = device_ms(torch, kernel_q, sets)
+        plain_q_ms = device_ms(torch, plain_q, sets)
+        qs = [ops.quantize(t, rows=rows) for (t,) in sets]
+        ms_d = device_ms(torch, ops.dequantize, qs)
+        plain_d_ms = device_ms(torch, ref.dequantize, qs)
+        bound_q, bound_d = quant_bound(numel, True)
+        log(f"quant {label}: bitwise equal to the plain version, "
+            f"bitwise-repeatable; quantize+residual kernel {ms_q * 1e3:.4f} "
+            f"us plain {plain_q_ms * 1e3:.4f} us bound {bound_q * 1e3:.4f} "
+            f"us; dequantize kernel {ms_d * 1e3:.4f} us plain "
+            f"{plain_d_ms * 1e3:.4f} us bound {bound_d * 1e3:.4f} us (bytes) "
+            f"[{copies} input sets]")
+        if (shape, rows) == QUANT_MAIN:
+            # the yardstick: PyTorch's own int8 quantization given the scale
+            # (it multiplies by the inverse scale, so it need not be bitwise
+            # equal); the port never calls it
+            s_main = ops.quantize(x, rows=True)[1].double()
+            zeros = torch.zeros(shape[0], dtype=torch.long, device=dev)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                try:
+                    lib_q = event_ms(torch, lambda t: torch.quantize_per_channel(
+                        t, s_main, zeros, 0, torch.qint8), (x,))
+                    qx = torch.quantize_per_channel(x, s_main, zeros, 0,
+                                                    torch.qint8)
+                    lib_d = event_ms(torch, torch.dequantize, (qx,))
+                    library_ms = lib_q + lib_d
+                    lib_note = (f"quantize_per_channel {lib_q * 1e3:.4f} us, "
+                                f"dequantize {lib_d * 1e3:.4f} us")
+                    del qx
+                except (RuntimeError, NotImplementedError) as exc:
+                    library_ms = None
+                    lib_note = f"not available on this card: {exc}"
+            log(f"quant main leaf {shape}: PyTorch {lib_note}; kernel pair at "
+                f"{100 * (bound_q + bound_d) / (ms_q + ms_d):.2f}% of its "
+                f"bound")
+            main_row = dict(max_abs_err=err, ms=ms_q + ms_d,
+                            plain_ms=plain_q_ms + plain_d_ms,
+                            bound_ms=bound_q + bound_d, bound_by="bytes",
+                            library_ms=library_ms)
+        del sets, qs, x
+        torch.cuda.empty_cache()
+    return main_row
+
+
+def _tree_rel_l2(torch, got, want) -> float:
+    from repro_torch import tree as T
+    num = sum(float((a.float() - b.float()).square().sum())
+              for a, b in zip(T.leaves(got), T.leaves(want)))
+    den = sum(float(b.float().square().sum()) for b in T.leaves(want))
+    return (num / den) ** 0.5
+
+
+def _train_cfg(model_cfg, sync, seq_len, global_batch, replicas):
+    from repro_torch.config import (DataConfig, MeshConfig, OptimizerConfig,
+                                    TrainConfig)
+    return TrainConfig(
+        model=model_cfg,
+        mesh=MeshConfig(shape=(replicas,), axis_names=("pod",),
+                        replica_axis="pod"),
+        sync=sync,
+        optimizer=OptimizerConfig(name="adamw", learning_rate=1e-3,
+                                  schedule="cosine", total_steps=1000),
+        data=DataConfig(seq_len=seq_len, global_batch=global_batch))
+
+
+def _run_blocks(torch, cfg, dev, impl, blocks, on_block=None):
+    """``blocks`` train steps through ``build_trainer`` on path ``impl``
+    from the seeded state; returns (state, losses, walls, sync_ms,
+    launches)."""
+    from repro_torch.core import sync
+    from repro_torch.kernels.quant import ops
+    from repro_torch.launch.train import build_trainer
+    step, state, make_pipeline, _ = build_trainer(cfg, dev, quant_impl=impl)
+    pipe = make_pipeline(0)
+    batches = [next(pipe) for _ in range(blocks)]
+    inner, events = sync.sync_point, []
+
+    def timed_sync(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    losses, walls = [], []
+    sync.sync_point = timed_sync
+    try:
+        torch.cuda.synchronize()
+        ops.LAUNCHES = 0
+        for b in range(blocks):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batches[b])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            if on_block is not None:
+                on_block(b)
+        launches = ops.LAUNCHES
+    finally:
+        sync.sync_point = inner
+    sync_ms = [a.elapsed_time(b) for a, b in events]
+    return state, step, batches, losses, walls, sync_ms, launches
+
+
+def phase_train(torch, dev, model_cfg, seq_len, global_batch, replicas, h):
+    """The trainer's main path: local SGD with the int8 sync on the kernel
+    path, then the plain path from the same state and batches."""
+    from repro_torch import tree as T
+    from repro_torch.config import SyncConfig
+    from repro_torch.core import compression, local_sgd
+    from repro_torch.kernels.quant import ops, ref
+    blocks = 2
+    sync_cfg = SyncConfig(strategy="periodic", period=h, compression="int8")
+    cfg = _train_cfg(model_cfg, sync_cfg, seq_len, global_batch, replicas)
+    tokens = h * global_batch * seq_len
+    log(f"train {model_cfg.name}: {model_cfg.n_layers} layers, d_model "
+        f"{model_cfg.d_model}, vocab {model_cfg.vocab_size}, "
+        f"{model_cfg.dtype} compute, f32 master params; K={replicas} "
+        f"replicas, H={h}, {sync_cfg.msf_label}; AdamW lr 1e-3 cosine; "
+        f"{global_batch} x {seq_len} tokens a microbatch "
+        f"({global_batch // replicas} sequences a replica)")
+
+    # the first sync's int8 payloads: the kernel path's delta + ef of every
+    # leaf, quantized by the kernel and by the plain version afterwards
+    captured = []
+    inner = compression.compress_tree
+
+    def capture(delta, ef, **kw):
+        if not captured:
+            captured.extend(d.float() + e for d, e in
+                            zip(T.leaves(delta), T.leaves(ef)))
+        return inner(delta, ef, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    compression.compress_tree = capture
+    try:
+        state, step, batches, losses_k, walls_k, sync_k, launches = \
+            _run_blocks(torch, cfg, dev, "kernel", blocks)
+    finally:
+        compression.compress_tree = inner
+    peak = torch.cuda.max_memory_allocated()
+    n_leaves = len(T.leaves(state["params"]))
+    expect = 2 * blocks * n_leaves
+    log(f"train kernel path: losses {losses_k} (first beside ln "
+        f"{model_cfg.vocab_size} = {np.log(model_cfg.vocab_size):.4f}); "
+        f"block wall {walls_k} s, sync {sync_k} ms, "
+        f"{tokens / walls_k[-1]:.1f} trained tokens/s in block {blocks}; "
+        f"quant launches {launches} (expected {expect}: one quantize and one "
+        f"dequantize per leaf per sync); peak memory {peak / 2**30:.2f} GiB")
+    check(launches == expect, f"train: {launches} quant launches, expected "
+          f"{expect}")
+    check(all(np.isfinite(losses_k)), f"train: losses {losses_k}")
+    check(losses_k[1] < losses_k[0], f"train: block 2's loss {losses_k[1]} "
+          f"is not below block 1's {losses_k[0]}")
+    params = state["params"]
+    for leaf in T.leaves(params):
+        check(torch.equal(leaf[0], leaf[-1]), "train: replicas differ after "
+              "a blocking sync")
+    kept = T.map(lambda x: x[0].clone(), params)
+
+    check(len(captured) == n_leaves, f"train: captured {len(captured)} leaves")
+    before = ops.LAUNCHES
+    for v in captured:
+        qk, sk = ops.quantize(v, rows=True)
+        qp, sp = ref.quantize(v, rows=True)
+        check(torch.equal(qk, qp) and torch.equal(sk, sp),
+              "train: the first sync's int8 payload differs between the "
+              "kernel and the plain version")
+    ops.LAUNCHES = before
+    log(f"train first sync: the int8 payloads and scales of all {n_leaves} "
+        f"leaves (K={replicas} rows each) bitwise equal, kernel and plain")
+    del captured[:]
+
+    # one profiled block on the kernel path
+    busy = device_busy(torch, lambda: step(state, batches[-1]))
+    log_busy(f"train block (kernel path, {h} x {replicas} replica steps)",
+             *busy)
+    del state, params, step
+    torch.cuda.empty_cache()
+
+    state_p, _, _, losses_p, walls_p, sync_p, launches_p = _run_blocks(
+        torch, cfg, dev, "torch", blocks)
+    check(launches_p == 0, "train: the plain path launched the quant kernel")
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    rel = _tree_rel_l2(torch, kept, T.map(lambda x: x[0],
+                                          state_p["params"]))
+    log(f"train plain path: losses {losses_p}; block wall {walls_p} s, sync "
+        f"{sync_p} ms; kernel vs plain: losses rel {rel_loss:.3e} (bound "
+        f"{TRAIN_LOSS_REL}), params rel L2 {rel:.3e} (bound "
+        f"{TRAIN_PARAMS_REL_L2})")
+    check(rel_loss <= TRAIN_LOSS_REL, f"train losses rel {rel_loss}")
+    check(rel <= TRAIN_PARAMS_REL_L2, f"train params rel L2 {rel}")
+    del state_p, kept
+    torch.cuda.empty_cache()
+
+    # MSF = 1: every step synchronized, the same global batch, the gradient
+    # over 4 slices of it
+    from repro_torch.launch.train import build_trainer
+    ddp_cfg = _train_cfg(model_cfg, SyncConfig(), seq_len, global_batch,
+                         replicas)
+    _, state, make_pipeline, model = build_trainer(ddp_cfg, dev)
+    ddp = local_sgd.make_ddp_step(model, ddp_cfg, grad_accum=replicas)
+    pipe = make_pipeline(0)
+    ddp_batches = [next(pipe) for _ in range(h)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ddp_losses = []
+    for batch in ddp_batches:
+        state, metrics = ddp(state, batch)
+        ddp_losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    ddp_wall = time.perf_counter() - t0
+    log(f"train make_ddp_step (MSF=1), {h} steps of {global_batch} x "
+        f"{seq_len} tokens: losses {ddp_losses}; wall {ddp_wall:.4f} s, "
+        f"{tokens / ddp_wall:.1f} trained tokens/s (local SGD block "
+        f"{walls_k[-1]:.4f} s)")
+    check(all(np.isfinite(ddp_losses)), f"ddp losses {ddp_losses}")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+TRAIN_MODES = [dict(overlap="delayed", compression="int8"),
+               dict(overlap="chunked", compression="int8"),
+               dict(topology="ring", compression="int8"),
+               dict(topology="pairwise", compression="int8"),
+               dict(topology="ring", gossip_async=True, compression="int8"),
+               dict(compression="int16")]
+
+
+def phase_train_modes(torch, dev, model_cfg, replicas=4, h=2, blocks=3):
+    """Every other sync mode at smoke width: kernel path against plain
+    path from the same state and batches."""
+    from repro_torch.config import SyncConfig
+    for mode in TRAIN_MODES:
+        sync_cfg = SyncConfig(strategy="periodic", period=h, chunks=3, **mode)
+        cfg = _train_cfg(model_cfg, sync_cfg, 64, 2 * replicas, replicas)
+        runs = {impl: _run_blocks(torch, cfg, dev, impl, blocks)
+                for impl in ("kernel", "torch")}
+        (sk, _, _, lk, _, _, nk), (sp, _, _, lp, _, _, np_) = (
+            runs["kernel"], runs["torch"])
+        rel_loss = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+        rel = _tree_rel_l2(torch, sk["params"], sp["params"])
+        log(f"train mode {sync_cfg.msf_label}: losses kernel {lk} plain {lp}; "
+            f"rel {rel_loss:.3e}, params rel L2 {rel:.3e}; quant launches "
+            f"kernel {nk} plain {np_}")
+        check(all(np.isfinite(lk)) and all(np.isfinite(lp)),
+              f"{sync_cfg.msf_label}: losses not finite")
+        check(rel_loss <= TRAIN_LOSS_REL and rel <= TRAIN_PARAMS_REL_L2,
+              f"{sync_cfg.msf_label}: kernel vs plain rel {rel_loss} / {rel}")
+        int8 = sync_cfg.compression == "int8"
+        check(np_ == 0 and (nk > 0) == int8,
+              f"{sync_cfg.msf_label}: quant launches {nk} / {np_}")
+        del runs, sk, sp
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -649,6 +1006,11 @@ def main() -> int:
     from repro_torch.config import get_arch
     flash_launches = phase_serve(torch, dev, get_arch("smollm-360m"),
                                  SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
+    quant_row = phase_quant(torch, dev)
+    from repro_torch.config import get_smoke
+    quant_launches = phase_train(torch, dev, get_arch("smollm-360m"),
+                                 TRAIN_SEQ, TRAIN_BATCH, TRAIN_K, TRAIN_H)
+    phase_train_modes(torch, dev, get_smoke("smollm-360m"))
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hinge_block_grad", "route": "cuda",
@@ -662,7 +1024,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-        "launches": flash_launches, **flash_row}]}))
+        "launches": flash_launches, **flash_row}, {
+        "name": "quant", "route": "cuda",
+        "source": "src/repro_torch/kernels/quant/csrc/quant.cu",
+        "replaces": "src/repro/kernels/quant/kernel.py:18",
+        "launches": quant_launches, **quant_row}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

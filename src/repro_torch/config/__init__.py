@@ -1,9 +1,17 @@
 from repro_torch.config.base import (
+    CheckpointConfig,
     DataConfig,
+    FaultToleranceConfig,
+    MeshConfig,
     ModelConfig,
     MoEConfig,
+    OptimizerConfig,
     SSMConfig,
     SyncConfig,
+    TrainConfig,
+    asdict,
+    config_fingerprint,
+    replace,
 )
 from repro_torch.config.registry import (
     get_arch,
@@ -12,6 +20,9 @@ from repro_torch.config.registry import (
     register_arch,
 )
 
-__all__ = ["DataConfig", "ModelConfig", "MoEConfig", "SSMConfig",
-           "SyncConfig", "get_arch", "get_smoke", "list_archs",
-           "register_arch"]
+__all__ = [
+    "CheckpointConfig", "DataConfig", "FaultToleranceConfig", "MeshConfig",
+    "ModelConfig", "MoEConfig", "OptimizerConfig", "SSMConfig", "SyncConfig",
+    "TrainConfig", "asdict", "config_fingerprint", "replace",
+    "get_arch", "get_smoke", "list_archs", "register_arch",
+]

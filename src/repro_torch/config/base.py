@@ -1,12 +1,15 @@
 """Config dataclasses, copied from ``repro.config.base``.
 
 Same field names, defaults and methods as the reference (a test compares
-them): the SVM path's ``SyncConfig`` and ``DataConfig``, and the model
-configs of the serving path. The mesh, optimizer, checkpoint, fault
-tolerance and train configs arrive with the trainer slice.
+them), and the same ``replace`` (dotted keys), ``asdict`` and
+``config_fingerprint``. On one card there is no device mesh: ``MeshConfig``
+names the replica axis and its size (the local-SGD replica count K), and
+``TrainConfig.remat``/``scan_layers`` are kept for the reference's fields
+only (the port loops over layers and keeps every activation).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -79,6 +82,30 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.moe.num_experts > 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh. ``axis_names`` order is major→minor."""
+
+    shape: Tuple[int, ...] = (1,)
+    axis_names: Tuple[str, ...] = ("data",)
+    # which mesh axis carries each parallelism role
+    data_axis: str = "data"        # batch / FSDP axis
+    model_axis: str = "model"      # TP / EP / SP axis
+    replica_axis: str = ""         # local-SGD (MSF) replica axis; "" => none
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def axis_size(self, name: str) -> int:
+        if not name or name not in self.axis_names:
+            return 1
+        return self.shape[self.axis_names.index(name)]
 
 
 @dataclass(frozen=True)
@@ -196,3 +223,82 @@ class DataConfig:
     num_samples: int = 0           # 0 => dataset default
     features: int = 0
     sparsity: float = 0.0
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "sgd"              # sgd | momentum | adamw
+    learning_rate: float = 1e-3
+    schedule: str = "constant"     # constant | paper_inverse | cosine
+    warmup_steps: int = 0
+    total_steps: int = 1000
+    momentum: float = 0.9
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0         # 0 => off
+    # dtype of adam/momentum moments. bf16 halves optimizer-state memory
+    moment_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    directory: str = "/tmp/repro_ckpt"
+    interval_steps: int = 100
+    keep_last: int = 3
+    async_write: bool = False
+
+
+@dataclass(frozen=True)
+class FaultToleranceConfig:
+    step_deadline_sec: float = 0.0   # 0 => no straggler watchdog
+    max_restarts: int = 3
+    inject_failure_at: int = -1      # test hook: raise at this step
+    inject_straggle_sec: float = 0.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Top-level experiment config."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    sync: SyncConfig = field(default_factory=SyncConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    fault: FaultToleranceConfig = field(default_factory=FaultToleranceConfig)
+    steps: int = 100
+    log_every: int = 10
+    remat: str = "none"            # none | full | dots  (activation ckpt policy)
+    scan_layers: bool = True       # lax.scan over layer stack
+    seed: int = 0
+
+
+def replace(cfg, **kw):
+    """``dataclasses.replace`` that also accepts dotted keys, e.g.
+    ``replace(cfg, **{"sync.period": 32})``."""
+    direct = {k: v for k, v in kw.items() if "." not in k}
+    nested: dict = {}
+    for k, v in kw.items():
+        if "." in k:
+            head, rest = k.split(".", 1)
+            nested.setdefault(head, {})[rest] = v
+    for head, sub in nested.items():
+        direct[head] = replace(getattr(cfg, head), **sub)
+    return dataclasses.replace(cfg, **direct)
+
+
+def asdict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def config_fingerprint(cfg) -> str:
+    """Stable hash for checkpoint compatibility checks (the reference's:
+    equal configs give equal fingerprints in both packages)."""
+    import hashlib
+    import json
+
+    blob = json.dumps(asdict(cfg), sort_keys=True, default=str).encode()
+    return hashlib.sha256(blob).hexdigest()[:16]

@@ -5,8 +5,11 @@ offline, so :func:`make_svm_dataset` generates stand-ins matched on the
 published statistics — sample count, feature dimension, sparsity percentage,
 and an (approximately) linearly separable structure with label noise. The
 generator stays numpy: for the same ``seed``/``n_override`` its arrays are
-byte-identical to the reference's (a test holds them so). ``synthetic_lm_batch``
-arrives with the LM slice.
+byte-identical to the reference's (a test holds them so).
+
+``synthetic_lm_batch`` provides deterministic token streams for the LM
+training path (zipf-ish marginal over the vocab, shifted-label targets), also
+byte-identical to the reference's.
 """
 from __future__ import annotations
 
@@ -90,3 +93,22 @@ def make_svm_dataset(name: str, seed: int = 0, train_fraction: float = 0.8,
         x_cv=x[cv], y_cv=y[cv],
         x_test=x[te], y_test=y[te],
     )
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+
+def synthetic_lm_batch(step: int, *, global_batch: int, seq_len: int,
+                       vocab_size: int, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Deterministic (seed, step) → batch. Zipf-distributed tokens.
+
+    Returns ``{"tokens": (B, S) int32, "targets": (B, S) int32}`` where
+    targets are tokens shifted left (next-token prediction), final position
+    wrapping to token 0 (ignored-index convention is up to the loss).
+    """
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    # zipf over a capped support, remapped into the vocab
+    raw = rng.zipf(1.2, size=(global_batch, seq_len + 1)).astype(np.int64)
+    tokens = (raw % vocab_size).astype(np.int32)
+    return {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}

@@ -4,7 +4,8 @@
 numpy. :func:`svm_state_to_torch` turns an SVM model ``w`` or a DMS carry
 dict (``repro.core.svm.dms_stepper_init``'s keys) into the port's tensors on
 a given device; :func:`lm_params_from_jax` turns an LM param pytree into the
-port's state dict. Both keep each dtype. This module imports no JAX: the
+port's state dict; :func:`lm_train_state_from_jax` turns a local-SGD train
+state into the port's trainer state. All keep each dtype. This module imports no JAX: the
 caller converts to numpy (``jax.tree.map(np.asarray, params)``).
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import ModelConfig, TrainConfig
 
 CARRY_KEYS = ("w", "pending", "sent", "mixbuf", "cnt")
 
@@ -78,4 +79,44 @@ def lm_params_from_jax(params: Mapping[str, Any], cfg: ModelConfig
             walk(f"{key}.", value)
         else:
             out[key] = _tensor(value)
+    return out
+
+
+def lm_train_state_from_jax(state: Mapping[str, Any], cfg: TrainConfig,
+                            device: Union[str, torch.device] = "cpu"
+                            ) -> Dict[str, Any]:
+    """The reference's LM train state (``repro.core.local_sgd.init_state``'s
+    dict ``{"params", "opt", "sync", "step"}``, as numpy) as the port's
+    trainer state on ``device``: the same nested dicts (the layer stack kept
+    as ``(n_layers, …)`` leaves, the layout the port's trainer holds), every
+    leaf a tensor of its dtype, ``step`` an int.
+
+    Under a replica strategy (``periodic``/``hierarchical``) every params,
+    opt and sync leaf must carry the leading replica dim of
+    ``cfg.mesh``'s replica axis; a params leaf of the layer stack then
+    carries ``n_layers`` next. Raises ``ValueError`` where a leaf does not,
+    and ``KeyError`` on a missing or unknown top-level key."""
+    keys = {"params", "opt", "sync", "step"}
+    if set(state) != keys:
+        raise KeyError(f"train state keys {sorted(state)}, expected "
+                       f"{sorted(keys)}")
+    replicated = cfg.sync.strategy in ("periodic", "hierarchical")
+    k = cfg.mesh.axis_size(cfg.mesh.replica_axis or "pod")
+    lead = (k,) if replicated else ()
+
+    def convert(node, path):
+        if isinstance(node, Mapping):
+            return {key: convert(v, f"{path}.{key}") for key, v in node.items()}
+        arr = np.asarray(node)
+        if arr.shape[:len(lead)] != lead:
+            raise ValueError(f"{path}: shape {arr.shape} lacks the replica "
+                             f"dim {k}")
+        if (path.startswith("params.layers.")
+                and arr.shape[len(lead):len(lead) + 1] != (cfg.model.n_layers,)):
+            raise ValueError(f"{path}: shape {arr.shape} lacks the layer "
+                             f"dim {cfg.model.n_layers}")
+        return _tensor(arr, device)
+
+    out = {key: convert(state[key], key) for key in ("params", "opt", "sync")}
+    out["step"] = int(np.asarray(state["step"]))
     return out

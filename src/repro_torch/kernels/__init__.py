@@ -6,4 +6,6 @@ count) and ``csrc/`` (the CUDA source, built by :mod:`repro_torch.kernels.nvcc`
 at first launch).
 
 * ``hinge`` — fused SVM block-subgradient (the paper's inner loop)
+* ``flash_attention`` — forward online-softmax GQA attention (the prefill)
+* ``quant`` — symmetric int8 quantize/dequantize (the compressed sync)
 """

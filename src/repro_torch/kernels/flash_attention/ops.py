@@ -7,6 +7,11 @@ tensor goes to the kernel, or the call raises. There is no fallback from the
 kernel to the plain version. The kernel is built and loaded at its first
 launch (:mod:`repro_torch.kernels.nvcc`), so this module imports without
 ``nvcc``.
+
+The kernel is forward only (the TPU kernel has no backward either) and writes
+its output through ctypes, outside autograd: a CUDA input that requires grad,
+with grad mode on, is refused rather than given an output that silently has
+no gradient. Training takes the plain attention, as the reference does.
 """
 from __future__ import annotations
 
@@ -94,6 +99,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if len(devices) != 1 or not q.is_cuda:
         raise ValueError(f"q, k and v must lie on one CUDA device or all on "
                          f"the CPU; got {sorted(map(str, devices))}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the CUDA flash-attention kernel is forward only: "
+                           "its output would have no gradient. Train with "
+                           "attn_impl='torch' (the reference trains with "
+                           "its plain attention), or run under "
+                           "torch.no_grad()")
     b, s, h, dh = q.shape
     t, kvh = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)

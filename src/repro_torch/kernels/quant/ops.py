@@ -1,0 +1,156 @@
+"""Wrapper of the CUDA int8 quant kernels (``csrc/quant.cu``): checks,
+dispatch and launch count.
+
+A CPU tensor goes to the plain version (:mod:`repro_torch.kernels.quant.ref`);
+a CUDA tensor goes to the kernel, or the call raises. There is no fallback from
+the kernel to the plain version. The kernels are built and loaded at their
+first launch (:mod:`repro_torch.kernels.nvcc`), so this module imports without
+``nvcc``.
+
+The kernels' outputs are written through ctypes, outside autograd: a CUDA
+input that requires grad, with grad mode on, is refused rather than given an
+output that silently has no gradient. The sync engine calls them on detached
+tensors only.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.kernels import nvcc
+from repro_torch.kernels.quant import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "quant.cu"
+
+# kernel launches so far: one per quantize call and one per dequantize call
+# on CUDA tensors (a quantize call runs three CUDA kernels: amax, scale,
+# pack), none for the CPU path. A run sets it to 0 and reads it after.
+LAUNCHES = 0
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at the first call) and load the kernels' library."""
+    global _LIB
+    if _LIB is None:
+        lib = nvcc.load("quant", [SOURCE])
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.quant_amax_blocks.argtypes = [i64, i32]
+        lib.quant_amax_blocks.restype = ctypes.c_int
+        lib.quant_int8_f32.argtypes = [ptr, i64, ptr, i64, ptr, i64, ptr,
+                                       ptr, i32, i64, ptr]
+        lib.quant_int8_f32.restype = ctypes.c_int
+        lib.dequant_int8_f32.argtypes = [ptr, i64, ptr, ptr, i64, i32, i64,
+                                         ptr]
+        lib.dequant_int8_f32.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _rows_of(t: torch.Tensor, rows: bool) -> Tuple[int, int, int]:
+    """(R, n, row stride) of ``t`` read as R rows of n contiguous elements;
+    raises where a row is not contiguous."""
+    if t.numel() == 0:
+        raise ValueError(f"empty tensor {tuple(t.shape)}: nothing to quantize")
+    if rows:
+        if t.dim() < 1:
+            raise ValueError("rows=True needs a leading row dim")
+        r = t.shape[0]
+        if not t[0].is_contiguous():
+            raise ValueError(f"each row must be contiguous; strides "
+                             f"{t.stride()} for shape {tuple(t.shape)}")
+        return r, t.numel() // r, t.stride(0)
+    if not t.is_contiguous():
+        raise ValueError(f"x must be contiguous; strides {t.stride()}")
+    return 1, t.numel(), t.numel()
+
+
+def _check_cuda(name: str, t: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(f"{name} requires grad: the CUDA quant kernel "
+                           f"writes outside autograd, so its output would "
+                           f"have no gradient; pass a detached tensor or "
+                           f"run under torch.no_grad()")
+
+
+def _stream(t: torch.Tensor) -> int:
+    with torch.cuda.device(t.device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def quantize(x: torch.Tensor, *, rows: bool = False, residual: bool = False
+             ) -> Union[Tuple[torch.Tensor, torch.Tensor],
+                        Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """x → (q int8, scale f32[, x − q·scale]).
+
+    One scale over all of x (0-dim), or with ``rows`` one per row of the
+    leading dim (``(R,)``, each row as ``repro.core.compression.quantize``
+    would quantize it alone). ``residual`` also returns the quantization
+    error ``x − dequantize(q, scale)`` (error feedback), written by the same
+    pass on the card. On CUDA tensors: float32 only; rows contiguous, the row
+    stride free (a row slice of a stacked leaf is read in place).
+    """
+    r, n, stride = _rows_of(x, rows)
+    if not x.is_cuda:
+        q, scale = ref.quantize(x, rows=rows)
+        if residual:
+            return q, scale, x.float() - ref.dequantize(q, scale)
+        return q, scale
+    _check_cuda("x", x)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the CUDA quant kernel takes float32; x is "
+                        f"{x.dtype}")
+    lib = load_library()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((r,), dtype=torch.float32, device=x.device)
+    res = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+           if residual else None)
+    partial = torch.empty((r * lib.quant_amax_blocks(n, r),),
+                          dtype=torch.float32, device=x.device)
+    err = lib.quant_int8_f32(
+        x.data_ptr(), stride, q.data_ptr(), n,
+        res.data_ptr() if residual else None, n, scale.data_ptr(),
+        partial.data_ptr(), r, n, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"quant kernel launch failed: CUDA error {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    if not rows:
+        scale = scale[0]
+    return (q, scale, res) if residual else (q, scale)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``q · scale`` in f32: a 0-dim scale over all of q, or a ``(R,)`` scale
+    row by row over q's leading dim. On CUDA tensors q is int8 with rows
+    contiguous (the row stride free), and the scale float32."""
+    rows = scale.dim() == 1
+    if scale.dim() > 1 or (rows and (q.dim() < 1
+                                     or scale.shape[0] != q.shape[0])):
+        raise ValueError(f"scale {tuple(scale.shape)} must be 0-dim or one "
+                         f"per row of q {tuple(q.shape)}")
+    r, n, stride = _rows_of(q, rows)
+    devices = {q.device, scale.device}
+    if devices == {torch.device("cpu")}:
+        return ref.dequantize(q, scale)
+    if len(devices) != 1 or not q.is_cuda:
+        raise ValueError(f"q and scale must lie on one CUDA device or both on "
+                         f"the CPU; got {sorted(map(str, devices))}")
+    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"the CUDA dequant kernel takes int8 q and a float32 "
+                        f"scale; got {q.dtype}, {scale.dtype}")
+    _check_cuda("scale", scale)
+    lib = load_library()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    scale = scale.reshape(r).contiguous()
+    err = lib.dequant_int8_f32(q.data_ptr(), stride, scale.data_ptr(),
+                               out.data_ptr(), n, r, n, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"dequant kernel launch failed: CUDA error {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

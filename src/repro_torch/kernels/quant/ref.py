@@ -1,0 +1,42 @@
+"""Plain PyTorch version of the int8 quant kernels.
+
+The counterpart of ``repro.kernels.quant.ref`` (the oracle, which divides by
+the scale), with an optional leading row dim whose rows each get their own
+scale. It is the CPU path of :mod:`repro_torch.kernels.quant.ops` and the
+comparison the CUDA kernel is held to on the card.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+QMAX = 127
+
+
+def _row_view(scale: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-row scale ``(R,)`` shaped to broadcast over ``(R, ...)``; a
+    per-tensor (0-dim) scale as it is."""
+    return scale.reshape(scale.shape + (1,) * (ndim - scale.dim()))
+
+
+def quantize(x: torch.Tensor, rows: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (float) → (q int8 of x's shape, scale f32): one scale over all of x
+    (0-dim), or with ``rows`` one per row of the leading dim (``(R,)``)."""
+    x32 = x.float()
+    if rows:
+        amax = x32.abs().reshape(x32.shape[0], -1).amax(dim=1)
+    else:
+        amax = x32.abs().amax()
+    # divide by a tensor: on CUDA, PyTorch applies a Python-scalar divisor
+    # as a product with its reciprocal, one ulp off the oracle's division
+    scale = torch.clamp(amax, min=1e-12) / torch.full_like(amax, QMAX)
+    q = torch.clamp(torch.round(x32 / _row_view(scale, x32.dim())),
+                    -QMAX, QMAX).to(torch.int8)
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``q · scale`` in f32; a ``(R,)`` scale applies row by row."""
+    return q.float() * _row_view(scale, q.dim())

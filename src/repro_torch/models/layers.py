@@ -104,6 +104,24 @@ class ParamTree(nn.Module):
 Params = Union[ParamTree, Mapping[str, Any]]
 
 
+def layer_list(layers) -> list:
+    """The per-layer params of a layer stack: a list (or ``nn.ModuleList``)
+    as it is, or the reference's stacked layout (a dict whose leaves carry a
+    leading ``n_layers`` dim) as per-layer views of it."""
+    if not isinstance(layers, Mapping):
+        return layers
+
+    def select(node, i):
+        if isinstance(node, Mapping):
+            return {k: select(v, i) for k, v in node.items()}
+        return node[i]
+
+    def first(node):
+        return first(next(iter(node.values()))) \
+            if isinstance(node, Mapping) else node
+    return [select(layers, i) for i in range(first(layers).shape[0])]
+
+
 # ---------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------

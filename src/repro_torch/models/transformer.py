@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family: the serving path.
+"""Decoder-only transformer LM, dense family: serving and training.
 
 The port of ``repro.models.transformer.DecoderLM`` with the reference's
 duck-typed model API, parameters passed in:
@@ -6,13 +6,15 @@ duck-typed model API, parameters passed in:
     param_defs()                          → nested dict of Param
     init(generator)                       → ParamTree (the params)
     load(state_dict, device)              → ParamTree
+    loss(params, batch)                   → (scalar, metrics dict)
     prefill(params, batch)                → (last_logits, cache)
     decode_step(params, batch)            → (logits, cache)
     init_cache(batch, max_len, dtype, …)  → cache dict
 
-The layer stack is a Python loop over ``params["layers"]``, an
-``nn.ModuleList`` (the reference scans stacked layer params). MoE, the
-prefix-LM VLM and the training loss come with later slices.
+The layer stack is a Python loop over ``params["layers"]``: an
+``nn.ModuleList`` or list of per-layer params, or the reference's stacked
+layout (a dict of ``(n_layers, …)`` leaves, read as per-layer views; the
+reference scans it). MoE and the prefix-LM VLM come with later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models.losses import ce_loss
 
 
 def layer_defs(cfg: ModelConfig) -> L.ParamDefs:
@@ -66,7 +69,9 @@ def layer_decode(lp: L.Params, x: torch.Tensor, cache_k: torch.Tensor,
 
 class DecoderLM:
     """Dense decoder-only LM. ``attn_impl``: ``"kernel"`` (the CUDA
-    flash-attention kernel on the card) or ``"torch"`` (the plain twins)."""
+    flash-attention kernel on the card; forward only, so serving only) or
+    ``"torch"`` (the plain twins of the reference's ``"jnp"``, which the
+    reference trains with)."""
 
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "kernel"):
         if cfg.family != "dense" or cfg.is_moe:
@@ -125,7 +130,7 @@ class DecoderLM:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         if return_cache and cache is None:
             cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
-        for i, lp in enumerate(params["layers"]):
+        for i, lp in enumerate(L.layer_list(params["layers"])):
             out = layer_fwd(lp, x, positions, cfg, "causal", 0,
                             self.attn_impl, return_kv=return_cache)
             if return_cache:
@@ -138,6 +143,29 @@ class DecoderLM:
         if return_cache:
             return x, cache
         return x
+
+    # --------------------------------------------------------------- train
+    def loss(self, params: L.Params, batch
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"tokens": (B,S) int, "targets": (B,S) int[, "loss_mask"]}
+        → (mean next-token NLL, {"ce": it}), differentiable in the params.
+
+        Raises under ``attn_impl="kernel"``: the flash kernel has no backward
+        (nor has the reference's, which trains with ``attn_impl="jnp"``), so
+        its attention would get no gradient."""
+        if self.attn_impl == "kernel":
+            raise ValueError("DecoderLM.loss needs attn_impl='torch': the "
+                             "flash-attention kernel is forward only, and the "
+                             "reference trains with its plain attention "
+                             "(attn_impl='jnp')")
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        x = self.backbone(params, x)
+        table = params["embed"]["embedding"] if cfg.tie_embeddings \
+            else params["out_embedding"]
+        loss = ce_loss(x, table, batch["targets"], mask=batch.get("loss_mask"),
+                       chunk=cfg.ce_chunk)
+        return loss, {"ce": loss}
 
     # ------------------------------------------------------------- serving
     def _logits_last(self, params: L.Params, x_last: torch.Tensor
@@ -170,7 +198,7 @@ class DecoderLM:
         cfg = self.cfg
         x = L.embed(params["embed"], batch["token"], self.dtype)
         cache, index = batch["cache"], batch["index"]
-        for i, lp in enumerate(params["layers"]):
+        for i, lp in enumerate(L.layer_list(params["layers"])):
             x, _, _ = layer_decode(lp, x, cache["k"][i], cache["v"][i],
                                    index, cfg)
         x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)

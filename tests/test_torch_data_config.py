@@ -1,19 +1,29 @@
 """The port's numpy-only modules against the reference: the SVM data
-generator (byte-identical), the dataset and sync configs, and the cost
-model (exactly equal)."""
+generator and the LM token stream and pipeline (byte-identical), the
+configs and their override layer, and the cost model (exactly equal); and
+the port's import without JAX."""
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from repro.config import base as jbase
+from repro.config import cli as jcli
+from repro.configs import smollm_360m as jsmollm
 from repro.configs import svm_datasets as jdatasets
 from repro.core import costmodel as jcost
+from repro.data import pipeline as jpipeline
 from repro.data import synthetic as jsynth
 from repro_torch.config import base as tbase
+from repro_torch.config import cli as tcli
+from repro_torch.configs import smollm_360m as tsmollm
 from repro_torch.configs import svm_datasets as tdatasets
 from repro_torch.core import costmodel as tcost
+from repro_torch.data import pipeline as tpipeline
 from repro_torch.data import synthetic as tsynth
 
 torch.set_num_threads(1)
@@ -46,7 +56,9 @@ def _fields(cls):
 
 
 @pytest.mark.parametrize("cls", ["DataConfig", "SyncConfig", "MoEConfig",
-                                 "SSMConfig", "ModelConfig"])
+                                 "SSMConfig", "ModelConfig", "MeshConfig",
+                                 "OptimizerConfig", "CheckpointConfig",
+                                 "FaultToleranceConfig", "TrainConfig"])
 def test_config_fields_and_defaults(cls):
     assert _fields(getattr(tbase, cls)) == _fields(getattr(jbase, cls))
     # the defaults made by a factory (ModelConfig.moe/ssm) too
@@ -138,3 +150,85 @@ def test_costmodel_rejects_what_the_reference_rejects():
         tcost.mixing_matrices(4, "star")
     with pytest.raises(ValueError):
         tcost.effective_spectral_gap(4, "ring", staleness=-1)
+
+
+@pytest.mark.parametrize("step,seed,batch,seq,vocab", [
+    (0, 0, 8, 64, 512), (3, 0, 8, 64, 512), (7, 5, 2, 2048, 49152),
+    (123, 1, 5, 17, 1000)])
+def test_synthetic_lm_batch_byte_identical(step, seed, batch, seq, vocab):
+    kw = dict(global_batch=batch, seq_len=seq, vocab_size=vocab, seed=seed)
+    want = jsynth.synthetic_lm_batch(step, **kw)
+    got = tsynth.synthetic_lm_batch(step, **kw)
+    assert sorted(got) == sorted(want) == ["targets", "tokens"]
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        assert got[k].tobytes() == want[k].tobytes()
+
+
+def test_data_pipeline_byte_identical():
+    data = dict(seq_len=32, global_batch=4, seed=2)
+    jp = jpipeline.DataPipeline(jbase.DataConfig(**data), jsmollm.smoke(),
+                                start_step=3)
+    tp = tpipeline.DataPipeline(tbase.DataConfig(**data), tsmollm.smoke(),
+                                start_step=3)
+    assert tp.peek_shapes() == jp.peek_shapes()
+    for _ in range(2):
+        want, got = jp.next_host(), tp.next_host()
+        assert all(got[k].tobytes() == want[k].tobytes() for k in want)
+    assert tp.state() == jp.state() == {"step": 5}
+    batch = next(tp)
+    assert batch["tokens"].dtype == torch.int32
+    assert batch["tokens"].numpy().tobytes() == next(jp)["tokens"].tobytes()
+    tp.restore({"step": 3})
+    jp.restore({"step": 3})
+    assert tp.next_host()["targets"].tobytes() == \
+        jp.next_host()["targets"].tobytes()
+
+
+def test_train_config_replace_asdict_fingerprint():
+    def make(base, cli, model):
+        cfg = base.TrainConfig(model=model, steps=7)
+        cfg = base.replace(cfg, **{"sync.period": 4, "optimizer.name": "adamw",
+                                   "seed": 3})
+        return cli.apply_overrides(cfg, ["sync.strategy=periodic",
+                                         "sync.compression=int8",
+                                         "data.seq_len=2048",
+                                         "optimizer.learning_rate=0.001",
+                                         "sync.gossip_async=false"])
+    got = make(tbase, tcli, tsmollm.full())
+    want = make(jbase, jcli, jsmollm.full())
+    assert tbase.asdict(got) == jbase.asdict(want)
+    assert tbase.config_fingerprint(got) == jbase.config_fingerprint(want)
+    assert got.sync.period == 4 and got.data.seq_len == 2048
+    assert tbase.MeshConfig((4, 2), ("pod", "data")).axis_size("pod") == 4
+    assert tbase.MeshConfig((4, 2), ("pod", "data")).num_devices == 8
+    with pytest.raises(ValueError):
+        tcli.apply_overrides(got, ["sync.period"])
+    args = tcli.build_parser("t").parse_args(["--set", "a=1", "--arch", "x"])
+    want_args = jcli.build_parser("t").parse_args(["--set", "a=1", "--arch",
+                                                   "x"])
+    assert vars(args) == vars(want_args)
+
+
+def test_port_imports_without_jax():
+    """Every module of the port imports with JAX and the reference package
+    made unimportable."""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'repro_torch.core.local_sgd' in names, names\n"
+        "assert 'repro_torch.kernels.quant.ops' in names, names\n"
+        "print(len(names))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=src))
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 30

@@ -146,3 +146,18 @@ def test_cuda_wrapper_rejects_mixed_devices(cuda):
     q, k, v = _inputs(0, 1, 8, 8, 2, 2, 16)
     with pytest.raises(ValueError):
         ops.flash_attention(q.to(cuda), k, v)
+
+
+def test_cuda_wrapper_refuses_grad(cuda):
+    """The kernel writes outside autograd: a CUDA input that requires grad
+    is refused under grad mode (it would silently get no gradient), and
+    taken under ``torch.no_grad()``."""
+    q, k, v = _inputs(0, 1, 16, 16, 2, 2, 16, torch.float32, cuda)
+    for t in (q, k, v):
+        t.requires_grad_()
+        with pytest.raises(RuntimeError, match="no gradient"):
+            ops.flash_attention(q, k, v)
+        with torch.no_grad():
+            out = ops.flash_attention(q, k, v)
+        assert out.grad_fn is None and not out.requires_grad
+        t.requires_grad_(False)

@@ -1,0 +1,142 @@
+"""The int8 quant kernels' wrapper and, on a card, the CUDA kernels against
+their plain version. No JAX here, so the card tests run where JAX is absent:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_quant_cuda.py
+
+Without a card the kernel tests skip; the wrapper's CPU dispatch and checks
+run anywhere. Bound: bitwise. Both divide by the scale with IEEE rounding and
+round half to even, and a max is exact in any order, so the int8 payload,
+the scales, the residual and the dequantized values are the same bits.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.quant import ops, ref
+
+torch.set_num_threads(1)
+
+# tests/test_kernels.py::TestQuant's shapes (one scale each), then stacked
+# rows with a scale each: the sync's (K, leaf) payloads, a ragged row length
+# and a row length that is not a multiple of four
+SHAPES = [(100,), (33, 7), (2, 3, 5), (4096,), (128, 128)]
+ROW_SHAPES = [(4, 1_000_003), (4, 33, 7), (2, 4096), (3, 1), (5, 6)]
+
+
+def _x(seed, shape, device="cpu", scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.normal(size=shape) * scale)
+                            .astype(np.float32)).to(device)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the quant kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_cpu_path_never_builds_or_counts():
+    """A CPU tensor takes the plain version: no build, no launch counted."""
+    x = _x(0, (4, 33))
+    before, lib = ops.LAUNCHES, ops._LIB
+    q, s, res = ops.quantize(x, rows=True, residual=True)
+    qr, sr = ref.quantize(x, rows=True)
+    assert torch.equal(q, qr) and torch.equal(s, sr) and s.shape == (4,)
+    assert torch.equal(res, x - ref.dequantize(qr, sr))
+    assert torch.equal(ops.dequantize(q, s), ref.dequantize(qr, sr))
+    q1, s1 = ops.quantize(x)
+    assert s1.dim() == 0 and q1.shape == x.shape
+    assert ops.LAUNCHES == before
+    assert ops._LIB is lib
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_rows_are_each_quantized_alone(shape):
+    """A per-row scale is the per-tensor quantization of each row."""
+    x = _x(1, shape, scale=3.0)
+    q, s = ops.quantize(x, rows=True)
+    for r in range(shape[0]):
+        qr, sr = ref.quantize(x[r])
+        assert torch.equal(q[r], qr) and torch.equal(s[r], sr)
+
+
+def test_wrapper_rejects_bad_inputs():
+    with pytest.raises(ValueError):
+        ops.quantize(torch.zeros(0))
+    with pytest.raises(ValueError):
+        ops.quantize(torch.zeros(4, 6).T)               # not contiguous
+    with pytest.raises(ValueError):
+        ops.quantize(torch.zeros(4, 6, 2).transpose(1, 2), rows=True)
+    with pytest.raises(ValueError):
+        ops.quantize(torch.zeros(()), rows=True)
+    q = torch.zeros(4, 3, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        ops.dequantize(q, torch.ones(3))                # one scale per row
+    with pytest.raises(ValueError):
+        ops.dequantize(q, torch.ones(4, 1))
+
+
+def test_row_stride_is_free():
+    """Rows of a wider tensor are read in place (the stride is free)."""
+    wide = _x(2, (3, 50))
+    x = wide[:, :40]
+    q, s = ops.quantize(x, rows=True)
+    qr, sr = ref.quantize(x.contiguous(), rows=True)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+def test_cuda_kernel_matches_plain(cuda):
+    """On the card: q, scale, residual and dequantized values bitwise the
+    plain version's at every shape; two launches bitwise equal; one launch
+    counted per call; the round-trip error at most scale/2."""
+    cases = [(s, False) for s in SHAPES] + [(s, True) for s in ROW_SHAPES]
+    for i, (shape, rows) in enumerate(cases):
+        x = _x(10 + i, shape, cuda, scale=0.01 * (i + 1))
+        before = ops.LAUNCHES
+        q, s, res = ops.quantize(x, rows=rows, residual=True)
+        q2, s2 = ops.quantize(x, rows=rows)
+        deq = ops.dequantize(q, s)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == before + 3
+        qr, sr = ref.quantize(x, rows=rows)
+        deqr = ref.dequantize(qr, sr)
+        assert q.dtype == torch.int8 and q.shape == x.shape
+        assert torch.equal(q, qr), shape
+        assert torch.equal(s, sr), shape
+        assert torch.equal(q2, q) and torch.equal(s2, s)
+        assert torch.equal(deq, deqr), shape
+        assert torch.equal(res, x - deqr), shape
+        half = (s.reshape(s.shape + (1,) * (x.dim() - s.dim())) / 2)
+        assert bool(((deq - x).abs() <= half + 1e-6).all())
+
+
+def test_cuda_strided_and_unaligned_rows(cuda):
+    """Row slices of a wider tensor (the vector path) and rows that start
+    off a 16-byte boundary (the scalar path) give the plain version's bits;
+    a zero row takes the 1e-12 floor."""
+    wide = _x(3, (4, 4100), cuda)
+    wide[2] = 0.0
+    for x in (wide[:, :4096], wide[:, 1:4097], wide[:, 3:]):
+        q, s, res = ops.quantize(x, rows=True, residual=True)
+        qr, sr = ref.quantize(x, rows=True)
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+        assert torch.equal(res, x - ref.dequantize(qr, sr))
+        assert torch.equal(ops.dequantize(q, s), ref.dequantize(qr, sr))
+        assert bool((q[2] == 0).all())
+    qs = torch.randint(-127, 128, (3, 4101), dtype=torch.int8, device=cuda)
+    sc = torch.rand(3, device=cuda)
+    for q in (qs[:, :4096], qs[:, 1:4097]):
+        assert torch.equal(ops.dequantize(q, sc), ref.dequantize(q, sc))
+
+
+def test_cuda_refuses_grad_and_mixed_devices(cuda):
+    x = _x(4, (8, 16), cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="grad"):
+        ops.quantize(x)
+    with torch.no_grad():
+        q, s = ops.quantize(x)
+    with pytest.raises(ValueError):
+        ops.dequantize(q, s.cpu().reshape(1).expand(8).contiguous())
+    with pytest.raises(TypeError):
+        ops.quantize(x.detach().double())
