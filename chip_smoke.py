@@ -5,8 +5,9 @@
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` with
 nvcc (one compiler per source, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's three paths through
-their entry points and holds every run to its plain-version twin:
+plain PyTorch version on the card, then drives the port's paths (SVM
+training, LM serving of three model families, LM training) through their
+entry points and holds every run to its plain-version twin:
 
 1. device, versions, kernel build times and the compiler's register report;
 2. the hinge kernel against its plain version at the ``TestHinge`` shapes
@@ -18,9 +19,10 @@ their entry points and holds every run to its plain-version twin:
    one epoch), ``srdms`` and ``seq_sgd`` on the ijcnn1 stand-in (n=4,000);
 5. the flash-attention kernel against its plain version at the
    ``TestFlashAttention`` shapes (f32: rtol 1e-4 / atol 2e-5) and the
-   serving path's prefill shape (bf16: rtol 2**-7 / atol 1e-4, one bf16
-   ulp, a limit SDPA must fail), with its time, the plain version's,
-   SDPA's as a yardstick, and the bound;
+   serving paths' prefill shapes, smollm-360m's and zamba2-1.2b's (bf16:
+   rtol 2**-7 / atol 1e-4, one bf16 ulp, a limit SDPA must fail at
+   smollm's), with its time, the plain version's, SDPA's as a yardstick,
+   and the bound;
 6. the serving path: ``ServeEngine.generate`` on smollm-360m at full width
    (32 layers, bf16, seeded random weights), 4 prompts of 1,920 tokens and
    128 new tokens each, flash launches counted (one per layer per prefill),
@@ -40,7 +42,23 @@ their entry points and holds every run to its plain-version twin:
    1e-3) and the first sync's int8 payloads bitwise; then one profiled
    block, and 4 ``make_ddp_step`` steps (MSF = 1) at the same global batch;
 9. every other sync mode (delayed, chunked, ring, pairwise, async ring,
-   int16) at smoke width, kernel path against plain path.
+   int16) at smoke width, kernel path against plain path;
+10. the SSD chunk-scan kernel against the exact recurrence at the
+    ``TestSSD`` shapes (f32: rtol 1e-3 / atol 2e-4) and against the plain
+    chunked scan at the two serving prefill shapes (bf16 x/B/C: y within
+    rtol 2**-7 / atol 2e-4, the f32 state within the f32 bound), two
+    launches bitwise equal, with its time, the chunked scan's and the bound;
+11. the SSM serving path: ``ServeEngine.generate`` on mamba2-2.7b at full
+    width (64 layers, bf16, seeded random weights), 4 prompts of 1,920
+    tokens and 128 new tokens each, SSD launches counted (one per layer per
+    prefill; decode runs the plain recurrence step), and the kernel path
+    against the plain path (``ssd_impl="torch"``): in bf16 the logits' gap
+    is logged and layer 0's cache held (conv tails bitwise, the SSM state
+    within the SSD bound); in f32, prefill and 16 teacher-forced decode
+    steps' logits within relative L2 1e-2;
+12. the hybrid serving path: the same on zamba2-1.2b at full width (38
+    Mamba2 layers, the shared attention block after every 6: 38 SSD and 6
+    flash launches per prefill).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -49,6 +67,7 @@ no JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -89,8 +108,10 @@ FLASH_SHAPES = [(1, 128, 128, 4, 2, 64, True, 0),
                 (2, 64, 300, 4, 4, 64, False, 0),
                 (1, 512, 512, 2, 2, 32, True, 0)]
 FLASH_BF16 = (1, 128, 128, 4, 2, 64, True, 0)
-# the serving path's prefill: smollm-360m, 4 prompts of 1,920 tokens
+# the serving path's prefill: smollm-360m, 4 prompts of 1,920 tokens; and
+# zamba2-1.2b's shared attention block on the same prompts
 FLASH_MAIN = (4, 1920, 1920, 15, 5, 64, True, 0)
+FLASH_HYBRID = (4, 1920, 1920, 32, 32, 64, True, 0)
 # bf16: the kernel and the plain version both compute in f32 and round only
 # the output, so they differ by a rounding flip, at most one bf16 ulp
 # (rtol 2**-7 is at least one ulp of any value), and near zero by the two
@@ -103,6 +124,32 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1920, 128
 # them in f32; on the CPU at full width and 32 layers (256 tokens) the two
 # are 0.037 apart, and a wrong mask or softmax is O(1)
 LOGITS_REL_L2 = 0.1
+# tests/test_kernels.py::TestSSD: (b, l, h, p, n, chunk), f32 against the
+# exact recurrence at its bound rtol 1e-3 / atol 2e-4 (the chunked form sums
+# and exponentiates in another order than the recurrence)
+SSD_SHAPES = [(1, 128, 2, 64, 128, 64), (2, 256, 4, 64, 128, 128),
+              (1, 200, 2, 64, 64, 128), (1, 512, 1, 128, 128, 256),
+              (2, 64, 3, 32, 16, 32)]
+SSD_F32_TOL = dict(rtol=1e-3, atol=2e-4)
+# the serving prefills, bf16 x/B/C: mamba2-2.7b (the main path) and
+# zamba2-1.2b, 4 prompts of 1,920 tokens, chunk 256, against the plain
+# chunked scan on the same inputs: both compute in f32 and round only y, so
+# y differs by a rounding flip (rtol 2**-7, one bf16 ulp) and near zero by
+# the f32 sums' difference; the f32 state within the f32 bound
+SSD_MAIN = (4, 1920, 80, 64, 128, 256)
+SSD_PREFILLS = [SSD_MAIN, (4, 1920, 64, 64, 64, 256)]
+SSD_BF16_Y_TOL = dict(rtol=2 ** -7, atol=2e-4)
+# kernel path against plain path of the SSM and hybrid serving, relative L2
+# of the logits. The two differ by the SSD's f32 sum order. In bf16 that
+# flips roundings of y in every layer, and a deep random-weight model
+# amplifies the flips: on the CPU at full width the two paths (the kernel
+# path is the exact recurrence there) were 0.026–0.043 apart over 8 mamba2
+# layers and 0.080–0.101 over 24, growing with depth, so bf16 logits cannot
+# tell a right kernel from a subtly wrong one; the gap is logged. In f32
+# the same comparison was 7.6e-6–2.5e-5 apart over 8 mamba2 layers,
+# 4.9e-5–1.0e-4 over 24 and 5.7e-5–1.3e-4 over 12 zamba2 layers, so f32
+# logits are held to 1e-2; a wrong mask or decay is O(1).
+SSM_F32_LOGITS_REL_L2 = 1e-2
 DMS_MODES = [("none", "all", False), ("delayed", "all", False),
              ("chunked", "all", False), ("none", "ring", False),
              ("none", "pairwise", False), ("none", "ring", True),
@@ -234,8 +281,9 @@ def phase_device(torch):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.hinge import ops as hinge_ops
     from repro_torch.kernels.quant import ops as quant_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     kernels = {"hinge": hinge_ops, "flash_attention": flash_ops,
-               "quant": quant_ops}
+               "quant": quant_ops, "ssd": ssd_ops}
 
     def build(name):
         t0 = time.perf_counter()
@@ -475,7 +523,7 @@ def phase_flash(torch, dev):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = [(shape, torch.float32, 1e-4, 2e-5) for shape in FLASH_SHAPES]
     cases += [(shape, torch.bfloat16, BF16_RTOL, BF16_ATOL)
-              for shape in (FLASH_BF16, FLASH_MAIN)]
+              for shape in (FLASH_BF16, FLASH_MAIN, FLASH_HYBRID)]
     main_row = None
     for i, (shape, dtype, rtol, atol) in enumerate(cases):
         causal, prefix = shape[6], shape[7]
@@ -549,21 +597,149 @@ def rel_l2(torch, a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def phase_serve(torch, dev, cfg, batch, prompt_len, gen):
-    """``ServeEngine.generate`` through the kernel path (flash launches
-    counted), then the kernel path against the plain path: prefill logits,
-    layer 0's cache (computed before any attention: bitwise equal) and every
-    decode step's logits teacher-forced on the kernel path's tokens."""
-    from repro_torch.kernels.flash_attention import ops
+def serve_launches(cfg):
+    """Kernel launches one prefill makes on the kernel path: the flash
+    kernel once per attention application, the SSD kernel once per Mamba2
+    layer."""
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "ssd": cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"flash_attention": cfg.n_layers // cfg.shared_block_every,
+                "ssd": cfg.n_layers}
+    return {"flash_attention": cfg.n_layers, "ssd": 0}
+
+
+def layer0(cfg, cache):
+    """Layer 0's cache leaves, copied, each with whether the kernel path
+    must give the plain path's bits: the attention k, v and the conv tails
+    are computed before any kernel; the SSM state comes out of the SSD
+    kernel."""
+    if cfg.family == "dense":
+        return {k: (cache[k][0].clone(), True) for k in ("k", "v")}
+    mamba = cache["mamba"] if cfg.family == "hybrid" else cache
+    return {k: (v[0].clone(), k != "ssm") for k, v in mamba.items()}
+
+
+def _serve_paths(torch, engines, prompts, forced, counters, timed):
+    """Prefill then decode teacher-forced on ``forced`` through each engine
+    (the kernel path and the plain path); per path the logits of the
+    prefill and of every step, layer 0's cache after the prefill, the
+    prefill's launches and, if ``timed``, the prefill (median of 3 more)
+    and decode times."""
+    runs = {}
+    prompt_len, gen = prompts.shape[1], forced.shape[1]
+    for impl, eng in engines.items():
+        torch.cuda.synchronize()
+        for ops in counters.values():
+            ops.LAUNCHES = 0
+        t0 = time.perf_counter()
+        logits, cache = eng.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = {name: ops.LAUNCHES for name, ops in counters.items()}
+        first = layer0(eng.cfg, cache)
+        steps = []
+        t0 = time.perf_counter()
+        for i in range(gen):
+            steps.append(eng.decode(forced[:, i:i + 1], cache,
+                                    prompt_len + i))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        del cache
+        runs[impl] = dict(logits=logits, layer0=first, steps=steps,
+                          launches=launches)
+        if not timed:
+            continue
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.prefill(prompts)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        runs[impl].update(prefill_s=float(np.median(times)),
+                          decode_ms=1e3 * decode_s / gen)
+        b = prompts.shape[0]
+        log(f"serve {eng.cfg.name} {impl} path: prefill "
+            f"{runs[impl]['prefill_s']:.4f} s (median of 3; first "
+            f"{prefill_s:.4f} s), decode {runs[impl]['decode_ms']:.3f} ms a "
+            f"step ({b} tokens), {1e3 * b / runs[impl]['decode_ms']:.1f} "
+            f"tokens/s in decode; launches in prefill {launches}")
+    return runs["kernel"], runs["torch"]
+
+
+def _hold_paths(torch, cfg, kr, tr, label, rel_bound):
+    """The kernel path against the plain path: layer 0's cache after the
+    prefill (bitwise where no kernel ran yet, the SSM state within the SSD
+    bound), and the logits' relative L2 (checked where ``rel_bound`` is
+    given). Returns (prefill rel L2, max step rel L2)."""
+    notes = []
+    for name, (got, exact) in kr["layer0"].items():
+        want = tr["layer0"][name][0]
+        if exact:
+            check(torch.equal(got, want),
+                  f"{label}: layer 0 cache {name} differs between the paths")
+            notes.append(f"{name} bitwise")
+        else:
+            err = float((got - want).abs().max())
+            check(torch.allclose(got, want, **SSD_F32_TOL),
+                  f"{label}: layer 0 SSM state max abs err {err} over the "
+                  f"SSD bound")
+            notes.append(f"{name} max abs err {err:.3e} (max "
+                         f"{float(want.abs().max()):.3e})")
+    for t in [kr["logits"]] + kr["steps"]:
+        check(bool(torch.isfinite(t).all()),
+              f"{label}: kernel path logits not finite")
+    prefill_rel = rel_l2(torch, kr["logits"], tr["logits"])
+    step_rel = [rel_l2(torch, a, b) for a, b in zip(kr["steps"], tr["steps"])]
+    agree = float((torch.argmax(kr["logits"], -1)
+                   == torch.argmax(tr["logits"], -1)).float().mean())
+    log(f"{label} kernel vs plain: prefill logits rel L2 {prefill_rel:.4e}, "
+        f"{len(step_rel)} decode steps rel L2 max {max(step_rel):.4e} median "
+        f"{float(np.median(step_rel)):.4e} (bound "
+        f"{rel_bound if rel_bound is not None else 'none: logged'}); "
+        f"first-token agreement {agree:.2f}; layer 0 after the prefill: "
+        f"{', '.join(notes)}")
+    if rel_bound is not None:
+        check(prefill_rel <= rel_bound,
+              f"{label}: prefill logits rel L2 {prefill_rel} > {rel_bound}")
+        check(max(step_rel) <= rel_bound,
+              f"{label}: decode logits rel L2 {max(step_rel)} > {rel_bound}")
+    return prefill_rel, max(step_rel)
+
+
+def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
+                f32_rel_l2=None, f32_steps=16):
+    """``ServeEngine.generate`` through the kernel path (flash and SSD
+    launches counted), then the kernel path against the plain path
+    (``attn_impl="torch"``, ``ssd_impl="torch"``) in bf16, on the kernel
+    path's tokens: prefill logits, layer 0's cache after the prefill, every
+    decode step's logits teacher-forced (held to ``bf16_rel_l2`` where it is
+    given). With ``f32_rel_l2``, the same comparison once more with both
+    engines in f32 over ``f32_steps`` decode steps, held to that bound.
+    Returns the launches of the generate run."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch.serve import ServeEngine
+    counters = {"flash_attention": flash_ops, "ssd": ssd_ops}
+    expect = serve_launches(cfg)
+    none = {name: 0 for name in counters}
     max_len = prompt_len + gen + 1
+
+    def build(dtype):
+        """Both engines, params and activations in ``dtype``."""
+        c = dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1])
+        return {impl: ServeEngine(c, dev, max_len=max_len, dtype=dtype,
+                                  attn_impl=impl, ssd_impl=impl)
+                for impl in ("kernel", "torch")}
+
     t0 = time.perf_counter()
-    engines = {impl: ServeEngine(cfg, dev, max_len=max_len, attn_impl=impl)
-               for impl in ("kernel", "torch")}
+    engines = build(torch.bfloat16)
     torch.cuda.synchronize()
-    log(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}, "
-        f"bf16; two engines built in {time.perf_counter() - t0:.2f} s")
+    n_params = sum(p.numel() for p in engines["kernel"].params.parameters())
+    log(f"serve {cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+        f"params, bf16; two engines built in {time.perf_counter() - t0:.2f} s")
     pk, pt = (e.params.state_dict() for e in engines.values())
     check(all(torch.equal(pk[n], pt[n]) for n in pk),
           "the two engines' seeded weights differ")
@@ -575,88 +751,159 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen):
     # the main path, as a user calls it
     engine = engines["kernel"]
     torch.cuda.synchronize()
-    ops.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    for ops in counters.values():
+        ops.LAUNCHES = 0
     t0 = time.perf_counter()
     tokens = engine.generate(prompts, gen)
     wall = time.perf_counter() - t0
-    launches = ops.LAUNCHES
+    launches = {name: ops.LAUNCHES for name, ops in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
     check(tokens.shape == (batch, gen), f"tokens {tokens.shape}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           "generated token ids out of range")
-    check(launches == cfg.n_layers,
-          f"{launches} flash launches in one prefill, expected "
-          f"{cfg.n_layers}")
-    log(f"serve generate: {batch} x {prompt_len} prompt tokens, {gen} new "
-        f"tokens each: wall {wall:.4f} s, {tokens.size / wall:.1f} new "
-        f"tokens/s; flash launches {launches} (one per layer)")
+    check(launches == expect, f"{cfg.name}: launches in one generate "
+          f"{launches}, expected {expect} (one prefill; decode runs none)")
+    log(f"serve {cfg.name} generate: {batch} x {prompt_len} prompt tokens, "
+        f"{gen} new tokens each: wall {wall:.4f} s, {tokens.size / wall:.1f} "
+        f"new tokens/s; launches {launches} (one prefill); peak memory "
+        f"{peak / 2**30:.2f} GiB")
 
     # kernel path and plain path, step by step on the kernel path's tokens
     forced = torch.from_numpy(tokens).to(dev).long()
-    runs = {}
-    for impl, eng in engines.items():
-        torch.cuda.synchronize()
-        ops.LAUNCHES = 0
-        t0 = time.perf_counter()
-        logits, cache = eng.prefill(prompts)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        prefill_launches = ops.LAUNCHES
-        steps = []
-        t0 = time.perf_counter()
-        for i in range(gen):
-            steps.append(eng.decode(forced[:, i:i + 1], cache,
-                                    prompt_len + i))
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            eng.prefill(prompts)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t1)
-        runs[impl] = dict(logits=logits, cache=cache, steps=steps,
-                          prefill_first_s=prefill_s,
-                          prefill_s=float(np.median(times)),
-                          decode_ms=1e3 * decode_s / gen,
-                          launches=prefill_launches)
-        log(f"serve {impl} path: prefill {runs[impl]['prefill_s']:.4f} s "
-            f"(median of 3; first {prefill_s:.4f} s), decode "
-            f"{runs[impl]['decode_ms']:.3f} ms a step ({batch} tokens), "
-            f"{1e3 * batch / runs[impl]['decode_ms']:.1f} tokens/s in "
-            f"decode; flash launches in prefill {prefill_launches}")
-    n_prof = min(16, gen)
-    log_busy("serve kernel-path prefill",
-             *device_busy(torch, lambda: engine.prefill(prompts)))
-    _, cache = engine.prefill(prompts)
-    log_busy(f"serve decode, {n_prof} steps", *device_busy(torch, lambda: [
-        engine.decode(forced[:, i:i + 1], cache, prompt_len + i)
-        for i in range(n_prof)]))
-    kr, tr = runs["kernel"], runs["torch"]
-    check(kr["launches"] == cfg.n_layers and tr["launches"] == 0,
-          f"prefill flash launches {kr['launches']} / {tr['launches']}")
+    kr, tr = _serve_paths(torch, engines, prompts, forced, counters, True)
+    check(kr["launches"] == expect and tr["launches"] == none,
+          f"prefill launches {kr['launches']} / {tr['launches']}")
     greedy = torch.stack([torch.argmax(s, dim=-1) for s in
                           [kr["logits"]] + kr["steps"][:-1]], dim=1)
     check(torch.equal(greedy, forced),
           "the kernel path's logits do not reproduce its generated tokens")
-    for name in ("k", "v"):
-        check(torch.equal(kr["cache"][name][0], tr["cache"][name][0]),
-              f"layer 0 cache {name} differs between the paths")
-    for t in [kr["logits"]] + kr["steps"]:
-        check(bool(torch.isfinite(t).all()), "kernel path logits not finite")
-    prefill_rel = rel_l2(torch, kr["logits"], tr["logits"])
-    step_rel = [rel_l2(torch, a, b) for a, b in zip(kr["steps"], tr["steps"])]
-    agree = float((torch.argmax(kr["logits"], -1)
-                   == torch.argmax(tr["logits"], -1)).float().mean())
-    log(f"serve kernel vs plain: prefill logits rel L2 {prefill_rel:.4e}, "
-        f"decode steps rel L2 max {max(step_rel):.4e} median "
-        f"{float(np.median(step_rel)):.4e} (bound {LOGITS_REL_L2}); "
-        f"first-token agreement {agree:.2f}; layer 0 cache bitwise equal")
-    check(prefill_rel <= LOGITS_REL_L2,
-          f"prefill logits rel L2 {prefill_rel} > {LOGITS_REL_L2}")
-    check(max(step_rel) <= LOGITS_REL_L2,
-          f"decode logits rel L2 {max(step_rel)} > {LOGITS_REL_L2}")
+    _hold_paths(torch, cfg, kr, tr, f"serve {cfg.name} bf16", bf16_rel_l2)
+    n_prof = min(16, gen)
+    log_busy(f"serve {cfg.name} kernel-path prefill",
+             *device_busy(torch, lambda: engine.prefill(prompts)))
+    _, cache = engine.prefill(prompts)
+    log_busy(f"serve {cfg.name} decode, {n_prof} steps",
+             *device_busy(torch, lambda: [
+                 engine.decode(forced[:, i:i + 1], cache, prompt_len + i)
+                 for i in range(n_prof)]))
+    del cache, engines, engine, kr, tr
+    torch.cuda.empty_cache()
+
+    if f32_rel_l2 is not None:
+        engines = build(torch.float32)
+        kr, tr = _serve_paths(torch, engines, prompts, forced[:, :f32_steps],
+                              counters, False)
+        check(kr["launches"] == expect and tr["launches"] == none,
+              f"f32 prefill launches {kr['launches']} / {tr['launches']}")
+        _hold_paths(torch, cfg, kr, tr, f"serve {cfg.name} f32", f32_rel_l2)
+        del engines, kr, tr
+        torch.cuda.empty_cache()
     return launches
+
+
+def ssd_inputs(torch, dev, seed, shape, dtype, copies=1):
+    """``copies`` independent (x, dt, a, B, C) sets, TestSSD's draws made
+    with numpy from ``seed``: x, B, C in ``dtype``, Δ and A float32."""
+    b, l, h, p, n = shape[:5]
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+    return [(t(rng.normal(size=(b, l, h, p)), dtype),
+             t(rng.uniform(0.001, 0.1, size=(b, l, h))),
+             t(-rng.uniform(0.5, 2.0, size=(h,))),
+             t(rng.normal(size=(b, l, n)), dtype),
+             t(rng.normal(size=(b, l, n)), dtype)) for _ in range(copies)]
+
+
+def ssd_bound(shape, itemsize):
+    """(bound_ms, bound_by): x, B, C read once, Δ and A read once, y and
+    the f32 state written once, over the HBM rate; or the chunked
+    algorithm's products over the tensor-core rate of the inputs' type
+    (float32 on the CUDA cores): per chunk of q rows the causal triangle of
+    the scores (C Bᵀ, once per batch and chunk: no head in it) and of their
+    product with x, the inter-chunk C·S and the state's Bᵀ·x."""
+    b, l, h, p, n, chunk = shape
+    nbytes = (itemsize * (2 * b * l * h * p + 2 * b * l * n)
+              + 4 * (b * l * h + h + b * h * n * p))
+    flops = 0
+    for c0 in range(0, l, chunk):
+        q = min(chunk, l - c0)
+        tri = q * (q + 1) // 2
+        flops += b * 2 * tri * n + b * h * (2 * tri * p + 4 * q * n * p)
+    rate = BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_ssd(torch, dev):
+    """The SSD kernel against its plain versions: the exact recurrence at
+    the TestSSD shapes (f32), the plain chunked scan at the serving prefill
+    shapes (bf16); returns the main row (mamba2-2.7b's prefill), timed
+    against the chunked scan, the plain path the model takes."""
+    from repro_torch.kernels.ssd import ops, ref
+    from repro_torch.models.ssm import ssd_chunked
+    cases = [(shape, torch.float32) for shape in SSD_SHAPES]
+    cases += [(shape, torch.bfloat16) for shape in SSD_PREFILLS]
+    main_row = None
+    for i, (shape, dtype) in enumerate(cases):
+        b, l, h, p, n, chunk = shape
+        itemsize = torch.finfo(dtype).bits // 8
+        per_set = itemsize * (2 * b * l * h * p + 2 * b * l * n)
+        copies = int(min(64, max(2, -(-2 * L2_BYTES // per_set))))
+        sets = ssd_inputs(torch, dev, 400 + i, shape, dtype, copies)
+        args = sets[0]
+        y, s = ops.ssd_scan(*args, chunk=chunk)
+        y2, s2 = ops.ssd_scan(*args, chunk=chunk)
+        if dtype == torch.float32:
+            yr, sr = ref.ssd_scan(*args)
+            y_tol, versus = SSD_F32_TOL, "recurrence"
+        else:
+            yr, sr = ssd_chunked(*args, chunk)
+            y_tol, versus = SSD_BF16_Y_TOL, "chunked scan"
+        torch.cuda.synchronize()
+        label = f"b={b},l={l},h={h},p={p},n={n},chunk={chunk},{str(dtype)[6:]}"
+        check(y.shape == yr.shape and y.dtype == dtype
+              and s.shape == (b, h, n, p) and s.dtype == torch.float32,
+              f"ssd {label}: outputs {tuple(y.shape)} {y.dtype}, "
+              f"{tuple(s.shape)} {s.dtype}")
+        check(torch.equal(y, y2) and torch.equal(s, s2),
+              f"ssd {label}: two launches differ")
+        err = float((y.float() - yr.float()).abs().max())
+        s_err = float((s - sr).abs().max())
+        check(torch.allclose(y.float(), yr.float(), **y_tol),
+              f"ssd {label}: y max abs err {err} vs the plain {versus}")
+        check(torch.allclose(s, sr, **SSD_F32_TOL),
+              f"ssd {label}: state max abs err {s_err} vs the plain "
+              f"{versus}")
+        del y, s, y2, s2, yr, sr
+
+        def kernel(*a):
+            return ops.ssd_scan(*a, chunk=chunk)
+
+        def plain(*a):
+            return ssd_chunked(*a, chunk)
+
+        ms = device_ms(torch, kernel, sets)
+        plain_ms = device_ms(torch, plain, sets)
+        bound_ms, bound_by = ssd_bound(shape, itemsize)
+        log(f"ssd {label}: vs the plain {versus} y max_abs_err {err:.3e}, "
+            f"state {s_err:.3e}; bitwise-repeatable; kernel "
+            f"{ms * 1e3:.4f} us, plain chunked scan {plain_ms * 1e3:.4f} us, "
+            f"bound {bound_ms * 1e3:.4f} us ({bound_by}), kernel at "
+            f"{100 * bound_ms / ms:.2f}% of it [{copies} input sets]")
+        if shape == SSD_MAIN:
+            recurrence_ms = device_ms(torch, ref.ssd_scan, sets[:1], runs=3)
+            log(f"ssd main shape: the exact recurrence {recurrence_ms:.3f} "
+                f"ms a call (the CPU path's plain version, {l:,} steps)")
+            main_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
+        del sets, args
+        torch.cuda.empty_cache()
+    return main_row
 
 
 def event_ms(torch, fn, args, runs: int = 11) -> float:
@@ -1004,13 +1251,20 @@ def main() -> int:
     phase_modes(torch, dev)
     flash_row = phase_flash(torch, dev)
     from repro_torch.config import get_arch
-    flash_launches = phase_serve(torch, dev, get_arch("smollm-360m"),
-                                 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
+    flash_launches = phase_serve(
+        torch, dev, get_arch("smollm-360m"), SERVE_BATCH, SERVE_PROMPT,
+        SERVE_GEN, LOGITS_REL_L2)["flash_attention"]
     quant_row = phase_quant(torch, dev)
     from repro_torch.config import get_smoke
     quant_launches = phase_train(torch, dev, get_arch("smollm-360m"),
                                  TRAIN_SEQ, TRAIN_BATCH, TRAIN_K, TRAIN_H)
     phase_train_modes(torch, dev, get_smoke("smollm-360m"))
+    ssd_row = phase_ssd(torch, dev)
+    ssd_launches = phase_serve(
+        torch, dev, get_arch("mamba2-2.7b"), SERVE_BATCH, SERVE_PROMPT,
+        SERVE_GEN, None, SSM_F32_LOGITS_REL_L2)["ssd"]
+    phase_serve(torch, dev, get_arch("zamba2-1.2b"), SERVE_BATCH,
+                SERVE_PROMPT, SERVE_GEN, None, SSM_F32_LOGITS_REL_L2)
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hinge_block_grad", "route": "cuda",
@@ -1028,7 +1282,11 @@ def main() -> int:
         "name": "quant", "route": "cuda",
         "source": "src/repro_torch/kernels/quant/csrc/quant.cu",
         "replaces": "src/repro/kernels/quant/kernel.py:18",
-        "launches": quant_launches, **quant_row}]}))
+        "launches": quant_launches, **quant_row}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:32",
+        "launches": ssd_launches, **ssd_row}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

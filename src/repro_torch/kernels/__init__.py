@@ -8,4 +8,5 @@ at first launch).
 * ``hinge`` — fused SVM block-subgradient (the paper's inner loop)
 * ``flash_attention`` — forward online-softmax GQA attention (the prefill)
 * ``quant`` — symmetric int8 quantize/dequantize (the compressed sync)
+* ``ssd`` — the Mamba2 SSD chunk scan (the SSM and hybrid prefill)
 """

@@ -1,0 +1,134 @@
+"""Wrapper of the CUDA SSD chunk-scan kernel (``csrc/ssd.cu``): checks,
+dispatch and launch count.
+
+A CPU tensor goes to the plain version (:func:`repro_torch.kernels.ssd.ref.
+ssd_scan`, the exact recurrence); a CUDA tensor goes to the kernel, or the
+call raises. There is no fallback from the kernel to the plain version. The
+kernel is built and loaded at its first launch (:mod:`repro_torch.kernels.
+nvcc`), so this module imports without ``nvcc``.
+
+The kernel is forward only (the TPU kernel has no backward either) and writes
+its outputs through ctypes, outside autograd: a CUDA input that requires
+grad, with grad mode on, is refused rather than given outputs that silently
+have no gradient. The reference trains its SSM through the plain chunked scan
+(``repro.models.ssm.ssd_chunked``), and so would the port.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import nvcc
+from repro_torch.kernels.ssd import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
+MAX_HEAD_DIM = 128    # P: the kernel's widest state tile
+MAX_STATE_DIM = 128   # N
+MAX_CHUNK = 256       # Q: one row of the chunk a thread
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches so far: one per call on CUDA tensors, none for the CPU
+# path. A run sets it to 0 and reads it after.
+LAUNCHES = 0
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at the first call) and load the kernel's library."""
+    global _LIB
+    if _LIB is None:
+        lib = nvcc.load("ssd", [SOURCE])
+        fn = lib.ssd_scan_fwd
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [ptr, i64, i64, i64, ptr, i64, i64, i64, ptr,
+                       ptr, i64, i64, ptr, i64, i64, ptr, ptr,
+                       i32, i32, i32, i32, i32, i32, i32, ptr]
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(x, dt, a, bm, cm, chunk: int) -> None:
+    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or bm.dim() != 3 \
+            or cm.dim() != 3:
+        raise ValueError(f"x, dt, a, bm, cm must be (B, L, H, P), (B, L, H), "
+                         f"(H,), (B, L, N), (B, L, N); got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(bm.shape)}, {tuple(cm.shape)}")
+    b, l, h, p = x.shape
+    n = bm.shape[-1]
+    if tuple(dt.shape) != (b, l, h) or tuple(a.shape) != (h,) \
+            or tuple(bm.shape) != (b, l, n) or tuple(cm.shape) != (b, l, n):
+        raise ValueError(f"shapes do not agree: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a {tuple(a.shape)}, bm "
+                         f"{tuple(bm.shape)}, cm {tuple(cm.shape)}")
+    if b == 0 or l == 0 or h == 0:
+        raise ValueError(f"empty input {tuple(x.shape)}")
+    if not 0 < p <= MAX_HEAD_DIM or not 0 < n <= MAX_STATE_DIM:
+        raise ValueError(f"head_dim {p} / state_dim {n} outside "
+                         f"1..{MAX_HEAD_DIM} / 1..{MAX_STATE_DIM}")
+    if not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} outside 1..{MAX_CHUNK}")
+    if x.dtype not in DTYPES or bm.dtype != x.dtype or cm.dtype != x.dtype:
+        raise TypeError(f"x, bm, cm must all be float32 or all bfloat16; got "
+                        f"{x.dtype}, {bm.dtype}, {cm.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"dt and a must be float32; got {dt.dtype}, "
+                        f"{a.dtype}")
+    for name, t in (("x", x), ("bm", bm), ("cm", cm)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a unit last stride, got "
+                             f"{t.stride()}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bm: torch.Tensor, cm: torch.Tensor, *, chunk: int = 128
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, L, H, P) · dt: (B, L, H) · a: (H,) · bm/cm: (B, L, N) →
+    (y (B, L, H, P) in x's dtype, final state (B, H, N, P) f32), from a zero
+    state.
+
+    The counterpart of ``repro.kernels.ssd.ops.ssd_scan``. On CUDA tensors it
+    launches the kernel with chunks of ``chunk`` steps (L need not be a
+    multiple: the rows past L are masked as Δ = 0 steps): x, bm, cm float32
+    or bfloat16 alike with a unit last stride, any other strides (read in
+    place); dt and a float32. On CPU tensors it runs the plain recurrence,
+    whatever ``chunk``.
+    """
+    _check(x, dt, a, bm, cm, chunk)
+    devices = {t.device for t in (x, dt, a, bm, cm)}
+    if devices == {torch.device("cpu")}:
+        return ref.ssd_scan(x, dt, a, bm, cm)
+    if len(devices) != 1 or not x.is_cuda:
+        raise ValueError(f"x, dt, a, bm and cm must lie on one CUDA device or "
+                         f"all on the CPU; got {sorted(map(str, devices))}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, bm, cm)):
+        raise RuntimeError("the CUDA SSD kernel is forward only: its outputs "
+                           "would have no gradient. Train with "
+                           "ssd_impl='torch' (the reference trains through "
+                           "its plain chunked scan), or run under "
+                           "torch.no_grad()")
+    b, l, h, p = x.shape
+    n = bm.shape[-1]
+    a = a.contiguous()
+    y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    xs, ds, bs, cs = x.stride(), dt.stride(), bm.stride(), cm.stride()
+    err = lib.ssd_scan_fwd(
+        x.data_ptr(), xs[0], xs[1], xs[2], dt.data_ptr(), ds[0], ds[1], ds[2],
+        a.data_ptr(), bm.data_ptr(), bs[0], bs[1], cm.data_ptr(), cs[0],
+        cs[1], y.data_ptr(), state.data_ptr(), b, l, h, p, n, chunk,
+        DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"SSD kernel launch failed: CUDA error {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return y, state

@@ -1,11 +1,14 @@
-"""Batched serving driver: prefill → greedy decode with a KV cache.
+"""Batched serving: prefill → greedy decode with a cache.
 
 The port of ``repro.launch.serve``: a batch of prompts is prefilled once
-(its k, v written into a cache of ``max_len``), then stepped token
-by token. Params are cast to the serving dtype (bf16). It runs on the card
+(written into the model's decode cache: k, v of ``max_len`` for attention,
+the O(1) SSM state and conv tails for Mamba2 layers), then stepped token by
+token. Params are cast to the serving dtype (bf16). It runs on the card
 unless ``device="cpu"`` is given; without a card and without that it raises.
+It serves the dense (smollm-360m), ssm (mamba2-2.7b) and hybrid
+(zamba2-1.2b) families.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --smoke --device cpu --requests 4 --gen-tokens 8
 """
 from __future__ import annotations
@@ -27,16 +30,18 @@ from repro_torch.models.registry import build_model
 class ServeEngine:
     """Greedy batched generation on one device. ``params`` is a state dict
     (e.g. from :func:`repro_torch.interop.lm_params_from_jax`); without it
-    the weights are drawn from a generator seeded 0 on the device."""
+    the weights are drawn from a generator seeded 0 on the device.
+    ``attn_impl`` and ``ssd_impl`` select the prefill's attention and SSD
+    scan: ``"kernel"`` (the CUDA kernels on the card) or ``"torch"``."""
 
     def __init__(self, cfg: ModelConfig,
                  device: Union[str, torch.device] = "cuda",
                  max_len: int = 128, dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "kernel",
+                 attn_impl: str = "kernel", ssd_impl: str = "kernel",
                  params: Optional[Mapping[str, torch.Tensor]] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.model = build_model(cfg, attn_impl=attn_impl)
+        self.model = build_model(cfg, attn_impl=attn_impl, ssd_impl=ssd_impl)
         self.max_len = max_len
         self.dtype = dtype
         if params is None:
@@ -49,8 +54,9 @@ class ServeEngine:
     @torch.no_grad()
     def prefill(self, prompts: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """prompts (B, S) → (last-position logits (B, V), the cache of
-        ``max_len``, its first S positions written by the prefill)."""
+        """prompts (B, S) → (last-position logits (B, V), the decode cache,
+        written by the prefill: its first S positions of ``max_len`` for
+        attention, the final state and conv tails for Mamba2 layers)."""
         cache = self.model.init_cache(prompts.shape[0], self.max_len,
                                       dtype=self.dtype, device=self.device)
         return self.model.prefill(self.params, {"tokens": prompts}, cache)

@@ -70,6 +70,10 @@ def build_trainer(cfg: TrainConfig, device: Union[str, torch.device] = "cuda",
         raise NotImplementedError("sync.adaptive needs the tuner and the "
                                   "H-ladder runtime (ROADMAP §1 items 10, "
                                   "15)")
+    if cfg.model.family != "dense":
+        raise NotImplementedError(f"training the {cfg.model.family!r} family "
+                                  f"waits for a later slice (ROADMAP §1 "
+                                  f"item 14); the port serves it")
     model = build_model(cfg.model, attn_impl="torch")
     use_replicas = SY.needs_replica_axis(cfg.sync)
     replicas = (cfg.mesh.axis_size(cfg.mesh.replica_axis or "pod")

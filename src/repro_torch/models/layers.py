@@ -28,7 +28,7 @@ class Param:
     logical sharding axes)."""
 
     shape: Tuple[int, ...]
-    init: str = "normal"       # normal | zeros | ones | fan_in
+    init: str = "normal"       # normal | zeros | ones | fan_in | ssm_a
     scale: float = 0.02
 
 
@@ -42,6 +42,11 @@ def _init_leaf(p: Param, gen: torch.Generator, dtype: torch.dtype
         return torch.zeros(p.shape, dtype=dtype, device=dev)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=dtype, device=dev)
+    if p.init == "ssm_a":
+        # Mamba2 A init: A = −exp(a_log) spread over [1, 16]
+        h = p.shape[-1]
+        return torch.log(torch.linspace(1.0, 16.0, h, device=dev)
+                         ).expand(p.shape).to(dtype).clone()
     if p.init == "fan_in":
         fan_in = p.shape[0] if len(p.shape) == 1 else math.prod(p.shape[:-1])
         scale = 1.0 / max(1.0, fan_in) ** 0.5
@@ -64,7 +69,8 @@ def _map_defs(defs: ParamDefs, leaf) -> Dict[str, Any]:
 def init_params(defs: ParamDefs, gen: torch.Generator,
                 dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Draw a param tree from ``defs`` on ``gen``'s device: normal·scale,
-    normal/√fan_in, zeros or ones, as the reference draws them. The leaves
+    normal/√fan_in, zeros, ones or Mamba2's A spread, as the reference draws
+    them. The leaves
     are drawn in declaration order from one generator, so a seed fixes the
     tree (it does not give JAX's numbers)."""
     return _map_defs(defs, lambda p: _init_leaf(p, gen, dtype))

@@ -67,11 +67,55 @@ def layer_decode(lp: L.Params, x: torch.Tensor, cache_k: torch.Tensor,
     return x + L.mlp(lp["mlp"], h), cache_k, cache_v
 
 
-class DecoderLM:
+class LM:
+    """What the port's LMs share: params drawn or loaded against
+    ``param_defs()``, and a prefill through ``backbone`` to the last
+    position's logits. A subclass sets ``cfg`` and ``dtype`` and defines
+    ``param_defs``, ``backbone``, ``init_cache`` and ``decode_step``."""
+
+    cfg: ModelConfig
+    dtype: torch.dtype
+
+    def init(self, gen: torch.Generator) -> L.ParamTree:
+        """Fresh params drawn from ``gen``, on its device."""
+        return L.ParamTree(L.init_params(
+            self.param_defs(), gen, getattr(torch, self.cfg.param_dtype)))
+
+    def load(self, state_dict: Mapping[str, torch.Tensor],
+             device) -> L.ParamTree:
+        """Params from a state dict (keys ``embed.embedding``,
+        ``layers.<i>.attn.wq``, …): every key and shape is checked against
+        :meth:`param_defs`, the values are cast to ``param_dtype``."""
+        params = L.ParamTree(L.empty_params(
+            self.param_defs(), getattr(torch, self.cfg.param_dtype), device))
+        params.load_state_dict(state_dict, strict=True)
+        return params
+
+    def _embed_inputs(self, params: L.Params, batch) -> torch.Tensor:
+        return L.embed(params["embed"], batch["tokens"], self.dtype)
+
+    def _logits_last(self, params: L.Params, x_last: torch.Tensor
+                     ) -> torch.Tensor:
+        table = params["embed"]["embedding"] if self.cfg.tie_embeddings \
+            else params["out_embedding"]
+        return x_last @ table.to(x_last.dtype).T
+
+    def prefill(self, params: L.Params, batch,
+                cache: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"tokens": (B,S) int} → (last-position logits (B,V),
+        the decode cache). Given a ``cache`` (e.g. from :meth:`init_cache`
+        at ``max_len``), the prefill writes into it and returns it."""
+        x = self._embed_inputs(params, batch)
+        x, cache = self.backbone(params, x, return_cache=True, cache=cache)
+        return self._logits_last(params, x[:, -1]), cache
+
+
+class DecoderLM(LM):
     """Dense decoder-only LM. ``attn_impl``: ``"kernel"`` (the CUDA
     flash-attention kernel on the card; forward only, so serving only) or
     ``"torch"`` (the plain twins of the reference's ``"jnp"``, which the
-    reference trains with)."""
+    reference trains with). Its cache is ``{"k","v"}: (L,B,S,KV,hd)``."""
 
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "kernel"):
         if cfg.family != "dense" or cfg.is_moe:
@@ -97,25 +141,7 @@ class DecoderLM:
                                    cfg.tie_embeddings))
         return defs
 
-    def init(self, gen: torch.Generator) -> L.ParamTree:
-        """Fresh params drawn from ``gen``, on its device."""
-        return L.ParamTree(L.init_params(
-            self.param_defs(), gen, getattr(torch, self.cfg.param_dtype)))
-
-    def load(self, state_dict: Mapping[str, torch.Tensor],
-             device) -> L.ParamTree:
-        """Params from a state dict (keys ``embed.embedding``,
-        ``layers.<i>.attn.wq``, …): every key and shape is checked against
-        :meth:`param_defs`, the values are cast to ``param_dtype``."""
-        params = L.ParamTree(L.empty_params(
-            self.param_defs(), getattr(torch, self.cfg.param_dtype), device))
-        params.load_state_dict(state_dict, strict=True)
-        return params
-
     # ------------------------------------------------------------- forward
-    def _embed_inputs(self, params: L.Params, batch) -> torch.Tensor:
-        return L.embed(params["embed"], batch["tokens"], self.dtype)
-
     def backbone(self, params: L.Params, x: torch.Tensor,
                  return_cache: bool = False,
                  cache: Optional[Dict[str, torch.Tensor]] = None):
@@ -168,23 +194,6 @@ class DecoderLM:
         return loss, {"ce": loss}
 
     # ------------------------------------------------------------- serving
-    def _logits_last(self, params: L.Params, x_last: torch.Tensor
-                     ) -> torch.Tensor:
-        table = params["embed"]["embedding"] if self.cfg.tie_embeddings \
-            else params["out_embedding"]
-        return x_last @ table.to(x_last.dtype).T
-
-    def prefill(self, params: L.Params, batch,
-                cache: Optional[Dict[str, torch.Tensor]] = None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {"tokens": (B,S) int} → (last-position logits (B,V),
-        cache {"k","v"}: (L,B,S,KV,hd)). Given a ``cache`` (e.g. from
-        :meth:`init_cache` at ``max_len``), the prompt's k, v are written
-        into its first S positions and it is returned."""
-        x = self._embed_inputs(params, batch)
-        x, cache = self.backbone(params, x, return_cache=True, cache=cache)
-        return self._logits_last(params, x[:, -1]), cache
-
     def init_cache(self, batch_size: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
                    device=None) -> Dict[str, torch.Tensor]:

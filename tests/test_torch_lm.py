@@ -341,7 +341,7 @@ def test_serve_cli_on_cpu(capsys):
 
 
 def test_other_families_not_ported():
-    for family in ("moe", "ssm", "hybrid", "audio", "vlm"):
+    for family in ("moe", "audio", "vlm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild(dataclasses.replace(tconfigs.smoke(), family=family))
     with pytest.raises(KeyError):
