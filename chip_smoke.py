@@ -17,16 +17,20 @@ entry points and holds every run to its plain-version twin:
    stand-in (400,000 × 2,000), kernel launches counted;
 4. every ``dms`` mode on the webspam stand-in (350,000 × 254, K=8, block 64,
    one epoch), ``srdms`` and ``seq_sgd`` on the ijcnn1 stand-in (n=4,000);
-5. the flash-attention kernel against its plain version at the
-   ``TestFlashAttention`` shapes (f32: rtol 1e-4 / atol 2e-5) and the
-   serving paths' prefill shapes, smollm-360m's and zamba2-1.2b's (bf16:
-   rtol 2**-7 / atol 1e-4, one bf16 ulp, a limit SDPA must fail at
-   smollm's), with its time, the plain version's, SDPA's as a yardstick,
-   and the bound;
+5. the flash-attention kernels against their plain version: the f32
+   CUDA-core kernel at the ``TestFlashAttention`` shapes (rtol 1e-4 / atol
+   2e-5); the bf16 tensor-core kernel (wgmma, TMA) at ragged, GQA, prefix
+   and dh 32–256 cases and the serving paths' prefill shapes, smollm-360m's
+   and zamba2-1.2b's (rtol 2**-7 / atol 1e-4, one bf16 ulp, a limit SDPA
+   must fail at smollm's); each launch counted on the kernel it must take,
+   with its time, the plain version's, the bound, and at both serving
+   shapes SDPA's as a yardstick, the achieved TFLOP/s and the share of the
+   bound;
 6. the serving path: ``ServeEngine.generate`` on smollm-360m at full width
    (32 layers, bf16, seeded random weights), 4 prompts of 1,920 tokens and
-   128 new tokens each, flash launches counted (one per layer per prefill),
-   and the kernel path against the plain path (``attn_impl="torch"``);
+   128 new tokens each, flash launches counted (one per layer per prefill,
+   all on the tensor-core kernel), and the kernel path against the plain
+   path (``attn_impl="torch"``);
 7. the int8 quant kernels against their plain version at the ``TestQuant``
    shapes, a K-batched (4, 1,000,003) case and the trainer's largest leaf
    (4, 78,643,200): int8 payload, scale, residual and dequantized values
@@ -58,7 +62,8 @@ entry points and holds every run to its plain-version twin:
     steps' logits within relative L2 1e-2;
 12. the hybrid serving path: the same on zamba2-1.2b at full width (38
     Mamba2 layers, the shared attention block after every 6: 38 SSD and 6
-    flash launches per prefill).
+    flash launches per prefill, on the tensor-core kernel in bf16 and the
+    CUDA-core one in f32).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -108,6 +113,17 @@ FLASH_SHAPES = [(1, 128, 128, 4, 2, 64, True, 0),
                 (2, 64, 300, 4, 4, 64, False, 0),
                 (1, 512, 512, 2, 2, 32, True, 0)]
 FLASH_BF16 = (1, 128, 128, 4, 2, 64, True, 0)
+# bf16 on the tensor-core kernel besides the serving shapes: ragged S/T,
+# GQA groups 1, 3 and 4, causal ∪ prefix, non-causal prefix, dh 32 to 256
+FLASH_TC_SHAPES = [(1, 200, 300, 4, 2, 64, False, 0),
+                   (1, 1000, 1000, 6, 2, 64, True, 0),
+                   (1, 300, 300, 9, 3, 64, True, 0),
+                   (1, 256, 256, 4, 1, 64, True, 40),
+                   (1, 192, 320, 4, 2, 64, False, 100),
+                   (1, 512, 512, 2, 2, 32, True, 0),
+                   (1, 70, 100, 3, 3, 96, False, 0),
+                   (2, 256, 256, 8, 8, 128, True, 0),
+                   (1, 300, 300, 4, 1, 256, True, 0)]
 # the serving path's prefill: smollm-360m, 4 prompts of 1,920 tokens; and
 # zamba2-1.2b's shared attention block on the same prompts
 FLASH_MAIN = (4, 1920, 1920, 15, 5, 64, True, 0)
@@ -284,18 +300,23 @@ def phase_device(torch):
     from repro_torch.kernels.ssd import ops as ssd_ops
     kernels = {"hinge": hinge_ops, "flash_attention": flash_ops,
                "quant": quant_ops, "ssd": ssd_ops}
+    # one library for each source, named by its stem as its wrapper loads it
+    sources = {src.stem: src for ops in kernels.values()
+               for src in getattr(ops, "SOURCES", (ops.SOURCE,))}
 
     def build(name):
         t0 = time.perf_counter()
-        lib = nvcc.build(name, [kernels[name].SOURCE])
+        lib = nvcc.build(name, [sources[name]])
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        built = dict(zip(kernels, pool.map(build, kernels)))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(build, sources)))
     log(f"kernels built in parallel: {time.perf_counter() - t0:.2f} s")
+    for ops in kernels.values():
+        ops.load_library()
+    flash_ops.load_tc_library()
     for name, (lib, secs) in built.items():
-        kernels[name].load_library()
         log(f"{name} kernel build: {secs:.2f} s "
             f"({os.path.relpath(lib, REPO)})")
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -503,13 +524,8 @@ def flash_bound(shape, itemsize):
     """(bound_ms, bound_by): q, k, v read once and o written once over the
     HBM rate, or 4·dh flops for every visible (row, key) pair over the
     tensor-core rate of the inputs' type (float32 on the CUDA cores)."""
-    b, sq, sk, h, kv, dh, causal, prefix = shape
-    rows = np.arange(sq)
-    if causal:
-        seen = np.minimum(sk, np.maximum(rows + 1, prefix))
-    else:
-        seen = np.full(sq, min(sk, prefix) if prefix else sk)
-    flops = 4 * dh * b * h * int(seen.sum())
+    b, sq, sk, h, kv, dh = shape[:6]
+    flops = flash_flops(shape)
     nbytes = itemsize * dh * (2 * b * sq * h + 2 * b * sk * kv)
     rate = BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
@@ -517,13 +533,28 @@ def flash_bound(shape, itemsize):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_flops(shape):
+    """4·dh flops for every visible (row, key) pair: the function's
+    products, Q·Kᵀ and P·V."""
+    b, sq, sk, h, kv, dh, causal, prefix = shape
+    rows = np.arange(sq)
+    if causal:
+        seen = np.minimum(sk, np.maximum(rows + 1, prefix))
+    else:
+        seen = np.full(sq, min(sk, prefix) if prefix else sk)
+    return 4 * dh * b * h * int(seen.sum())
+
+
 def phase_flash(torch, dev):
-    """The flash kernel against its plain version; returns the main row."""
+    """The flash kernels against their plain version (f32 cases on the
+    CUDA-core kernel, bf16 on the tensor-core one, each launch counted on
+    the kernel it must take); returns the main row."""
     from repro_torch.kernels.flash_attention import ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = [(shape, torch.float32, 1e-4, 2e-5) for shape in FLASH_SHAPES]
     cases += [(shape, torch.bfloat16, BF16_RTOL, BF16_ATOL)
-              for shape in (FLASH_BF16, FLASH_MAIN, FLASH_HYBRID)]
+              for shape in [FLASH_BF16] + FLASH_TC_SHAPES +
+              [FLASH_MAIN, FLASH_HYBRID]]
     main_row = None
     for i, (shape, dtype, rtol, atol) in enumerate(cases):
         causal, prefix = shape[6], shape[7]
@@ -533,6 +564,8 @@ def phase_flash(torch, dev):
         copies = int(min(64, max(2, -(-2 * L2_BYTES // per_set))))
         sets = flash_inputs(torch, dev, 200 + i, shape, dtype, copies)
         q, k, v = sets[0]
+        kind = "tc" if dtype == torch.bfloat16 else "simt"
+        launches, tc_launches = ops.LAUNCHES, ops.TC_LAUNCHES
         got = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
         again = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
         want = ref.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
@@ -540,6 +573,10 @@ def phase_flash(torch, dev):
         err = float((got.float() - want.float()).abs().max())
         label = (f"b={b},sq={sq},sk={sk},h={h},kv={kv},dh={dh},"
                  f"causal={causal},prefix={prefix},{str(dtype)[6:]}")
+        check(ops.kernel_for(q, k, v) == kind and
+              ops.LAUNCHES == launches + 2 and
+              ops.TC_LAUNCHES == tc_launches + 2 * (kind == "tc"),
+              f"flash {label}: expected two launches of the {kind} kernel")
         check(got.shape == q.shape and got.dtype == dtype,
               f"flash {label}: output {tuple(got.shape)} {got.dtype}")
         check(torch.equal(got, again), f"flash {label}: two launches differ")
@@ -557,11 +594,11 @@ def phase_flash(torch, dev):
         ms = device_ms(torch, kernel, sets)
         plain_ms = device_ms(torch, plain, sets)
         bound_ms, bound_by = flash_bound(shape, itemsize)
-        log(f"flash {label}: max_abs_err {err:.3e} bitwise-repeatable "
-            f"kernel {ms * 1e3:.4f} us plain {plain_ms * 1e3:.4f} us "
-            f"bound {bound_ms * 1e3:.4f} us ({bound_by}) "
-            f"[{copies} input sets]")
-        if shape == FLASH_MAIN:
+        log(f"flash {label}: {kind} kernel, max_abs_err {err:.3e} "
+            f"bitwise-repeatable, kernel {ms * 1e3:.4f} us plain "
+            f"{plain_ms * 1e3:.4f} us bound {bound_ms * 1e3:.4f} us "
+            f"({bound_by}) [{copies} input sets]")
+        if shape in (FLASH_MAIN, FLASH_HYBRID):
             # the yardstick: one PyTorch call for the same function (heads
             # first, as it takes them); the port never calls it
             def library(q, k, v):
@@ -571,6 +608,14 @@ def phase_flash(torch, dev):
             lib_out = library(q, k, v).transpose(1, 2)
             lib_err = float((lib_out.float() - want.float()).abs().max())
             library_ms = device_ms(torch, library, sets)
+            flops = flash_flops(shape)
+            log(f"flash {label}: SDPA {library_ms * 1e3:.4f} us; kernel "
+                f"{flops / ms * 1e-9:.1f} TFLOP/s of the function's "
+                f"{flops / 1e9:.2f} GFLOP ({1.5 * flops / ms * 1e-9:.1f} "
+                f"TFLOP/s counting the split P·V it computes), "
+                f"{100 * bound_ms / ms:.2f}% of its bound; SDPA "
+                f"{flops / library_ms * 1e-9:.1f} TFLOP/s")
+        if shape == FLASH_MAIN:
             # elements over the limit, and over one of atol 8e-3 (about
             # two ulps at the outputs' scale) for comparison
             over = {(name, a): int((o.float() - want.float()).abs().gt(
@@ -597,16 +642,28 @@ def rel_l2(torch, a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def serve_launches(cfg):
+def serve_launches(cfg, bf16=True):
     """Kernel launches one prefill makes on the kernel path: the flash
-    kernel once per attention application, the SSD kernel once per Mamba2
-    layer."""
+    kernels once per attention application (all on the tensor-core kernel
+    in bf16, none of them in f32), the SSD kernel once per Mamba2 layer."""
     if cfg.family == "ssm":
-        return {"flash_attention": 0, "ssd": cfg.n_layers}
-    if cfg.family == "hybrid":
-        return {"flash_attention": cfg.n_layers // cfg.shared_block_every,
-                "ssd": cfg.n_layers}
-    return {"flash_attention": cfg.n_layers, "ssd": 0}
+        flash, ssd = 0, cfg.n_layers
+    elif cfg.family == "hybrid":
+        flash, ssd = cfg.n_layers // cfg.shared_block_every, cfg.n_layers
+    else:
+        flash, ssd = cfg.n_layers, 0
+    return {"flash_attention": flash,
+            "flash_attention_tc": flash if bf16 else 0, "ssd": ssd}
+
+
+def reset(counters):
+    for ops, attr in counters.values():
+        setattr(ops, attr, 0)
+
+
+def read(counters):
+    return {name: getattr(ops, attr) for name, (ops, attr) in
+            counters.items()}
 
 
 def layer0(cfg, cache):
@@ -630,13 +687,12 @@ def _serve_paths(torch, engines, prompts, forced, counters, timed):
     prompt_len, gen = prompts.shape[1], forced.shape[1]
     for impl, eng in engines.items():
         torch.cuda.synchronize()
-        for ops in counters.values():
-            ops.LAUNCHES = 0
+        reset(counters)
         t0 = time.perf_counter()
         logits, cache = eng.prefill(prompts)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
-        launches = {name: ops.LAUNCHES for name, ops in counters.items()}
+        launches = read(counters)
         first = layer0(eng.cfg, cache)
         steps = []
         t0 = time.perf_counter()
@@ -721,7 +777,9 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch.serve import ServeEngine
-    counters = {"flash_attention": flash_ops, "ssd": ssd_ops}
+    counters = {"flash_attention": (flash_ops, "LAUNCHES"),
+                "flash_attention_tc": (flash_ops, "TC_LAUNCHES"),
+                "ssd": (ssd_ops, "LAUNCHES")}
     expect = serve_launches(cfg)
     none = {name: 0 for name in counters}
     max_len = prompt_len + gen + 1
@@ -752,12 +810,11 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
     engine = engines["kernel"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for ops in counters.values():
-        ops.LAUNCHES = 0
+    reset(counters)
     t0 = time.perf_counter()
     tokens = engine.generate(prompts, gen)
     wall = time.perf_counter() - t0
-    launches = {name: ops.LAUNCHES for name, ops in counters.items()}
+    launches = read(counters)
     peak = torch.cuda.max_memory_allocated()
     check(tokens.shape == (batch, gen), f"tokens {tokens.shape}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
@@ -794,6 +851,7 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
         engines = build(torch.float32)
         kr, tr = _serve_paths(torch, engines, prompts, forced[:, :f32_steps],
                               counters, False)
+        expect = serve_launches(cfg, bf16=False)
         check(kr["launches"] == expect and tr["launches"] == none,
               f"f32 prefill launches {kr['launches']} / {tr['launches']}")
         _hold_paths(torch, cfg, kr, tr, f"serve {cfg.name} f32", f32_rel_l2)
@@ -1253,7 +1311,7 @@ def main() -> int:
     from repro_torch.config import get_arch
     flash_launches = phase_serve(
         torch, dev, get_arch("smollm-360m"), SERVE_BATCH, SERVE_PROMPT,
-        SERVE_GEN, LOGITS_REL_L2)["flash_attention"]
+        SERVE_GEN, LOGITS_REL_L2)["flash_attention_tc"]
     quant_row = phase_quant(torch, dev)
     from repro_torch.config import get_smoke
     quant_launches = phase_train(torch, dev, get_arch("smollm-360m"),
@@ -1276,7 +1334,7 @@ def main() -> int:
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
         "launches": flash_launches, **flash_row}, {
         "name": "quant", "route": "cuda",

@@ -1,15 +1,24 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``):
-checks, dispatch and launch count.
+"""Wrapper of the CUDA flash-attention kernels: checks, dispatch and launch
+counts.
 
 A CPU tensor goes to the plain version
 (:func:`repro_torch.kernels.flash_attention.ref.flash_attention`); a CUDA
-tensor goes to the kernel, or the call raises. There is no fallback from the
-kernel to the plain version. The kernel is built and loaded at its first
-launch (:mod:`repro_torch.kernels.nvcc`), so this module imports without
-``nvcc``.
+tensor goes to one of two kernels, or the call raises. :func:`kernel_for`
+chooses, before any launch:
 
-The kernel is forward only (the TPU kernel has no backward either) and writes
-its output through ctypes, outside autograd: a CUDA input that requires grad,
+* ``"tc"`` (``csrc/flash_attention_tc.cu``): bfloat16 q, k and v that TMA
+  can describe — every batch, sequence and head stride a multiple of 8
+  elements (16 bytes) and every base 16-byte aligned. Both products on the
+  tensor cores (wgmma), loads by TMA.
+* ``"simt"`` (``csrc/flash_attention.cu``): float32, and bfloat16 with any
+  other strides. f32 arithmetic on the CUDA cores.
+
+There is no fallback from one kernel to the other, or to the plain version:
+a refused launch raises. Each kernel is built and loaded at its first launch
+(:mod:`repro_torch.kernels.nvcc`), so this module imports without ``nvcc``.
+
+The kernels are forward only (the TPU kernel has no backward either) and write
+their output through ctypes, outside autograd: a CUDA input that requires grad,
 with grad mode on, is refused rather than given an output that silently has
 no gradient. Training takes the plain attention, as the reference does.
 """
@@ -24,31 +33,66 @@ import torch
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.flash_attention import ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-MAX_HEAD_DIM = 256  # the TPU kernel's limit, and the kernel's largest tile
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"         # "simt": f32 on the CUDA cores
+TC_SOURCE = CSRC / "flash_attention_tc.cu"   # "tc": bf16 wgmma, TMA loads
+SOURCES = (SOURCE, TC_SOURCE)
+MAX_HEAD_DIM = 256  # the TPU kernel's limit, and the kernels' largest tile
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TMA_ALIGN = 16      # bytes: TMA's rule for every stride and base address
 
-# kernel launches so far: one per call on CUDA tensors, none for the CPU
-# path. A run sets it to 0 and reads it after.
+# kernel launches so far, one per call on CUDA tensors, none for the CPU
+# path: LAUNCHES counts both kernels, TC_LAUNCHES the tensor-core one. A
+# run sets them to 0 and reads them after.
 LAUNCHES = 0
+TC_LAUNCHES = 0
 
 _LIB: Optional[ctypes.CDLL] = None
+_TC_LIB: Optional[ctypes.CDLL] = None
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGS = [_PTR, _I64, _I64, _I64, _PTR, _I64, _I64, _I64,
+         _PTR, _I64, _I64, _I64, _PTR, _I32, _I32, _I32, _I32, _I32, _I32,
+         _I32, _I32]
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (at the first call) and load the kernel's library."""
+    """Build (at the first call) and load the "simt" kernel's library."""
     global _LIB
     if _LIB is None:
         lib = nvcc.load("flash_attention", [SOURCE])
-        fn = lib.flash_attention_fwd
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [ptr, i64, i64, i64, ptr, i64, i64, i64,
-                       ptr, i64, i64, i64, ptr,
-                       i32, i32, i32, i32, i32, i32, i32, i32, i32,
-                       ctypes.c_float, ptr]
-        fn.restype = ctypes.c_int
+        lib.flash_attention_fwd.argtypes = _ARGS + [_I32, ctypes.c_float,
+                                                    _PTR]
+        lib.flash_attention_fwd.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def load_tc_library() -> ctypes.CDLL:
+    """Build (at the first call) and load the "tc" kernel's library."""
+    global _TC_LIB
+    if _TC_LIB is None:
+        lib = nvcc.load("flash_attention_tc", [TC_SOURCE])
+        lib.flash_attention_tc_fwd.argtypes = _ARGS + [ctypes.c_float, _PTR]
+        lib.flash_attention_tc_fwd.restype = ctypes.c_int
+        _TC_LIB = lib
+    return _TC_LIB
+
+
+def kernel_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes (q, k, v) on a card: ``"tc"`` for bfloat16
+    inputs whose batch, sequence and head strides are all multiples of 16
+    bytes on 16-byte aligned bases (what a TMA map can describe), else
+    ``"simt"``. A rule of dtypes, strides and addresses only, so it answers
+    for CPU tensors too."""
+    if q.dtype != torch.bfloat16:
+        return "simt"
+    for t in (q, k, v):
+        size = t.element_size()
+        if t.data_ptr() % TMA_ALIGN or any(
+                (st * size) % TMA_ALIGN for st in t.stride()[:3]):
+            return "simt"
+    return "tc"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,8 +132,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The counterpart of ``repro.kernels.flash_attention.ops.flash_attention``.
     Masks as :mod:`repro_torch.kernels.flash_attention.ref` states them;
     keys at or beyond T are never attended. On CUDA tensors it launches the
-    kernel: float32 or bfloat16 (all three alike), unit last stride, any
-    other strides (q, k and v are read in place).
+    kernel that :func:`kernel_for` names: float32 or bfloat16 (all three
+    alike), unit last stride, any other strides (q, k and v are read in
+    place).
     """
     _check(q, k, v, prefix_len)
     devices = {q.device, k.device, v.device}
@@ -107,20 +152,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            "torch.no_grad()")
     b, s, h, dh = q.shape
     t, kvh = k.shape[1], k.shape[2]
+    kind = kernel_for(q, k, v)
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
-    lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
     qs, ks, vs = q.stride(), k.stride(), v.stride()
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), qs[0], qs[1], qs[2],
-        k.data_ptr(), ks[0], ks[1], ks[2],
-        v.data_ptr(), vs[0], vs[1], vs[2], out.data_ptr(),
-        b, s, t, h, kvh, dh, int(causal), int(prefix_len), DTYPES[q.dtype],
-        1.0 / dh ** 0.5, stream)
+    args = (q.data_ptr(), qs[0], qs[1], qs[2],
+            k.data_ptr(), ks[0], ks[1], ks[2],
+            v.data_ptr(), vs[0], vs[1], vs[2], out.data_ptr(),
+            b, s, t, h, kvh, dh, int(causal), int(prefix_len))
+    scale = 1.0 / dh ** 0.5
+    if kind == "tc":
+        err = load_tc_library().flash_attention_tc_fwd(*args, scale, stream)
+    else:
+        err = load_library().flash_attention_fwd(*args, DTYPES[q.dtype],
+                                                 scale, stream)
     if err != 0:
-        raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
+        raise RuntimeError(f"flash-attention kernel ({kind}) launch failed: "
                            f"error {err}")
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES
     LAUNCHES += 1
+    TC_LAUNCHES += kind == "tc"
     return out

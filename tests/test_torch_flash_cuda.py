@@ -4,13 +4,16 @@ absent:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_flash_cuda.py
 
-Without a card the kernel tests skip; the wrapper's CPU dispatch and checks
-run anywhere. Bounds: rtol 1e-4 / atol 2e-5 in f32, the reference's
-``TestFlashAttention`` bound (the kernel sums in another order than the
-plain version's products). In bf16 both compute in f32 and round only the
-output, so they differ by a rounding flip: rtol 2**-7 (at least one bf16
-ulp of any value) / atol 1e-4 (near zero, where the two f32 sums differ by
-~1e-7). SDPA, which rounds the probabilities to bf16, fails that limit.
+Without a card the kernel tests skip; the wrapper's CPU dispatch and checks,
+the dispatch rule (``ops.kernel_for``) and an emulation of the tensor-core
+kernel's arithmetic run anywhere. Bounds: rtol 1e-4 / atol 2e-5 in f32, the
+reference's ``TestFlashAttention`` bound (the kernel sums in another order
+than the plain version's products). In bf16 both compute in f32 and round
+only the output, so they differ by a rounding flip: rtol 2**-7 (at least one
+bf16 ulp of any value) / atol 1e-4 (near zero, where the two f32 sums differ
+by ~1e-7). SDPA, which rounds the probabilities to bf16, fails that limit;
+the tensor-core kernel, whose products take bf16 operands, keeps the
+probabilities as two bf16 parts (P_hi + P_lo) to pass it.
 """
 import os
 import subprocess
@@ -40,6 +43,28 @@ CASES = [
     (1, 70, 100, 3, 3, 96, False, 0, torch.bfloat16),
     (4, 1920, 1920, 15, 5, 64, True, 0, torch.bfloat16),
 ]
+
+
+# bf16 cases of the tensor-core kernel: the two serving prefills (smollm-360m
+# and zamba2-1.2b), ragged S/T, GQA groups 1, 3 and 4, causal ∪ prefix and
+# non-causal prefix, and dh 32, 64, 96, 128 and 256
+TC_CASES = [
+    (4, 1920, 1920, 15, 5, 64, True, 0),
+    (4, 1920, 1920, 32, 32, 64, True, 0),
+    (1, 200, 300, 4, 2, 64, False, 0),
+    (1, 1000, 1000, 6, 2, 64, True, 0),
+    (2, 256, 256, 8, 8, 64, True, 0),
+    (1, 384, 384, 12, 4, 64, True, 0),
+    (1, 300, 300, 9, 3, 64, True, 0),
+    (1, 256, 256, 4, 1, 64, True, 40),
+    (1, 192, 320, 4, 2, 64, False, 100),
+    (1, 512, 512, 2, 2, 32, True, 0),
+    (1, 70, 100, 3, 3, 96, False, 0),
+    (2, 256, 256, 8, 8, 128, True, 0),
+    (1, 300, 300, 4, 1, 256, True, 0),
+]
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-4)
+LOG2E = 1.4426950408889634
 
 
 def _inputs(seed, b, sq, sk, h, kv, dh, dtype=torch.float32, device="cpu"):
@@ -161,3 +186,164 @@ def test_cuda_wrapper_refuses_grad(cuda):
             out = ops.flash_attention(q, k, v)
         assert out.grad_fn is None and not out.requires_grad
         t.requires_grad_(False)
+
+
+def _counts():
+    return ops.LAUNCHES, ops.TC_LAUNCHES
+
+
+def _hold_bf16(q, k, v, causal, pref, kind):
+    """Two launches on the card: the kernel ``kind`` counted, the two
+    bitwise equal and within the bf16 limit of the plain version."""
+    assert ops.kernel_for(q, k, v) == kind
+    before, tc_before = _counts()
+    got = ops.flash_attention(q, k, v, causal=causal, prefix_len=pref)
+    again = ops.flash_attention(q, k, v, causal=causal, prefix_len=pref)
+    torch.cuda.synchronize()
+    assert _counts() == (before + 2, tc_before + 2 * (kind == "tc"))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got, again)
+    want = ref.flash_attention(q, k, v, causal=causal,
+                               prefix_len=pref).float()
+    torch.testing.assert_close(got.float(), want, **BF16_TOL)
+    return want
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_cuda_tc_kernel_matches_plain(cuda, case):
+    """bf16 on the card: the tensor-core kernel takes every case, within
+    the bf16 limit; at the main shape SDPA (bf16 probabilities) fails it."""
+    b, sq, sk, h, kv, dh, causal, pref = case
+    q, k, v = _inputs(sq + h + dh, b, sq, sk, h, kv, dh, torch.bfloat16,
+                      cuda)
+    want = _hold_bf16(q, k, v, causal, pref, "tc")
+    if case == TC_CASES[0]:
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+        assert not torch.allclose(lib.float(), want, **BF16_TOL)
+
+
+def test_cuda_tc_kernel_reads_fused_heads(cuda):
+    """bf16 q, k, v as head slices of one fused (B, S, H + 2·KV, dh)
+    projection: TMA reads them in place."""
+    qkv = _inputs(98, 2, 200, 200, 12, 12, 64, torch.bfloat16, cuda)[0]
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    _hold_bf16(q, k, v, True, 0, "tc")
+
+
+def test_cuda_tma_unaligned_bf16_takes_simt(cuda):
+    """bf16 with a row stride of 140 bytes (dh 70): TMA cannot describe
+    it, so the f32 CUDA-core kernel takes it, within the same limit."""
+    q, k, v = _inputs(97, 1, 130, 130, 4, 2, 70, torch.bfloat16, cuda)
+    _hold_bf16(q, k, v, True, 0, "simt")
+
+
+# ---------------------------------------------------------------------------
+# the dispatch rule and the tensor-core kernel's arithmetic, on the CPU
+# ---------------------------------------------------------------------------
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _offset(t, elems):
+    """``t``'s shape and strides, ``elems`` elements into a larger buffer."""
+    buf = torch.zeros(t.numel() + elems, dtype=t.dtype)
+    return buf.as_strided(t.shape, t.stride(), elems)
+
+
+_FUSED = _bf16((2, 16, 8, 64))
+_KERNEL_FOR = [
+    ("f32", [torch.zeros(1, 8, 4, 64), torch.zeros(1, 8, 2, 64),
+             torch.zeros(1, 8, 2, 64)], "simt"),
+    ("bf16 contiguous", [_bf16((1, 8, 4, 64)), _bf16((1, 8, 2, 64)),
+                         _bf16((1, 8, 2, 64))], "tc"),
+    ("bf16 dh 32", [_bf16((2, 8, 4, 32)), _bf16((2, 8, 4, 32)),
+                    _bf16((2, 8, 4, 32))], "tc"),
+    ("bf16 fused heads", [_FUSED[:, :, :4], _FUSED[:, :, 4:6],
+                          _FUSED[:, :, 6:]], "tc"),
+    ("bf16 heads-first view", [_bf16((1, 4, 8, 64)).transpose(1, 2),
+                               _bf16((1, 2, 8, 64)).transpose(1, 2),
+                               _bf16((1, 2, 8, 64)).transpose(1, 2)], "tc"),
+    ("bf16 dh 70: 140-byte rows", [_bf16((1, 8, 4, 70)),
+                                   _bf16((1, 8, 2, 70)),
+                                   _bf16((1, 8, 2, 70))], "simt"),
+    ("bf16 q base off by one element", [_offset(_bf16((1, 8, 4, 64)), 1),
+                                        _bf16((1, 8, 2, 64)),
+                                        _bf16((1, 8, 2, 64))], "simt"),
+    ("bf16 v base off by 8 bytes", [_bf16((1, 8, 4, 64)),
+                                    _bf16((1, 8, 2, 64)),
+                                    _offset(_bf16((1, 8, 2, 64)), 4)],
+     "simt"),
+    ("bf16 k rows 264 bytes apart", [
+        _bf16((1, 8, 4, 64)), _bf16((1, 8, 132))[:, :, :128]
+        .unflatten(-1, (2, 64)), _bf16((1, 8, 2, 64))], "simt"),
+]
+
+
+@pytest.mark.parametrize("qkv,kind", [c[1:] for c in _KERNEL_FOR],
+                         ids=[c[0] for c in _KERNEL_FOR])
+def test_kernel_for(qkv, kind):
+    """The dispatch rule: bf16 whose strides and bases TMA can describe
+    (multiples of 16 bytes) goes to the tensor-core kernel, everything
+    else to the CUDA-core one."""
+    assert ops.kernel_for(*qkv) == kind
+
+
+def _emulate(q, k, v, causal, prefix_len, probs, bk=128):
+    """The tensor-core kernel's arithmetic in plain PyTorch: S from bf16
+    q, k in f32 (exact products), scale and log2(e) in one multiply, an
+    online softmax over KV tiles of ``bk`` keys with exp2, l summed from
+    the f32 p, and P·V with P as ``probs`` says: "f32", one "bf16"
+    rounding, or "split" P_hi + P_lo; the output o / max(l, 1e-30) in q's
+    dtype."""
+    b, s, h, dh = q.shape
+    t, group = k.shape[1], h // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(group, 1)
+    vf = v.float().transpose(1, 2).repeat_interleave(group, 1)
+    vis = ref.visible(s, t, causal, prefix_len)
+    m = torch.full((b, h, s, 1), ref.NEG_INF)
+    l = torch.zeros(b, h, s, 1)
+    o = torch.zeros(b, h, s, dh)
+    for k0 in range(0, t, bk):
+        sc = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+        sc = torch.where(vis[:, k0:k0 + bk], sc * (LOG2E / dh ** 0.5),
+                         torch.tensor(ref.NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        m = m_new
+        p = torch.exp2(sc - m)
+        l = l * corr + p.sum(-1, keepdim=True)
+        vt = vf[:, :, k0:k0 + bk]
+        if probs == "f32":
+            pv = p @ vt
+        elif probs == "bf16":
+            pv = p.bfloat16().float() @ vt
+        else:
+            hi = p.bfloat16().float()
+            pv = hi @ vt + (p - hi).bfloat16().float() @ vt
+        o = o * corr + pv
+    return (o / l.clamp_min(1e-30)).to(q.dtype).transpose(1, 2)
+
+
+EMULATED = [(1, 256, 256, 4, 2, 64, True, 0),
+            (2, 128, 128, 4, 2, 64, True, 0),
+            (1, 200, 300, 4, 2, 64, False, 0),
+            (1, 256, 256, 4, 1, 64, True, 40)]
+
+
+@pytest.mark.parametrize("probs,passes", [("f32", True), ("split", True),
+                                          ("bf16", False)])
+@pytest.mark.parametrize("case", EMULATED)
+def test_split_probabilities_hold_the_bf16_limit(case, probs, passes):
+    """Against the plain f32 version: f32 p and split P_hi + P_lo pass the
+    bf16 limit; one bf16 rounding of P (SDPA's, a plain FA2/FA3 kernel's)
+    fails it, so the limit can tell the two apart."""
+    b, sq, sk, h, kv, dh, causal, pref = case
+    q, k, v = _inputs(sq + sk + pref, b, sq, sk, h, kv, dh, torch.bfloat16)
+    want = ref.flash_attention(q, k, v, causal=causal,
+                               prefix_len=pref).float()
+    got = _emulate(q, k, v, causal, pref, probs).float()
+    assert torch.allclose(got, want, **BF16_TOL) == passes
