@@ -36,7 +36,10 @@ entry points and holds every run to its plain-version twin:
    (4, 78,643,200): int8 payload, scale, residual and dequantized values
    bitwise equal, round-trip error at most scale/2, two launches bitwise
    equal; with their time, the plain version's, ``torch.quantize_per_channel``
-   / ``torch.dequantize``'s as a yardstick, and the bound;
+   / ``torch.dequantize``'s as a yardstick, and the bound; then leaves
+   holding a NaN, +inf or −inf (alone, or one bad row among good ones),
+   with and without the residual: bitwise the plain version's (NaN as NaN),
+   scale NaN or inf, q 0, dequantized NaN, as the reference gives;
 8. the LM trainer: local SGD on smollm-360m at full width (32 layers, bf16
    compute, f32 master params), K = 4 replicas, H = 4, int8 sync with error
    feedback, AdamW, 2 sequences of 2,048 tokens per replica a step: 2 blocks
@@ -47,23 +50,31 @@ entry points and holds every run to its plain-version twin:
    block, and 4 ``make_ddp_step`` steps (MSF = 1) at the same global batch;
 9. every other sync mode (delayed, chunked, ring, pairwise, async ring,
    int16) at smoke width, kernel path against plain path;
-10. the SSD chunk-scan kernel against the exact recurrence at the
-    ``TestSSD`` shapes (f32: rtol 1e-3 / atol 2e-4) and against the plain
-    chunked scan at the two serving prefill shapes (bf16 x/B/C: y within
-    rtol 2**-7 / atol 2e-4, the f32 state within the f32 bound), two
-    launches bitwise equal, with its time, the chunked scan's and the bound;
+10. the SSD chunk-scan kernels: the CUDA-core one (``ssd.cu``) against the
+    exact recurrence at the ``TestSSD`` shapes in f32 (rtol 1e-3 / atol
+    2e-4); the tensor-core one (``ssd_tc.cu``) at the same shapes in bf16
+    against the exact recurrence on the same inputs (state rtol 1e-3 / atol
+    2e-4, y rtol 2**-7 / atol 2e-4) and at the two serving prefill shapes
+    against the plain chunked scan (y within rtol 2**-7 / atol 2e-4, the
+    f32 state within the f32 bound); each launch counted on the kernel it
+    must take, two launches bitwise equal; with the time of each, the
+    chunked scan's and the bound, and at the serving shapes the CUDA-core
+    kernel's time on the same bf16 inputs;
 11. the SSM serving path: ``ServeEngine.generate`` on mamba2-2.7b at full
     width (64 layers, bf16, seeded random weights), 4 prompts of 1,920
     tokens and 128 new tokens each, SSD launches counted (one per layer per
-    prefill; decode runs the plain recurrence step), and the kernel path
-    against the plain path (``ssd_impl="torch"``): in bf16 the logits' gap
-    is logged and layer 0's cache held (conv tails bitwise, the SSM state
-    within the SSD bound); in f32, prefill and 16 teacher-forced decode
-    steps' logits within relative L2 1e-2;
+    prefill, all on the tensor-core kernel in bf16 and none of them in f32;
+    decode runs the plain recurrence step), and the kernel path against
+    the plain path (``ssd_impl="torch"``): in bf16 layer 0's cache held
+    (conv tails bitwise, the SSM state within the SSD bound); in f32,
+    prefill and 16 teacher-forced decode steps' logits within relative L2
+    1e-2; and the bf16 kernel path's logits (prefill and those 16 steps)
+    within 1.5× the bf16 plain path's own relative L2 to the f32 plain
+    path;
 12. the hybrid serving path: the same on zamba2-1.2b at full width (38
     Mamba2 layers, the shared attention block after every 6: 38 SSD and 6
-    flash launches per prefill, on the tensor-core kernel in bf16 and the
-    CUDA-core one in f32).
+    flash launches per prefill, on the tensor-core kernels in bf16 and the
+    CUDA-core ones in f32).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -160,12 +171,21 @@ SSD_BF16_Y_TOL = dict(rtol=2 ** -7, atol=2e-4)
 # flips roundings of y in every layer, and a deep random-weight model
 # amplifies the flips: on the CPU at full width the two paths (the kernel
 # path is the exact recurrence there) were 0.026–0.043 apart over 8 mamba2
-# layers and 0.080–0.101 over 24, growing with depth, so bf16 logits cannot
-# tell a right kernel from a subtly wrong one; the gap is logged. In f32
-# the same comparison was 7.6e-6–2.5e-5 apart over 8 mamba2 layers,
-# 4.9e-5–1.0e-4 over 24 and 5.7e-5–1.3e-4 over 12 zamba2 layers, so f32
-# logits are held to 1e-2; a wrong mask or decay is O(1).
+# layers and 0.080–0.101 over 24, growing with depth, so the bf16 paths are
+# not held to each other. In f32 the same comparison was 7.6e-6–2.5e-5
+# apart over 8 mamba2 layers, 4.9e-5–1.0e-4 over 24 and 5.7e-5–1.3e-4 over
+# 12 zamba2 layers, so f32 logits are held to 1e-2; a wrong mask or decay is
+# O(1).
 SSM_F32_LOGITS_REL_L2 = 1e-2
+# each bf16 path against the f32 plain path on the same weights (prefill
+# and the f32 run's teacher-forced decode steps, relative L2 over all their
+# logits): the kernel path within this factor of the plain path's own
+# distance. Both round every activation to bf16 and differ from f32 by
+# like amounts: on an H100 80GB HBM3 (700 W) the kernel and plain paths
+# were 0.525 and 0.509 from f32 at mamba2-2.7b (1.03x) and 0.389 and 0.377
+# at zamba2-1.2b (1.03x). A subtly wrong kernel lands O(1) away (unrelated
+# logits of equal norm are ~1.4 apart), above 1.5 x 0.509 = 0.76.
+SSM_BF16_VS_F32_FACTOR = 1.5
 DMS_MODES = [("none", "all", False), ("delayed", "all", False),
              ("chunked", "all", False), ("none", "ring", False),
              ("none", "pairwise", False), ("none", "ring", True),
@@ -316,6 +336,7 @@ def phase_device(torch):
     for ops in kernels.values():
         ops.load_library()
     flash_ops.load_tc_library()
+    ssd_ops.load_tc_library()
     for name, (lib, secs) in built.items():
         log(f"{name} kernel build: {secs:.2f} s "
             f"({os.path.relpath(lib, REPO)})")
@@ -644,8 +665,8 @@ def rel_l2(torch, a, b) -> float:
 
 def serve_launches(cfg, bf16=True):
     """Kernel launches one prefill makes on the kernel path: the flash
-    kernels once per attention application (all on the tensor-core kernel
-    in bf16, none of them in f32), the SSD kernel once per Mamba2 layer."""
+    kernels once per attention application, the SSD kernels once per Mamba2
+    layer (all on the tensor-core kernels in bf16, none of them in f32)."""
     if cfg.family == "ssm":
         flash, ssd = 0, cfg.n_layers
     elif cfg.family == "hybrid":
@@ -653,7 +674,8 @@ def serve_launches(cfg, bf16=True):
     else:
         flash, ssd = cfg.n_layers, 0
     return {"flash_attention": flash,
-            "flash_attention_tc": flash if bf16 else 0, "ssd": ssd}
+            "flash_attention_tc": flash if bf16 else 0, "ssd": ssd,
+            "ssd_tc": ssd if bf16 else 0}
 
 
 def reset(counters):
@@ -750,10 +772,11 @@ def _hold_paths(torch, cfg, kr, tr, label, rel_bound):
     step_rel = [rel_l2(torch, a, b) for a, b in zip(kr["steps"], tr["steps"])]
     agree = float((torch.argmax(kr["logits"], -1)
                    == torch.argmax(tr["logits"], -1)).float().mean())
+    bound = (rel_bound if rel_bound is not None
+             else "none: each bf16 path is held to f32 below")
     log(f"{label} kernel vs plain: prefill logits rel L2 {prefill_rel:.4e}, "
         f"{len(step_rel)} decode steps rel L2 max {max(step_rel):.4e} median "
-        f"{float(np.median(step_rel)):.4e} (bound "
-        f"{rel_bound if rel_bound is not None else 'none: logged'}); "
+        f"{float(np.median(step_rel)):.4e} (bound {bound}); "
         f"first-token agreement {agree:.2f}; layer 0 after the prefill: "
         f"{', '.join(notes)}")
     if rel_bound is not None:
@@ -765,21 +788,25 @@ def _hold_paths(torch, cfg, kr, tr, label, rel_bound):
 
 
 def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
-                f32_rel_l2=None, f32_steps=16):
+                f32_rel_l2=None, f32_steps=16, bf16_factor=None):
     """``ServeEngine.generate`` through the kernel path (flash and SSD
     launches counted), then the kernel path against the plain path
     (``attn_impl="torch"``, ``ssd_impl="torch"``) in bf16, on the kernel
     path's tokens: prefill logits, layer 0's cache after the prefill, every
     decode step's logits teacher-forced (held to ``bf16_rel_l2`` where it is
     given). With ``f32_rel_l2``, the same comparison once more with both
-    engines in f32 over ``f32_steps`` decode steps, held to that bound.
-    Returns the launches of the generate run."""
+    engines in f32 over ``f32_steps`` decode steps, held to that bound; with
+    ``bf16_factor`` too, each bf16 path's logits (prefill and those steps)
+    against the f32 plain path's: the kernel path's relative L2 within
+    ``bf16_factor`` times the plain path's. Returns the launches of the
+    generate run."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch.serve import ServeEngine
     counters = {"flash_attention": (flash_ops, "LAUNCHES"),
                 "flash_attention_tc": (flash_ops, "TC_LAUNCHES"),
-                "ssd": (ssd_ops, "LAUNCHES")}
+                "ssd": (ssd_ops, "LAUNCHES"),
+                "ssd_tc": (ssd_ops, "TC_LAUNCHES")}
     expect = serve_launches(cfg)
     none = {name: 0 for name in counters}
     max_len = prompt_len + gen + 1
@@ -836,6 +863,8 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
     check(torch.equal(greedy, forced),
           "the kernel path's logits do not reproduce its generated tokens")
     _hold_paths(torch, cfg, kr, tr, f"serve {cfg.name} bf16", bf16_rel_l2)
+    bf16_logits = {impl: [r["logits"]] + r["steps"][:f32_steps]
+                   for impl, r in (("kernel", kr), ("torch", tr))}
     n_prof = min(16, gen)
     log_busy(f"serve {cfg.name} kernel-path prefill",
              *device_busy(torch, lambda: engine.prefill(prompts)))
@@ -855,9 +884,34 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
         check(kr["launches"] == expect and tr["launches"] == none,
               f"f32 prefill launches {kr['launches']} / {tr['launches']}")
         _hold_paths(torch, cfg, kr, tr, f"serve {cfg.name} f32", f32_rel_l2)
+        if bf16_factor is not None:
+            hold_bf16_to_f32(torch, cfg, bf16_logits,
+                             [tr["logits"]] + tr["steps"], bf16_factor)
         del engines, kr, tr
         torch.cuda.empty_cache()
     return launches
+
+
+def hold_bf16_to_f32(torch, cfg, bf16_logits, f32_logits, factor):
+    """Each bf16 path's logits (prefill, then the teacher-forced steps)
+    against the f32 plain path's on the same weights and tokens: the kernel
+    path's relative L2 at most ``factor`` times the plain path's own."""
+    want = torch.stack([t.float() for t in f32_logits])
+    dist, agree = {}, {}
+    for impl, logits in bf16_logits.items():
+        got = torch.stack([t.float() for t in logits[:len(f32_logits)]])
+        dist[impl] = rel_l2(torch, got, want)
+        agree[impl] = float((torch.argmax(got[0], -1)
+                             == torch.argmax(want[0], -1)).float().mean())
+    log(f"serve {cfg.name} bf16 vs the f32 plain path ({len(f32_logits)} "
+        f"logit rows: prefill + {len(f32_logits) - 1} decode steps): rel L2 "
+        f"kernel path {dist['kernel']:.4e}, plain path {dist['torch']:.4e} "
+        f"(ratio {dist['kernel'] / dist['torch']:.3f}, bound {factor}); "
+        f"first-token agreement with f32: kernel path {agree['kernel']:.2f}, "
+        f"plain path {agree['torch']:.2f}")
+    check(dist["kernel"] <= factor * dist["torch"],
+          f"serve {cfg.name}: the bf16 kernel path is {dist['kernel']} from "
+          f"f32, over {factor} x the bf16 plain path's {dist['torch']}")
 
 
 def ssd_inputs(torch, dev, seed, shape, dtype, copies=1):
@@ -897,14 +951,17 @@ def ssd_bound(shape, itemsize):
 
 
 def phase_ssd(torch, dev):
-    """The SSD kernel against its plain versions: the exact recurrence at
-    the TestSSD shapes (f32), the plain chunked scan at the serving prefill
-    shapes (bf16); returns the main row (mamba2-2.7b's prefill), timed
-    against the chunked scan, the plain path the model takes."""
+    """The SSD kernels against their plain versions: the CUDA-core kernel at
+    the TestSSD shapes in f32 and the tensor-core kernel at the same shapes
+    in bf16, both against the exact recurrence; the tensor-core kernel at
+    the serving prefill shapes against the plain chunked scan, timed beside
+    the CUDA-core kernel on the same inputs. Returns the main row
+    (mamba2-2.7b's prefill), timed against the chunked scan, the plain path
+    the model takes."""
     from repro_torch.kernels.ssd import ops, ref
     from repro_torch.models.ssm import ssd_chunked
     cases = [(shape, torch.float32) for shape in SSD_SHAPES]
-    cases += [(shape, torch.bfloat16) for shape in SSD_PREFILLS]
+    cases += [(shape, torch.bfloat16) for shape in SSD_SHAPES + SSD_PREFILLS]
     main_row = None
     for i, (shape, dtype) in enumerate(cases):
         b, l, h, p, n, chunk = shape
@@ -913,14 +970,23 @@ def phase_ssd(torch, dev):
         copies = int(min(64, max(2, -(-2 * L2_BYTES // per_set))))
         sets = ssd_inputs(torch, dev, 400 + i, shape, dtype, copies)
         args = sets[0]
+        kind = "tc" if dtype == torch.bfloat16 else "simt"
+        serving = shape in SSD_PREFILLS
+        launches, tc_launches = ops.LAUNCHES, ops.TC_LAUNCHES
         y, s = ops.ssd_scan(*args, chunk=chunk)
         y2, s2 = ops.ssd_scan(*args, chunk=chunk)
-        if dtype == torch.float32:
-            yr, sr = ref.ssd_scan(*args)
-            y_tol, versus = SSD_F32_TOL, "recurrence"
-        else:
+        check(ops.kernel_for(args[0], args[3], args[4]) == kind and
+              ops.LAUNCHES == launches + 2 and
+              ops.TC_LAUNCHES == tc_launches + 2 * (kind == "tc"),
+              f"ssd {shape} {dtype}: expected two launches of the {kind} "
+              f"kernel")
+        if serving:
             yr, sr = ssd_chunked(*args, chunk)
             y_tol, versus = SSD_BF16_Y_TOL, "chunked scan"
+        else:
+            yr, sr = ref.ssd_scan(*args)
+            y_tol = SSD_F32_TOL if kind == "simt" else SSD_BF16_Y_TOL
+            versus = "recurrence"
         torch.cuda.synchronize()
         label = f"b={b},l={l},h={h},p={p},n={n},chunk={chunk},{str(dtype)[6:]}"
         check(y.shape == yr.shape and y.dtype == dtype
@@ -947,11 +1013,21 @@ def phase_ssd(torch, dev):
         ms = device_ms(torch, kernel, sets)
         plain_ms = device_ms(torch, plain, sets)
         bound_ms, bound_by = ssd_bound(shape, itemsize)
-        log(f"ssd {label}: vs the plain {versus} y max_abs_err {err:.3e}, "
-            f"state {s_err:.3e}; bitwise-repeatable; kernel "
+        log(f"ssd {label}: {kind} kernel vs the plain {versus} y max_abs_err "
+            f"{err:.3e}, state {s_err:.3e}; bitwise-repeatable; kernel "
             f"{ms * 1e3:.4f} us, plain chunked scan {plain_ms * 1e3:.4f} us, "
             f"bound {bound_ms * 1e3:.4f} us ({bound_by}), kernel at "
             f"{100 * bound_ms / ms:.2f}% of it [{copies} input sets]")
+        if serving:
+            # the CUDA-core kernel that served these inputs before, timed on
+            # the same inputs in the same run
+            def simt(*a):
+                return ops.run_kernel("simt", *a, chunk)
+            simt_ms = device_ms(torch, simt, sets)
+            log(f"ssd {label}: tensor-core kernel {ms * 1e3:.4f} us "
+                f"({100 * bound_ms / ms:.2f}% of the bound), CUDA-core "
+                f"kernel on the same inputs {simt_ms * 1e3:.4f} us "
+                f"({100 * bound_ms / simt_ms:.2f}%), {simt_ms / ms:.1f}x")
         if shape == SSD_MAIN:
             recurrence_ms = device_ms(torch, ref.ssd_scan, sets[:1], runs=3)
             log(f"ssd main shape: the exact recurrence {recurrence_ms:.3f} "
@@ -1073,7 +1149,60 @@ def phase_quant(torch, dev):
                             library_ms=library_ms)
         del sets, qs, x
         torch.cuda.empty_cache()
+    quant_nonfinite(torch, dev)
     return main_row
+
+
+def same_or_nan(torch, a, b) -> bool:
+    """Bitwise equal where not NaN, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan], b[~nan]))
+
+
+def quant_nonfinite(torch, dev):
+    """A leaf holding a NaN, +inf or −inf (alone, or one bad row among
+    good ones): the kernel's q, scale, residual and dequantized values are
+    the plain version's (NaN as NaN), with and without the residual, and
+    the bad leaf or row has scale NaN or inf, q 0 and dequantizes to NaN,
+    as the reference (``repro.core.compression.quantize``) gives."""
+    from repro_torch.kernels.quant import ops, ref
+    cases = [((4096,), False), ((1_000_003,), False), ((4, 1_000_003), True),
+             ((5, 6), True)]
+    for i, (shape, rows) in enumerate(cases):
+        for bad in (float("nan"), float("inf"), float("-inf")):
+            rng = np.random.default_rng(500 + i)
+            x = torch.from_numpy((rng.normal(size=shape) * 0.01).astype(
+                np.float32)).to(dev)
+            flat = (x[1] if rows else x).view(-1)
+            flat[min(7, flat.numel() - 1)] = bad
+            q, s, res = ops.quantize(x, rows=rows, residual=True)
+            q2, s2 = ops.quantize(x, rows=rows)
+            deq = ops.dequantize(q, s)
+            qr, sr = ref.quantize(x, rows=rows)
+            deqr = ref.dequantize(qr, sr)
+            torch.cuda.synchronize()
+            label = f"quant {'rows ' if rows else ''}{shape} holding {bad}"
+            check(torch.equal(q, qr) and torch.equal(q2, qr),
+                  f"{label}: int8 differs from the plain version")
+            check(same_or_nan(torch, s, sr) and same_or_nan(torch, s2, sr),
+                  f"{label}: scale differs from the plain version")
+            check(same_or_nan(torch, deq, deqr)
+                  and same_or_nan(torch, res, x - deqr),
+                  f"{label}: dequantized or residual differs")
+            bq, bs, bd = (q[1], s[1], deq[1]) if rows else (q, s, deq)
+            check(bool((bq == 0).all()) and not bool(torch.isfinite(bs))
+                  and bool(torch.isnan(bd).all()),
+                  f"{label}: the bad leaf is not scale NaN/inf, q 0, NaN")
+            if rows:
+                good = [r for r in range(shape[0]) if r != 1]
+                check(bool(torch.isfinite(s[good]).all())
+                      and bool(torch.isfinite(deq[good]).all()),
+                      f"{label}: a good row was touched")
+    log(f"quant non-finite leaves: NaN, +inf, -inf in {len(cases)} cases "
+        f"(per tensor and one bad row among good ones), with and without "
+        f"the residual: bitwise the plain version's (NaN as NaN); the bad "
+        f"leaf or row scale NaN/inf, q 0, dequantized NaN")
 
 
 def _tree_rel_l2(torch, got, want) -> float:
@@ -1320,9 +1449,11 @@ def main() -> int:
     ssd_row = phase_ssd(torch, dev)
     ssd_launches = phase_serve(
         torch, dev, get_arch("mamba2-2.7b"), SERVE_BATCH, SERVE_PROMPT,
-        SERVE_GEN, None, SSM_F32_LOGITS_REL_L2)["ssd"]
+        SERVE_GEN, None, SSM_F32_LOGITS_REL_L2,
+        bf16_factor=SSM_BF16_VS_F32_FACTOR)["ssd_tc"]
     phase_serve(torch, dev, get_arch("zamba2-1.2b"), SERVE_BATCH,
-                SERVE_PROMPT, SERVE_GEN, None, SSM_F32_LOGITS_REL_L2)
+                SERVE_PROMPT, SERVE_GEN, None, SSM_F32_LOGITS_REL_L2,
+                bf16_factor=SSM_BF16_VS_F32_FACTOR)
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hinge_block_grad", "route": "cuda",
@@ -1342,7 +1473,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/quant/kernel.py:18",
         "launches": quant_launches, **quant_row}, {
         "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_tc.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:32",
         "launches": ssd_launches, **ssd_row}]}))
     print(json.dumps({"ok": True, "device": {

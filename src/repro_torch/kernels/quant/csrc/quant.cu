@@ -5,6 +5,11 @@
 //   res[r, j] = x[r, j] − q[r, j]·scale[r]        (optional, error feedback)
 //   out[r, j] = q[r, j]·scale[r]                  (dequantize)
 //
+// A row holding a NaN gets a NaN scale and one holding ±inf an infinite
+// one; either way every q of the row is 0 (a NaN quotient packs to 0) and
+// the row dequantizes to NaN, as in the oracle. The maxes keep a NaN
+// (nan_max), where fmaxf would drop it.
+//
 // Replaces repro/kernels/quant/kernel.py::_quant_kernel (quantize_padded) and
 // ::_dequant_kernel (dequantize_padded), with the amax and scale that
 // repro/kernels/quant/ops.py computes in jnp beside them. The TPU kernels tile
@@ -50,10 +55,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// max that keeps a NaN from either side (fmaxf drops it): a leaf holding a
+// NaN gets a NaN amax and scale, as the oracle's jnp.max / jnp.maximum give
+__device__ __forceinline__ float nan_max(float v, float u) {
+  return (u != u || u > v) ? u : v;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
@@ -69,8 +80,11 @@ __device__ __forceinline__ float block_max(float v) {
   return warp_max(v);
 }
 
+// a NaN quotient (a NaN x, or any x over a NaN or an infinite scale) packs
+// to 0, as the oracle's cast does; the clamp would make it −127
 __device__ __forceinline__ int8_t quant_one(float x, float s) {
   const float r = rintf(__fdiv_rn(x, s));
+  if (r != r) return 0;
   return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(r, -127.0f),
                                                     127.0f)));
 }
@@ -95,12 +109,13 @@ quant_amax_partial(const float* __restrict__ x, long long x_rs,
     const float4* x4 = reinterpret_cast<const float4*>(xr);
     for (long long i = start; i < n4; i += stride) {
       const float4 v = x4[i];
-      m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
-                         fmaxf(fabsf(v.z), fabsf(v.w))));
+      m = nan_max(m, nan_max(nan_max(fabsf(v.x), fabsf(v.y)),
+                             nan_max(fabsf(v.z), fabsf(v.w))));
     }
     done = n4 * 4;
   }
-  for (long long i = done + start; i < n; i += stride) m = fmaxf(m, fabsf(xr[i]));
+  for (long long i = done + start; i < n; i += stride)
+    m = nan_max(m, fabsf(xr[i]));
   m = block_max(m);
   if (threadIdx.x == 0) partial[static_cast<long long>(r) * gridDim.x +
                                 blockIdx.x] = m;
@@ -112,9 +127,11 @@ quant_scale(const float* __restrict__ partial, int blocks,
   const int r = blockIdx.x;
   float m = 0.0f;
   for (int i = threadIdx.x; i < blocks; i += kThreads)
-    m = fmaxf(m, partial[static_cast<long long>(r) * blocks + i]);
+    m = nan_max(m, partial[static_cast<long long>(r) * blocks + i]);
   m = block_max(m);
-  if (threadIdx.x == 0) scale[r] = __fdiv_rn(fmaxf(m, 1e-12f), 127.0f);
+  // the 1e-12 floor keeps a NaN amax NaN (fmaxf would give 1e-12)
+  if (threadIdx.x == 0)
+    scale[r] = __fdiv_rn(m != m ? m : fmaxf(m, 1e-12f), 127.0f);
 }
 
 template <bool kVec, bool kRes>

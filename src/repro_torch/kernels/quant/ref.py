@@ -23,7 +23,11 @@ def _row_view(scale: torch.Tensor, ndim: int) -> torch.Tensor:
 def quantize(x: torch.Tensor, rows: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (float) → (q int8 of x's shape, scale f32): one scale over all of x
-    (0-dim), or with ``rows`` one per row of the leading dim (``(R,)``)."""
+    (0-dim), or with ``rows`` one per row of the leading dim (``(R,)``).
+
+    A NaN propagates to the scale (``amax`` and ``clamp`` keep it) and an
+    infinity makes it infinite; the q of such a tensor or row are all 0, so
+    it dequantizes to NaN, as the oracle's does."""
     x32 = x.float()
     if rows:
         amax = x32.abs().reshape(x32.shape[0], -1).amax(dim=1)
@@ -32,8 +36,12 @@ def quantize(x: torch.Tensor, rows: bool = False
     # divide by a tensor: on CUDA, PyTorch applies a Python-scalar divisor
     # as a product with its reciprocal, one ulp off the oracle's division
     scale = torch.clamp(amax, min=1e-12) / torch.full_like(amax, QMAX)
-    q = torch.clamp(torch.round(x32 / _row_view(scale, x32.dim())),
-                    -QMAX, QMAX).to(torch.int8)
+    r = torch.clamp(torch.round(x32 / _row_view(scale, x32.dim())),
+                    -QMAX, QMAX)
+    # a NaN quotient (a NaN x, or any x over a NaN or an infinite scale)
+    # packs to 0, as the oracle's cast gives on the CPU; PyTorch's cast of a
+    # NaN to int8 is not defined, so it is not left to it
+    q = torch.where(torch.isnan(r), torch.zeros_like(r), r).to(torch.int8)
     return q, scale
 
 

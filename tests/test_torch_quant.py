@@ -122,3 +122,55 @@ def test_allgather_mean_dequant_is_replica_mean():
 def test_unknown_impl_raises():
     with pytest.raises(ValueError):
         TC.quantize(torch.zeros(3), impl="pallas")
+
+
+NONFINITE = [np.nan, np.inf, -np.inf]
+
+
+def _poisoned(seed, shape, bad, where):
+    x = _x(seed, shape, 0.1)
+    x.reshape(-1)[where] = bad
+    return x
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("bad", NONFINITE, ids=["nan", "inf", "-inf"])
+@pytest.mark.parametrize("shape,where", [((100,), 37), ((33, 7), 0),
+                                         ((4096,), 4095)])
+def test_nonfinite_leaf_matches_oracle(shape, where, bad, impl):
+    """A leaf holding a NaN or an infinity: the scale is NaN or inf, every
+    q is 0 and the leaf dequantizes to NaN, as in the reference (NaN
+    compared as NaN)."""
+    x = _poisoned(20 + where, shape, bad, where)
+    qj, sj = JC.quantize(jnp.asarray(x))
+    qt, st = TC.quantize(torch.from_numpy(x), impl=impl)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    assert bool((qt == 0).all())
+    assert np.isnan(float(st)) == np.isnan(bad) and not np.isfinite(float(st))
+    deq = TC.dequantize(qt, st, impl=impl).numpy()
+    np.testing.assert_array_equal(deq, np.asarray(JC.dequantize(qj, sj)))
+    assert np.isnan(deq).all()
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("bad", NONFINITE, ids=["nan", "inf", "-inf"])
+def test_nonfinite_row_among_good_rows(bad, impl):
+    """rows=True with one bad row: that row as the reference quantizes it
+    alone (scale NaN or inf, q 0), the other rows untouched; the error-
+    feedback residual NaN on the bad row only."""
+    x = _x(31, (4, 9, 13), 0.1)
+    x[2, 4, 5] = bad
+    q, s = TC.quantize(torch.from_numpy(x), rows=True, impl=impl)
+    for r in range(4):
+        qj, sj = JC.quantize(jnp.asarray(x[r]))
+        np.testing.assert_array_equal(q[r].numpy(), np.asarray(qj))
+        np.testing.assert_array_equal(s[r].numpy(), np.asarray(sj))
+    assert bool((q[2] == 0).all()) and not np.isfinite(float(s[2]))
+    assert bool(torch.isfinite(s[[0, 1, 3]]).all())
+    delta = {"w": torch.from_numpy(x)}
+    ef = {"w": torch.zeros(4, 9, 13)}
+    _, _, new_ef = TC.compress_tree(delta, ef, rows=True, impl=impl)
+    res = new_ef["w"]
+    assert bool(torch.isnan(res[2]).all())
+    assert bool(torch.isfinite(res[[0, 1, 3]]).all())

@@ -140,3 +140,40 @@ def test_cuda_refuses_grad_and_mixed_devices(cuda):
         ops.dequantize(q, s.cpu().reshape(1).expand(8).contiguous())
     with pytest.raises(TypeError):
         ops.quantize(x.detach().double())
+
+
+def _same(a, b):
+    """Bitwise equal where finite or infinite, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan], b[~nan]))
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), float("-inf")],
+                         ids=["nan", "inf", "-inf"])
+@pytest.mark.parametrize("shape,rows", [((100,), False), ((4096,), False),
+                                        ((4, 1_000_003), True), ((5, 6), True)])
+def test_cuda_nonfinite_matches_plain(cuda, shape, rows, bad):
+    """A NaN or an infinity in a leaf (or in one row among good ones): the
+    kernel's q, scale, residual and dequantized values are the plain
+    version's (NaN as NaN), with and without the fused residual; the bad
+    leaf or row has scale NaN or inf, q 0, and dequantizes to NaN."""
+    x = _x(40, shape, cuda, scale=0.1)
+    flat = x.view(-1) if not rows else x[1]
+    flat[min(7, flat.numel() - 1)] = bad
+    q, s, res = ops.quantize(x, rows=rows, residual=True)
+    q2, s2 = ops.quantize(x, rows=rows)
+    deq = ops.dequantize(q, s)
+    torch.cuda.synchronize()
+    qr, sr = ref.quantize(x, rows=rows)
+    deqr = ref.dequantize(qr, sr)
+    assert torch.equal(q, qr) and torch.equal(q2, qr)
+    assert _same(s, sr) and _same(s2, sr)
+    assert _same(deq, deqr) and _same(res, x - deqr)
+    bad_q, bad_s = (q[1], s[1]) if rows else (q, s)
+    assert bool((bad_q == 0).all()) and not bool(torch.isfinite(bad_s))
+    assert bool(torch.isnan(deq[1] if rows else deq).all())
+    if rows:
+        good = [r for r in range(shape[0]) if r != 1]
+        assert bool(torch.isfinite(s[good]).all())
+        assert bool(torch.isfinite(deq[good]).all())

@@ -10,7 +10,11 @@ exponentiates in another order than the recurrence). In bf16 (x, B, C and
 y; Δ, A and the state f32) the kernel is held to the plain chunked scan on
 the same inputs, which also computes in f32 and rounds only y: y within
 rtol 2**-7 (one bf16 ulp of any value, a rounding flip) / atol 2e-4, the
-state within the f32 bound.
+state within the f32 bound. bf16 inputs that TMA can describe take the
+tensor-core kernel (``ssd_tc.cu``); it is also held to the exact recurrence
+on the same bf16 inputs at the same bounds (y rtol 2**-7 / atol 2e-4, the
+state rtol 1e-3 / atol 2e-4): it keeps its f32 operands as bf16 hi + lo
+pairs (tests/test_torch_ssd_tc.py emulates that on the CPU).
 """
 import numpy as np
 import pytest
@@ -168,3 +172,77 @@ def test_cuda_rejects_mixed_devices(cuda):
     x, dt, a, bm, cm = _inputs(6, 1, 16, 2, 8, 4, device=cuda)
     with pytest.raises(ValueError):
         ops.ssd_scan(x, dt.cpu(), a, bm, cm)
+
+
+def _counts():
+    return ops.LAUNCHES, ops.TC_LAUNCHES
+
+
+@pytest.mark.parametrize("shape", SHAPES[:5] + PREFILL)
+def test_cuda_tc_kernel_matches_recurrence(cuda, shape):
+    """bf16 x, B, C on the tensor-core kernel against the exact recurrence
+    on the same inputs; one launch counted on each counter a call; two
+    launches bitwise equal."""
+    b, l, h, p, n, chunk = shape
+    args = _inputs(7, b, l, h, p, n, torch.bfloat16, cuda)
+    assert ops.kernel_for(args[0], args[3], args[4]) == "tc"
+    before = _counts()
+    y, s = ops.ssd_scan(*args, chunk=chunk)
+    y2, s2 = ops.ssd_scan(*args, chunk=chunk)
+    yr, sr = ref.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 2, before[1] + 2)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    assert s.shape == (b, h, n, p)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    torch.testing.assert_close(y.float(), yr.float(), **BF16_Y_TOL)
+    torch.testing.assert_close(s, sr, **F32_TOL)
+
+
+def test_cuda_f32_takes_simt_and_bf16_takes_tc(cuda):
+    """f32 goes to the CUDA-core kernel (TC_LAUNCHES unmoved), bf16 to the
+    tensor-core one."""
+    args = _inputs(8, 1, 100, 2, 64, 64, device=cuda)
+    before = _counts()
+    ops.ssd_scan(*args, chunk=64)
+    assert _counts() == (before[0] + 1, before[1])
+    x, dt, a, bm, cm = args
+    ops.ssd_scan(x.bfloat16(), dt, a, bm.bfloat16(), cm.bfloat16(), chunk=64)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 2, before[1] + 1)
+
+
+def test_cuda_tc_reads_strided_views(cuda):
+    """bf16 on the tensor-core kernel: x as one head group of a wider
+    tensor, B and C as halves of one (B, L, 2N) projection, Δ transposed,
+    read in place: the same bits as contiguous copies."""
+    b, l, h, p, n = 2, 300, 3, 64, 64
+    x, dt, a, bm, cm = _inputs(9, b, l, 2 * h, p, n, torch.bfloat16, cuda)
+    bc = torch.cat([bm, cm], dim=-1)
+    dtt = dt.transpose(1, 2).contiguous().transpose(1, 2)
+    xv, dv, av = x[:, :, h:], dtt[:, :, :h], a[:h]
+    bv, cv = bc[..., :n], bc[..., n:]
+    assert ops.kernel_for(xv, bv, cv) == "tc"
+    y, s = ops.ssd_scan(xv, dv, av, bv, cv, chunk=128)
+    yc, sc = ops.ssd_scan(xv.contiguous(), dv.contiguous(), av, bm, cm,
+                          chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yc) and torch.equal(s, sc)
+
+
+def test_cuda_tc_model_conv_views(cuda):
+    """The model's prefill inputs: x a (B, L, H·P) conv output viewed per
+    head, B and C contiguous conv outputs, Δ from the softplus; the kernel
+    against the plain chunked scan."""
+    b, l, h, p, n = 2, 520, 8, 64, 128
+    rng = np.random.default_rng(10)
+    flat = torch.from_numpy(rng.normal(size=(b, l, h * p)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    x = flat.reshape(b, l, h, p)
+    _, dt, a, bm, cm = _inputs(10, b, l, h, p, n, torch.bfloat16, cuda)
+    assert ops.kernel_for(x, bm, cm) == "tc"
+    y, s = ops.ssd_scan(x, dt, a, bm, cm, chunk=256)
+    yc, sc = ssd_chunked(x, dt, a, bm, cm, 256)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), yc.float(), **BF16_Y_TOL)
+    torch.testing.assert_close(s, sc, **F32_TOL)
