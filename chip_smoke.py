@@ -10,13 +10,21 @@ training, LM serving of three model families, LM training) through their
 entry points and holds every run to its plain-version twin:
 
 1. device, versions, kernel build times and the compiler's register report;
-2. the hinge kernel against its plain version at the ``TestHinge`` shapes
-   and the SVM path's batched shapes (rtol 1e-4 / atol 1e-5, two launches
-   bitwise equal), with its time, the plain version's and the bound;
+2. the hinge kernels against their plain version at the ``TestHinge``
+   shapes and the blocks the SVM paths give them, as worker-major views
+   (epsilon's (32, 64, 2,000) with a shared, a per-worker and a stride-0 w,
+   webspam's (8, 64, 254), srdms's ijcnn1 (512, 22)), rtol 1e-4 / atol
+   1e-5, two launches bitwise equal, each case's route checked (the cluster
+   kernel for 16-byte rows of up to 2,048 columns, ``hinge.cu`` for the
+   rest); with the time of each, the plain version's and the bound, and
+   wherever the cluster kernel runs ``hinge.cu``'s time on the same inputs;
 3. the SVM path: ``dms`` with 32 workers, block 64, 2 epochs on the epsilon
-   stand-in (400,000 × 2,000), kernel launches counted;
+   stand-in (400,000 × 2,000), kernel launches counted, every one on the
+   cluster kernel, and the device activities of one profiled run a block;
 4. every ``dms`` mode on the webspam stand-in (350,000 × 254, K=8, block 64,
-   one epoch), ``srdms`` and ``seq_sgd`` on the ijcnn1 stand-in (n=4,000);
+   one epoch), ``srdms`` and ``seq_sgd`` on the ijcnn1 stand-in (n=4,000),
+   the hinge launches all on ``hinge.cu`` (254 and 22 columns: rows no bulk
+   copy can move);
 5. the flash-attention kernels against their plain version: the f32
    CUDA-core kernel at the ``TestFlashAttention`` shapes (rtol 1e-4 / atol
    2e-5); the bf16 tensor-core kernel (wgmma, TMA) at ragged, GQA, prefix
@@ -276,24 +284,44 @@ def log_busy(label, busy, span, count, top):
 
 
 def hinge_inputs(torch, dev, seed, x_shape, w_shape, copies=1):
-    """``copies`` independent (w, x, y) sets, made with numpy from ``seed``."""
+    """``copies`` independent (w, x, y) sets, made with numpy from ``seed``.
+    A batched x (K, n, d) is block i of one (K, copies·n, d) array, the
+    worker-major view ``xb[:, i]`` that ``dms`` hands the kernel; a w shape
+    ``(K, 0)`` stands for the delayed mode's stride-0 ``w0.expand(K, d)``."""
     rng = np.random.default_rng(seed)
+    batched = len(x_shape) == 3
+    if batched:
+        k, n, d = x_shape
+        xs = torch.from_numpy(rng.normal(size=(k, copies * n, d)).astype(
+            np.float32)).to(dev)
+        ys = torch.from_numpy(np.where(rng.random((k, copies * n)) > 0.5,
+                                       1.0, -1.0).astype(np.float32)).to(dev)
     out = []
-    for _ in range(copies):
-        x = rng.normal(size=x_shape).astype(np.float32)
-        y = np.where(rng.random(x_shape[:-1]) > 0.5, 1.0, -1.0
-                     ).astype(np.float32)
-        w = rng.normal(size=w_shape).astype(np.float32)
-        out.append(tuple(torch.from_numpy(a).to(dev) for a in (w, x, y)))
+    for i in range(copies):
+        if batched:
+            x, y = xs[:, i * n:(i + 1) * n], ys[:, i * n:(i + 1) * n]
+        else:
+            x = torch.from_numpy(rng.normal(size=x_shape).astype(
+                np.float32)).to(dev)
+            y = torch.from_numpy(np.where(rng.random(x_shape[:-1]) > 0.5,
+                                          1.0, -1.0).astype(np.float32)
+                                 ).to(dev)
+        stride0 = w_shape[-1] == 0
+        w = torch.from_numpy(rng.normal(
+            size=x_shape[-1:] if stride0 else w_shape).astype(np.float32)
+        ).to(dev)
+        out.append((w.expand(x_shape[0], -1) if stride0 else w, x, y))
     return out
 
 
 def hinge_bound(x_shape, w_shape):
     """(bound_ms, bound_by): bytes read once and written once over HBM rate,
-    or the flops (two GEMVs) over the float32 rate, whichever is larger."""
+    or the flops (two GEMVs) over the float32 rate, whichever is larger. A
+    stride-0 w (``w_shape`` (K, 0)) is one row read once."""
     k = x_shape[0] if len(x_shape) == 3 else 1
     n, d = x_shape[-2:]
-    nbytes = 4 * (k * n * d + k * n + int(np.prod(w_shape)) + k * d)
+    w_elems = d if w_shape[-1] == 0 else int(np.prod(w_shape))
+    nbytes = 4 * (k * n * d + k * n + w_elems + k * d)
     flops = 4 * k * n * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
@@ -337,6 +365,16 @@ def phase_device(torch):
         ops.load_library()
     flash_ops.load_tc_library()
     ssd_ops.load_tc_library()
+    g, rows, stage_rows, slots = hinge_ops.cluster_plan(64, 2000)
+    plan = (2000, g, stage_rows, slots)
+    cluster_lib = hinge_ops.load_cluster_library()
+    active = cluster_lib.hinge_cluster_max_active(*plan)
+    check(active > 0, f"hinge cluster occupancy query failed: {active}")
+    log(f"hinge cluster kernel at epsilon's block (32 clusters of {g} CTAs "
+        f"of {rows} rows; stages of {stage_rows} rows, {slots} in the "
+        f"ring): {cluster_lib.hinge_cluster_smem_bytes(*plan)} bytes of "
+        f"dynamic shared memory a CTA; {active} clusters fit on the card "
+        f"at once")
     for name, (lib, secs) in built.items():
         log(f"{name} kernel build: {secs:.2f} s "
             f"({os.path.relpath(lib, REPO)})")
@@ -346,24 +384,50 @@ def phase_device(torch):
     return card
 
 
+HINGE_MAIN = "K=32,n=64,d=2000,shared w"
+
+
 def phase_kernel(torch, dev):
-    """The kernel against the plain version; returns the main path's row."""
+    """The kernels against the plain version; returns the main path's row.
+    Every case's route is checked; where the cluster kernel runs,
+    ``hinge.cu`` is also run and timed on the same inputs through
+    ``run_kernel("simt", ...)``."""
     from repro_torch.kernels.hinge import ops, ref
-    cases = [((n, d), (d,), 1.0, f"n={n},d={d},C=1") for n, d in HINGE_SHAPES]
-    cases += [((64, 16), (16,), c, f"n=64,d=16,C={c}") for c in (0.1, 1.0, 10.0)]
-    cases += [((32, 64, 2000), (2000,), 1.0, "K=32,n=64,d=2000,shared w"),
-              ((32, 64, 2000), (32, 2000), 1.0, "K=32,n=64,d=2000,per-worker w"),
-              ((8, 512, 254), (254,), 1.0, "K=8,n=512,d=254,shared w")]
+    # (x shape, w shape, C, label, route): 16-byte rows of at most 2,048
+    # columns take the cluster kernel, other rows hinge.cu
+    cases = [((n, d), (d,), 1.0, f"n={n},d={d},C=1",
+              "simt" if d % 4 else "cluster") for n, d in HINGE_SHAPES]
+    cases += [((64, 16), (16,), c, f"n=64,d=16,C={c}", "cluster")
+              for c in (0.1, 1.0, 10.0)]
+    cases += [((32, 64, 2000), (2000,), 1.0, HINGE_MAIN, "cluster"),
+              ((32, 64, 2000), (32, 2000), 1.0,
+               "K=32,n=64,d=2000,per-worker w", "cluster"),
+              ((32, 64, 2000), (32, 0), 1.0, "K=32,n=64,d=2000,stride-0 w",
+               "cluster"),
+              ((8, 64, 254), (254,), 1.0, "K=8,n=64,d=254,shared w", "simt"),
+              ((8, 64, 254), (8, 254), 1.0, "K=8,n=64,d=254,per-worker w",
+               "simt"),
+              ((512, 22), (22,), 1.0, "n=512,d=22 (srdms ijcnn1)", "simt"),
+              ((2, 40, 5000), (5000,), 1.0, "K=2,n=40,d=5000 (wide)",
+               "simt")]
     main_row = None
-    for i, (x_shape, w_shape, c, label) in enumerate(cases):
+    for i, (x_shape, w_shape, c, label, expect) in enumerate(cases):
         per_set = 4 * int(np.prod(x_shape))
         copies = int(min(64, max(2, -(-2 * L2_BYTES // per_set))))
         sets = hinge_inputs(torch, dev, 100 + i, x_shape, w_shape, copies)
         w, x, y = sets[0]
+        route = ops.kernel_for(w, x, y)
+        check(route == expect, f"{label}: route {route}, expected {expect}")
+        before = ops.LAUNCHES, ops.CLUSTER_LAUNCHES
         got = ops.hinge_block_grad(w, x, y, c)
         again = ops.hinge_block_grad(w, x, y, c)
         want = ref.hinge_block_grad(w, x, y, c)
         torch.cuda.synchronize()
+        cluster = 2 * (route == "cluster")
+        check((ops.LAUNCHES, ops.CLUSTER_LAUNCHES) ==
+              (before[0] + 2, before[1] + cluster),
+              f"{label}: launches counted {ops.LAUNCHES - before[0]} / "
+              f"{ops.CLUSTER_LAUNCHES - before[1]}")
         err = float((got - want).abs().max())
         check(torch.equal(got, again), f"{label}: two launches differ")
         check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
@@ -373,13 +437,26 @@ def phase_kernel(torch, dev):
         plain_ms = device_ms(
             torch, lambda a, b, e: ref.hinge_block_grad(a, b, e, c), sets)
         bound_ms, bound_by = hinge_bound(x_shape, w_shape)
-        log(f"hinge {label}: max_abs_err {err:.3e} bitwise-repeatable "
-            f"kernel {ms * 1e3:.4f} us plain {plain_ms * 1e3:.4f} us "
-            f"bound {bound_ms * 1e3:.4f} us ({bound_by}) "
-            f"[{copies} input sets]")
-        if label == "K=32,n=64,d=2000,shared w":
+        simt = ""
+        if route == "cluster":
+            got_simt = ops.run_kernel("simt", w, x, y, c)
+            torch.cuda.synchronize()
+            err_simt = float((got_simt - want).abs().max())
+            check(torch.allclose(got_simt, want, rtol=RTOL, atol=ATOL),
+                  f"{label}: hinge.cu vs plain max abs err {err_simt}")
+            simt_ms = device_ms(
+                torch, lambda a, b, e: ops.run_kernel("simt", a, b, e, c),
+                sets)
+            simt = (f" hinge.cu {simt_ms * 1e3:.4f} us (max_abs_err "
+                    f"{err_simt:.3e}, {simt_ms / ms:.2f}x the kernel's time)")
+        if label == HINGE_MAIN:
             main_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by)
+        log(f"hinge {label} [{route}]: max_abs_err {err:.3e} "
+            f"bitwise-repeatable kernel {ms * 1e3:.4f} us plain "
+            f"{plain_ms * 1e3:.4f} us bound {bound_ms * 1e3:.4f} us "
+            f"({bound_by}, {100 * bound_ms / ms:.1f}% of it){simt} "
+            f"[{copies} input sets]")
     return main_row
 
 
@@ -392,9 +469,10 @@ def async_growth(workers: int, topology: str) -> float:
                for m in costmodel.mixing_matrices(workers, topology))
 
 
-def _dms_pair(torch, dev, ds, label, expect_launches, **kw):
-    """``dms`` on the kernel path (launches counted) and on the plain path;
-    holds the two to the relative-L2 and accuracy bounds. Where the async
+def _dms_pair(torch, dev, ds, label, expect_launches, route, **kw):
+    """``dms`` on the kernel path (launches counted, every one on the kernel
+    ``route`` names) and on the plain path; holds the two to the
+    relative-L2 and accuracy bounds. Where the async
     recurrence grows in epoch 0, the reference itself overflows over a long
     epoch (``tests/test_torch_svm.py::test_async_ring_diverges_like_reference``):
     there both paths must end non-finite, as the reference does."""
@@ -405,12 +483,15 @@ def _dms_pair(torch, dev, ds, label, expect_launches, **kw):
     out = {}
     for impl in ("kernel", "torch"):
         torch.cuda.synchronize()
-        ops.LAUNCHES = 0
+        ops.LAUNCHES = ops.CLUSTER_LAUNCHES = 0
         t0 = time.perf_counter()
         w = svm.dms(w0, x, y, grad_impl=impl, device=dev, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.LAUNCHES
+        check(ops.CLUSTER_LAUNCHES == (launches if route == "cluster" else 0),
+              f"{label} {impl}: {ops.CLUSTER_LAUNCHES} of {launches} hinge "
+              f"launches on the cluster kernel, expected all on {route}")
         check(w.shape == w0.shape, f"{label} {impl}: model shape {w.shape}")
         acc = float(svm.accuracy(w, xt, yt))
         out[impl] = (w, acc, wall, launches)
@@ -436,7 +517,8 @@ def _dms_pair(torch, dev, ds, label, expect_launches, **kw):
         check(bool(torch.isfinite(v).all()), f"{label} {impl}: not finite")
     rel = float((wk - wt).norm() / wt.norm())
     log(f"dms {label}: kernel launches {launches} (expected "
-        f"{expect_launches}), plain-path launches {launches_t}; test acc "
+        f"{expect_launches}, all on {route}), plain-path "
+        f"launches {launches_t}; test acc "
         f"kernel {acck:.4f} plain {acct:.4f}; rel L2(w) {rel:.3e}; wall "
         f"kernel {wallk:.3f} s plain {wallt:.3f} s")
     check(launches == expect_launches,
@@ -474,13 +556,16 @@ def phase_main(torch, dev, n_override=None):
     blocks = n_local // bs
     w, acc, wall, launches = _dms_pair(
         torch, dev, ds, "epsilon K=32 block=64 epochs=2",
-        epochs * blocks, workers=k, epochs=epochs, block_size=bs)
+        epochs * blocks, "cluster", workers=k, epochs=epochs, block_size=bs)
     obj = float(svm.hinge_objective(w, ds[0], ds[1]))
     check(np.isfinite(obj), "epsilon objective not finite")
     w0 = torch.zeros(ds[0].shape[1], device=dev)
-    log_busy("dms epsilon", *device_busy(torch, lambda: svm.dms(
+    busy = device_busy(torch, lambda: svm.dms(
         w0, ds[0], ds[1], workers=k, epochs=epochs, block_size=bs,
-        device=dev)))
+        device=dev))
+    log_busy("dms epsilon", *busy)
+    log(f"dms epsilon: {busy[2] / (epochs * blocks):.2f} device activities "
+        f"a block over {epochs * blocks} blocks")
     log(f"main path: epsilon test acc {acc:.4f} objective {obj:.6e} "
         f"wall {wall:.4f} s ({1e6 * wall / (epochs * blocks):.1f} us a block) "
         f"launches {launches} ({epochs} epochs x {blocks} blocks)")
@@ -495,7 +580,8 @@ def phase_modes(torch, dev, n_override=None, ijcnn_n=4000):
     blocks = (ds[0].shape[0] // k) // bs
     for overlap, topology, gossip_async in DMS_MODES:
         label = f"webspam {overlap}/{topology}{'/async' if gossip_async else ''}"
-        _dms_pair(torch, dev, ds, label, blocks, workers=k, epochs=1,
+        # 254 columns: rows no bulk copy can move, so hinge.cu
+        _dms_pair(torch, dev, ds, label, blocks, "simt", workers=k, epochs=1,
                   block_size=bs, overlap=overlap, topology=topology,
                   gossip_async=gossip_async)
 
@@ -504,10 +590,13 @@ def phase_modes(torch, dev, n_override=None, ijcnn_n=4000):
     epochs, bs = 5, 512
     res = {}
     for impl in ("kernel", "torch"):
-        ops.LAUNCHES = 0
+        ops.LAUNCHES = ops.CLUSTER_LAUNCHES = 0
         res[impl] = svm.srdms(w0, x, y, epochs=epochs, block_size=bs,
                               grad_impl=impl, device=dev)
         res[impl + "_launches"] = ops.LAUNCHES
+        check(ops.CLUSTER_LAUNCHES == 0,
+              f"srdms {impl}: {ops.CLUSTER_LAUNCHES} hinge launches on the "
+              f"cluster kernel; 22 columns take hinge.cu")
     rel = float((res["kernel"] - res["torch"]).norm() / res["torch"].norm())
     expect = epochs * (x.shape[0] // bs)
     log(f"srdms ijcnn1 block=512 epochs=5: launches {res['kernel_launches']} "
@@ -1457,7 +1546,7 @@ def main() -> int:
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hinge_block_grad", "route": "cuda",
-        "source": "src/repro_torch/kernels/hinge/csrc/hinge.cu",
+        "source": "src/repro_torch/kernels/hinge/csrc/hinge_cluster.cu",
         "replaces": "src/repro/kernels/hinge/kernel.py:27",
         "launches": launches, "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -17,10 +17,16 @@ def hinge_block_grad(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     workers, x ``(K, n, d)`` · y ``(K, n)`` · w ``(d,)`` (shared) or
     ``(K, d)`` (per worker) → ``(K, d)``.
     """
-    if x.is_cuda:
-        # the comparison on the card is a full-fp32 product, never TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-    margins = 1.0 - y * (x @ w.unsqueeze(-1)).squeeze(-1)
-    viol = (margins > 0).to(w.dtype)
-    acc = ((viol * y).unsqueeze(-2) @ x).squeeze(-2)
+    # the comparison on the card is a full-fp32 product, never TF32; a
+    # caller's lower precision is restored for its later products
+    precision = torch.get_float32_matmul_precision()
+    if precision != "highest":
+        torch.set_float32_matmul_precision("highest")
+    try:
+        margins = 1.0 - y * (x @ w.unsqueeze(-1)).squeeze(-1)
+        viol = (margins > 0).to(w.dtype)
+        acc = ((viol * y).unsqueeze(-2) @ x).squeeze(-2)
+    finally:
+        if precision != "highest":
+            torch.set_float32_matmul_precision(precision)
     return w - c * acc / x.shape[-2]
