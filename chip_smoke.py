@@ -21,6 +21,14 @@ entry points and holds every run to its plain-version twin:
 3. the SVM path: ``dms`` with 32 workers, block 64, 2 epochs on the epsilon
    stand-in (400,000 × 2,000), kernel launches counted, every one on the
    cluster kernel, and the device activities of one profiled run a block;
+   then (b) the SVM block ladder on the same data: ``dms_block_ladder``
+   rungs (32, 64, 128), epoch 1 at 64, ``dms_ladder_switch``, epoch 2 at
+   128, held to the plain-gradient chain (accuracy within 0.005, relative
+   L2 1e-3), two kernel runs bitwise equal, the hinge launches exactly the
+   blocks on the kernel ``kernel_for`` names; without a switch bitwise
+   ``dms``; walls and idle shares of the ladder and of ``dms``; then
+   ``dms_timed_steps`` at 64 into a ``BlockTelemetry`` and an
+   ``AdaptiveController`` over the rungs (its T_step, T_sync and pick);
 4. every ``dms`` mode on the webspam stand-in (350,000 × 254, K=8, block 64,
    one epoch), ``srdms`` and ``seq_sgd`` on the ijcnn1 stand-in (n=4,000),
    the hinge launches all on ``hinge.cu`` (254 and 22 columns: rows no bulk
@@ -32,8 +40,8 @@ entry points and holds every run to its plain-version twin:
    and zamba2-1.2b's (rtol 2**-7 / atol 1e-4, one bf16 ulp, a limit SDPA
    must fail at smollm's); each launch counted on the kernel it must take,
    with its time, the plain version's, the bound, and at both serving
-   shapes SDPA's as a yardstick, the achieved TFLOP/s and the share of the
-   bound;
+   shapes (and at every f32 check shape) SDPA's as a yardstick, the
+   achieved TFLOP/s and the share of the bound;
 6. the serving path: ``ServeEngine.generate`` on smollm-360m at full width
    (32 layers, bf16, seeded random weights), 4 prompts of 1,920 tokens and
    128 new tokens each, flash launches counted (one per layer per prefill,
@@ -56,6 +64,17 @@ entry points and holds every run to its plain-version twin:
    and batches, held to each other (losses relative 1e-3, params relative L2
    1e-3) and the first sync's int8 payloads bitwise; then one profiled
    block, and 4 ``make_ddp_step`` steps (MSF = 1) at the same global batch;
+   then (a) the adaptive trainer on the same model: ``sync.adaptive`` over
+   the ladder (1, 2, 4) from H = 4, one forced switch after block 1 held
+   bitwise to ``ladder_switch_state`` of the pre-switch snapshot and the
+   next block bitwise to a fresh ``make_train_step`` from the switched
+   snapshot, then 8 blocks through ``StepRunner`` (checkpoints off): the H
+   trajectory, walls and trained tokens/s per rung, the telemetry's
+   T_step / T_sync, no compile after the ladder's warmup, 22 quant
+   launches a block, peak memory under 75 GB and one profiled block; and
+   (c) fault and restart at smoke width (int8 on the quant kernel, a
+   scripted move 2 → 1, checkpoints every 3 blocks): a fault after the
+   checkpoint and one before it both replay bitwise the run without one;
 9. every other sync mode (delayed, chunked, ring, pairwise, async ring,
    int16) at smoke width, kernel path against plain path;
 10. the SSD chunk-scan kernels: the CUDA-core one (``ssd.cu``) against the
@@ -287,7 +306,9 @@ def hinge_inputs(torch, dev, seed, x_shape, w_shape, copies=1):
     """``copies`` independent (w, x, y) sets, made with numpy from ``seed``.
     A batched x (K, n, d) is block i of one (K, copies·n, d) array, the
     worker-major view ``xb[:, i]`` that ``dms`` hands the kernel; a w shape
-    ``(K, 0)`` stands for the delayed mode's stride-0 ``w0.expand(K, d)``."""
+    ``(K, 0)`` stands for the stride-0 ``w.expand(K, d)`` of K equal rows
+    that ``dms``'s carry holds under the blocking mean and the delayed mode
+    starts from."""
     rng = np.random.default_rng(seed)
     batched = len(x_shape) == 3
     if batched:
@@ -384,7 +405,8 @@ def phase_device(torch):
     return card
 
 
-HINGE_MAIN = "K=32,n=64,d=2000,shared w"
+# dms hands the kernel the carry of K equal rows, a stride-0 view
+HINGE_MAIN = "K=32,n=64,d=2000,stride-0 w"
 
 
 def phase_kernel(torch, dev):
@@ -399,11 +421,11 @@ def phase_kernel(torch, dev):
               "simt" if d % 4 else "cluster") for n, d in HINGE_SHAPES]
     cases += [((64, 16), (16,), c, f"n=64,d=16,C={c}", "cluster")
               for c in (0.1, 1.0, 10.0)]
-    cases += [((32, 64, 2000), (2000,), 1.0, HINGE_MAIN, "cluster"),
+    cases += [((32, 64, 2000), (32, 0), 1.0, HINGE_MAIN, "cluster"),
+              ((32, 64, 2000), (2000,), 1.0, "K=32,n=64,d=2000,shared w",
+               "cluster"),
               ((32, 64, 2000), (32, 2000), 1.0,
                "K=32,n=64,d=2000,per-worker w", "cluster"),
-              ((32, 64, 2000), (32, 0), 1.0, "K=32,n=64,d=2000,stride-0 w",
-               "cluster"),
               ((8, 64, 254), (254,), 1.0, "K=8,n=64,d=254,shared w", "simt"),
               ((8, 64, 254), (8, 254), 1.0, "K=8,n=64,d=254,per-worker w",
                "simt"),
@@ -569,7 +591,7 @@ def phase_main(torch, dev, n_override=None):
     log(f"main path: epsilon test acc {acc:.4f} objective {obj:.6e} "
         f"wall {wall:.4f} s ({1e6 * wall / (epochs * blocks):.1f} us a block) "
         f"launches {launches} ({epochs} epochs x {blocks} blocks)")
-    return launches
+    return launches, ds
 
 
 def phase_modes(torch, dev, n_override=None, ijcnn_n=4000):
@@ -708,6 +730,30 @@ def phase_flash(torch, dev):
             f"bitwise-repeatable, kernel {ms * 1e3:.4f} us plain "
             f"{plain_ms * 1e3:.4f} us bound {bound_ms * 1e3:.4f} us "
             f"({bound_by}) [{copies} input sets]")
+        if dtype == torch.float32:
+            # the yardstick at the f32 check shapes: SDPA on the same f32
+            # inputs, the mask given where a prefix widens the causal one
+            # (columns below the prefix seen by every row)
+            mask = None
+            if prefix:
+                rows = torch.arange(sq, device=dev)[:, None]
+                cols = torch.arange(sk, device=dev)[None]
+                mask = (cols <= rows) | (cols < prefix)
+
+            def library(q, k, v):
+                return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), attn_mask=mask,
+                            is_causal=causal and mask is None,
+                            enable_gqa=True)
+            lib_err = float((library(q, k, v).transpose(1, 2) - want)
+                            .abs().max())
+            library_ms = device_ms(torch, library, sets)
+            log(f"flash {label}: SDPA f32 {library_ms * 1e3:.4f} us (max abs "
+                f"diff vs plain {lib_err:.3e}); the simt kernel "
+                f"{ms / library_ms:.2f}x SDPA's time, "
+                f"{100 * bound_ms / ms:.2f}% of its bound "
+                f"({bound_ms * 1e3:.4f} us, {bound_by}); SDPA "
+                f"{100 * bound_ms / library_ms:.2f}% of it")
         if shape in (FLASH_MAIN, FLASH_HYBRID):
             # the yardstick: one PyTorch call for the same function (heads
             # first, as it takes them); the port never calls it
@@ -1322,7 +1368,8 @@ def _run_blocks(torch, cfg, dev, impl, blocks, on_block=None):
     from repro_torch.core import sync
     from repro_torch.kernels.quant import ops
     from repro_torch.launch.train import build_trainer
-    step, state, make_pipeline, _ = build_trainer(cfg, dev, quant_impl=impl)
+    step, state, make_pipeline, _, _, _ = build_trainer(cfg, dev,
+                                                        quant_impl=impl)
     pipe = make_pipeline(0)
     batches = [next(pipe) for _ in range(blocks)]
     inner, events = sync.sync_point, []
@@ -1452,7 +1499,7 @@ def phase_train(torch, dev, model_cfg, seq_len, global_batch, replicas, h):
     from repro_torch.launch.train import build_trainer
     ddp_cfg = _train_cfg(model_cfg, SyncConfig(), seq_len, global_batch,
                          replicas)
-    _, state, make_pipeline, model = build_trainer(ddp_cfg, dev)
+    _, state, make_pipeline, model, _, _ = build_trainer(ddp_cfg, dev)
     ddp = local_sgd.make_ddp_step(model, ddp_cfg, grad_accum=replicas)
     pipe = make_pipeline(0)
     ddp_batches = [next(pipe) for _ in range(h)]
@@ -1472,6 +1519,392 @@ def phase_train(torch, dev, model_cfg, seq_len, global_batch, replicas, h):
     del state
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the adaptive-MSF path: the SVM block ladder, the adaptive trainer, restarts
+# ---------------------------------------------------------------------------
+
+SVM_RUNGS = (32, 64, 128)
+
+
+def _svm_chain(torch, dev, ds, sizes, impl, k, rungs=SVM_RUNGS):
+    """``dms``'s blocking path as the block-size ladder: epoch t on the rung
+    ``sizes[t]``, ``dms_ladder_switch`` where the size changes. Returns (the
+    final carry's w, wall s, hinge launches, cluster launches, switches)."""
+    from repro_torch.core import svm
+    from repro_torch.kernels.hinge import ops
+    x, y = ds[0], ds[1]
+    d = x.shape[1]
+    xs, ys = svm._shard_data(x, y, k)
+    w0 = torch.zeros(d, device=dev)
+    ladder = svm.dms_block_ladder(d=d, workers=k, block_sizes=rungs,
+                                  grad_impl=impl, device=dev)
+    carry = svm.dms_stepper_init(w0, k)
+    switches = 0
+    torch.cuda.synchronize()
+    ops.LAUNCHES = ops.CLUSTER_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for t, bs in enumerate(sizes):
+        if t and bs != sizes[t - 1]:
+            carry = svm.dms_ladder_switch(carry, d=d)
+            switches += 1
+        nb = xs.shape[1] // bs
+        xb = xs[:, :nb * bs].reshape(k, nb, bs, d)
+        yb = ys[:, :nb * bs].reshape(k, nb, bs)
+        alpha = svm._alpha(t, w0.dtype)
+        for i in range(nb):
+            carry = ladder[bs](carry, xb[:, i], yb[:, i], alpha)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    w = carry["w"]
+    check(torch.equal(w, w[:1].expand(w.shape)),
+          f"svm ladder {impl} {sizes}: the workers' models differ after a "
+          f"blocking sync")
+    return w[0], wall, ops.LAUNCHES, ops.CLUSTER_LAUNCHES, switches
+
+
+def phase_svm_ladder(torch, dev, ds, k=32):
+    """(b) The SVM block ladder on epsilon: epoch 1 at block 64, the switch,
+    epoch 2 at 128; held to the plain-gradient chain, bitwise repeatable,
+    bitwise ``dms`` without a switch; then ``dms_timed_steps`` at 64 feeds
+    a ``BlockTelemetry`` and an ``AdaptiveController`` over the rungs."""
+    from repro_torch.config import SyncConfig
+    from repro_torch.core import autotune, svm
+    from repro_torch.core.telemetry import BlockTelemetry
+    from repro_torch.kernels.hinge import ops
+    x, y, xt, yt = ds
+    d = x.shape[1]
+    n_local = x.shape[0] // k
+    sizes = (64, 128)
+    expect = sum(n_local // bs for bs in sizes)
+    xs, ys = svm._shard_data(x, y, k)
+    routes = {bs: ops.kernel_for(torch.zeros((k, d), device=dev),
+                                 xs[:, :bs], ys[:, :bs]) for bs in sizes}
+    wk, wall_k, n, n_cluster, switches = _svm_chain(torch, dev, ds, sizes,
+                                                    "kernel", k)
+    wk2, _, n2, _, _ = _svm_chain(torch, dev, ds, sizes, "kernel", k)
+    wt, wall_t, n_t, _, _ = _svm_chain(torch, dev, ds, sizes, "torch", k)
+    check(bool(torch.isfinite(wk).all()), "svm ladder: model not finite")
+    acc_k = float(svm.accuracy(wk, xt, yt))
+    acc_t = float(svm.accuracy(wt, xt, yt))
+    rel = float((wk - wt).norm() / wt.norm())
+    log(f"svm ladder epsilon K={k} rungs {SVM_RUNGS}: epoch 1 at 64, "
+        f"{switches} switch, epoch 2 at 128; hinge launches {n} (expected "
+        f"{expect}: the blocks), {n_cluster} on the cluster kernel (routes "
+        f"{routes}); plain-path launches {n_t}; test acc kernel {acc_k:.4f} "
+        f"plain {acc_t:.4f}; rel L2(w) {rel:.3e}; wall kernel {wall_k:.4f} s "
+        f"plain {wall_t:.4f} s")
+    check(switches == 1, f"svm ladder: {switches} switches")
+    check(n == n2 == expect and n_t == 0,
+          f"svm ladder: launches {n}/{n2}/{n_t}, expected {expect}")
+    check(n_cluster == (n if set(routes.values()) == {"cluster"} else
+                        sum(n_local // bs for bs in sizes
+                            if routes[bs] == "cluster")),
+          f"svm ladder: {n_cluster} of {n} launches on the cluster kernel, "
+          f"routes {routes}")
+    check(torch.equal(wk, wk2), "svm ladder: two kernel runs differ")
+    check(rel <= W_REL_L2, f"svm ladder: rel L2 {rel} > {W_REL_L2}")
+    check(abs(acc_k - acc_t) <= ACC_DIFF,
+          f"svm ladder: accuracy {acc_k} vs {acc_t}")
+
+    # without a switch the ladder is dms: the same blocks, sync and alpha
+    w64, wall64, n64, _, _ = _svm_chain(torch, dev, ds, (64, 64), "kernel", k)
+    w0 = torch.zeros(d, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wd = svm.dms(w0, x, y, workers=k, epochs=2, block_size=64, device=dev)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    same = torch.equal(w64, wd)
+    log(f"svm ladder at 64 without a switch vs dms(block 64, 2 epochs): "
+        f"bitwise {same}, max abs diff {float((w64 - wd).abs().max()):.3e}; "
+        f"{n64} launches; wall ladder {wall64:.4f} s dms {wall_d:.4f} s")
+    check(same, "svm ladder at 64 differs from dms(backend='vmap')")
+
+    busy = device_busy(torch, lambda: _svm_chain(torch, dev, ds, sizes,
+                                                 "kernel", k))
+    log_busy("svm ladder (64, switch, 128)", *busy)
+    busy = device_busy(torch, lambda: svm.dms(
+        w0, x, y, workers=k, epochs=2, block_size=64, device=dev))
+    log_busy("dms epsilon (block 64, 2 epochs)", *busy)
+
+    # the paper's Figs 10-12 method: compute and sync timed apart, feeding
+    # the telemetry and a controller over the rungs
+    tel = BlockTelemetry()
+    compute, sync = svm.dms_timed_steps(block_size=64, telemetry=tel)
+    ctrl = autotune.AdaptiveController(
+        SyncConfig(strategy="periodic", period=64), param_bytes_per_chip=4 * d,
+        replicas=k, telemetry=tel, ladder=SVM_RUNGS, h0=64)
+    nb = n_local // 64
+    xb = xs[:, :nb * 64].reshape(k, nb, 64, d)
+    yb = ys[:, :nb * 64].reshape(k, nb, 64)
+    ops.LAUNCHES = 0
+    w = w0
+    for i in range(nb):
+        w = sync(compute(w, xb[:, i], yb[:, i], svm._alpha(0, w0.dtype)))
+        ctrl.observe_block()
+    t_step, t_sync = tel.estimates()
+    log(f"svm timed steps at 64 ({nb} blocks, {ops.LAUNCHES} hinge "
+        f"launches): T_step {1e6 * t_step:.4f} us a point, T_sync "
+        f"{1e6 * t_sync:.4f} us a block (host clock, each call waited for); "
+        f"the controller over {SVM_RUNGS} picks block size {ctrl.h} "
+        f"(history {ctrl.history})")
+    check(ops.LAUNCHES == nb, f"svm timed steps: {ops.LAUNCHES} launches")
+    check(ctrl.h in SVM_RUNGS, f"svm controller picked {ctrl.h}")
+    return n
+
+
+def _host(torch, tree):
+    """A copy of ``tree`` in page-locked host memory (a full-width state is
+    ~23 GB: a pageable copy runs at ~1 GB/s)."""
+    from repro_torch import tree as T
+
+    def copy(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
+        return h.copy_(x)
+    return T.map(copy, tree)
+
+
+def _device(torch, tree, dev):
+    from repro_torch import tree as T
+    return T.map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
+                 tree)
+
+
+def _same(torch, got, want, what):
+    """Bitwise: every leaf of ``got`` equals ``want``'s (either may lie on
+    the host or the card; compared a leaf at a time where ``want``'s
+    lies)."""
+    from repro_torch import tree as T
+    a, b = T.leaves(got), T.leaves(want)
+    check(len(a) == len(b), f"{what}: {len(a)} leaves against {len(b)}")
+    for x, z in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            check(torch.equal(x.to(z.device), z), f"{what}: a leaf differs")
+        else:
+            check(x == z, f"{what}: {x} != {z}")
+
+
+def _rung_walls(runner, ladder):
+    """{H: [wall s of each block run at H]} from the runner's log and the
+    ladder's trajectory."""
+    walls = {}
+    for m in runner.metrics_log:
+        h = [h for b, h in ladder.trajectory if b <= m["step"]][-1]
+        walls.setdefault(h, []).append(m["elapsed"])
+    return walls
+
+
+def phase_adaptive_train(torch, dev, model_cfg, seq_len, global_batch,
+                         replicas, blocks=8):
+    """(a) The adaptive trainer at full width: a forced switch at the first
+    block boundary held bitwise to ``ladder_switch_state`` and to a fresh
+    ``make_train_step``, then ``blocks`` blocks through ``StepRunner`` with
+    the live controller over the ladder (1, 2, 4)."""
+    from repro_torch import tree as T
+    from repro_torch.config import FaultToleranceConfig, SyncConfig
+    from repro_torch.core import local_sgd
+    from repro_torch.kernels.quant import ops
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.runtime import StepRunner
+    sync_cfg = SyncConfig(strategy="periodic", period=4, compression="int8",
+                          adaptive=True, adapt_ladder=(1, 2, 4),
+                          adapt_every=2)
+    cfg = _train_cfg(model_cfg, sync_cfg, seq_len, global_batch, replicas)
+    log(f"adaptive train {model_cfg.name}: K={replicas}, "
+        f"{sync_cfg.msf_label}, ladder {sync_cfg.ladder_rungs()}, re-solve "
+        f"every {sync_cfg.adapt_every} blocks; {global_batch} x {seq_len} "
+        f"tokens a microbatch")
+
+    # the forced switch at the first block boundary: the pre-switch
+    # snapshot on the card, the switched one on the host (the next block
+    # needs the card's memory)
+    t0 = time.perf_counter()
+    step, state, make_pipeline, model, _, ladder = build_trainer(cfg, dev)
+    pipe = make_pipeline(0)
+    state, _ = ladder.rungs[4](state, next(pipe))
+    pre = T.map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+                state)
+    switched = ladder.switch_fn(state)
+    del state
+    want = local_sgd.ladder_switch_state(pre, cfg)
+    _same(torch, switched, want, "forced switch vs ladder_switch_state")
+    del want, pre
+    sw = _host(torch, switched)
+    batch = next(ttrain_blocked(cfg, 2, pipe.state()["step"], dev))
+    got, m_rung = ladder.rungs[2](switched, batch)
+    loss_rung = float(m_rung["loss"])
+    got = _host(torch, got)
+    del switched
+    torch.cuda.empty_cache()
+    fresh = local_sgd.make_train_step(model, cfg)
+    ref_state, m_fresh = fresh(_device(torch, sw, dev), batch)
+    _same(torch, got, ref_state, "rung 2 after the switch vs a fresh "
+          "make_train_step")
+    check(loss_rung == float(m_fresh["loss"]), "forced switch: losses differ")
+    log(f"adaptive train forced switch 4 -> 2 after block 1: the switched "
+        f"state bitwise ladder_switch_state of the pre-switch snapshot; the "
+        f"next block on rung 2 bitwise a fresh make_train_step from the "
+        f"switched snapshot (loss {loss_rung}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del ref_state, got, sw, step, ladder, fresh, m_rung, m_fresh
+    torch.cuda.empty_cache()
+
+    # the live run: StepRunner over the ladder, checkpoints off. The quant
+    # library is dropped first, as in a fresh process, so that the ladder's
+    # warmup must load it and the compile counter has a load to hear
+    torch.cuda.reset_peak_memory_stats()
+    ops._LIB = None
+    step, state, make_pipeline, _, telemetry, ladder = build_trainer(cfg, dev)
+    n_leaves = len(T.leaves(state["params"]))
+    runner = StepRunner(step, None, FaultToleranceConfig(max_restarts=0), 1,
+                        make_pipeline, ladder=ladder)
+    torch.cuda.synchronize()
+    ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, end = runner.run(state, 0, blocks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    ad = ladder.to_dict()
+    walls = _rung_walls(runner, ladder)
+    per_rung = "; ".join(
+        f"H={h}: {len(w)} blocks, wall {w} s, "
+        f"{h * global_batch * seq_len / min(w):.1f} trained tokens/s "
+        f"(fastest block)" for h, w in sorted(walls.items()))
+    est = telemetry.estimates()
+    log(f"adaptive train: {end} blocks in {wall:.3f} s; H trajectory "
+        f"{ad['h_trajectory']}, {ad['switches']} switches, controller "
+        f"history {ladder.controller.history}; {per_rung}")
+    log(f"adaptive train telemetry: T_step {est[0]:.6f} s a replica-set "
+        f"step, T_sync {1e3 * est[1]:.3f} ms a sync (CUDA events around "
+        f"sync_point); {telemetry.to_dict()}; compiles total "
+        f"{ad['compiles_total']}, after warmup {ad['compiles_after_warmup']}; "
+        f"quant launches {launches} ({launches / end:.1f} a block, expected "
+        f"{2 * n_leaves}); peak memory {peak / 2**30:.2f} GiB")
+    check(peak <= 75e9, f"adaptive train: peak memory {peak / 1e9:.2f} GB "
+          f"over 75 GB")
+    check(ad["compiles_total"] > 0,
+          "adaptive train: the compile counter heard no load in the warmup")
+    check(ad["compiles_after_warmup"] == 0,
+          f"adaptive train: {ad['compiles_after_warmup']} compiles after "
+          f"warmup")
+    check(all(h in ad["ladder"] for _, h in ad["h_trajectory"]),
+          f"adaptive train: a rung outside the ladder {ad['h_trajectory']}")
+    check(end == blocks and launches == 2 * n_leaves * blocks,
+          f"adaptive train: {launches} quant launches over {end} blocks, "
+          f"expected {2 * n_leaves} a block")
+    losses = [m["loss"] for m in runner.metrics_log]
+    check(all(np.isfinite(losses)), f"adaptive train: losses {losses}")
+    check(losses[-1] < losses[0], f"adaptive train: losses {losses}")
+    log(f"adaptive train losses: {losses}")
+
+    pipe = make_pipeline(runner.metrics_log[-1]["step"] + 1)
+    batch = next(pipe)
+    busy = device_busy(torch, lambda: ladder.step_fn(state, batch))
+    log_busy(f"adaptive train block (rung H={ladder.h}, {ladder.h} x "
+             f"{replicas} replica steps)", *busy)
+    del state, step, ladder, runner, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ttrain_blocked(cfg, h, start, dev):
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.train import _Blocked
+    return _Blocked(DataPipeline(cfg.data, cfg.model, device=dev,
+                                 start_step=start), h)
+
+
+class ScriptedController:
+    """A controller whose moves are a script {block: H}, so that runs with
+    and without a fault take the same rungs (the live controller moves on
+    measured times)."""
+
+    def __init__(self, h0, script):
+        self.h = h0
+        self.script = dict(script)
+        self._blocks = 0
+        self.history = [(0, h0)]
+
+    def observe_block(self, **_kw):
+        self._blocks += 1
+        if self._blocks in self.script:
+            self.h = self.script[self._blocks]
+            self.history.append((self._blocks, self.h))
+        return self.h
+
+
+def phase_fault_restart(torch, dev, model_cfg, replicas=4, steps=6):
+    """(c) Fault and restart on the card at smoke width, int8 on the quant
+    kernel: ``StepRunner`` over a ladder that moves 2 -> 1 after block 2
+    and back 1 -> 2 after block 3, on the checkpoint every 3 blocks; a
+    fault after that checkpoint (step 4) and one before it (step 2, after
+    the first move) both replay bitwise the run without one, the rung
+    restored."""
+    import tempfile
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import (CheckpointConfig, FaultToleranceConfig,
+                                    SyncConfig, config_fingerprint)
+    from repro_torch.kernels.quant import ops
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.runtime import LadderRuntime, StepRunner
+    sync_cfg = SyncConfig(strategy="periodic", period=2, compression="int8",
+                          adaptive=True, adapt_ladder=(1, 2))
+    cfg = _train_cfg(model_cfg, sync_cfg, 64, 2 * replicas, replicas)
+    finals = {}
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        for fail_at in (-1, 4, 2):
+            step, state, make_pipeline, _, tel, live = build_trainer(cfg, dev)
+            ladder = LadderRuntime(live.rungs, live.switch_fn,
+                                   ScriptedController(2, {2: 1, 3: 2}),
+                                   telemetry=tel, device=dev,
+                                   compile_counter=live.compile_counter)
+
+            def blocked(start, ladder=ladder):
+                return ttrain_blocked(cfg, ladder.h, start, dev)
+
+            ckpt_cfg = CheckpointConfig(directory=os.path.join(
+                tmp, f"f{fail_at}"), interval_steps=3)
+            fault = FaultToleranceConfig(inject_failure_at=fail_at)
+            runner = StepRunner(step, CheckpointManager(ckpt_cfg), fault,
+                                ckpt_cfg.interval_steps, blocked,
+                                fingerprint=config_fingerprint(cfg),
+                                ladder=ladder)
+            ops.LAUNCHES = 0
+            state, end = runner.run(state, 0, steps)
+            torch.cuda.synchronize()
+            launches = ops.LAUNCHES
+            ckpts = runner.ckpt.all_steps()
+            finals[fail_at] = _host(torch, state)
+            log(f"fault/restart (fault at step {fail_at}): {end} steps, "
+                f"{runner.restarts} restarts, checkpoints {ckpts}, H "
+                f"trajectory {ladder.trajectory}, rung at the end "
+                f"{ladder.h}, quant launches {launches}, compiles after "
+                f"warmup {ladder.to_dict()['compiles_after_warmup']}")
+            check(end == steps and runner.restarts == (fail_at >= 0),
+                  f"fault at {fail_at}: {end} steps, {runner.restarts} "
+                  f"restarts")
+            check(ladder.h == 2, f"fault at {fail_at}: rung {ladder.h}")
+            check(launches > 0, f"fault at {fail_at}: no quant launch")
+            if fail_at < 0:
+                n_leaves = len(T.leaves(finals[fail_at]["params"]))
+                check(launches == 2 * n_leaves * steps,
+                      f"fault/restart: {launches} quant launches, expected "
+                      f"{2 * n_leaves} a block")
+            del state, step, ladder, live, runner
+    for fail_at in (4, 2):
+        _same(torch, finals[fail_at], finals[-1],
+              f"fault at step {fail_at}: the replay vs the run without one")
+    log("fault/restart: a fault after the step-3 checkpoint (which holds the "
+        "move taken at that step) and one before it both replay bitwise the "
+        "run without a fault (params, opt, sync, step)")
 
 
 TRAIN_MODES = [dict(overlap="delayed", compression="int8"),
@@ -1523,7 +1956,10 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_device(torch)
     row = phase_kernel(torch, dev)
-    launches = phase_main(torch, dev)
+    launches, eps = phase_main(torch, dev)
+    phase_svm_ladder(torch, dev, eps)
+    del eps
+    torch.cuda.empty_cache()
     phase_modes(torch, dev)
     flash_row = phase_flash(torch, dev)
     from repro_torch.config import get_arch
@@ -1534,6 +1970,9 @@ def main() -> int:
     from repro_torch.config import get_smoke
     quant_launches = phase_train(torch, dev, get_arch("smollm-360m"),
                                  TRAIN_SEQ, TRAIN_BATCH, TRAIN_K, TRAIN_H)
+    phase_adaptive_train(torch, dev, get_arch("smollm-360m"), TRAIN_SEQ,
+                         TRAIN_BATCH, TRAIN_K)
+    phase_fault_restart(torch, dev, get_smoke("smollm-360m"))
     phase_train_modes(torch, dev, get_smoke("smollm-360m"))
     ssd_row = phase_ssd(torch, dev)
     ssd_launches = phase_serve(

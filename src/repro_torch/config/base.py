@@ -38,7 +38,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Unified architecture description covering every assigned family
-    (the port builds ``family="dense"`` so far)."""
+    (the port builds the dense, ssm and hybrid families)."""
 
     name: str = "unnamed"
     family: str = "dense"          # dense | moe | ssm | hybrid | audio | vlm
@@ -82,6 +82,17 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.moe.num_experts > 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND model-FLOPs and roofline)."""
+        from repro_torch.models.registry import analytic_param_count
+
+        return analytic_param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.registry import analytic_param_count
+
+        return analytic_param_count(self, active_only=True)
 
 
 @dataclass(frozen=True)
@@ -164,7 +175,7 @@ class SyncConfig:
     # staleness-aware effective spectral gap
     # (:func:`repro_torch.core.costmodel.effective_spectral_gap`).
     gossip_async: bool = False
-    # --- adaptive MSF (repro.core.autotune.AdaptiveController; not ported) -
+    # --- adaptive MSF (repro_torch.core.autotune.AdaptiveController) ------
     # When ``adaptive`` is on, the training driver re-solves the period
     # online from measured T_step/T_sync every ``adapt_every`` blocks
     # (``period`` is the starting H). ``adapt_hysteresis`` is the relative
@@ -175,7 +186,7 @@ class SyncConfig:
     adapt_hysteresis: float = 0.25
     adapt_target_overhead: float = 0.05
     adapt_max_drift: float = 0.01
-    # --- H-ladder runtime (repro.runtime.ladder.LadderRuntime; not ported) --
+    # --- H-ladder runtime (repro_torch.runtime.ladder.LadderRuntime) -------
     # The live trainer pre-compiles the train block for a *ladder* of
     # periods sharing one state layout, so an adaptive H move mid-run is
     # a flush + pick-another-compiled-callable — no recompilation. The

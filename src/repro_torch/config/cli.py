@@ -1,5 +1,7 @@
 """Tiny CLI override layer: ``--arch smollm-360m --set sync.period=4``.
-Copied from ``repro.config.cli``."""
+Copied from ``repro.config.cli``; a comma-separated value is a tuple
+(``--set sync.adapt_ladder=1,2,4``), which the reference's layer passes on
+as a string that its tuple fields then refuse."""
 from __future__ import annotations
 
 import argparse
@@ -9,6 +11,8 @@ from repro_torch.config.base import TrainConfig, replace
 
 
 def _coerce(value: str) -> Any:
+    if "," in value:
+        return tuple(_coerce(v) for v in value.split(",") if v)
     for cast in (int, float):
         try:
             return cast(value)

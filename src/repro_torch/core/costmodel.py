@@ -1,9 +1,8 @@
 """Sync-collective cost accounting, copied whole from ``repro.core.costmodel``.
 
 In the reference, ``core.sync.collective_bytes_per_sync`` and
-``core.autotune.sync_time_s`` derive from :func:`wire_bytes_per_sync`; in this
-slice the port's ``core.svm._dms_vmap`` reads :func:`mixing_matrices` for its
-gossip topologies. The module is numpy-only and a test holds every function
+``core.autotune.sync_time_s`` derive from :func:`wire_bytes_per_sync`; in the
+port, ``core.autotune`` and ``core.sync`` read it. The module is numpy-only and a test holds every function
 exactly equal to the reference's.
 
 Accounting conventions (per chip, ``param_bytes`` is the fp32 footprint of

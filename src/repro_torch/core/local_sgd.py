@@ -23,19 +23,33 @@ Optimizer moments stay local to each replica between syncs.
 
 On one card the replicas' local steps run one replica after another, so only
 one replica's activations are alive at a time. A block keeps the params it
-started from (the sync's ``params_start``) and steps a copy of them in place;
-the optimizer moments of the state it is given are updated in place (the
-reference donates the state to its jitted block).
+started from (the sync's ``params_start``) and steps a copy of them, and it
+steps the optimizer moments of the state it is given in place, as the
+reference's trainer donates its state to the jitted block
+(``donate_argnums``) and XLA reuses the buffers: the given state's ``opt``
+is the returned state's, and the given state must not be stepped again. A
+caller that needs to step from a state twice keeps its own copy
+(:class:`repro_torch.runtime.ft.StepRunner` keeps one on the host). A block
+that left its moments alone would hold a second copy of them (two f32
+values a parameter a replica) while it runs, which a full-width model on
+one card cannot afford (``scripts/train_peak_memory.py``).
+
+``telemetry=`` (a :class:`repro_torch.core.telemetry.BlockTelemetry`) wraps
+a step in :func:`timed_step`; the local-SGD block also times its
+``sync_point`` (CUDA events on the card), so the telemetry gets the block's
+T_sync as measured. :func:`ladder_switch_state` is the H-ladder's switch.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import tree as T
 from repro_torch.config.base import TrainConfig
 from repro_torch.core import sync as S
+from repro_torch.device import wait
 from repro_torch.models import layers as L
 from repro_torch.optim import apply_updates, init_opt_state
 
@@ -110,8 +124,8 @@ def _rows(batch, lo: int, hi: int):
 # flavor A — every-step sync (paper baseline / canonical DDP)
 # ---------------------------------------------------------------------------
 
-def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1
-                  ) -> Callable:
+def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1,
+                  telemetry=None) -> Callable:
     """(state, batch) → (state, metrics): one optimizer step on the gradient
     of the whole batch. ``grad_accum`` > 1 takes the gradient over that many
     equal row slices of the batch, one after another, and averages them:
@@ -140,7 +154,7 @@ def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1
                      "step": state["step"] + 1}
         return new_state, {"loss": loss, **aux}
 
-    return step
+    return timed_step(step, 1, telemetry) if telemetry is not None else step
 
 
 # ---------------------------------------------------------------------------
@@ -148,19 +162,27 @@ def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1
 # ---------------------------------------------------------------------------
 
 def make_local_sgd_block(model, cfg: TrainConfig, *,
-                         quant_impl: str = "kernel") -> Callable:
+                         quant_impl: str = "kernel", telemetry=None
+                         ) -> Callable:
     """(state, batch) → (state, metrics).
 
     ``batch`` leaves are (H, B_global, …): H microbatches per sync block.
     Replica r takes rows ``[r·B/K, (r+1)·B/K)`` of every microbatch (the
     reference's in-spec ``P(None, replica_axis)``). ``quant_impl`` is the
     int8 wire's quantize/dequantize: the quant kernel or its plain version
-    (``"torch"``, the comparison run).
+    (``"torch"``, the comparison run). The given state's optimizer moments
+    are updated in place and returned (see the module docstring); its
+    params and sync state are left as they were.
+
+    ``telemetry`` records each block's wall time keyed by its H (the
+    batch's leading dim, ``cfg.sync.period`` unless an H-ladder re-blocks
+    the data) and its sync's time (:func:`timed_step`).
     """
     if cfg.sync.strategy == "hierarchical":
         raise NotImplementedError(
             "strategy='hierarchical' syncs a data axis across cards every "
             "step; the port has one card so far (ROADMAP §1 item 9)")
+    clock = SyncClock() if telemetry is not None else None
 
     def step_fn(state, batch):
         start = state["params"]
@@ -186,8 +208,10 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
                 _write(o_r, new_o)
                 losses[r, j] = loss
         step = state["step"] + h
-        params, sync_state = S.sync_point(start, params, state["sync"],
-                                          cfg.sync, impl=quant_impl)
+        sync = (S.sync_point if clock is None
+                else clock.wrap(S.sync_point))
+        params, sync_state = sync(start, params, state["sync"], cfg.sync,
+                                  impl=quant_impl)
         metrics = {"loss": losses.mean(dim=1).mean()}
         if cfg.sync.eval_at_sync:
             metrics["sync_eval_loss"] = _sync_eval_loss(
@@ -196,6 +220,8 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
         return ({"params": params, "opt": opt, "sync": sync_state,
                  "step": step}, metrics)
 
+    if telemetry is not None:
+        return timed_step(step_fn, None, telemetry, sync_clock=clock)
     return step_fn
 
 
@@ -246,8 +272,110 @@ def finalize_state(state, cfg: TrainConfig):
     return {**state, "params": flushed, "sync": new_sync}
 
 
-def make_train_step(model, cfg: TrainConfig, *,
-                    quant_impl: str = "kernel") -> Callable:
+def ladder_switch_state(state, cfg: TrainConfig):
+    """Exact state for resuming the schedule at a *different* H mid-run —
+    the H-ladder runtime's switch transform (layout-preserving).
+
+    :func:`finalize_state` collapses the replicas to the fully synchronized
+    model and zeroes/re-seeds the carried sync buffers (pending correction,
+    EF residual, async ``sent``/``mixbuf``); on top of that the schedule
+    *counters* restart (``chunk_idx``, ``gossip_round`` → 0) and the
+    chunked-slowmo ``anchor`` re-seeds from the flushed params — exactly
+    :func:`repro_torch.core.sync.init_sync_state` evaluated at the flushed
+    model. The result is therefore bit-identical to launching a fresh run at
+    the new H from the flushed model (with the optimizer state and the
+    slowmo outer momentum carried over). Under the blocking global sync with
+    error feedback, where the flush is a no-op, the EF residual's replica
+    mean is folded into the params (what the next sync's average would have
+    spread to every replica) and the buffer zeroed. The state given is left
+    as it was; a returned leaf may be one of its tensors.
+    """
+    sync = state["sync"]
+    if (cfg.sync.overlap == "none" and cfg.sync.topology == "all"
+            and "ef" in sync):
+        params = T.map(lambda p, e: (p.float() + e.mean(dim=0, keepdim=True))
+                       .to(p.dtype), state["params"], sync["ef"])
+        state = {**state, "params": params,
+                 "sync": {**sync, "ef": T.map(torch.zeros_like, sync["ef"])}}
+    state = finalize_state(state, cfg)
+    new_sync = dict(state["sync"])
+    for counter in ("chunk_idx", "gossip_round"):
+        if counter in new_sync:
+            new_sync[counter] = torch.zeros_like(new_sync[counter])
+    if "anchor" in new_sync:
+        new_sync["anchor"] = T.map(lambda p: p.to(torch.float32, copy=True),
+                                   state["params"])
+    return {**state, "sync": new_sync}
+
+
+# ---------------------------------------------------------------------------
+# block-time telemetry
+# ---------------------------------------------------------------------------
+
+class SyncClock:
+    """Times the sync of each block: CUDA events around it on the card
+    (read once the block has been waited for), the host clock on the
+    CPU."""
+
+    def __init__(self):
+        self._last = None
+
+    def wrap(self, fn: Callable) -> Callable:
+        def timed(params_start, *args, **kw):
+            if T.leaves(params_start)[0].is_cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(params_start, *args, **kw)
+                end.record()
+                self._last = (start, end)
+            else:
+                t0 = time.perf_counter()
+                out = fn(params_start, *args, **kw)
+                self._last = time.perf_counter() - t0
+            return out
+        return timed
+
+    def take(self) -> Optional[float]:
+        """Seconds of the last sync timed since the last ``take``, or None;
+        on the card call it after the block has been waited for."""
+        last, self._last = self._last, None
+        if isinstance(last, tuple):
+            return last[0].elapsed_time(last[1]) * 1e-3
+        return last
+
+
+def timed_step(step_fn: Callable, h: Optional[int], telemetry, *,
+               sync_clock: Optional[SyncClock] = None) -> Callable:
+    """Wrap a (state, batch) step with the block-time telemetry hook.
+
+    The timer brackets the host-side call and waits for the card on the
+    returned params (``torch.cuda.synchronize``, the reference's
+    ``block_until_ready``), so the wall time is the device's too. ``h`` is
+    the optimizer steps one call advances — the telemetry's key for
+    separating T_step from T_sync (see ``core.telemetry``); ``None`` reads
+    it from the batch's leading dim (a block of H microbatches); with a
+    ``sync_clock`` that the step times its sync with, the block's T_sync
+    goes in beside it and the split is exact. The reference's ``jit_step``
+    parameter is gone: the port has no jit, so the step is timed as it is
+    (the reference's ``jit_step=False``). The telemetry's warmup discards
+    the first sample, inflated by a first kernel load.
+    """
+    def timed(state, batch):
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        wait(out[0]["params"])
+        wall = time.perf_counter() - t0
+        sync_s = sync_clock.take() if sync_clock is not None else None
+        steps = h if h is not None else next(iter(batch.values())).shape[0]
+        telemetry.record_block(steps, wall, sync_s)
+        return out
+    return timed
+
+
+def make_train_step(model, cfg: TrainConfig, *, quant_impl: str = "kernel",
+                    telemetry=None) -> Callable:
     if S.needs_replica_axis(cfg.sync):
-        return make_local_sgd_block(model, cfg, quant_impl=quant_impl)
-    return make_ddp_step(model, cfg)
+        return make_local_sgd_block(model, cfg, quant_impl=quant_impl,
+                                    telemetry=telemetry)
+    return make_ddp_step(model, cfg, telemetry=telemetry)

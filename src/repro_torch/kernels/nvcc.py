@@ -5,6 +5,11 @@ build needs no PyTorch headers and takes seconds. A library is built at its
 first use, from the repository's sources only, into ``kernels/_build/`` (git
 ignores it), under a name that hashes the sources and flags: an edited source
 builds anew, an unchanged one loads the library already there.
+
+Every call of :func:`build` and :func:`load` adds one to :data:`EVENTS`, the
+process's tally of the port's compile events, which the H-ladder runtime's
+``CompileCounter`` reads (none after the ladder's warmup means no block after
+it waits on nvcc or on loading a library).
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ from pathlib import Path
 from typing import Sequence
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# calls of build and load so far in this process
+EVENTS = 0
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +48,7 @@ def build(name: str, sources: Sequence[Path]) -> Path:
 
     The compiler's report (``-Xptxas -v``: registers, shared memory and
     spills of each kernel) is kept beside it as ``lib<name>-<hash>.log``."""
+    _event()
     digest = hashlib.sha256(" ".join(FLAGS).encode())
     for src in sources:
         digest.update(Path(src).read_bytes())
@@ -68,4 +76,10 @@ def build(name: str, sources: Sequence[Path]) -> Path:
 
 def load(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``sources``."""
+    _event()
     return ctypes.CDLL(str(build(name, sources)))
+
+
+def _event() -> None:
+    global EVENTS
+    EVENTS += 1

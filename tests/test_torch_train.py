@@ -317,7 +317,9 @@ def test_init_state_layout_and_batches():
     for leaf in T.leaves(state["params"]):
         assert torch.equal(leaf[0], leaf[-1])
     assert tuple(state["sync"]["chunk_idx"].shape) == (K,)
-    _, _, make_pipeline, _ = ttrain.build_trainer(cfg, "cpu")
+    _, _, make_pipeline, _, telemetry, ladder = ttrain.build_trainer(
+        cfg, "cpu")
+    assert telemetry is None and ladder is None
     block = next(make_pipeline(0))
     assert tuple(block["tokens"].shape) == (H, DATA["global_batch"],
                                             DATA["seq_len"])
