@@ -32,21 +32,29 @@ entry points and holds every run to its plain-version twin:
 4. every ``dms`` mode on the webspam stand-in (350,000 × 254, K=8, block 64,
    one epoch), ``srdms`` and ``seq_sgd`` on the ijcnn1 stand-in (n=4,000),
    the hinge launches all on ``hinge.cu`` (254 and 22 columns: rows no bulk
-   copy can move);
+   copy can move), with ``hinge.cu``'s time at the blocks both hand it;
 5. the flash-attention kernels against their plain version: the f32
-   CUDA-core kernel at the ``TestFlashAttention`` shapes (rtol 1e-4 / atol
-   2e-5); the bf16 tensor-core kernel (wgmma, TMA) at ragged, GQA, prefix
-   and dh 32–256 cases and the serving paths' prefill shapes, smollm-360m's
-   and zamba2-1.2b's (rtol 2**-7 / atol 1e-4, one bf16 ulp, a limit SDPA
-   must fail at smollm's); each launch counted on the kernel it must take,
-   with its time, the plain version's, the bound, and at both serving
-   shapes (and at every f32 check shape) SDPA's as a yardstick, the
-   achieved TFLOP/s and the share of the bound;
+   split-TF32 kernel (wgmma, TMA) at the ``TestFlashAttention`` shapes and
+   the three full-width f32 prefills, zamba2-1.2b's, smollm-360m's and
+   llama32-3b's (rtol 1e-4 / atol 2e-5), each beside the f32 CUDA-core
+   kernel and SDPA on the same inputs and both bounds (the function's
+   flops on the TF32 tensor cores and on the f32 CUDA cores), and the
+   split's own floor (three TF32 products) beside them; the bf16 tensor-core kernel (wgmma, TMA) at ragged, GQA,
+   prefix and dh 32–256 cases and the serving paths' prefill shapes,
+   smollm-360m's and zamba2-1.2b's (rtol 2**-7 / atol 1e-4, one bf16 ulp,
+   a limit SDPA must fail at smollm's); inputs no TMA map can describe (an
+   f32 q, k, v 4 bytes into a fused projection, bf16 at dh 70) on the
+   CUDA-core kernel; each launch counted on the kernel it must take, with
+   its time, the plain version's, the bound, and at both bf16 serving
+   shapes SDPA's as a yardstick, the achieved TFLOP/s and the share of the
+   bound;
 6. the serving path: ``ServeEngine.generate`` on smollm-360m at full width
    (32 layers, bf16, seeded random weights), 4 prompts of 1,920 tokens and
    128 new tokens each, flash launches counted (one per layer per prefill,
    all on the tensor-core kernel), and the kernel path against the plain
-   path (``attn_impl="torch"``);
+   path (``attn_impl="torch"``); then one f32 prefill at full width, its 32
+   flash launches all on the split-TF32 kernel, its logits held to the
+   plain f32 path's at relative L2 1e-2, with its wall and idle share;
 7. the int8 quant kernels against their plain version at the ``TestQuant``
    shapes, a K-batched (4, 1,000,003) case and the trainer's largest leaf
    (4, 78,643,200): int8 payload, scale, residual and dequantized values
@@ -100,10 +108,12 @@ entry points and holds every run to its plain-version twin:
     path;
 12. the hybrid serving path: the same on zamba2-1.2b at full width (38
     Mamba2 layers, the shared attention block after every 6: 38 SSD and 6
-    flash launches per prefill, on the tensor-core kernels in bf16 and the
-    CUDA-core ones in f32).
+    flash launches per prefill, on the tensor-core kernels in bf16; in f32
+    the SSD ones on ``ssd.cu`` and the flash ones on the split-TF32
+    kernel).
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (five kernels: the
+flash route twice, bf16 and f32); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once. It imports
 no JAX and nothing of the JAX package.
@@ -126,6 +136,7 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 494.7e12   # H100 SXM TF32 tensor cores, dense (data sheet)
 L2_BYTES = 50 * 2 ** 20
 RTOL, ATOL = 1e-4, 1e-5       # tests/test_kernels.py::TestHinge
 # tests/test_kernels.py::TestQuant's shapes (one scale each), then stacked
@@ -166,6 +177,11 @@ FLASH_TC_SHAPES = [(1, 200, 300, 4, 2, 64, False, 0),
 # zamba2-1.2b's shared attention block on the same prompts
 FLASH_MAIN = (4, 1920, 1920, 15, 5, 64, True, 0)
 FLASH_HYBRID = (4, 1920, 1920, 32, 32, 64, True, 0)
+# the f32 prefills on the split-TF32 kernel at full width: zamba2-1.2b's
+# shared block (the f32 route's kernels-line row), smollm-360m's and
+# llama32-3b's (24/8 heads of 128, src/repro/configs/llama32_3b.py)
+FLASH_F32_FULL = [FLASH_HYBRID, FLASH_MAIN,
+                  (4, 1920, 1920, 24, 8, 128, True, 0)]
 # bf16: the kernel and the plain version both compute in f32 and round only
 # the output, so they differ by a rounding flip, at most one bf16 ulp
 # (rtol 2**-7 is at least one ulp of any value), and near zero by the two
@@ -385,6 +401,7 @@ def phase_device(torch):
     for ops in kernels.values():
         ops.load_library()
     flash_ops.load_tc_library()
+    flash_ops.load_tc32_library()
     ssd_ops.load_tc_library()
     g, rows, stage_rows, slots = hinge_ops.cluster_plan(64, 2000)
     plan = (2000, g, stage_rows, slots)
@@ -594,6 +611,19 @@ def phase_main(torch, dev, n_override=None):
     return launches, ds
 
 
+def hinge_cu_time(torch, ops, sets, x_shape, w_shape, label):
+    """One timed ``hinge.cu`` call on argument sets a main path hands it
+    (its route checked), beside its bound."""
+    check(all(ops.kernel_for(*a) == "simt" for a in sets),
+          f"hinge {label}: not on hinge.cu")
+    ms = device_ms(torch, lambda a, b, e: ops.hinge_block_grad(a, b, e, 1.0),
+                   sets)
+    bound_ms, bound_by = hinge_bound(x_shape, w_shape)
+    log(f"hinge.cu at the {label}: {ms * 1e3:.4f} us a call, bound "
+        f"{bound_ms * 1e3:.4f} us ({bound_by}, {100 * bound_ms / ms:.1f}% of "
+        f"it) [{len(sets)} input sets]")
+
+
 def phase_modes(torch, dev, n_override=None, ijcnn_n=4000):
     from repro_torch.core import svm
     from repro_torch.kernels.hinge import ops
@@ -606,6 +636,19 @@ def phase_modes(torch, dev, n_override=None, ijcnn_n=4000):
         _dms_pair(torch, dev, ds, label, blocks, "simt", workers=k, epochs=1,
                   block_size=bs, overlap=overlap, topology=topology,
                   gossip_async=gossip_async)
+    # hinge.cu at the blocks these modes hand it: worker-major views of the
+    # webspam data, the carry a stride-0 w
+    n_local = ds[0].shape[0] // k
+    d = ds[0].shape[1]
+    xb = ds[0][:k * n_local].reshape(k, n_local, d)
+    yb = ds[1][:k * n_local].reshape(k, n_local)
+    w = torch.from_numpy(np.random.default_rng(7).normal(size=d).astype(
+        np.float32)).to(dev).expand(k, d)
+    sets = [(w, xb[:, i * bs:(i + 1) * bs], yb[:, i * bs:(i + 1) * bs])
+            for i in range(min(64, blocks))]
+    hinge_cu_time(torch, ops, sets, (k, bs, d), (k, 0),
+                  f"webspam dms block (K={k}, {bs}, {d}), {blocks} launches "
+                  f"a mode")
 
     x, y, xt, yt = _load(torch, dev, "ijcnn1", n_override=ijcnn_n)
     w0 = torch.zeros(x.shape[1], device=dev)
@@ -621,6 +664,12 @@ def phase_modes(torch, dev, n_override=None, ijcnn_n=4000):
               f"cluster kernel; 22 columns take hinge.cu")
     rel = float((res["kernel"] - res["torch"]).norm() / res["torch"].norm())
     expect = epochs * (x.shape[0] // bs)
+    hinge_cu_time(torch, ops, [(w0 + 0.01, x[i * bs:(i + 1) * bs],
+                                y[i * bs:(i + 1) * bs])
+                               for i in range(x.shape[0] // bs)],
+                  (bs, x.shape[1]), (x.shape[1],),
+                  f"ijcnn1 srdms block ({bs}, {x.shape[1]}), {expect} "
+                  f"launches")
     log(f"srdms ijcnn1 block=512 epochs=5: launches {res['kernel_launches']} "
         f"(expected {expect}); rel L2(w) vs plain {rel:.3e}; test acc "
         f"{float(svm.accuracy(res['kernel'], xt, yt)):.4f}")
@@ -665,6 +714,20 @@ def flash_bound(shape, itemsize):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_bound_tc32(shape):
+    """(bound_ms, bound_by) of the function in f32 on the tensor cores: q,
+    k, v read once and o written once (f32) over the HBM rate, or its
+    flops, counted once as :func:`flash_bound` counts them, over the TF32
+    tensor-core rate. The split-TF32 route takes each product three times,
+    so its own floor is 3× the operations' time (:func:`flash_flops`)."""
+    b, sq, sk, h, kv, dh = shape[:6]
+    nbytes = 4 * dh * (2 * b * sq * h + 2 * b * sk * kv)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flash_flops(shape) / TF32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def flash_flops(shape):
     """4·dh flops for every visible (row, key) pair: the function's
     products, Q·Kᵀ and P·V."""
@@ -677,17 +740,46 @@ def flash_flops(shape):
     return 4 * dh * b * h * int(seen.sum())
 
 
+def flash_counts(ops):
+    return ops.LAUNCHES, ops.TC_LAUNCHES, ops.TC32_LAUNCHES
+
+
+def hold_flash(torch, ops, ref, q, k, v, causal, prefix, kind, rtol, atol,
+               label):
+    """Two launches of the wrapper: both on kernel ``kind`` and counted
+    there, bitwise equal, within (rtol, atol) of the plain version. Returns
+    (the output, the plain version's, the max abs error)."""
+    before = flash_counts(ops)
+    got = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
+    again = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
+    want = ref.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(ops.kernel_for(q, k, v) == kind and flash_counts(ops) == (
+              before[0] + 2, before[1] + 2 * (kind == "tc"),
+              before[2] + 2 * (kind == "tc32")),
+          f"flash {label}: expected two launches of the {kind} kernel")
+    check(got.shape == q.shape and got.dtype == q.dtype,
+          f"flash {label}: output {tuple(got.shape)} {got.dtype}")
+    check(torch.equal(got, again), f"flash {label}: two launches differ")
+    check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
+          f"flash {label}: kernel vs plain max abs err {err}")
+    return got, want, err
+
+
 def phase_flash(torch, dev):
     """The flash kernels against their plain version (f32 cases on the
-    CUDA-core kernel, bf16 on the tensor-core one, each launch counted on
-    the kernel it must take); returns the main row."""
+    split-TF32 kernel, bf16 on the bf16 tensor-core one, TMA-unaligned
+    inputs of both types on the CUDA-core one, each launch counted on the
+    kernel it must take); returns the bf16 and f32 main rows."""
     from repro_torch.kernels.flash_attention import ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = [(shape, torch.float32, 1e-4, 2e-5) for shape in FLASH_SHAPES]
+    cases = [(shape, torch.float32, 1e-4, 2e-5)
+             for shape in FLASH_SHAPES + FLASH_F32_FULL]
     cases += [(shape, torch.bfloat16, BF16_RTOL, BF16_ATOL)
               for shape in [FLASH_BF16] + FLASH_TC_SHAPES +
               [FLASH_MAIN, FLASH_HYBRID]]
-    main_row = None
+    rows = {}
     for i, (shape, dtype, rtol, atol) in enumerate(cases):
         causal, prefix = shape[6], shape[7]
         itemsize = torch.finfo(dtype).bits // 8
@@ -696,24 +788,11 @@ def phase_flash(torch, dev):
         copies = int(min(64, max(2, -(-2 * L2_BYTES // per_set))))
         sets = flash_inputs(torch, dev, 200 + i, shape, dtype, copies)
         q, k, v = sets[0]
-        kind = "tc" if dtype == torch.bfloat16 else "simt"
-        launches, tc_launches = ops.LAUNCHES, ops.TC_LAUNCHES
-        got = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
-        again = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
-        want = ref.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
+        kind = "tc" if dtype == torch.bfloat16 else "tc32"
         label = (f"b={b},sq={sq},sk={sk},h={h},kv={kv},dh={dh},"
                  f"causal={causal},prefix={prefix},{str(dtype)[6:]}")
-        check(ops.kernel_for(q, k, v) == kind and
-              ops.LAUNCHES == launches + 2 and
-              ops.TC_LAUNCHES == tc_launches + 2 * (kind == "tc"),
-              f"flash {label}: expected two launches of the {kind} kernel")
-        check(got.shape == q.shape and got.dtype == dtype,
-              f"flash {label}: output {tuple(got.shape)} {got.dtype}")
-        check(torch.equal(got, again), f"flash {label}: two launches differ")
-        check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
-              f"flash {label}: kernel vs plain max abs err {err}")
+        got, want, err = hold_flash(torch, ops, ref, q, k, v, causal, prefix,
+                                    kind, rtol, atol, label)
 
         def kernel(q, k, v):
             return ops.flash_attention(q, k, v, causal=causal,
@@ -725,20 +804,33 @@ def phase_flash(torch, dev):
 
         ms = device_ms(torch, kernel, sets)
         plain_ms = device_ms(torch, plain, sets)
-        bound_ms, bound_by = flash_bound(shape, itemsize)
+        if dtype == torch.float32:
+            bound_ms, bound_by = flash_bound_tc32(shape)
+        else:
+            bound_ms, bound_by = flash_bound(shape, itemsize)
         log(f"flash {label}: {kind} kernel, max_abs_err {err:.3e} "
             f"bitwise-repeatable, kernel {ms * 1e3:.4f} us plain "
             f"{plain_ms * 1e3:.4f} us bound {bound_ms * 1e3:.4f} us "
             f"({bound_by}) [{copies} input sets]")
         if dtype == torch.float32:
-            # the yardstick at the f32 check shapes: SDPA on the same f32
-            # inputs, the mask given where a prefix widens the causal one
-            # (columns below the prefix seen by every row)
+            # beside it on the same f32 inputs: the CUDA-core kernel
+            # (flash_attention.cu, which every other f32 input takes) and
+            # the yardstick SDPA, the mask given where a prefix widens the
+            # causal one (columns below the prefix seen by every row)
+            def simt(q, k, v):
+                return ops.run_kernel("simt", q, k, v, causal=causal,
+                                      prefix_len=prefix)
+            simt_out = simt(q, k, v)
+            simt_err = float((simt_out - want).abs().max())
+            check(torch.allclose(simt_out, want, rtol=rtol, atol=atol),
+                  f"flash {label}: flash_attention.cu vs plain max abs err "
+                  f"{simt_err}")
+            simt_ms = device_ms(torch, simt, sets)
             mask = None
             if prefix:
-                rows = torch.arange(sq, device=dev)[:, None]
+                rows_ = torch.arange(sq, device=dev)[:, None]
                 cols = torch.arange(sk, device=dev)[None]
-                mask = (cols <= rows) | (cols < prefix)
+                mask = (cols <= rows_) | (cols < prefix)
 
             def library(q, k, v):
                 return sdpa(q.transpose(1, 2), k.transpose(1, 2),
@@ -748,12 +840,27 @@ def phase_flash(torch, dev):
             lib_err = float((library(q, k, v).transpose(1, 2) - want)
                             .abs().max())
             library_ms = device_ms(torch, library, sets)
-            log(f"flash {label}: SDPA f32 {library_ms * 1e3:.4f} us (max abs "
-                f"diff vs plain {lib_err:.3e}); the simt kernel "
-                f"{ms / library_ms:.2f}x SDPA's time, "
-                f"{100 * bound_ms / ms:.2f}% of its bound "
-                f"({bound_ms * 1e3:.4f} us, {bound_by}); SDPA "
-                f"{100 * bound_ms / library_ms:.2f}% of it")
+            cc_ms, cc_by = flash_bound(shape, itemsize)
+            flops = flash_flops(shape)
+            split_ms = 3e3 * flops / TF32_FLOPS_PER_S
+            log(f"flash {label}: tc32 {ms * 1e3:.4f} us, flash_attention.cu "
+                f"{simt_ms * 1e3:.4f} us (max_abs_err {simt_err:.3e}), SDPA "
+                f"f32 {library_ms * 1e3:.4f} us (max abs diff vs plain "
+                f"{lib_err:.3e}), plain {plain_ms * 1e3:.4f} us; bounds: "
+                f"TF32 tensor cores {bound_ms * 1e3:.4f} us ({bound_by}), "
+                f"f32 CUDA cores {cc_ms * 1e3:.4f} us ({cc_by}); tc32 at "
+                f"{100 * bound_ms / ms:.2f}% of the TF32 bound and "
+                f"{100 * cc_ms / ms:.2f}% of the CUDA-core one; the split's "
+                f"own floor (3 TF32 products) {split_ms * 1e3:.4f} us, "
+                f"{100 * split_ms / ms:.2f}% of it; "
+                f"{flops / ms * 1e-9:.1f} TFLOP/s of the function's "
+                f"{flops / 1e9:.2f} GFLOP; SDPA takes {library_ms / ms:.2f}x "
+                f"its time, flash_attention.cu {simt_ms / ms:.2f}x")
+            if shape == FLASH_F32_FULL[0]:
+                rows["f32"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=library_ms)
+            continue
         if shape in (FLASH_MAIN, FLASH_HYBRID):
             # the yardstick: one PyTorch call for the same function (heads
             # first, as it takes them); the port never calls it
@@ -787,10 +894,30 @@ def phase_flash(torch, dev):
                 f"{100 * bound_ms / ms:.2f}% of its bound")
             check(over["SDPA", atol] > 0, "the main shape's limit passes "
                   "SDPA's bf16 probabilities: it cannot tell them from f32")
-            main_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms)
-    return main_row
+            rows["bf16"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=library_ms)
+
+    # inputs no TMA map can describe stay on flash_attention.cu: an f32 q,
+    # k, v sliced 4 bytes into a fused (B, S, 8·64 + 1) projection, and
+    # bf16 rows of 140 bytes (dh 70)
+    rng = np.random.default_rng(300)
+    fused = torch.from_numpy(rng.normal(size=(2, 300, 8 * 64 + 1)).astype(
+        np.float32)).to(dev)
+    heads = fused[..., 1:].unflatten(-1, (8, 64))
+    bf16 = flash_inputs(torch, dev, 301, (1, 130, 130, 4, 2, 70),
+                        torch.bfloat16)[0]
+    for (q, k, v), (rtol, atol), label in (
+            ((heads[:, :, :4], heads[:, :, 4:6], heads[:, :, 6:]),
+             (1e-4, 2e-5), "f32 fused qkv 4 bytes in (b=2,sq=300,h=4,kv=2,"
+                           "dh=64)"),
+            (bf16, (BF16_RTOL, BF16_ATOL), "bf16 dh=70 (b=1,sq=130,h=4,"
+                                           "kv=2)")):
+        _, _, err = hold_flash(torch, ops, ref, q, k, v, True, 0, "simt",
+                               rtol, atol, label)
+        log(f"flash {label}: simt kernel (TMA cannot describe it), "
+            f"max_abs_err {err:.3e} bitwise-repeatable")
+    return rows
 
 
 def rel_l2(torch, a, b) -> float:
@@ -801,7 +928,8 @@ def rel_l2(torch, a, b) -> float:
 def serve_launches(cfg, bf16=True):
     """Kernel launches one prefill makes on the kernel path: the flash
     kernels once per attention application, the SSD kernels once per Mamba2
-    layer (all on the tensor-core kernels in bf16, none of them in f32)."""
+    layer. In bf16 all on the tensor-core kernels; in f32 the flash ones on
+    the split-TF32 kernel and the SSD ones on ``ssd.cu``."""
     if cfg.family == "ssm":
         flash, ssd = 0, cfg.n_layers
     elif cfg.family == "hybrid":
@@ -809,8 +937,20 @@ def serve_launches(cfg, bf16=True):
     else:
         flash, ssd = cfg.n_layers, 0
     return {"flash_attention": flash,
-            "flash_attention_tc": flash if bf16 else 0, "ssd": ssd,
+            "flash_attention_tc": flash if bf16 else 0,
+            "flash_attention_tc32": 0 if bf16 else flash, "ssd": ssd,
             "ssd_tc": ssd if bf16 else 0}
+
+
+def serve_counters():
+    """The launch counters a serve run reads, by name: (module, attr)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return {"flash_attention": (flash_ops, "LAUNCHES"),
+            "flash_attention_tc": (flash_ops, "TC_LAUNCHES"),
+            "flash_attention_tc32": (flash_ops, "TC32_LAUNCHES"),
+            "ssd": (ssd_ops, "LAUNCHES"),
+            "ssd_tc": (ssd_ops, "TC_LAUNCHES")}
 
 
 def reset(counters):
@@ -934,14 +1074,10 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
     ``bf16_factor`` too, each bf16 path's logits (prefill and those steps)
     against the f32 plain path's: the kernel path's relative L2 within
     ``bf16_factor`` times the plain path's. Returns the launches of the
-    generate run."""
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.ssd import ops as ssd_ops
+    generate run, and of the f32 kernel path's prefill (None without
+    ``f32_rel_l2``)."""
     from repro_torch.launch.serve import ServeEngine
-    counters = {"flash_attention": (flash_ops, "LAUNCHES"),
-                "flash_attention_tc": (flash_ops, "TC_LAUNCHES"),
-                "ssd": (ssd_ops, "LAUNCHES"),
-                "ssd_tc": (ssd_ops, "TC_LAUNCHES")}
+    counters = serve_counters()
     expect = serve_launches(cfg)
     none = {name: 0 for name in counters}
     max_len = prompt_len + gen + 1
@@ -1022,8 +1158,73 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
         if bf16_factor is not None:
             hold_bf16_to_f32(torch, cfg, bf16_logits,
                              [tr["logits"]] + tr["steps"], bf16_factor)
+        f32_launches = kr["launches"]
         del engines, kr, tr
         torch.cuda.empty_cache()
+        return launches, f32_launches
+    return launches, None
+
+
+def phase_prefill_f32(torch, dev, cfg, batch, prompt_len, rel_bound):
+    """One f32 prefill of ``cfg`` at full width on the kernel path (flash
+    launches counted: all on the split-TF32 kernel) and on the plain path
+    (``attn_impl="torch"``, full f32 products), the logits held to each
+    other at relative L2 ``rel_bound``; the kernel path's wall (median of
+    3 more) and one profiled run's idle share. Returns its launches."""
+    from repro_torch.launch.serve import ServeEngine
+    counters = serve_counters()
+    c = dataclasses.replace(cfg, dtype="float32")
+    engines = {impl: ServeEngine(c, dev, max_len=prompt_len + 1,
+                                 dtype=torch.float32, attn_impl=impl,
+                                 ssd_impl=impl)
+               for impl in ("kernel", "torch")}
+    pk, pt = (e.params.state_dict() for e in engines.values())
+    check(all(torch.equal(pk[n], pt[n]) for n in pk),
+          "the two engines' seeded weights differ")
+    del pk, pt
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(batch, prompt_len))).to(dev)
+    engine = engines["kernel"]
+    torch.cuda.synchronize()
+    reset(counters)
+    t0 = time.perf_counter()
+    logits, cache = engine.prefill(prompts)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = read(counters)
+    del cache
+    expect = serve_launches(cfg, bf16=False)
+    check(launches == expect, f"{cfg.name} f32 prefill launches {launches}, "
+          f"expected {expect}")
+    reset(counters)
+    want, cache = engines["torch"].prefill(prompts)
+    del cache
+    check(read(counters) == {name: 0 for name in counters},
+          f"{cfg.name} f32 plain prefill launched a kernel")
+    check(bool(torch.isfinite(logits).all()),
+          f"{cfg.name} f32 kernel-path logits not finite")
+    rel = rel_l2(torch, logits, want)
+    agree = float((torch.argmax(logits, -1) == torch.argmax(want, -1))
+                  .float().mean())
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.prefill(prompts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    log(f"serve {cfg.name} f32 prefill, {batch} x {prompt_len} tokens: "
+        f"kernel path {float(np.median(times)):.4f} s (median of 3; first "
+        f"{first:.4f} s); launches {launches}; logits vs the plain f32 path "
+        f"rel L2 {rel:.4e} (bound {rel_bound}), first-token agreement "
+        f"{agree:.2f}")
+    check(rel <= rel_bound, f"{cfg.name} f32 prefill logits rel L2 {rel} > "
+          f"{rel_bound}")
+    log_busy(f"serve {cfg.name} f32 kernel-path prefill",
+             *device_busy(torch, lambda: engine.prefill(prompts)))
+    del engines, engine, logits, want
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1954,18 +2155,28 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+
+    def done(phase):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {phase} done")
+
     card = phase_device(torch)
+    done("build")
     row = phase_kernel(torch, dev)
     launches, eps = phase_main(torch, dev)
     phase_svm_ladder(torch, dev, eps)
     del eps
     torch.cuda.empty_cache()
     phase_modes(torch, dev)
-    flash_row = phase_flash(torch, dev)
+    done("SVM")
+    flash_rows = phase_flash(torch, dev)
+    done("flash")
     from repro_torch.config import get_arch
     flash_launches = phase_serve(
         torch, dev, get_arch("smollm-360m"), SERVE_BATCH, SERVE_PROMPT,
-        SERVE_GEN, LOGITS_REL_L2)["flash_attention_tc"]
+        SERVE_GEN, LOGITS_REL_L2)[0]["flash_attention_tc"]
+    phase_prefill_f32(torch, dev, get_arch("smollm-360m"), SERVE_BATCH,
+                      SERVE_PROMPT, SSM_F32_LOGITS_REL_L2)
+    done("smollm serving")
     quant_row = phase_quant(torch, dev)
     from repro_torch.config import get_smoke
     quant_launches = phase_train(torch, dev, get_arch("smollm-360m"),
@@ -1974,14 +2185,17 @@ def main() -> int:
                          TRAIN_BATCH, TRAIN_K)
     phase_fault_restart(torch, dev, get_smoke("smollm-360m"))
     phase_train_modes(torch, dev, get_smoke("smollm-360m"))
+    done("quant and training")
     ssd_row = phase_ssd(torch, dev)
     ssd_launches = phase_serve(
         torch, dev, get_arch("mamba2-2.7b"), SERVE_BATCH, SERVE_PROMPT,
         SERVE_GEN, None, SSM_F32_LOGITS_REL_L2,
-        bf16_factor=SSM_BF16_VS_F32_FACTOR)["ssd_tc"]
-    phase_serve(torch, dev, get_arch("zamba2-1.2b"), SERVE_BATCH,
-                SERVE_PROMPT, SERVE_GEN, None, SSM_F32_LOGITS_REL_L2,
-                bf16_factor=SSM_BF16_VS_F32_FACTOR)
+        bf16_factor=SSM_BF16_VS_F32_FACTOR)[0]["ssd_tc"]
+    # the f32 route's launches: zamba2's f32 prefill, the row's shape
+    tc32_launches = phase_serve(
+        torch, dev, get_arch("zamba2-1.2b"), SERVE_BATCH, SERVE_PROMPT,
+        SERVE_GEN, None, SSM_F32_LOGITS_REL_L2,
+        bf16_factor=SSM_BF16_VS_F32_FACTOR)[1]["flash_attention_tc32"]
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hinge_block_grad", "route": "cuda",
@@ -1995,7 +2209,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-        "launches": flash_launches, **flash_row}, {
+        "launches": flash_launches, **flash_rows["bf16"]}, {
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_tc32.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+        "launches": tc32_launches, **flash_rows["f32"]}, {
         "name": "quant", "route": "cuda",
         "source": "src/repro_torch/kernels/quant/csrc/quant.cu",
         "replaces": "src/repro/kernels/quant/kernel.py:18",

@@ -3,15 +3,21 @@ counts.
 
 A CPU tensor goes to the plain version
 (:func:`repro_torch.kernels.flash_attention.ref.flash_attention`); a CUDA
-tensor goes to one of two kernels, or the call raises. :func:`kernel_for`
+tensor goes to one of three kernels, or the call raises. :func:`kernel_for`
 chooses, before any launch:
 
 * ``"tc"`` (``csrc/flash_attention_tc.cu``): bfloat16 q, k and v that TMA
-  can describe — every batch, sequence and head stride a multiple of 8
-  elements (16 bytes) and every base 16-byte aligned. Both products on the
-  tensor cores (wgmma), loads by TMA.
-* ``"simt"`` (``csrc/flash_attention.cu``): float32, and bfloat16 with any
-  other strides. f32 arithmetic on the CUDA cores.
+  can describe — every batch, sequence and head stride a multiple of 16
+  bytes and every base 16-byte aligned. Both products on the tensor cores
+  (wgmma), loads by TMA.
+* ``"tc32"`` (``csrc/flash_attention_tc32.cu``): float32 q, k and v that
+  TMA can describe, head_dim ≤ 128. Both products on the tensor cores in
+  split TF32 (three TF32 products each, f32 accumulators), loads by TMA;
+  its tiles as :func:`tc32_tiles` states them.
+* ``"simt"`` (``csrc/flash_attention.cu``): every input TMA cannot
+  describe, in either type, and float32 with head_dim > 128 (the split's
+  operand tiles leave no room for two K/V stages there). f32 arithmetic on
+  the CUDA cores.
 
 There is no fallback from one kernel to the other, or to the plain version:
 a refused launch raises. Each kernel is built and loaded at its first launch
@@ -36,19 +42,24 @@ from repro_torch.kernels.flash_attention import ref
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"         # "simt": f32 on the CUDA cores
 TC_SOURCE = CSRC / "flash_attention_tc.cu"   # "tc": bf16 wgmma, TMA loads
-SOURCES = (SOURCE, TC_SOURCE)
+TC32_SOURCE = CSRC / "flash_attention_tc32.cu"  # "tc32": split-TF32 wgmma
+SOURCES = (SOURCE, TC_SOURCE, TC32_SOURCE)
+KINDS = ("simt", "tc", "tc32")
 MAX_HEAD_DIM = 256  # the TPU kernel's limit, and the kernels' largest tile
+TC32_MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_ALIGN = 16      # bytes: TMA's rule for every stride and base address
 
 # kernel launches so far, one per call on CUDA tensors, none for the CPU
-# path: LAUNCHES counts both kernels, TC_LAUNCHES the tensor-core one. A
-# run sets them to 0 and reads them after.
+# path: LAUNCHES counts all three kernels, TC_LAUNCHES the bf16 tensor-core
+# one, TC32_LAUNCHES the f32 one. A run sets them to 0 and reads them after.
 LAUNCHES = 0
 TC_LAUNCHES = 0
+TC32_LAUNCHES = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 _TC_LIB: Optional[ctypes.CDLL] = None
+_TC32_LIB: Optional[ctypes.CDLL] = None
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGS = [_PTR, _I64, _I64, _I64, _PTR, _I64, _I64, _I64,
@@ -79,20 +90,44 @@ def load_tc_library() -> ctypes.CDLL:
     return _TC_LIB
 
 
+def load_tc32_library() -> ctypes.CDLL:
+    """Build (at the first call) and load the "tc32" kernel's library."""
+    global _TC32_LIB
+    if _TC32_LIB is None:
+        lib = nvcc.load("flash_attention_tc32", [TC32_SOURCE])
+        lib.flash_attention_tc32_fwd.argtypes = _ARGS + [ctypes.c_float,
+                                                         _PTR]
+        lib.flash_attention_tc32_fwd.restype = ctypes.c_int
+        _TC32_LIB = lib
+    return _TC32_LIB
+
+
 def kernel_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel that takes (q, k, v) on a card: ``"tc"`` for bfloat16
-    inputs whose batch, sequence and head strides are all multiples of 16
-    bytes on 16-byte aligned bases (what a TMA map can describe), else
-    ``"simt"``. A rule of dtypes, strides and addresses only, so it answers
-    for CPU tensors too."""
-    if q.dtype != torch.bfloat16:
-        return "simt"
+    """The kernel that takes (q, k, v) on a card. Inputs whose batch,
+    sequence and head strides are all multiples of 16 bytes on 16-byte
+    aligned bases (what a TMA map can describe) go to ``"tc"`` in bfloat16
+    and to ``"tc32"`` in float32 with head_dim ≤ 128; everything else to
+    ``"simt"``. A rule of dtypes, shapes, strides and addresses only, so it
+    answers for CPU tensors too."""
     for t in (q, k, v):
         size = t.element_size()
         if t.data_ptr() % TMA_ALIGN or any(
                 (st * size) % TMA_ALIGN for st in t.stride()[:3]):
             return "simt"
-    return "tc"
+    if q.dtype == torch.bfloat16:
+        return "tc"
+    return "tc32" if q.shape[-1] <= TC32_MAX_HEAD_DIM else "simt"
+
+
+def tc32_tiles(dh: int) -> tuple[int, int]:
+    """(width, keys) of the "tc32" kernel's tiles at head_dim ``dh``: the
+    width its operand tiles pad dh to (32, 64 or 128) and the keys of one
+    KV tile, 64 at width 32 and 32 otherwise (``Tile::BK`` in
+    ``csrc/flash_attention_tc32.cu``, which this mirrors). A KV tile is
+    never as wide as the operand tiles: that layout gave wrong results on
+    the card (the kernel's header says why)."""
+    width = 32 if dh <= 32 else 64 if dh <= 64 else 128
+    return width, 64 if width == 32 else 32
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,9 +185,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            "attn_impl='torch' (the reference trains with "
                            "its plain attention), or run under "
                            "torch.no_grad()")
+    return run_kernel(kernel_for(q, k, v), q, k, v, causal=causal,
+                      prefix_len=prefix_len)
+
+
+def run_kernel(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               *, causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
+    """Launch kernel ``kind`` on CUDA inputs that :func:`flash_attention`
+    has checked, counting the launch. :func:`flash_attention` calls it with
+    :func:`kernel_for`'s choice; a caller may name ``"simt"`` for inputs a
+    tensor-core kernel would take (to time two kernels on the same inputs),
+    never a tensor-core kernel for inputs :func:`kernel_for` does not give
+    it."""
+    if kind not in KINDS:
+        raise ValueError(f"no flash-attention kernel {kind!r}")
+    if kind != "simt" and kernel_for(q, k, v) != kind:
+        raise ValueError(f"the {kind} kernel does not take these inputs "
+                         f"({q.dtype}, head_dim {q.shape[-1]}, strides "
+                         f"{q.stride()}, {k.stride()}, {v.stride()})")
     b, s, h, dh = q.shape
     t, kvh = k.shape[1], k.shape[2]
-    kind = kernel_for(q, k, v)
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -164,13 +216,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / dh ** 0.5
     if kind == "tc":
         err = load_tc_library().flash_attention_tc_fwd(*args, scale, stream)
+    elif kind == "tc32":
+        err = load_tc32_library().flash_attention_tc32_fwd(*args, scale,
+                                                           stream)
     else:
         err = load_library().flash_attention_fwd(*args, DTYPES[q.dtype],
                                                  scale, stream)
     if err != 0:
         raise RuntimeError(f"flash-attention kernel ({kind}) launch failed: "
                            f"error {err}")
-    global LAUNCHES, TC_LAUNCHES
+    global LAUNCHES, TC_LAUNCHES, TC32_LAUNCHES
     LAUNCHES += 1
     TC_LAUNCHES += kind == "tc"
+    TC32_LAUNCHES += kind == "tc32"
     return out

@@ -5,8 +5,10 @@ absent:
     PYTHONPATH=src python -m pytest -q tests/test_torch_flash_cuda.py
 
 Without a card the kernel tests skip; the wrapper's CPU dispatch and checks,
-the dispatch rule (``ops.kernel_for``) and an emulation of the tensor-core
-kernel's arithmetic run anywhere. Bounds: rtol 1e-4 / atol 2e-5 in f32, the
+the dispatch rule (``ops.kernel_for``) and an emulation of the bf16
+tensor-core kernel's arithmetic run anywhere (the split-TF32 kernel's is
+emulated in ``tests/test_torch_flash_tc32.py``, against the reference).
+Bounds: rtol 1e-4 / atol 2e-5 in f32, the
 reference's ``TestFlashAttention`` bound (the kernel sums in another order
 than the plain version's products). In bf16 both compute in f32 and round
 only the output, so they differ by a rounding flip: rtol 2**-7 (at least one
@@ -15,14 +17,18 @@ by ~1e-7). SDPA, which rounds the probabilities to bf16, fails that limit;
 the tensor-core kernel, whose products take bf16 operands, keeps the
 probabilities as two bf16 parts (P_hi + P_lo) to pass it.
 """
+import ctypes
+import importlib.util
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.flash_attention import ops, ref
 
 torch.set_num_threads(1)
@@ -189,23 +195,24 @@ def test_cuda_wrapper_refuses_grad(cuda):
 
 
 def _counts():
-    return ops.LAUNCHES, ops.TC_LAUNCHES
+    return ops.LAUNCHES, ops.TC_LAUNCHES, ops.TC32_LAUNCHES
 
 
-def _hold_bf16(q, k, v, causal, pref, kind):
+def _hold(q, k, v, causal, pref, kind, tol):
     """Two launches on the card: the kernel ``kind`` counted, the two
-    bitwise equal and within the bf16 limit of the plain version."""
+    bitwise equal and within ``tol`` of the plain version."""
     assert ops.kernel_for(q, k, v) == kind
-    before, tc_before = _counts()
+    before = _counts()
     got = ops.flash_attention(q, k, v, causal=causal, prefix_len=pref)
     again = ops.flash_attention(q, k, v, causal=causal, prefix_len=pref)
     torch.cuda.synchronize()
-    assert _counts() == (before + 2, tc_before + 2 * (kind == "tc"))
-    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _counts() == (before[0] + 2, before[1] + 2 * (kind == "tc"),
+                         before[2] + 2 * (kind == "tc32"))
+    assert got.dtype == q.dtype and got.shape == q.shape
     assert torch.equal(got, again)
     want = ref.flash_attention(q, k, v, causal=causal,
                                prefix_len=pref).float()
-    torch.testing.assert_close(got.float(), want, **BF16_TOL)
+    torch.testing.assert_close(got.float(), want, **tol)
     return want
 
 
@@ -216,7 +223,7 @@ def test_cuda_tc_kernel_matches_plain(cuda, case):
     b, sq, sk, h, kv, dh, causal, pref = case
     q, k, v = _inputs(sq + h + dh, b, sq, sk, h, kv, dh, torch.bfloat16,
                       cuda)
-    want = _hold_bf16(q, k, v, causal, pref, "tc")
+    want = _hold(q, k, v, causal, pref, "tc", BF16_TOL)
     if case == TC_CASES[0]:
         lib = torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -229,14 +236,124 @@ def test_cuda_tc_kernel_reads_fused_heads(cuda):
     projection: TMA reads them in place."""
     qkv = _inputs(98, 2, 200, 200, 12, 12, 64, torch.bfloat16, cuda)[0]
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
-    _hold_bf16(q, k, v, True, 0, "tc")
+    _hold(q, k, v, True, 0, "tc", BF16_TOL)
 
 
 def test_cuda_tma_unaligned_bf16_takes_simt(cuda):
     """bf16 with a row stride of 140 bytes (dh 70): TMA cannot describe
     it, so the f32 CUDA-core kernel takes it, within the same limit."""
     q, k, v = _inputs(97, 1, 130, 130, 4, 2, 70, torch.bfloat16, cuda)
-    _hold_bf16(q, k, v, True, 0, "simt")
+    _hold(q, k, v, True, 0, "simt", BF16_TOL)
+
+
+# f32 cases of the split-TF32 kernel: the three full-width f32 prefills
+# (zamba2-1.2b, smollm-360m, llama32-3b), ragged S/T/dh, GQA groups 1–4 and
+# 6, causal ∪ prefix and non-causal prefix, dh 32, 40, 64, 96 and 128
+TC32_CASES = [
+    (4, 1920, 1920, 32, 32, 64, True, 0),
+    (4, 1920, 1920, 15, 5, 64, True, 0),
+    (4, 1920, 1920, 24, 8, 128, True, 0),
+    (1, 200, 300, 4, 2, 64, False, 0),
+    (1, 1000, 1000, 6, 2, 64, True, 0),
+    (1, 300, 300, 9, 3, 64, True, 0),
+    (1, 256, 256, 4, 1, 64, True, 40),
+    (1, 192, 320, 4, 2, 64, False, 100),
+    (1, 512, 512, 2, 2, 32, True, 0),
+    (1, 100, 70, 6, 2, 40, True, 0),
+    (1, 70, 100, 3, 3, 96, False, 0),
+    (2, 256, 256, 12, 2, 128, True, 0),
+]
+F32_TOL = dict(rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", TC32_CASES)
+def test_cuda_tc32_kernel_matches_plain(cuda, case):
+    """f32 on the card: the split-TF32 kernel takes every case, within the
+    f32 limit, two launches bitwise equal and counted on it."""
+    b, sq, sk, h, kv, dh, causal, pref = case
+    q, k, v = _inputs(sq + h + dh, b, sq, sk, h, kv, dh, torch.float32, cuda)
+    _hold(q, k, v, causal, pref, "tc32", F32_TOL)
+
+
+def test_cuda_tc32_kernel_reads_fused_heads(cuda):
+    """f32 q, k, v as head slices of one fused (B, S, H + 2·KV, dh)
+    projection: TMA reads them in place."""
+    qkv = _inputs(96, 2, 200, 200, 12, 12, 64, torch.float32, cuda)[0]
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    _hold(q, k, v, True, 0, "tc32", F32_TOL)
+
+
+def test_cuda_unaligned_f32_takes_simt(cuda):
+    """f32 q 4 bytes into a fused projection, and f32 at dh 200: the CUDA-
+    core kernel takes both, within the f32 limit; ``run_kernel`` runs it on
+    inputs the split-TF32 kernel would take, and refuses the tensor-core
+    kernels for inputs they do not take."""
+    qkv = _inputs(95, 1, 130, 130, 1, 1, 8 * 64 + 1, torch.float32,
+                  cuda)[0][:, :, 0]
+    heads = qkv[..., 1:].unflatten(-1, (8, 64))
+    _hold(heads[:, :, :4], heads[:, :, 4:6], heads[:, :, 6:], True, 0,
+          "simt", F32_TOL)
+    q, k, v = _inputs(94, 1, 100, 70, 4, 2, 200, torch.float32, cuda)
+    _hold(q, k, v, True, 0, "simt", F32_TOL)
+    q, k, v = _inputs(93, 1, 128, 128, 4, 2, 64, torch.float32, cuda)
+    before = _counts()
+    got = ops.run_kernel("simt", q, k, v)
+    assert _counts() == (before[0] + 1, before[1], before[2])
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v), **F32_TOL)
+    for kind in ("tc", "nope"):
+        with pytest.raises(ValueError):
+            ops.run_kernel(kind, q, k, v)
+
+
+def _variants():
+    """``scripts/flash_tc32_variants.py`` as a module: its variants of the
+    split-TF32 kernel and its scans of their machine code."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "flash_tc32_variants.py"
+    spec = importlib.util.spec_from_file_location("flash_tc32_variants",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _sass(lib):
+    cuobjdump = Path(nvcc.nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def test_cuda_tc32_fragments_survive_the_kv_loop(cuda, tmp_path):
+    """The split-TF32 kernel as this machine's nvcc builds it keeps its
+    wgmma register operands: none is touched while its wgmma is in flight,
+    and no A fragment held across the KV loop (Q_lo) is overwritten later
+    in the loop. A build that breaks the second rule is wrong: ptxas did so
+    in the 64-key-tile build at dh 64 (``bk64`` of the variants script),
+    whose every KV tile after the first then read P's lo parts as three of
+    the eight Q_lo slices. The scan is held to the numbers: that build
+    misses the f32 limit exactly when the scan finds the clobber in it."""
+    variants = _variants()
+    shipped = _sass(nvcc.build("flash_attention_tc32", [ops.TC32_SOURCE]))
+    assert variants.wgmma_hazards(shipped)[0] == []
+    assert variants.loop_clobbers(shipped) == []
+    src = tmp_path / "tc32_bk64.cu"
+    src.write_text(variants.variant_source(ops.TC32_SOURCE.read_text(),
+                                           "bk64"))
+    lib = tmp_path / "tc32_bk64.so"
+    variants._nvcc(src, lib)
+    clobbered = any("fwdILi64ELi2E" in func
+                    for func, *_ in variants.loop_clobbers(_sass(lib)))
+    fn = ctypes.CDLL(str(lib)).flash_attention_tc32_fwd
+    fn.argtypes = ops._ARGS + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    q, k, v = _inputs(91, 1, 128, 128, 4, 1, 64, torch.float32, cuda)
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+             v.data_ptr(), *v.stride()[:3], out.data_ptr(), 1, 128, 128, 4,
+             1, 64, 1, 32, 64 ** -0.5, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    want = ref.flash_attention(q, k, v, causal=True, prefix_len=32)
+    assert torch.allclose(out, want, **F32_TOL) != clobbered
 
 
 # ---------------------------------------------------------------------------
@@ -254,9 +371,30 @@ def _offset(t, elems):
 
 
 _FUSED = _bf16((2, 16, 8, 64))
+_FUSED32 = torch.zeros(2, 16, 8 * 64 + 4)
 _KERNEL_FOR = [
     ("f32", [torch.zeros(1, 8, 4, 64), torch.zeros(1, 8, 2, 64),
-             torch.zeros(1, 8, 2, 64)], "simt"),
+             torch.zeros(1, 8, 2, 64)], "tc32"),
+    ("f32 dh 128", [torch.zeros(1, 8, 6, 128), torch.zeros(1, 8, 2, 128),
+                    torch.zeros(1, 8, 2, 128)], "tc32"),
+    ("f32 dh 4", [torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2, 4),
+                  torch.zeros(1, 8, 2, 4)], "tc32"),
+    ("f32 fused heads", [_FUSED32[..., :512].unflatten(-1, (8, 64))[:, :, :4],
+                         _FUSED32[..., :512].unflatten(-1, (8, 64))[:, :, 4:6],
+                         _FUSED32[..., :512].unflatten(-1, (8, 64))[:, :, 6:]],
+     "tc32"),
+    ("f32 fused heads 4 bytes in", [
+        _FUSED32[..., 1:513].unflatten(-1, (8, 64))[:, :, :4],
+        _FUSED32[..., 1:513].unflatten(-1, (8, 64))[:, :, 4:6],
+        _FUSED32[..., 1:513].unflatten(-1, (8, 64))[:, :, 6:]], "simt"),
+    ("f32 dh 70: 280-byte rows", [torch.zeros(1, 8, 4, 70),
+                                  torch.zeros(1, 8, 2, 70),
+                                  torch.zeros(1, 8, 2, 70)], "simt"),
+    ("f32 dh 200", [torch.zeros(1, 8, 4, 200), torch.zeros(1, 8, 2, 200),
+                    torch.zeros(1, 8, 2, 200)], "simt"),
+    ("f32 k base off by 4 bytes", [torch.zeros(1, 8, 4, 64),
+                                   _offset(torch.zeros(1, 8, 2, 64), 1),
+                                   torch.zeros(1, 8, 2, 64)], "simt"),
     ("bf16 contiguous", [_bf16((1, 8, 4, 64)), _bf16((1, 8, 2, 64)),
                          _bf16((1, 8, 2, 64))], "tc"),
     ("bf16 dh 32", [_bf16((2, 8, 4, 32)), _bf16((2, 8, 4, 32)),
@@ -285,10 +423,23 @@ _KERNEL_FOR = [
 @pytest.mark.parametrize("qkv,kind", [c[1:] for c in _KERNEL_FOR],
                          ids=[c[0] for c in _KERNEL_FOR])
 def test_kernel_for(qkv, kind):
-    """The dispatch rule: bf16 whose strides and bases TMA can describe
-    (multiples of 16 bytes) goes to the tensor-core kernel, everything
-    else to the CUDA-core one."""
+    """The dispatch rule: inputs whose strides and bases TMA can describe
+    (multiples of 16 bytes) go to the bf16 tensor-core kernel in bf16 and
+    to the split-TF32 one in f32 up to dh 128; everything else to the
+    CUDA-core one."""
     assert ops.kernel_for(*qkv) == kind
+
+
+@pytest.mark.parametrize("dh,width,keys", [
+    (1, 32, 64), (4, 32, 64), (8, 32, 64), (31, 32, 64), (32, 32, 64),
+    (33, 64, 32), (40, 64, 32), (64, 64, 32), (96, 128, 32),
+    (128, 128, 32)])
+def test_tc32_tiles(dh, width, keys):
+    """The split-TF32 kernel's tiles: dh padded to 32, 64 or 128, KV tiles
+    of 64 keys at width 32 and 32 otherwise, never as wide as the operand
+    tiles."""
+    assert ops.tc32_tiles(dh) == (width, keys)
+    assert keys != width
 
 
 def _emulate(q, k, v, causal, prefix_len, probs, bk=128):

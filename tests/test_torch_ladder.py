@@ -532,15 +532,15 @@ def DataPipeline_blocked(cfg, h, start):
                                         start_step=start), h)
 
 
-def test_compile_counter_hears_builds_and_loads(monkeypatch):
+def test_compile_counter_hears_builds_and_loads(monkeypatch, tmp_path):
     """The counter hears every ``nvcc.build`` and ``nvcc.load`` call made
     after it was made; the warmup's loads fall before ``mark()``; a rung
     raises on a block of another H."""
     counter = CompileCounter()
     monkeypatch.setattr(nvcc, "nvcc_path", lambda: (_ for _ in ()).throw(
         RuntimeError("no nvcc here")))
-    monkeypatch.setattr(nvcc, "BUILD_DIR",
-                        nvcc.BUILD_DIR.parent / "_no_such_build_dir")
+    # a build directory of the test's own: nothing is written under src/
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="no nvcc"):
         nvcc.load("quant", [nvcc.Path(__file__)])
     assert counter.count == 2          # load, then the build it needs
