@@ -19,9 +19,16 @@ entry points and holds every run to its plain-version twin:
    rest); with the time of each, the plain version's and the bound, and
    wherever the cluster kernel runs ``hinge.cu``'s time on the same inputs;
 3. the SVM path: ``dms`` with 32 workers, block 64, 2 epochs on the epsilon
-   stand-in (400,000 × 2,000), kernel launches counted, every one on the
-   cluster kernel, and the device activities of one profiled run a block;
-   then (b) the SVM block ladder on the same data: ``dms_block_ladder``
+   stand-in (400,000 × 2,000), each epoch one CUDA graph replay (the first
+   call captures, the next replays the capture ``dms`` kept), and the same
+   with ``graphs=False``, bitwise equal; the main path's counted run, a
+   first call under the profiler: the hinge launches the host makes (the
+   capture records an epoch's), every one on the cluster kernel, and the
+   cluster kernel's runs by the profiler (every epoch's: the kernels
+   line's count), with its device activities a block; the epochs alone:
+   the capture, each replay, the replays' idle share, the replays under
+   the sync debug mode "error"; then (b) the SVM block ladder on the same
+   data: ``dms_block_ladder``
    rungs (32, 64, 128), epoch 1 at 64, ``dms_ladder_switch``, epoch 2 at
    128, held to the plain-gradient chain (accuracy within 0.005, relative
    L2 1e-3), two kernel runs bitwise equal, the hinge launches exactly the
@@ -30,7 +37,9 @@ entry points and holds every run to its plain-version twin:
    ``dms_timed_steps`` at 64 into a ``BlockTelemetry`` and an
    ``AdaptiveController`` over the rungs (its T_step, T_sync and pick);
 4. every ``dms`` mode on the webspam stand-in (350,000 × 254, K=8, block 64,
-   one epoch), ``srdms`` and ``seq_sgd`` on the ijcnn1 stand-in (n=4,000),
+   one epoch), the graphed epoch bitwise the eager one in every mode but
+   async gossip (which runs eagerly), ``srdms`` and ``seq_sgd`` on the
+   ijcnn1 stand-in (n=4,000),
    the hinge launches all on ``hinge.cu`` (254 and 22 columns: rows no bulk
    copy can move), with ``hinge.cu``'s time at the blocks both hand it;
 5. the flash-attention kernels against their plain version: the f32
@@ -50,9 +59,15 @@ entry points and holds every run to its plain-version twin:
    bound;
 6. the serving path: ``ServeEngine.generate`` on smollm-360m at full width
    (32 layers, bf16, seeded random weights), 4 prompts of 1,920 tokens and
-   128 new tokens each, flash launches counted (one per layer per prefill,
-   all on the tensor-core kernel), and the kernel path against the plain
-   path (``attn_impl="torch"``); then one f32 prefill at full width, its 32
+   128 new tokens each, the decode step a CUDA graph replay, flash launches
+   counted (one per layer per prefill, all on the tensor-core kernel); the
+   same requests again (one capture over both calls) and through an engine
+   with ``graphs=False``: tokens identical, the teacher-forced logits of the
+   replayed step bitwise the eager step's; ms a step of each (the replays
+   under the sync debug mode "error"), new tokens/s, peak memory, and the
+   device busy time and idle share of 16 steps of each; the kernel path
+   against the plain path (``attn_impl="torch"``); then one f32 prefill at
+   full width, its 32
    flash launches all on the split-TF32 kernel, its logits held to the
    plain f32 path's at relative L2 1e-2, with its wall and idle share;
 7. the int8 quant kernels against their plain version at the ``TestQuant``
@@ -97,7 +112,8 @@ entry points and holds every run to its plain-version twin:
     kernel's time on the same bf16 inputs;
 11. the SSM serving path: ``ServeEngine.generate`` on mamba2-2.7b at full
     width (64 layers, bf16, seeded random weights), 4 prompts of 1,920
-    tokens and 128 new tokens each, SSD launches counted (one per layer per
+    tokens and 128 new tokens each, graph against eager as in 6, SSD
+    launches counted (one per layer per
     prefill, all on the tensor-core kernel in bf16 and none of them in f32;
     decode runs the plain recurrence step), and the kernel path against
     the plain path (``ssd_impl="torch"``): in bf16 layer 0's cache held
@@ -106,7 +122,8 @@ entry points and holds every run to its plain-version twin:
     1e-2; and the bf16 kernel path's logits (prefill and those 16 steps)
     within 1.5× the bf16 plain path's own relative L2 to the f32 plain
     path;
-12. the hybrid serving path: the same on zamba2-1.2b at full width (38
+12. the hybrid serving path: the same, graph against eager too, on
+    zamba2-1.2b at full width (38
     Mamba2 layers, the shared attention block after every 6: 38 SSD and 6
     flash launches per prefill, on the tensor-core kernels in bf16; in f32
     the SSD ones on ``ssd.cu`` and the flash ones on the split-TF32
@@ -279,7 +296,8 @@ def device_ms(torch, fn, arg_sets, runs: int = 21) -> float:
 
 def device_busy(torch, fn):
     """Run ``fn()`` once under ``torch.profiler`` and return (device busy
-    s, span s, device activities, top kernels), all of that one run: busy is
+    s, span s, device activities, top kernels, activities by name), all of
+    that one run (a CUDA graph's replays show each kernel they run): busy is
     the sum of the durations of the device's kernels, copies and fills (one
     stream, so they do not overlap); span is the device time from a CUDA
     event recorded before ``fn`` to one recorded after it, so busy/span is
@@ -298,17 +316,18 @@ def device_busy(torch, fn):
         end.record()
         torch.cuda.synchronize()
     span = start.elapsed_time(end) * 1e-3
-    by_name = {}
+    by_name, counts = {}, {}
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(bool(device), "the profiler recorded no device activity")
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() * 1e-6
+        counts[e.name] = counts.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return sum(by_name.values()), span, len(device), top
+    return sum(by_name.values()), span, len(device), top, counts
 
 
-def log_busy(label, busy, span, count, top):
+def log_busy(label, busy, span, count, top, counts=None):
     """One line: the device's busy and idle share of one profiled run's
     span, unclamped (a busy time above the span would show as a negative
     idle share), and where the device time went."""
@@ -509,43 +528,77 @@ def async_growth(workers: int, topology: str) -> float:
 
 
 def _dms_pair(torch, dev, ds, label, expect_launches, route, **kw):
-    """``dms`` on the kernel path (launches counted, every one on the kernel
-    ``route`` names) and on the plain path; holds the two to the
-    relative-L2 and accuracy bounds. Where the async
-    recurrence grows in epoch 0, the reference itself overflows over a long
-    epoch (``tests/test_torch_svm.py::test_async_ring_diverges_like_reference``):
+    """``dms`` on the kernel path, as a user calls it (on the card the first
+    call captures an epoch and replays it an epoch a call; the second call
+    replays the capture ``dms`` kept; every launch on the kernel ``route``
+    names), the same eagerly (``graphs=False``), the three held bitwise,
+    and on the plain path; holds the kernel path to the plain one by the
+    relative-L2 and accuracy bounds. The host counts the launches it makes:
+    the capture records an epoch's once, a call on the kept capture makes
+    none, an eager call every block's (``expect_launches``). Async gossip
+    stays eager (its mixing matrix is picked on the host), so there the
+    kernel-path runs are all eager. Where the async recurrence grows in
+    epoch 0, the reference itself overflows over a long epoch
+    (``tests/test_torch_svm.py::test_async_ring_diverges_like_reference``):
     there both paths must end non-finite, as the reference does."""
     from repro_torch.core import svm
     from repro_torch.kernels.hinge import ops
+    from repro_torch.runtime import graphs as G
     x, y, xt, yt = ds
     w0 = torch.zeros(x.shape[1], device=dev)
+    graphed = not kw.get("gossip_async")
+    per_epoch = expect_launches // kw["epochs"]
+    made = {"kernel": per_epoch if graphed else expect_launches,
+            "again": 0 if graphed else expect_launches,
+            "eager": expect_launches, "torch": 0}
+    svm.DMS_GRAPHS.clear()              # the first call captures
     out = {}
-    for impl in ("kernel", "torch"):
+    for impl, graphs in (("kernel", None), ("again", None), ("eager", False),
+                         ("torch", None)):
         torch.cuda.synchronize()
         ops.LAUNCHES = ops.CLUSTER_LAUNCHES = 0
+        captures = G.CAPTURES
         t0 = time.perf_counter()
-        w = svm.dms(w0, x, y, grad_impl=impl, device=dev, **kw)
+        w = svm.dms(w0, x, y, grad_impl="torch" if impl == "torch" else
+                    "kernel", device=dev, graphs=graphs, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.LAUNCHES
+        # the plain path is graphed too: its first call captures its own
+        check(G.CAPTURES - captures == (graphed and impl != "again" and
+                                        graphs is None),
+              f"{label} {impl}: {G.CAPTURES - captures} captures")
+        check(launches == made[impl],
+              f"{label} {impl}: {launches} hinge launches made on the host, "
+              f"expected {made[impl]}")
         check(ops.CLUSTER_LAUNCHES == (launches if route == "cluster" else 0),
               f"{label} {impl}: {ops.CLUSTER_LAUNCHES} of {launches} hinge "
               f"launches on the cluster kernel, expected all on {route}")
         check(w.shape == w0.shape, f"{label} {impl}: model shape {w.shape}")
         acc = float(svm.accuracy(w, xt, yt))
         out[impl] = (w, acc, wall, launches)
-    wk, acck, wallk, launches = out["kernel"]
+    wk, acck, wallk, launches_k = out["kernel"]
+    wa, _, walla, _ = out["again"]
+    we, _, walle, launches = out["eager"]
     wt, acct, wallt, launches_t = out["torch"]
+    # async: every kernel-path run eager
+    same = not graphed or (torch.equal(wk, we) and torch.equal(wa, we))
+    how = (("graph, the call that captures", "the kept capture")
+           if graphed else ("eager", "eager"))
+    walls = (f"wall kernel {wallk:.4f} s ({how[0]}), again {walla:.4f} s "
+             f"({how[1]}), eager {walle:.4f} s, plain {wallt:.4f} s")
+    check(same, f"{label}: the graphed epochs differ from the eager ones "
+          f"(max abs diff {float((wk - we).abs().max()):.3e}, again "
+          f"{float((wa - we).abs().max()):.3e})")
     growth = (async_growth(kw["workers"], kw["topology"])
               if kw.get("gossip_async") else 0.0)
     if growth > 1.0:
         finite = [bool(torch.isfinite(v).all()) for v in (wk, wt)]
         log(f"dms {label}: async growth {growth:.4f} per block at alpha=1 "
             f"over {expect_launches} blocks; model finite kernel {finite[0]} "
-            f"plain {finite[1]} (the reference overflows here too); kernel "
+            f"plain {finite[1]} (the reference overflows here too); eager "
             f"launches {launches} (expected {expect_launches}), plain-path "
-            f"launches {launches_t}; wall kernel {wallk:.3f} s plain "
-            f"{wallt:.3f} s")
+            f"launches {launches_t}; {walls}")
         check(finite == [False, False],
               f"{label}: expected both paths to overflow as the reference "
               f"does, got finite={finite}")
@@ -555,11 +608,13 @@ def _dms_pair(torch, dev, ds, label, expect_launches, route, **kw):
     for impl, v in (("kernel", wk), ("torch", wt)):
         check(bool(torch.isfinite(v).all()), f"{label} {impl}: not finite")
     rel = float((wk - wt).norm() / wt.norm())
-    log(f"dms {label}: kernel launches {launches} (expected "
-        f"{expect_launches}, all on {route}), plain-path "
-        f"launches {launches_t}; test acc "
-        f"kernel {acck:.4f} plain {acct:.4f}; rel L2(w) {rel:.3e}; wall "
-        f"kernel {wallk:.3f} s plain {wallt:.3f} s")
+    log(f"dms {label}: eager launches {launches} (expected "
+        f"{expect_launches}, all on {route}), the first call's "
+        f"{launches_k} ({how[0]}), plain-path launches {launches_t}; graph "
+        f"vs eager "
+        f"bitwise "
+        f"{'yes' if graphed else 'n/a (async gossip runs eagerly)'}; test acc "
+        f"kernel {acck:.4f} plain {acct:.4f}; rel L2(w) {rel:.3e}; {walls}")
     check(launches == expect_launches,
           f"{label}: {launches} kernel launches, expected {expect_launches}")
     check(launches_t == 0, f"{label}: the plain path launched the kernel")
@@ -585,29 +640,90 @@ def _load(torch, dev, name, **kw):
 
 
 def phase_main(torch, dev, n_override=None):
-    """dms(K=32, block 64, 2 epochs) on epsilon: the paper's main path."""
+    """dms(K=32, block 64, 2 epochs) on epsilon: the paper's main path, an
+    epoch a CUDA graph replay (:func:`_dms_pair`); then the main path's
+    counted run, a first call under the profiler with the counts set to 0
+    just before it: the host counts the launches the capture records, the
+    profiler the cluster kernel's runs (the kernels line's count); then its
+    epochs alone: the capture, each replay, the replays under the sync
+    debug mode "error"."""
     from repro_torch.core import svm
+    from repro_torch.kernels.hinge import ops
+    from repro_torch.runtime import graphs as G
     k, bs, epochs = 32, 64, 2
     if n_override:
         log(f"epsilon cut to n={n_override} (published 400,000)")
     ds = _load(torch, dev, "epsilon", n_override=n_override)
     n_local = ds[0].shape[0] // k
     blocks = n_local // bs
-    w, acc, wall, launches = _dms_pair(
+    w, acc, wall, _ = _dms_pair(
         torch, dev, ds, "epsilon K=32 block=64 epochs=2",
         epochs * blocks, "cluster", workers=k, epochs=epochs, block_size=bs)
     obj = float(svm.hinge_objective(w, ds[0], ds[1]))
     check(np.isfinite(obj), "epsilon objective not finite")
     w0 = torch.zeros(ds[0].shape[1], device=dev)
+    svm.DMS_GRAPHS.clear()              # a first call: it captures
+    captures = G.CAPTURES
+    ops.LAUNCHES = ops.CLUSTER_LAUNCHES = 0
     busy = device_busy(torch, lambda: svm.dms(
         w0, ds[0], ds[1], workers=k, epochs=epochs, block_size=bs,
         device=dev))
-    log_busy("dms epsilon", *busy)
-    log(f"dms epsilon: {busy[2] / (epochs * blocks):.2f} device activities "
-        f"a block over {epochs * blocks} blocks")
+    made, made_cluster = ops.LAUNCHES, ops.CLUSTER_LAUNCHES
+    launches = sum(n for name, n in busy[4].items() if "hinge_cluster" in name)
+    log_busy("dms epsilon (capture and replays)", *busy)
+    log(f"dms epsilon, the main path's counted run (a first call, under the "
+        f"profiler): {busy[2] / (epochs * blocks):.2f} device activities a "
+        f"block over {epochs * blocks} blocks; hinge launches made on the "
+        f"host {made} ({made_cluster} on the cluster kernel: the capture "
+        f"records an epoch's once), cluster-kernel runs by the profiler "
+        f"{launches} ({epochs} replays x {blocks})")
+    check(G.CAPTURES - captures == 1,
+          f"dms epsilon: {G.CAPTURES - captures} captures in a first call")
+    check(made == made_cluster == blocks,
+          f"dms epsilon: {made} / {made_cluster} launches made on the host, "
+          f"expected {blocks} on the cluster kernel")
+    check(launches == epochs * blocks,
+          f"dms epsilon: {launches} cluster-kernel runs by the profiler, "
+          f"expected {epochs * blocks}")
+
+    # the epochs alone: the capture, then each replay waited for
+    d = ds[0].shape[1]
+    xs, ys = svm._shard_data(ds[0], ds[1], k)
+    xb = xs[:, :blocks * bs].reshape(k, blocks, bs, d)
+    yb = ys[:, :blocks * bs].reshape(k, blocks, bs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = svm.DmsEpochs(w0, xb, yb, c=1.0, grad_impl="kernel", graphs=True)
+    torch.cuda.synchronize()
+    capture = time.perf_counter() - t0
+    replays = []
+    for t in range(epochs):
+        t0 = time.perf_counter()
+        run.epoch(t)
+        torch.cuda.synchronize()
+        replays.append(time.perf_counter() - t0)
+    check(torch.equal(run.model(), w),
+          "dms epsilon: DmsEpochs differs from dms's graph")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(epochs):
+            run.epoch(t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"dms epsilon epochs as a graph: capture {1e3 * capture:.3f} ms "
+        f"(host; {1e3 * run.compiled.capture_s:.3f} ms in the capture call, "
+        f"of which {1e3 * run.compiled.end_s:.3f} ms ended it, instantiating "
+        f"the graph), first replay {1e3 * replays[0]:.3f} ms, "
+        f"then {', '.join(f'{1e3 * r:.3f}' for r in replays[1:])} ms an "
+        f"epoch (host clock, each waited for); {epochs} replays ran under "
+        f"the sync debug mode 'error'")
+    log_busy(f"dms epsilon, {epochs} replayed epochs", *device_busy(
+        torch, lambda: [run.epoch(t) for t in range(epochs)]))
     log(f"main path: epsilon test acc {acc:.4f} objective {obj:.6e} "
-        f"wall {wall:.4f} s ({1e6 * wall / (epochs * blocks):.1f} us a block) "
-        f"launches {launches} ({epochs} epochs x {blocks} blocks)")
+        f"wall {wall:.4f} s ({1e6 * wall / (epochs * blocks):.1f} us a block; "
+        f"the call that captures) launches {launches} ({epochs} epochs x "
+        f"{blocks} blocks, by the profiler)")
     return launches, ds
 
 
@@ -976,10 +1092,10 @@ def layer0(cfg, cache):
 
 def _serve_paths(torch, engines, prompts, forced, counters, timed):
     """Prefill then decode teacher-forced on ``forced`` through each engine
-    (the kernel path and the plain path); per path the logits of the
-    prefill and of every step, layer 0's cache after the prefill, the
-    prefill's launches and, if ``timed``, the prefill (median of 3 more)
-    and decode times."""
+    (the kernel path and the plain path) by its decode loop (graph replays
+    on the card); per path the logits of the prefill and of every step,
+    layer 0's cache after the prefill, the prefill's launches and, if
+    ``timed``, the prefill (median of 3 more) and decode times."""
     runs = {}
     prompt_len, gen = prompts.shape[1], forced.shape[1]
     for impl, eng in engines.items():
@@ -991,11 +1107,10 @@ def _serve_paths(torch, engines, prompts, forced, counters, timed):
         prefill_s = time.perf_counter() - t0
         launches = read(counters)
         first = layer0(eng.cfg, cache)
-        steps = []
+        eng.decode_loop(prompts.shape[0])     # captured here, not timed
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(gen):
-            steps.append(eng.decode(forced[:, i:i + 1], cache,
-                                    prompt_len + i))
+        steps = _forced_steps(eng, logits, prompt_len, forced)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         del cache
@@ -1016,7 +1131,8 @@ def _serve_paths(torch, engines, prompts, forced, counters, timed):
         log(f"serve {eng.cfg.name} {impl} path: prefill "
             f"{runs[impl]['prefill_s']:.4f} s (median of 3; first "
             f"{prefill_s:.4f} s), decode {runs[impl]['decode_ms']:.3f} ms a "
-            f"step ({b} tokens), {1e3 * b / runs[impl]['decode_ms']:.1f} "
+            f"step ({b} tokens, teacher-forced, graphs "
+            f"{eng.graphs}), {1e3 * b / runs[impl]['decode_ms']:.1f} "
             f"tokens/s in decode; launches in prefill {launches}")
     return runs["kernel"], runs["torch"]
 
@@ -1065,7 +1181,10 @@ def _hold_paths(torch, cfg, kr, tr, label, rel_bound):
 def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
                 f32_rel_l2=None, f32_steps=16, bf16_factor=None):
     """``ServeEngine.generate`` through the kernel path (flash and SSD
-    launches counted), then the kernel path against the plain path
+    launches counted; the decode loop as CUDA graph replays), that against
+    ``graphs=False`` (:func:`_graph_against_eager`, and the replayed step
+    teacher-forced against the eager step's logits, bitwise), then the
+    kernel path against the plain path
     (``attn_impl="torch"``, ``ssd_impl="torch"``) in bf16, on the kernel
     path's tokens: prefill logits, layer 0's cache after the prefill, every
     decode step's logits teacher-forced (held to ``bf16_rel_l2`` where it is
@@ -1077,6 +1196,7 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
     generate run, and of the f32 kernel path's prefill (None without
     ``f32_rel_l2``)."""
     from repro_torch.launch.serve import ServeEngine
+    from repro_torch.runtime import graphs as G
     counters = serve_counters()
     expect = serve_launches(cfg)
     none = {name: 0 for name in counters}
@@ -1104,11 +1224,13 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
     prompts = torch.from_numpy(rng.integers(
         1, cfg.vocab_size, size=(batch, prompt_len))).to(dev)
 
-    # the main path, as a user calls it
+    # the main path, as a user calls it: the decode loop as graph replays
     engine = engines["kernel"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     reset(counters)
+    captures = G.CAPTURES
     t0 = time.perf_counter()
     tokens = engine.generate(prompts, gen)
     wall = time.perf_counter() - t0
@@ -1119,10 +1241,15 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
           "generated token ids out of range")
     check(launches == expect, f"{cfg.name}: launches in one generate "
           f"{launches}, expected {expect} (one prefill; decode runs none)")
-    log(f"serve {cfg.name} generate: {batch} x {prompt_len} prompt tokens, "
-        f"{gen} new tokens each: wall {wall:.4f} s, {tokens.size / wall:.1f} "
-        f"new tokens/s; launches {launches} (one prefill); peak memory "
-        f"{peak / 2**30:.2f} GiB")
+    log(f"serve {cfg.name} generate (graphs): {batch} x {prompt_len} prompt "
+        f"tokens, {gen} new tokens each: wall {wall:.4f} s, "
+        f"{tokens.size / wall:.1f} new tokens/s (the first call: it captures "
+        f"the step); launches {launches} (one prefill); peak memory "
+        f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before it (the kernel and plain "
+        f"engines' weights)")
+    eager, gen_walls = _graph_against_eager(
+        torch, dev, cfg, engine, prompts, gen, tokens, captures)
 
     # kernel path and plain path, step by step on the kernel path's tokens
     forced = torch.from_numpy(tokens).to(dev).long()
@@ -1136,15 +1263,35 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
     _hold_paths(torch, cfg, kr, tr, f"serve {cfg.name} bf16", bf16_rel_l2)
     bf16_logits = {impl: [r["logits"]] + r["steps"][:f32_steps]
                    for impl, r in (("kernel", kr), ("torch", tr))}
+    # the eager step teacher-forced on the same tokens: the replayed
+    # steps' logits (the kernel path's above), bitwise
+    logits, _ = eager.prefill(prompts)
+    eager_steps = _forced_steps(eager, logits, prompt_len, forced)
+    same = [torch.equal(a, b) for a, b in zip(kr["steps"], eager_steps)]
+    log(f"serve {cfg.name} teacher-forced logits, graph replays vs eager "
+        f"steps: {sum(same)} of {len(same)} steps bitwise")
+    check(all(same), f"{cfg.name}: graphed decode logits differ from the "
+          f"eager step's at steps {[i for i, v in enumerate(same) if not v]}")
+    del eager_steps
     n_prof = min(16, gen)
     log_busy(f"serve {cfg.name} kernel-path prefill",
              *device_busy(torch, lambda: engine.prefill(prompts)))
-    _, cache = engine.prefill(prompts)
-    log_busy(f"serve {cfg.name} decode, {n_prof} steps",
-             *device_busy(torch, lambda: [
-                 engine.decode(forced[:, i:i + 1], cache, prompt_len + i)
-                 for i in range(n_prof)]))
-    del cache, engines, engine, kr, tr
+    busy = {}
+    for name, eng in (("eager", eager), ("graph", engine)):
+        logits, _ = eng.prefill(prompts)
+        loop = eng.decode_loop(batch)
+        loop.start(logits, prompt_len)
+        busy[name] = device_busy(torch, lambda: [loop.step()
+                                                 for _ in range(n_prof)])
+        log_busy(f"serve {cfg.name} {name} decode, {n_prof} steps",
+                 *busy[name])
+    busy_e, busy_g = busy["eager"], busy["graph"]
+    log(f"serve {cfg.name} decode device busy a step: graph "
+        f"{1e3 * busy_g[0] / n_prof:.3f} ms, eager "
+        f"{1e3 * busy_e[0] / n_prof:.3f} ms; new tokens/s of generate: "
+        f"graph {gen_walls['graph']:.1f} (a call after the capture), eager "
+        f"{gen_walls['eager']:.1f}")
+    del engines, engine, eager, kr, tr, loop
     torch.cuda.empty_cache()
 
     if f32_rel_l2 is not None:
@@ -1163,6 +1310,95 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
         torch.cuda.empty_cache()
         return launches, f32_launches
     return launches, None
+
+
+def _forced_steps(engine, logits, prompt_len, forced):
+    """The logits of each step of ``engine``'s decode loop, teacher-forced
+    on ``forced`` after a prefill of ``prompt_len`` tokens that gave
+    ``logits``."""
+    loop = engine.decode_loop(forced.shape[0])
+    loop.start(logits, prompt_len)
+    steps = []
+    for i in range(forced.shape[1]):
+        loop.token.copy_(forced[:, i:i + 1])
+        steps.append(loop.step().clone())
+    return steps
+
+
+def _graph_against_eager(torch, dev, cfg, engine, prompts, gen, tokens,
+                         captures):
+    """After the main path's ``generate`` (graphs): the same requests once
+    more (no new capture: one a batch size), and through an engine of the
+    same weights with ``graphs=False``; both give the main path's tokens.
+    Then the decode loop alone, a prefill then ``gen`` steps on each engine
+    (the replays under the sync debug mode "error"): ms a step. Returns the
+    eager engine and the new tokens/s of each path's ``generate``."""
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.runtime import graphs as G
+    b, prompt_len = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = engine.generate(prompts, gen)
+    wall_g = time.perf_counter() - t0
+    check(G.CAPTURES - captures == 1, f"{cfg.name}: {G.CAPTURES - captures} "
+          f"captures over two generate calls of batch {b}")
+    check(np.array_equal(again, tokens),
+          f"{cfg.name}: a second generate gave other tokens")
+    eager = ServeEngine(engine.cfg, dev, max_len=engine.max_len,
+                        dtype=engine.dtype, graphs=False)
+    pe, pg = eager.params.state_dict(), engine.params.state_dict()
+    check(all(torch.equal(pe[n], pg[n]) for n in pe),
+          "the eager engine's seeded weights differ")
+    del pe, pg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tokens_e = eager.generate(prompts, gen)
+    wall_e = time.perf_counter() - t0
+    peak_e = torch.cuda.max_memory_allocated() - held
+    check(G.CAPTURES - captures == 1, f"{cfg.name}: the eager engine "
+          f"captured")
+    check(np.array_equal(tokens_e, tokens),
+          f"{cfg.name}: graphs=False generated other tokens "
+          f"({int((tokens_e != tokens).sum())} of {tokens.size} differ)")
+    ms, n_steps = {}, {"graph": gen, "eager": min(16, gen)}
+    for name, eng in (("graph", engine), ("eager", eager)):
+        logits, _ = eng.prefill(prompts)
+        loop = eng.decode_loop(b)
+        loop.start(logits, prompt_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "graph":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(n_steps[name]):
+                loop.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0) / n_steps[name]
+        check(np.array_equal(loop.tokens(prompt_len, n_steps[name]),
+                             tokens[:, :n_steps[name]]),
+              f"{cfg.name}: the {name} decode loop gave other tokens")
+    compiled = engine.decode_loop(b).compiled
+    log(f"serve {cfg.name} decode step capture: {compiled.capture_s:.4f} s "
+        f"(no warm-up: recording, and {compiled.end_s:.4f} s ending the "
+        f"capture, which instantiates the graph)")
+    log(f"serve {cfg.name} generate again (graphs, no capture): wall "
+        f"{wall_g:.4f} s, {tokens.size / wall_g:.1f} new tokens/s; "
+        f"graphs=False: wall {wall_e:.4f} s, {tokens.size / wall_e:.1f} new "
+        f"tokens/s, peak memory {peak_e / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before it; tokens identical; 1 capture "
+        f"over both graph calls")
+    log(f"serve {cfg.name} decode loop, steps of {b} tokens: graph "
+        f"{ms['graph']:.3f} ms a step over {n_steps['graph']} "
+        f"({1e3 * b / ms['graph']:.1f} tokens/s; the replays under the sync "
+        f"debug mode 'error'), eager {ms['eager']:.3f} ms a step over "
+        f"{n_steps['eager']} ({1e3 * b / ms['eager']:.1f} tokens/s), "
+        f"{ms['eager'] / ms['graph']:.2f}x")
+    return eager, {"graph": tokens.size / wall_g,
+                   "eager": tokens.size / wall_e}
 
 
 def phase_prefill_f32(torch, dev, cfg, batch, prompt_len, rel_bound):

@@ -13,7 +13,8 @@ update is ``w ← w − α·mean_i ∇Jᵢ(w)`` with ``α = 1/(1+t)`` per epoch,
   device as an explicit leading worker dim: each block is ONE batched
   gradient call for all K workers (one kernel launch on the card), followed
   by the sync as a mean or a gossip mix over that dim — a loop of
-  :func:`dms_block_stepper`.
+  :func:`dms_block_stepper`. On the card an epoch of blocks is one CUDA
+  graph replay (:class:`DmsEpochs`), as the reference jits its scan.
 * :func:`dms_block_stepper` — one DMS block (compute + boundary sync) on a
   carry from :func:`dms_stepper_init`, the K workers its leading dim; with
   :func:`dms_block_ladder` (a rung per block size) and
@@ -35,6 +36,7 @@ cast to it, as the reference's ``jnp.asarray`` does without x64.
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 from typing import Optional, Union
 
 import numpy as np
@@ -43,6 +45,7 @@ import torch
 from repro_torch.device import resolve_device, wait
 from repro_torch.kernels.hinge import ops as hinge_ops
 from repro_torch.kernels.hinge import ref as hinge_ref
+from repro_torch.runtime import graphs as G
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
 OVERLAPS = ("none", "delayed", "chunked")
@@ -52,7 +55,8 @@ TOPOLOGIES = ("all", "ring", "pairwise")
 def _alpha(t: int, dtype: torch.dtype) -> torch.Tensor:
     """``α = 1/(1+t)`` rounded once, in the working dtype (reference
     ``svm.py:123``). A 0-dim CPU tensor: it scales device tensors as a
-    scalar, with no copy to the device."""
+    scalar, with no copy to the device. A captured epoch reads it from a
+    device scalar filled with this value (:class:`DmsEpochs`)."""
     one = torch.ones((), dtype=dtype)
     return one / (one + t)
 
@@ -191,19 +195,20 @@ def _shard_data(x: ArrayLike, y: ArrayLike, k: int):
 def _dms_vmap(w0: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, *,
               epochs: int, block_size: int, c: float, grad_impl: str,
               overlap: str = "none", chunks: int = 4, topology: str = "all",
-              gossip_async: bool = False) -> torch.Tensor:
+              gossip_async: bool = False, graphs: bool = False
+              ) -> torch.Tensor:
     """K workers on one device: xs ``(K, n_local, d)``, the blocks of every
-    epoch through :func:`dms_block_stepper` from
-    :func:`dms_stepper_init`, then the flush to one model.
+    epoch through :func:`dms_block_stepper` (:class:`DmsEpochs`, one CUDA
+    graph replay an epoch with ``graphs``), then the flush to one model.
 
     The reference's ``_dms_vmap`` keeps one shared ``(d,)`` w under the
-    blocking mean; here it is the carry's K equal rows (a stride-0 view),
-    and row 0 is returned: the same values, bitwise. The reference mixes a
-    gossip topology as the matrix product ``M·w``; the stepper takes the
+    blocking mean; here it is the carry's K equal rows, and row 0 is
+    returned: the same values, bitwise. The reference mixes a gossip
+    topology as the matrix product ``M·w``; the stepper takes the
     neighbour sums of its ``shard_map`` path, which round differently (a
     few float32 ulps a block). ``gossip_async`` alone keeps the reference's
-    own loop (:func:`_dms_async_vmap`): the async ring is unstable at α = 1
-    and grows that rounding into the model.
+    own loop (:func:`_dms_async_vmap`), eagerly: the async ring is unstable
+    at α = 1 and grows that rounding into the model.
     """
     k, n_local, d = xs.shape
     nb = n_local // block_size
@@ -214,19 +219,106 @@ def _dms_vmap(w0: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, *,
     if gossip_async:
         return _dms_async_vmap(w0, xb, yb, epochs=epochs, c=c,
                                grad_impl=grad_impl, topology=topology)
-    modes = dict(overlap=overlap, chunks=chunks, topology=topology,
-                 gossip_async=gossip_async)
-    step = dms_block_stepper(d=d, c=c, grad_impl=grad_impl, **modes)
-    carry = dms_stepper_init(w0, k, **modes)
+    kw = dict(c=c, grad_impl=grad_impl, overlap=overlap, chunks=chunks,
+              topology=topology)
+    run = _captured(w0, xb, yb, **kw) if graphs else DmsEpochs(w0, xb, yb,
+                                                               **kw)
     for t in range(epochs):
-        alpha = _alpha(t, w0.dtype)
-        for i in range(nb):
-            carry = step(carry, xb[:, i], yb[:, i], alpha)
-    if overlap == "none" and topology == "all":
-        return carry["w"][0]            # K equal rows after a blocking mean
-    # flush: the worker mean (invariant under doubly stochastic mixing;
-    # under delayed, anchor + meanΔ of the last block)
-    return carry["w"].mean(dim=0)[:d]
+        run.epoch(t)
+    return run.model()
+
+
+# the captured epochs of recent dms calls, the newest last, by what a graph
+# reads (see _captured); clear it to free their graphs
+DMS_GRAPHS: "OrderedDict[tuple, DmsEpochs]" = OrderedDict()
+DMS_GRAPHS_MAX = 8
+
+
+def _captured(w0: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
+              **kw) -> "DmsEpochs":
+    """The captured epoch for blocks xb / yb, reset to ``w0``: as
+    ``jax.jit`` keeps its program, a capture is kept for later calls on
+    the same data (:data:`DMS_GRAPHS`, the :data:`DMS_GRAPHS_MAX` most
+    recent). A graph reads the data by address, so the key is the data's
+    address, shape, strides, dtype and device with the options baked into
+    the graph; it keeps no reference to the data, and a later tensor at
+    that address with that layout is what a hit reads."""
+    key = (xb.device, xb.dtype, tuple(xb.shape), xb.stride(), xb.data_ptr(),
+           yb.stride(), yb.data_ptr(), tuple(sorted(kw.items())))
+    run = DMS_GRAPHS.pop(key, None)
+    if run is None:
+        run = DmsEpochs(w0, xb, yb, graphs=True, **kw)
+    else:
+        run.reset(w0)
+    DMS_GRAPHS[key] = run
+    while len(DMS_GRAPHS) > DMS_GRAPHS_MAX:
+        DMS_GRAPHS.popitem(last=False)
+    return run
+
+
+class DmsEpochs:
+    """The ``nb`` blocks of one :func:`dms` epoch over resident data, xb
+    ``(K, nb, bs, d)`` / yb ``(K, nb, bs)``, as one body of
+    :class:`repro_torch.runtime.graphs.Compiled`: captured once as a CUDA
+    graph (``graphs=True``) and replayed an epoch a call, or run eagerly.
+
+    The body steps :func:`dms_block_stepper` over the views ``xb[:, i]``
+    from a static carry (:func:`dms_stepper_init`'s leaves, materialised)
+    with α read from a static device scalar, and copies the epoch-end carry
+    back into the static one inside the body, since a graph's own outputs
+    are overwritten by its next replay. :meth:`epoch` fills α with the
+    same rounded ``1/(1+t)`` as :func:`_alpha` before each call;
+    :meth:`reset` starts the carry again from another ``w0``. The kernel
+    libraries are loaded before the capture. ``compiled`` holds the
+    capture's host times (None eagerly).
+    """
+
+    def __init__(self, w0: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
+                 *, c: float, grad_impl: str, overlap: str = "none",
+                 chunks: int = 4, topology: str = "all", graphs: bool = False):
+        k, nb, _, d = xb.shape
+        self.d, self.dtype = d, w0.dtype
+        self.blocking = overlap == "none" and topology == "all"
+        self.modes = dict(workers=k, overlap=overlap, chunks=chunks,
+                          topology=topology)
+        step = dms_block_stepper(d=d, c=c, grad_impl=grad_impl,
+                                 overlap=overlap, chunks=chunks,
+                                 topology=topology)
+        self.carry = {name: v.clone(memory_format=torch.contiguous_format)
+                      for name, v in dms_stepper_init(w0, **self.modes)
+                      .items()}
+        self.alpha = torch.zeros((), dtype=w0.dtype, device=w0.device)
+
+        def body(carry, alpha):
+            out = carry
+            for i in range(nb):
+                out = step(out, xb[:, i], yb[:, i], alpha)
+            for name, v in carry.items():
+                v.copy_(out[name])
+
+        if graphs and grad_impl == "kernel":
+            hinge_ops.load_library()
+            hinge_ops.load_cluster_library()
+        self.compiled = G.Compiled(body, self.carry, self.alpha,
+                                   graph=graphs)
+
+    def reset(self, w0: torch.Tensor) -> None:
+        """Start the carry again from ``w0``, as :func:`dms_stepper_init`."""
+        for name, v in dms_stepper_init(w0, **self.modes).items():
+            self.carry[name].copy_(v)
+
+    def epoch(self, t: int) -> None:
+        """Run epoch ``t`` (α = 1/(1+t)) on the carry."""
+        self.alpha.fill_(float(_alpha(t, self.dtype)))
+        self.compiled()
+
+    def model(self) -> torch.Tensor:
+        """The flushed model, a tensor of its own (the carry is the next
+        call's): row 0 after a blocking mean (K equal rows), else the worker
+        mean (invariant under doubly stochastic mixing; under delayed,
+        anchor + meanΔ of the last block)."""
+        w = self.carry["w"]
+        return w[0].clone() if self.blocking else w.mean(dim=0)[:self.d]
 
 
 def _dms_async_vmap(w0: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
@@ -261,7 +353,8 @@ def dms(w0: ArrayLike, x: ArrayLike, y: ArrayLike, *, workers: int,
         grad_impl: str = "kernel", backend: str = "vmap",
         overlap: str = "none", chunks: int = 4, topology: str = "all",
         gossip_async: bool = False,
-        device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+        device: Union[str, torch.device] = "cuda",
+        graphs: Optional[bool] = None) -> torch.Tensor:
     """Algorithm 3 entry point. ``block_size`` is points per worker per sync
     (the paper's MSF knob: larger block ⇒ lower sync frequency);
     ``overlap`` ∈ {"none", "delayed", "chunked"} selects how the residual
@@ -269,14 +362,22 @@ def dms(w0: ArrayLike, x: ArrayLike, y: ArrayLike, *, workers: int,
     "pairwise"} which workers it couples; ``gossip_async`` switches a gossip
     topology to the double-buffered unsynchronized-round exchange (requires
     ``overlap="none"``). ``x``/``y`` may be numpy arrays or tensors; a tensor
-    already on ``device`` is not copied."""
+    already on ``device`` is not copied. ``graphs``: each epoch one CUDA
+    graph replay (None: on a card, but under ``gossip_async``, whose loop
+    stays eager), the capture kept for later calls on the same data
+    (:data:`DMS_GRAPHS`), or eagerly (False); True on the CPU or with
+    ``gossip_async`` raises."""
     if gossip_async and (topology == "all" or overlap != "none"):
         raise ValueError("gossip_async needs a gossip topology and "
                          f"overlap='none'; got topology={topology!r}, "
                          f"overlap={overlap!r}")
     if overlap not in OVERLAPS:
         raise ValueError(f"unknown overlap mode: {overlap!r}")
+    if gossip_async and graphs:
+        raise ValueError("gossip_async runs eagerly: its mixing matrix is "
+                         "picked on the host block by block (graphs=False)")
     dev = resolve_device(device)
+    graphs = G.use_graphs(graphs, dev) and not gossip_async
     w0 = _as(w0, dev)
     xs, ys = _shard_data(x, y, workers)
     xs, ys = _as(xs, dev, w0.dtype), _as(ys, dev, w0.dtype)
@@ -284,7 +385,7 @@ def dms(w0: ArrayLike, x: ArrayLike, y: ArrayLike, *, workers: int,
         return _dms_vmap(w0, xs, ys, epochs=epochs, block_size=block_size,
                          c=c, grad_impl=grad_impl, overlap=overlap,
                          chunks=chunks, topology=topology,
-                         gossip_async=gossip_async)
+                         gossip_async=gossip_async, graphs=graphs)
     if backend == "shard_map":
         raise NotImplementedError(
             "backend='shard_map' (real collectives across devices) comes with "

@@ -160,11 +160,13 @@ def _gossip_perms(k: int, topology: str):
 def _permute(x: torch.Tensor, perm) -> torch.Tensor:
     """``lax.ppermute`` over the leading replica dim: replica ``dest``
     receives replica ``src``'s row for every (src, dest) pair of ``perm``, a
-    permutation of the replicas (every gossip exchange is one)."""
+    permutation of the replicas (every gossip exchange is one). The rows
+    are gathered as slices, never through an index tensor made on the host:
+    that would be a copy to the card, which a CUDA graph cannot hold."""
     src = [0] * x.shape[0]
     for s, d in perm:
         src[d] = s
-    return x[src]
+    return torch.cat([x[i:i + 1] for i in src])
 
 
 def _round(counter: Optional[torch.Tensor]) -> Optional[int]:

@@ -49,7 +49,8 @@ COPY_ALIGN = 16       # bytes: the bulk copy's rule for addresses and sizes
 
 # kernel launches so far, one per call on CUDA tensors, none for the CPU
 # path: LAUNCHES counts both kernels, CLUSTER_LAUNCHES the cluster one. A
-# run sets them to 0 and reads them after.
+# run sets them to 0 and reads them after. A CUDA graph's capture counts its
+# launches once; its replays launch without this module and count none.
 LAUNCHES = 0
 CLUSTER_LAUNCHES = 0
 

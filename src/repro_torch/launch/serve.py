@@ -8,6 +8,13 @@ unless ``device="cpu"`` is given; without a card and without that it raises.
 It serves the dense (smollm-360m), ssm (mamba2-2.7b) and hybrid
 (zamba2-1.2b) families.
 
+As the reference jits its decode step, the engine compiles its decode loop:
+on the card each greedy step (embedding, layers, logits, ``argmax``, the
+index advanced) is one CUDA graph replay (:mod:`repro_torch.runtime.graphs`),
+captured at the first ``generate`` of a batch size on that batch size's
+static cache and reused by every later call; ``graphs=False`` runs the same
+step eagerly, the comparison path on the card and the path on the CPU.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --smoke --device cpu --requests 4 --gen-tokens 8
 """
@@ -21,10 +28,12 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.config import get_arch, get_smoke
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
+from repro_torch.runtime import graphs as G
 
 
 class ServeEngine:
@@ -32,14 +41,24 @@ class ServeEngine:
     (e.g. from :func:`repro_torch.interop.lm_params_from_jax`); without it
     the weights are drawn from a generator seeded 0 on the device.
     ``attn_impl`` and ``ssd_impl`` select the prefill's attention and SSD
-    scan: ``"kernel"`` (the CUDA kernels on the card) or ``"torch"``."""
+    scan: ``"kernel"`` (the CUDA kernels on the card) or ``"torch"``.
+    ``graphs``: the decode loop as CUDA graph replays (None: on a card),
+    or eagerly (False); True on the CPU raises.
+
+    The engine owns one decode cache per batch size, of its ``max_len``:
+    each prefill of that batch size zeroes it and writes into it, so a
+    request finds the cache a fresh engine would, and a captured step
+    stays valid for every request of that size. :meth:`release` frees a
+    batch size's cache and captured step."""
 
     def __init__(self, cfg: ModelConfig,
                  device: Union[str, torch.device] = "cuda",
                  max_len: int = 128, dtype: torch.dtype = torch.bfloat16,
                  attn_impl: str = "kernel", ssd_impl: str = "kernel",
-                 params: Optional[Mapping[str, torch.Tensor]] = None):
+                 params: Optional[Mapping[str, torch.Tensor]] = None,
+                 graphs: Optional[bool] = None):
         self.device = resolve_device(device)
+        self.graphs = G.use_graphs(graphs, self.device)
         self.cfg = cfg
         self.model = build_model(cfg, attn_impl=attn_impl, ssd_impl=ssd_impl)
         self.max_len = max_len
@@ -50,25 +69,51 @@ class ServeEngine:
         else:
             tree = self.model.load(params, self.device)
         self.params = tree.to(dtype)  # floating params only, as the reference
+        self._caches: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._loops: Dict[int, "DecodeLoop"] = {}
+
+    def cache(self, batch: int) -> Dict[str, torch.Tensor]:
+        """The decode cache of ``batch`` rows, made (zeros) at first use."""
+        if batch not in self._caches:
+            self._caches[batch] = self.model.init_cache(
+                batch, self.max_len, dtype=self.dtype, device=self.device)
+        return self._caches[batch]
 
     @torch.no_grad()
     def prefill(self, prompts: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """prompts (B, S) → (last-position logits (B, V), the decode cache,
-        written by the prefill: its first S positions of ``max_len`` for
-        attention, the final state and conv tails for Mamba2 layers)."""
-        cache = self.model.init_cache(prompts.shape[0], self.max_len,
-                                      dtype=self.dtype, device=self.device)
+        """prompts (B, S) → (last-position logits (B, V), the decode cache
+        of B rows, zeroed and written by the prefill: its first S positions
+        of ``max_len`` for attention, the final state and conv tails for
+        Mamba2 layers). The cache is the engine's own: the next prefill of
+        B rows zeroes and overwrites it, so it is valid until then."""
+        cache = self.cache(prompts.shape[0])
+        for leaf in T.leaves(cache):
+            leaf.zero_()
         return self.model.prefill(self.params, {"tokens": prompts}, cache)
 
     @torch.no_grad()
     def decode(self, token: torch.Tensor, cache: Dict[str, torch.Tensor],
-               index: int) -> torch.Tensor:
-        """One step: token (B, 1) at position ``index`` → logits (B, V); the
-        cache is updated in place."""
+               index) -> torch.Tensor:
+        """One eager step: token (B, 1) at position ``index`` (an int or an
+        integer device tensor) → logits (B, V); the cache is updated in
+        place."""
         logits, _ = self.model.decode_step(
             self.params, {"token": token, "cache": cache, "index": index})
         return logits
+
+    def release(self, batch: int) -> None:
+        """Drop the decode cache and the decode loop (its graph and memory
+        pool) of ``batch`` rows; the next use makes them anew."""
+        self._loops.pop(batch, None)
+        self._caches.pop(batch, None)
+
+    def decode_loop(self, batch: int) -> "DecodeLoop":
+        """The greedy decode step of ``batch`` rows on :meth:`cache`,
+        captured at its first use when the engine runs graphs."""
+        if batch not in self._loops:
+            self._loops[batch] = DecodeLoop(self, batch)
+        return self._loops[batch]
 
     def generate(self, prompts: Union[np.ndarray, torch.Tensor],
                  gen_tokens: int) -> np.ndarray:
@@ -78,16 +123,61 @@ class ServeEngine:
         if s_prompt + gen_tokens > self.max_len:
             raise ValueError(f"{s_prompt} prompt + {gen_tokens} new tokens "
                              f"exceed max_len {self.max_len}")
-        logits, cache = self.prefill(prompts)
-        out = []
-        index = s_prompt
-        token = torch.argmax(logits, dim=-1)[:, None]
+        logits, _ = self.prefill(prompts)
+        loop = self.decode_loop(b)
+        loop.start(logits, s_prompt)
         for _ in range(gen_tokens):
-            out.append(token[:, 0])
-            logits = self.decode(token, cache, index)
-            token = torch.argmax(logits, dim=-1)[:, None]
-            index += 1
-        return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+            loop.step()
+        return loop.tokens(s_prompt, gen_tokens)
+
+
+class DecodeLoop:
+    """Greedy decode steps of one batch size on its engine's static cache.
+
+    One step, the body of :class:`repro_torch.runtime.graphs.Compiled`:
+    ``token`` (B, 1) is written into ``seq`` (B, max_len) at ``index`` (a
+    (1,) int64 tensor), decoded there, replaced by the argmax of the
+    step's logits, and ``index`` advances; the step returns the logits.
+    Every buffer stays on the device, so the host reads nothing between
+    steps and the tokens once, at the end. The capture runs no step (no
+    warm-up), so it neither advances the SSM state nor writes k, v into
+    the live cache; ``compiled`` holds the capture's host times."""
+
+    def __init__(self, engine: ServeEngine, batch: int):
+        dev = engine.device
+        self.token = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        self.index = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.seq = torch.zeros((batch, engine.max_len), dtype=torch.long,
+                               device=dev)
+        model, params = engine.model, engine.params
+
+        @torch.no_grad()
+        def step(token, index, seq, cache):
+            seq.index_copy_(1, index, token)
+            logits, _ = model.decode_step(
+                params, {"token": token, "cache": cache, "index": index})
+            token.copy_(torch.argmax(logits, dim=-1, keepdim=True))
+            index.add_(1)
+            return logits
+
+        self.compiled = G.Compiled(step, self.token, self.index, self.seq,
+                                   engine.cache(batch), graph=engine.graphs)
+
+    def start(self, logits: torch.Tensor, index: int) -> None:
+        """Begin after a prefill: its logits' argmax is the token at
+        position ``index`` (the prompt's length)."""
+        self.token.copy_(torch.argmax(logits, dim=-1, keepdim=True))
+        self.index.fill_(index)
+
+    def step(self) -> torch.Tensor:
+        """One step; its logits (B, V), overwritten by the next step under
+        graphs."""
+        return self.compiled()
+
+    def tokens(self, start: int, n: int) -> np.ndarray:
+        """Tokens at positions ``start`` to ``start + n`` on the host, as
+        (B, n) int32."""
+        return self.seq[:, start:start + n].to(torch.int32).cpu().numpy()
 
 
 def main(argv=None) -> None:

@@ -172,14 +172,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _decode_attn_chunk(q, k_chunk, v_chunk, index: int, chunk_offset: int):
+def decode_index(index, device) -> torch.Tensor:
+    """The decode position as a (1,) int64 tensor on ``device``. The
+    reference traces ``index`` as a ``jnp.int32``; here an int becomes a
+    tensor at the entry, so a step never reads its position on the host and
+    eager and captured steps (:mod:`repro_torch.runtime.graphs`) run the
+    same operations."""
+    if isinstance(index, torch.Tensor):
+        return index.reshape(1).to(device=device, dtype=torch.long)
+    return torch.tensor([index], dtype=torch.long, device=device)
+
+
+def _decode_attn_chunk(q, k_chunk, v_chunk, index: torch.Tensor,
+                       chunk_offset: int):
     """Flash-decode partial of one cache chunk: returns (o, l), the
     unnormalised output and the softmax denominator. (The reference also
     returns the running max for its lse merge across cache shards; one
     device has one shard.)
 
     q: (B,1,KV,G,hd) · k/v_chunk: (B,Sc,KV,hd); positions chunk_offset+i
-    valid iff <= index.
+    valid iff <= index, a (1,) device tensor. A masked position's p is 0,
+    and 0 · v is 0 for the cache's every value: a finite k, v written by a
+    step or a prefill, or the zeros a cache is made or re-used with
+    (:class:`repro_torch.launch.serve.ServeEngine`).
     """
     sc = k_chunk.shape[1]
     scores = torch.einsum("bqkgd,btkd->bkgqt", q, k_chunk).float()
@@ -196,9 +211,11 @@ def _decode_attn_chunk(q, k_chunk, v_chunk, index: int, chunk_offset: int):
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, index: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, index: torch.Tensor
+                     ) -> torch.Tensor:
     """One-token attention against the cache, the reference's single-shard
-    math: q (B,1,H,hd) · k/v_cache (B,S,KV,hd), positions ≤ index valid."""
+    math: q (B,1,H,hd) · k/v_cache (B,S,KV,hd), positions ≤ index (a (1,)
+    device tensor) valid."""
     b, _, h, hd = q.shape
     kv = k_cache.shape[2]
     qg = q.reshape(b, 1, kv, h // kv, hd)
@@ -209,23 +226,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_step_attention(params: L.Params, x: torch.Tensor,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
-                          index: int, cfg: ModelConfig
+                          index: torch.Tensor, cfg: ModelConfig
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token self-attention step; returns (y, cache_k, cache_v).
 
-    x: (B,1,d). cache_k/v: (B,S,KV,hd). The new k, v are written into the
-    caches in place at ``index`` (the reference donates the cache buffers
-    and updates them functionally; in place is the same result without a
-    second cache in memory). The reference's ``cross=True`` (enc-dec
-    cross-attention) comes with the enc-dec family.
+    x: (B,1,d). cache_k/v: (B,S,KV,hd). ``index``: the position, a (1,)
+    int64 device tensor (:func:`decode_index`). The new k, v are written
+    into the caches in place at ``index`` (the reference donates the cache
+    buffers and updates them functionally; in place is the same result
+    without a second cache in memory). The reference's ``cross=True``
+    (enc-dec cross-attention) comes with the enc-dec family.
     """
     q, k_new, v_new = _project_qkv(params, x)
-    pos = torch.full((x.shape[0], 1), index, dtype=torch.int32,
-                     device=x.device)
+    pos = index.to(torch.int32).expand(x.shape[0], 1)
     cos, sin = rotary_cos_sin(pos, cfg)
     q = L.apply_rope(q, cos, sin)
     k_new = L.apply_rope(k_new, cos, sin)
-    cache_k[:, index] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, index] = v_new[:, 0].to(cache_v.dtype)
+    cache_k.index_copy_(1, index, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(1, index, v_new.to(cache_v.dtype))
     out = decode_attention(q, cache_k, cache_v, index)
     return _out_proj(out, params["wo"]), cache_k, cache_v

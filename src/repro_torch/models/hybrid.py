@@ -112,11 +112,13 @@ class HybridModel(LM):
 
     def decode_step(self, params: L.Params, batch
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {"token": (B,1) int, "cache": {...}, "index": int}. The
-        cache is updated in place and returned."""
+        """batch: {"token": (B,1) int, "cache": {...}, "index": an int or
+        an integer device tensor of one element}. The cache is updated in
+        place and returned."""
         cfg = self.cfg
         x = L.embed(params["embed"], batch["token"], self.dtype)
-        cache, index = batch["cache"], batch["index"]
+        cache = batch["cache"]
+        index = A.decode_index(batch["index"], x.device)
         layers = L.layer_list(params["layers"])
         for g, (group, shared) in enumerate(self._groups()):
             for i in group:

@@ -371,8 +371,9 @@ class SSMModel(LM):
 
     def decode_step(self, params: L.Params, batch
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {"token": (B,1) int, "cache": {...}, "index": int}. The
-        cache is updated in place and returned; ``index`` is not needed."""
+        """batch: {"token": (B,1) int, "cache": {...}, "index": an int or
+        an integer device tensor}. The cache is updated in place and
+        returned; ``index`` is not needed."""
         cfg = self.cfg
         x = L.embed(params["embed"], batch["token"], self.dtype)
         cache = batch["cache"]

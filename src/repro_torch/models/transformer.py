@@ -56,9 +56,11 @@ def layer_fwd(lp: L.Params, x: torch.Tensor, positions: torch.Tensor,
 
 
 def layer_decode(lp: L.Params, x: torch.Tensor, cache_k: torch.Tensor,
-                 cache_v: torch.Tensor, index: int, cfg: ModelConfig):
-    """One block, single-token decode. Returns (x, cache_k, cache_v); the
-    caches are updated in place."""
+                 cache_v: torch.Tensor, index: torch.Tensor,
+                 cfg: ModelConfig):
+    """One block, single-token decode at ``index``, a (1,) device tensor
+    (:func:`repro_torch.models.attention.decode_index`). Returns (x,
+    cache_k, cache_v); the caches are updated in place."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm_type, cfg.norm_eps)
     attn_out, cache_k, cache_v = A.decode_step_attention(
         lp["attn"], h, cache_k, cache_v, index, cfg)
@@ -202,11 +204,13 @@ class DecoderLM(LM):
 
     def decode_step(self, params: L.Params, batch
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {"token": (B,1) int, "cache": {...}, "index": int}. The
-        cache is updated in place and returned."""
+        """batch: {"token": (B,1) int, "cache": {...}, "index": an int or
+        an integer device tensor of one element}. The cache is updated in
+        place and returned."""
         cfg = self.cfg
         x = L.embed(params["embed"], batch["token"], self.dtype)
-        cache, index = batch["cache"], batch["index"]
+        cache = batch["cache"]
+        index = A.decode_index(batch["index"], x.device)
         for i, lp in enumerate(L.layer_list(params["layers"])):
             x, _, _ = layer_decode(lp, x, cache["k"][i], cache["v"][i],
                                    index, cfg)
