@@ -42,6 +42,30 @@ entry points and holds every run to its plain-version twin:
    ijcnn1 stand-in (n=4,000),
    the hinge launches all on ``hinge.cu`` (254 and 22 columns: rows no bulk
    copy can move), with ``hinge.cu``'s time at the blocks both hand it;
+   then phase dist, model synchronization across processes that share
+   the one card (``repro_torch.launch.mesh.spawn``, gloo; each rank's
+   device, backend, host-staged ops and peak memory printed): (d1)
+   ``dms(backend="dist")`` on epsilon across 8 ranks (block 64, 2 epochs),
+   the model bitwise equal on every rank and held to the one-process
+   ``dms(backend="vmap", workers=8)`` (relative L2 1e-3, accuracy 0.005),
+   every hinge launch counted on each rank, all on the cluster kernel;
+   (d2) the webspam modes (delayed, chunked, ring, pairwise, async
+   pairwise held the same way, async gossip to the one-process stepper;
+   async ring overflowing in both); (d3) ``dms_timed_steps`` across the 8
+   ranks at blocks 16, 64, 256 and 1,024 (T_step a point, T_sync a block,
+   the max over the ranks, the block ``choose_period`` picks), and the
+   port's all-gather mean timed alone beside the reference's all-reduce
+   on the same w; (d4) the
+   local-SGD trainer on smollm-360m at full width across 2 ranks (H 4,
+   int8, 1 × 2,048 tokens a replica step, 2 blocks) against the
+   one-process trainer at K = 2 (losses, params, the first sync's int8
+   payloads bitwise, 22 quant launches a block on each rank, the ranks'
+   peaks under 75 GB together); (d5) hierarchical at smoke width on a
+   (pod 2, data 2) mesh against the one-process periodic trainer at K = 2;
+   (d6) ``dms(backend="dist")`` on an NCCL world of one rank against
+   ``srdms`` (relative 1e-6), every hinge launch counted on ``hinge.cu``;
+   ``--dist-only`` runs the build and this
+   phase alone, with no result line;
 5. the flash-attention kernels against their plain version: the f32
    split-TF32 kernel (wgmma, TMA) at the ``TestFlashAttention`` shapes and
    the three full-width f32 prefills, zamba2-1.2b's, smollm-360m's and
@@ -142,6 +166,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -246,6 +271,18 @@ SSM_F32_LOGITS_REL_L2 = 1e-2
 # at zamba2-1.2b (1.03x). A subtly wrong kernel lands O(1) away (unrelated
 # logits of equal norm are ~1.4 apart), above 1.5 x 0.509 = 0.76.
 SSM_BF16_VS_F32_FACTOR = 1.5
+# phase dist: K ranks on the one card, gloo between them
+DIST_K, DIST_BS, DIST_EPOCHS = 8, 64, 2
+DIST_MODES = [("delayed", "all", False), ("chunked", "all", False),
+              ("none", "ring", False), ("none", "pairwise", False),
+              ("none", "pairwise", True), ("none", "ring", True)]
+DIST_TIMED_BS, DIST_TIMED_BLOCKS = (16, 64, 256, 1024), 24
+# (d3)'s collectives alone: calls of each, in turns, after one warm-up
+DIST_COLL_CALLS = 50
+DIST_TRAIN_K, DIST_TRAIN_H, DIST_TRAIN_BLOCKS = 2, 4, 2
+DIST_PEAK_GB = 75.0
+# host arrays of the SVM data sets, kept by phases 3 and 4 for phase dist
+_HOST = {}
 DMS_MODES = [("none", "all", False), ("delayed", "all", False),
              ("chunked", "all", False), ("none", "ring", False),
              ("none", "pairwise", False), ("none", "ring", True),
@@ -624,11 +661,15 @@ def _dms_pair(torch, dev, ds, label, expect_launches, route, **kw):
     return wk, acck, wallk, launches
 
 
-def _load(torch, dev, name, **kw):
+def _load(torch, dev, name, keep=False, **kw):
+    """The data set on the card as (x, y, x_test, y_test); with ``keep``
+    its host arrays stay in :data:`_HOST` for phase dist."""
     from repro_torch.data import make_svm_dataset
     t0 = time.perf_counter()
     ds = make_svm_dataset(name, seed=0, **kw)
     gen = time.perf_counter() - t0
+    if keep:
+        _HOST[name] = ds
     t0 = time.perf_counter()
     arrays = tuple(torch.from_numpy(a).to(dev) for a in
                    (ds.x_train, ds.y_train, ds.x_test, ds.y_test))
@@ -653,7 +694,7 @@ def phase_main(torch, dev, n_override=None):
     k, bs, epochs = 32, 64, 2
     if n_override:
         log(f"epsilon cut to n={n_override} (published 400,000)")
-    ds = _load(torch, dev, "epsilon", n_override=n_override)
+    ds = _load(torch, dev, "epsilon", keep=True, n_override=n_override)
     n_local = ds[0].shape[0] // k
     blocks = n_local // bs
     w, acc, wall, _ = _dms_pair(
@@ -743,7 +784,7 @@ def hinge_cu_time(torch, ops, sets, x_shape, w_shape, label):
 def phase_modes(torch, dev, n_override=None, ijcnn_n=4000):
     from repro_torch.core import svm
     from repro_torch.kernels.hinge import ops
-    ds = _load(torch, dev, "webspam", n_override=n_override)
+    ds = _load(torch, dev, "webspam", keep=True, n_override=n_override)
     k, bs = 8, 64
     blocks = (ds[0].shape[0] // k) // bs
     for overlap, topology, gossip_async in DMS_MODES:
@@ -1798,14 +1839,14 @@ def _train_cfg(model_cfg, sync, seq_len, global_batch, replicas):
         data=DataConfig(seq_len=seq_len, global_batch=global_batch))
 
 
-def _run_blocks(torch, cfg, dev, impl, blocks, on_block=None):
+def _run_blocks(torch, cfg, dev, impl, blocks, on_block=None, mesh=None):
     """``blocks`` train steps through ``build_trainer`` on path ``impl``
-    from the seeded state; returns (state, losses, walls, sync_ms,
-    launches)."""
+    from the seeded state (with a ``mesh``, this rank's replica and rows);
+    returns (state, losses, walls, sync_ms, launches)."""
     from repro_torch.core import sync
     from repro_torch.kernels.quant import ops
     from repro_torch.launch.train import build_trainer
-    step, state, make_pipeline, _, _, _ = build_trainer(cfg, dev,
+    step, state, make_pipeline, _, _, _ = build_trainer(cfg, dev, mesh,
                                                         quant_impl=impl)
     pipe = make_pipeline(0)
     batches = [next(pipe) for _ in range(blocks)]
@@ -2379,6 +2420,578 @@ def phase_train_modes(torch, dev, model_cfg, replicas=4, h=2, blocks=3):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase dist: model synchronization across processes
+# ---------------------------------------------------------------------------
+
+def _wait(torch, dev):
+    torch.cuda.synchronize(dev)
+
+
+def _peak(torch, dev) -> int:
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def _rank_setup(torch):
+    """A rank's products as the parent's: full float32, never TF32; and one
+    host thread for its operators (the K ranks share the host's cores)."""
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _rank_report(torch, mesh, what):
+    """This rank's device, backend, host-staged ops and peak memory."""
+    from repro_torch.core import collectives as CL
+    return {"what": what, "rank": mesh.rank(), "device": str(mesh.device),
+            "backend": mesh.backend, "staged": dict(CL.STAGED),
+            "peak": _peak(torch, mesh.device)}
+
+
+def _log_ranks(reports):
+    for r in reports:
+        log(f"dist {r['what']} rank {r['rank']}: device {r['device']}, "
+            f"backend {r['backend']}, host-staged ops {r['staged'] or 'none'}, "
+            f"peak memory {r['peak'] / 2**30:.2f} GiB")
+
+
+def _dist_svm_rank(paths, timed_bs, timed_blocks):
+    """(d1)–(d3) on one of the K ranks: epsilon dms, the webspam modes, and
+    the timed pair at each block size."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import collectives as CL
+    from repro_torch.core import svm
+    from repro_torch.core.telemetry import BlockTelemetry
+    from repro_torch.kernels.hinge import ops
+    from repro_torch.launch import mesh as M
+    _rank_setup(torch)
+    mesh = M.make_mesh((DIST_K,), ("data",))
+    dev, r = mesh.device, mesh.rank("data")
+    out = {}
+    x = np.load(paths["eps_x"], mmap_mode="c")
+    y = np.load(paths["eps_y"], mmap_mode="c")
+    w0 = torch.zeros(x.shape[1])
+    xs, ys = svm._shard_data(x, y, DIST_K)
+    _wait(torch, dev)
+    t0 = time.perf_counter()
+    shard = (torch.as_tensor(xs[r:r + 1], device=dev),
+             torch.as_tensor(ys[r:r + 1], device=dev))
+    _wait(torch, dev)
+    copy_s = time.perf_counter() - t0
+
+    # (d1): the counts set to 0 just before, read just after
+    dist.barrier()
+    _wait(torch, dev)
+    ops.LAUNCHES = ops.CLUSTER_LAUNCHES = 0
+    t0 = time.perf_counter()
+    w = svm.dms(w0, x, y, workers=DIST_K, epochs=DIST_EPOCHS,
+                block_size=DIST_BS, backend="dist", mesh=mesh)
+    _wait(torch, dev)
+    out["d1"] = dict(w=w.cpu().numpy(), wall=time.perf_counter() - t0,
+                     copy_s=copy_s, launches=ops.LAUNCHES,
+                     cluster=ops.CLUSTER_LAUNCHES)
+
+    # (d3): compute and sync timed apart on this rank's epsilon rows
+    d = x.shape[1]
+    alpha = svm._alpha(0, torch.float32)
+    out["d3"] = {}
+    for bs in timed_bs:
+        tel = BlockTelemetry()
+        compute, sync = svm.dms_timed_steps(mesh, "data", block_size=bs,
+                                            telemetry=tel)
+        wt = torch.zeros(d, device=dev)
+        for i in range(timed_blocks):
+            wt = sync(compute(wt, shard[0][:, i * bs:(i + 1) * bs],
+                              shard[1][:, i * bs:(i + 1) * bs], alpha))
+        sync.flush()
+        out["d3"][bs] = tel.estimates()
+    del shard
+    # the port's pmean (all-gather, stacked mean) beside the reference's
+    # (psum / K: an all-reduce) on the same w, in turns, each call waited
+    # for on the host and the card
+    rep = CL.replicas(mesh, "data")
+    colls = {"all-gather mean": rep.mean,
+             "all-reduce mean": lambda v: CL._div_exact(rep.sum(v), DIST_K)}
+    wt = torch.full((1, d), 0.5, device=dev)
+    spent = dict.fromkeys(colls, 0.0)
+    for i in range(DIST_COLL_CALLS + 1):
+        for name, fn in colls.items():
+            dist.barrier()
+            _wait(torch, dev)
+            t0 = time.perf_counter()
+            fn(wt)
+            _wait(torch, dev)
+            spent[name] += (time.perf_counter() - t0) if i else 0.0
+    out["coll"] = dict(zip(colls, CL.max_over(
+        [spent[name] / DIST_COLL_CALLS for name in colls])))
+
+    # (d2): every webspam mode, one epoch
+    xw = np.load(paths["web_x"], mmap_mode="c")
+    yw = np.load(paths["web_y"], mmap_mode="c")
+    out["d2"] = []
+    for overlap, topology, gossip_async in DIST_MODES:
+        dist.barrier()
+        _wait(torch, dev)
+        ops.LAUNCHES = ops.CLUSTER_LAUNCHES = 0
+        t0 = time.perf_counter()
+        w = svm.dms(torch.zeros(xw.shape[1]), xw, yw, workers=DIST_K,
+                    epochs=1, block_size=DIST_BS, backend="dist", mesh=mesh,
+                    overlap=overlap, topology=topology,
+                    gossip_async=gossip_async)
+        _wait(torch, dev)
+        out["d2"].append(dict(w=w.cpu().numpy(),
+                              wall=time.perf_counter() - t0,
+                              launches=ops.LAUNCHES,
+                              cluster=ops.CLUSTER_LAUNCHES))
+    out["report"] = _rank_report(torch, mesh, "svm")
+    return out
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().view(-1).cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def _dist_train_rank(paths, h, blocks):
+    """(d4) on one of two ranks: the local-SGD trainer at full width, one
+    replica a rank, its first sync's int8 payloads kept."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.config import SyncConfig, get_arch
+    from repro_torch.core import collectives as CL
+    from repro_torch.core import compression
+    from repro_torch.kernels.quant import ops, ref
+    from repro_torch.launch import mesh as M
+    _rank_setup(torch)
+    mesh = M.make_mesh((DIST_TRAIN_K,), ("pod",))
+    dev, r = mesh.device, mesh.rank("pod")
+    sync_cfg = SyncConfig(strategy="periodic", period=h, compression="int8")
+    cfg = _train_cfg(get_arch("smollm-360m"), sync_cfg, TRAIN_SEQ,
+                     DIST_TRAIN_K, DIST_TRAIN_K)
+    captured = []
+    inner = compression.compress_tree
+
+    def capture(delta, ef, **kw):
+        q, scale, new_ef = inner(delta, ef, **kw)
+        if not captured:
+            captured.append([d.float() + e for d, e in
+                             zip(T.leaves(delta), T.leaves(ef))])
+            captured.append((T.leaves(q), T.leaves(scale)))
+        return q, scale, new_ef
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    compression.compress_tree = capture
+    try:
+        state, _, _, losses, walls, sync_ms, launches = _run_blocks(
+            torch, cfg, dev, "kernel", blocks, mesh=mesh)
+    finally:
+        compression.compress_tree = inner
+    peak = _peak(torch, dev)
+    values, (qs, scales) = captured
+    # the kernel's payload bitwise the plain version's on the same values
+    before = ops.LAUNCHES
+    plain_same = all(
+        torch.equal(q, qp) and torch.equal(s_, sp)
+        for v, q, s_ in zip(values, qs, scales)
+        for qp, sp in [ref.quantize(v, rows=True)])
+    ops.LAUNCHES = before
+    # the wire: every rank's payload as the others gathered it
+    rep = CL.replicas(mesh, "pod")
+    gathered = [[_digest(row) for row in rep.gather(q)] for q in qs]
+    own = [_digest(q) for q in qs]
+    # against the one-process run at K = 2: its replica r's first payloads
+    # and its final params
+    with np.load(paths["train_ref"]) as want:
+        diff_q, max_dq, scale_rel = 0, 0, 0.0
+        for i, (q, s_) in enumerate(zip(qs, scales)):
+            wq = torch.from_numpy(want[f"q{i}"][r:r + 1]).to(dev)
+            ws = torch.from_numpy(want[f"s{i}"][r:r + 1]).to(dev)
+            dq = (q.int() - wq.int()).abs()
+            diff_q += int((dq > 0).sum())
+            max_dq = max(max_dq, int(dq.max()))
+            scale_rel = max(scale_rel, float(((s_ - ws).abs() / ws.abs())
+                                             .max()))
+        num = den = 0.0
+        for i, p in enumerate(T.leaves(state["params"])):
+            wp = torch.from_numpy(want[f"p{i}"]).to(dev)
+            num += float((p[0].float() - wp.float()).square().sum())
+            den += float(wp.float().square().sum())
+    n_q = sum(q.numel() for q in qs)
+    params_digest = _digest(torch.cat([p.reshape(-1).float() for p in
+                                       T.leaves(state["params"])]))
+    del state, values, qs, scales, captured
+    report = _rank_report(torch, mesh, "train")
+    report["peak"] = peak
+    return dict(losses=losses, walls=walls, sync_ms=sync_ms,
+                launches=launches, plain_same=plain_same, gathered=gathered,
+                own=own, diff_q=diff_q, n_q=n_q, max_dq=max_dq,
+                scale_rel=scale_rel, params_rel=(num / den) ** 0.5,
+                params_digest=params_digest, report=report)
+
+
+def _dist_hier_rank(blocks):
+    """(d5) on one of four ranks, a (pod 2, data 2) mesh: hierarchical
+    local SGD at smoke width; returns the replicas' gathered params."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.config import SyncConfig, get_smoke
+    from repro_torch.core import local_sgd
+    from repro_torch.launch import mesh as M
+    _rank_setup(torch)
+    mesh = M.make_mesh((2, 2), ("pod", "data"))
+    cfg = _train_cfg(get_smoke("smollm-360m"),
+                     SyncConfig(strategy="hierarchical", period=2,
+                                compression="int8"), 64, 8, 2)
+    state, _, _, losses, walls, _, launches = _run_blocks(
+        torch, cfg, mesh.device, "kernel", blocks, mesh=mesh)
+    params = local_sgd.gather_replicas(state, mesh)["params"]
+    return dict(losses=losses, walls=walls, launches=launches,
+                params=T.map(lambda p: p.cpu(), params),
+                report=_rank_report(torch, mesh, "hierarchical"))
+
+
+def _dist_nccl_rank(paths):
+    """(d6) the one rank of an NCCL world: dms(backend="dist") at K = 1."""
+    import torch
+    from repro_torch.core import svm
+    from repro_torch.kernels.hinge import ops
+    from repro_torch.launch import mesh as M
+    _rank_setup(torch)
+    mesh = M.make_mesh((1,), ("data",))
+    x = np.load(paths["web_x"], mmap_mode="c")
+    y = np.load(paths["web_y"], mmap_mode="c")
+    ops.LAUNCHES = ops.CLUSTER_LAUNCHES = 0
+    w = svm.dms(torch.zeros(x.shape[1]), x, y, workers=1, epochs=1,
+                block_size=DIST_BS, backend="dist", mesh=mesh)
+    return dict(w=w.cpu().numpy(), launches=ops.LAUNCHES,
+                cluster=ops.CLUSTER_LAUNCHES,
+                report=_rank_report(torch, mesh, "nccl"))
+
+
+def _stepper_dms(torch, svm, x, y, topology):
+    """Async gossip over K workers on one card through
+    ``dms_block_stepper``, the arithmetic the ranks run (neighbour sums,
+    the bank as ``mixbuf + (M_ii − 1)·sent``). ``dms(backend="vmap")`` runs
+    async gossip as the reference's ``_dms_vmap`` does, by the mixing
+    matrix's product, which rounds differently; at α = 1 every block
+    rebuilds w from its gradient alone, entries that cancel to zero in one
+    rounding are ±1e-9 in the other, and on webspam's one-feature rows the
+    sign of such an entry decides a row's prediction."""
+    d = x.shape[1]
+    xs, ys = svm._shard_data(x, y, DIST_K)
+    nb = xs.shape[1] // DIST_BS
+    step = svm.dms_block_stepper(d=d, topology=topology, gossip_async=True)
+    carry = svm.dms_stepper_init(torch.zeros(d, device=x.device), DIST_K,
+                                 topology=topology, gossip_async=True)
+    alpha = svm._alpha(0, x.dtype)
+    for i in range(nb):
+        sl = slice(i * DIST_BS, (i + 1) * DIST_BS)
+        carry = step(carry, xs[:, sl], ys[:, sl], alpha)
+    return carry["w"].mean(dim=0)
+
+
+def phase_dist(torch, dev, tmp):
+    """Phase dist: ``dms(backend="dist")``, the timed pair and the trainer
+    across processes that share the one card (gloo), each held to its
+    one-process twin; then one NCCL world of one rank. The kernels are
+    built and loaded here first, so no rank compiles them."""
+    from repro_torch.config import SyncConfig, get_arch, get_smoke
+    from repro_torch.core import autotune, costmodel, svm
+    from repro_torch.kernels.hinge import ops as hinge_ops
+    from repro_torch.kernels.quant import ops as quant_ops
+    from repro_torch.launch import mesh as M
+    from repro_torch import tree as T
+    t_phase = time.perf_counter()
+    hinge_ops.load_library()
+    hinge_ops.load_cluster_library()
+    quant_ops.load_library()
+    from repro_torch.data import make_svm_dataset
+    eps, web = (_HOST.get(name) or make_svm_dataset(name, seed=0)
+                for name in ("epsilon", "webspam"))
+    paths = {}
+    t0 = time.perf_counter()
+    for tag, ds in (("eps", eps), ("web", web)):
+        for part, arr in (("x", ds.x_train), ("y", ds.y_train)):
+            paths[f"{tag}_{part}"] = os.path.join(tmp, f"{tag}_{part}.npy")
+            np.save(paths[f"{tag}_{part}"], arr)
+    log(f"dist: data written for the ranks in {time.perf_counter() - t0:.1f} "
+        f"s (each rank maps it and copies its own row block to the card)")
+
+    # the one-process twins, on the card, before any rank starts
+    def on_card(ds):
+        return tuple(torch.from_numpy(a).to(dev) for a in
+                     (ds.x_train, ds.y_train, ds.x_test, ds.y_test))
+    x, y, xt, yt = on_card(eps)
+    d = x.shape[1]
+    n_local = x.shape[0] // DIST_K
+    blocks = n_local // DIST_BS
+    w_one = svm.dms(torch.zeros(d, device=dev), x, y, workers=DIST_K,
+                    epochs=DIST_EPOCHS, block_size=DIST_BS, device=dev)
+    acc_one = float(svm.accuracy(w_one, xt, yt))
+    eps_test = (xt, yt)
+    del x, y
+    xw, yw, xwt, ywt = on_card(web)
+    web_one = [svm.dms(torch.zeros(xw.shape[1], device=dev), xw, yw,
+                       workers=DIST_K, epochs=1, block_size=DIST_BS,
+                       overlap=ov, topology=topo, gossip_async=ga, device=dev)
+               if not ga else _stepper_dms(torch, svm, xw, yw, topo)
+               for ov, topo, ga in DIST_MODES]
+    w_srdms = svm.srdms(torch.zeros(xw.shape[1], device=dev), xw, yw,
+                        epochs=1, block_size=DIST_BS, device=dev)
+    del xw, yw
+
+    # (d4)'s twin: the one-process trainer at K = 2 on the same rows
+    model_cfg = get_arch("smollm-360m")
+    sync_cfg = SyncConfig(strategy="periodic", period=DIST_TRAIN_H,
+                          compression="int8")
+    cfg = _train_cfg(model_cfg, sync_cfg, TRAIN_SEQ, DIST_TRAIN_K,
+                     DIST_TRAIN_K)
+    from repro_torch.core import compression
+    first = []
+    inner = compression.compress_tree
+
+    def capture(delta, ef, **kw):
+        q, scale, new_ef = inner(delta, ef, **kw)
+        if not first:
+            first.append((T.leaves(q), T.leaves(scale)))
+        return q, scale, new_ef
+
+    compression.compress_tree = capture
+    try:
+        state, _, _, losses_one, walls_one, _, _ = _run_blocks(
+            torch, cfg, dev, "kernel", DIST_TRAIN_BLOCKS)
+    finally:
+        compression.compress_tree = inner
+    arrays = {}
+    for i, (q, s_) in enumerate(zip(*first[0])):
+        arrays[f"q{i}"], arrays[f"s{i}"] = q.cpu().numpy(), s_.cpu().numpy()
+    for i, p in enumerate(T.leaves(state["params"])):
+        arrays[f"p{i}"] = p[0].cpu().numpy()
+    paths["train_ref"] = os.path.join(tmp, "train_ref.npz")
+    np.savez(paths["train_ref"], **arrays)
+    del state, first, arrays
+    # (d5)'s twin: periodic at K = 2, each replica both data ranks' rows
+    hier_cfg = _train_cfg(get_smoke("smollm-360m"), SyncConfig(
+        strategy="periodic", period=2, compression="int8"), 64, 8, 2)
+    hier_one, _, _, hier_losses_one, _, _, _ = _run_blocks(
+        torch, hier_cfg, dev, "kernel", 3)
+    hier_one = T.map(lambda p: p.cpu(), hier_one["params"])
+    _wait(torch, dev)
+    torch.cuda.empty_cache()
+    log(f"dist: one-process twins done in "
+        f"{time.perf_counter() - t_phase:.1f} s; the parent holds "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card")
+
+    # (d1)-(d3): K gloo ranks on the one card
+    t0 = time.perf_counter()
+    ranks = M.spawn(_dist_svm_rank, DIST_K, backend="gloo",
+                    args=(paths, DIST_TIMED_BS, DIST_TIMED_BLOCKS),
+                    timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    _log_ranks([o["report"] for o in ranks])
+    w0 = ranks[0]["d1"]["w"]
+    same = all(o["d1"]["w"].tobytes() == w0.tobytes() for o in ranks)
+    w_dist = torch.from_numpy(w0).to(dev)
+    rel = float((w_dist - w_one).norm() / w_one.norm())
+    acc = float(svm.accuracy(w_dist, *eps_test))
+    per_rank = DIST_EPOCHS * blocks
+    launches = [o["d1"]["launches"] for o in ranks]
+    cluster = [o["d1"]["cluster"] for o in ranks]
+    walls = [o["d1"]["wall"] for o in ranks]
+    log(f"(d1) dms epsilon K={DIST_K} ranks (gloo, one card) block "
+        f"{DIST_BS} epochs {DIST_EPOCHS} (n_train {eps.x_train.shape[0]}, "
+        f"{blocks} blocks an epoch a rank): w bitwise equal on all "
+        f"{DIST_K} ranks {same}; rel L2(w) vs the one-process vmap run "
+        f"{rel:.3e} (bound {W_REL_L2}), bitwise "
+        f"{bool(torch.equal(w_dist, w_one))}; test acc dist {acc:.4f} one-process "
+        f"{acc_one:.4f}; hinge launches {sum(launches)} (expected "
+        f"{DIST_K * per_rank}: {DIST_K} ranks x {DIST_EPOCHS} x {blocks}), "
+        f"{sum(cluster)} on the cluster kernel; wall (host clock, waited "
+        f"for, with the rank's row block copied to the card) max "
+        f"{max(walls):.4f} s min {min(walls):.4f} s, "
+        f"{1e6 * max(walls) / per_rank:.1f} us a block; the row block's "
+        f"copy alone max {max(o['d1']['copy_s'] for o in ranks):.4f} s; the "
+        f"{DIST_K} ranks' spawn and phase {spawn_s:.1f} s")
+    check(same, "(d1): the ranks' models differ")
+    check(rel <= W_REL_L2, f"(d1): rel L2 {rel} > {W_REL_L2}")
+    check(abs(acc - acc_one) <= ACC_DIFF, f"(d1): accuracy {acc} vs "
+          f"{acc_one}")
+    check(launches == [per_rank] * DIST_K == cluster,
+          f"(d1): launches {launches}, cluster {cluster}, expected "
+          f"{per_rank} a rank on the cluster kernel")
+
+    for i, (ov, topo, ga) in enumerate(DIST_MODES):
+        label = f"{ov}/{topo}{'/async' if ga else ''}"
+        got = [o["d2"][i] for o in ranks]
+        w_d = torch.from_numpy(got[0]["w"]).to(dev)
+        n_launch = [g["launches"] for g in got]
+        wall = max(g["wall"] for g in got)
+        check(n_launch == [web.x_train.shape[0] // DIST_K // DIST_BS] * DIST_K
+              and all(g["cluster"] == 0 for g in got),
+              f"(d2) {label}: launches {n_launch}")
+        one = web_one[i]
+        if ga and async_growth(DIST_K, topo) > 1.0:
+            finite = (bool(torch.isfinite(w_d).all()),
+                      bool(torch.isfinite(one).all()))
+            log(f"(d2) dms webspam {label} K={DIST_K} ranks: model finite "
+                f"dist {finite[0]} one-process {finite[1]} (async growth "
+                f"{async_growth(DIST_K, topo):.4f} a block at alpha=1: both "
+                f"overflow, as the reference does); launches "
+                f"{sum(n_launch)}; wall max {wall:.4f} s")
+            check(finite == (False, False), f"(d2) {label}: {finite}")
+            continue
+        rel = float((w_d - one).norm() / one.norm())
+        acc_d = float(svm.accuracy(w_d, xwt, ywt))
+        acc_o = float(svm.accuracy(one, xwt, ywt))
+        twin = "one-process stepper" if ga else "one-process vmap run"
+        log(f"(d2) dms webspam {label} K={DIST_K} ranks: rel L2(w) vs the "
+            f"{twin} {rel:.3e}, bitwise {bool(torch.equal(w_d, one))}; test "
+            f"acc dist {acc_d:.4f} one-process {acc_o:.4f}; hinge launches "
+            f"{sum(n_launch)} (hinge.cu); wall max {wall:.4f} s")
+        check(rel <= W_REL_L2, f"(d2) {label}: rel L2 {rel}")
+        check(abs(acc_d - acc_o) <= ACC_DIFF, f"(d2) {label}: accuracy")
+
+    # the mean is an all-gather of each rank's w, then the stacked mean:
+    # (K − 1) · 4d bytes in on each rank, against the cost model's ring
+    # all-reduce, 2 · 4d · (K − 1) / K
+    bytes_in = (DIST_K - 1) * 4 * d
+    bytes_all = costmodel.wire_bytes_per_sync(
+        4 * d, DIST_K, SyncConfig(strategy="periodic"))
+    for bs in DIST_TIMED_BS:
+        ests = [o["d3"][bs] for o in ranks]
+        check(all(e == ests[0] for e in ests),
+              f"(d3) {bs}: the ranks' reduced times differ")
+        t_step, t_sync = ests[0]
+        check(np.isfinite(t_step) and np.isfinite(t_sync) and t_step > 0
+              and t_sync > 0, f"(d3) {bs}: T_step {t_step} T_sync {t_sync}")
+        pick = autotune.choose_period(
+            autotune.TuneInputs(param_bytes_per_chip=4 * d, replicas=DIST_K,
+                                step_time_s=t_step),
+            SyncConfig(strategy="periodic", period=bs),
+            sync_time_override=t_sync)
+        # the block at which the sync is choose_period's 5% of the compute,
+        # before its drift cap
+        h_comm = int(np.ceil(t_sync / (0.05 * t_step)))
+        log(f"(d3) dms_timed_steps epsilon K={DIST_K} ranks block {bs} "
+            f"({DIST_TIMED_BLOCKS} blocks, the first the warm-up): T_step "
+            f"{1e6 * t_step:.4f} us a point, T_sync {1e6 * t_sync:.4f} us a "
+            f"block (max over the ranks; host clock, waited for on the host "
+            f"and the card); the mean's all-gather takes in {bytes_in} B a "
+            f"rank ({4 * d} B from each other rank), the cost model's ring "
+            f"all-reduce {bytes_all:.0f} B; compute "
+            f"{1e6 * t_step * bs:.1f} us against sync {1e6 * t_sync:.1f} us "
+            f"a block; choose_period picks block size {pick} (the sync is "
+            f"5% of the compute from block {h_comm})")
+    # the collective alone: the port's all-gather mean against the
+    # reference's all-reduce, and the block each would have choose_period
+    # pick at block DIST_BS's T_step
+    colls = ranks[0]["coll"]
+    check(all(o["coll"] == colls for o in ranks),
+          "(d3): the ranks' reduced collective times differ")
+    t_step = ranks[0]["d3"][DIST_BS][0]
+    picks = {name: autotune.choose_period(
+        autotune.TuneInputs(param_bytes_per_chip=4 * d, replicas=DIST_K,
+                            step_time_s=t_step),
+        SyncConfig(strategy="periodic", period=DIST_BS),
+        sync_time_override=t) for name, t in colls.items()}
+    log(f"(d3) the mean of a ({d},) f32 w alone across the {DIST_K} ranks, "
+        f"{DIST_COLL_CALLS} calls of each in turns (max over the ranks of "
+        f"each rank's mean; host clock, waited for on the host and the "
+        f"card): " + "; ".join(
+            f"{name} {1e6 * t:.1f} us a call, choose_period picks {picks[name]}"
+            for name, t in colls.items())
+        + f" (at block {DIST_BS}'s T_step); bytes in a rank: all-gather "
+        f"{bytes_in} B, ring all-reduce {bytes_all:.0f} B")
+    check(all(np.isfinite(t) and t > 0 for t in colls.values()),
+          f"(d3): collective times {colls}")
+
+    # (d4): the trainer across two ranks at full width
+    t0 = time.perf_counter()
+    tr = M.spawn(_dist_train_rank, DIST_TRAIN_K, backend="gloo",
+                 args=(paths, DIST_TRAIN_H, DIST_TRAIN_BLOCKS), timeout_s=900)
+    train_s = time.perf_counter() - t0
+    _log_ranks([o["report"] for o in tr])
+    n_leaves = len(tr[0]["own"])
+    expect = DIST_TRAIN_BLOCKS * n_leaves * 2
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(tr[0]["losses"],
+                                                       losses_one))
+    peak_gb = sum(o["report"]["peak"] for o in tr) / 1e9
+    wire_ok = all(o["gathered"][i][j] == tr[j]["own"][i]
+                  for o in tr for i in range(n_leaves)
+                  for j in range(DIST_TRAIN_K))
+    log(f"(d4) train {model_cfg.name} across {DIST_TRAIN_K} ranks "
+        f"(gloo, one card): K={DIST_TRAIN_K}, H={DIST_TRAIN_H}, int8, 1 x "
+        f"{TRAIN_SEQ} tokens a replica step, {DIST_TRAIN_BLOCKS} blocks: "
+        f"losses {tr[0]['losses']} (one-process {losses_one}), rel "
+        f"{rel_loss:.3e} (bound {TRAIN_LOSS_REL}); params rel L2 "
+        f"{[round(o['params_rel'], 9) for o in tr]} (bound "
+        f"{TRAIN_PARAMS_REL_L2}); params equal on both ranks "
+        f"{tr[0]['params_digest'] == tr[1]['params_digest']}; block walls "
+        f"{[o['walls'] for o in tr]} s (one-process {walls_one} s), sync "
+        f"{[o['sync_ms'] for o in tr]} ms; quant launches "
+        f"{[o['launches'] for o in tr]} (expected {expect} a rank); the "
+        f"first sync's payloads: kernel bitwise the plain version on every "
+        f"rank {all(o['plain_same'] for o in tr)}, every rank's payload "
+        f"gathered bitwise by every rank {wire_ok}, against the one-process "
+        f"run's: {[o['diff_q'] for o in tr]} of {tr[0]['n_q']} int8 values "
+        f"differ (max |dq| {max(o['max_dq'] for o in tr)}), scales rel "
+        f"{max(o['scale_rel'] for o in tr):.3e}; peak memory "
+        f"{[round(o['report']['peak'] / 2**30, 2) for o in tr]} GiB, "
+        f"{peak_gb:.2f} GB in all (bound {DIST_PEAK_GB}); the spawn and "
+        f"phase {train_s:.1f} s")
+    check(rel_loss <= TRAIN_LOSS_REL, f"(d4): losses rel {rel_loss}")
+    check(all(o["params_rel"] <= TRAIN_PARAMS_REL_L2 for o in tr),
+          "(d4): params rel L2")
+    check(tr[0]["params_digest"] == tr[1]["params_digest"],
+          "(d4): the replicas differ after a blocking sync")
+    check(all(o["launches"] == expect for o in tr),
+          "(d4): quant launches")
+    check(all(o["plain_same"] for o in tr) and wire_ok,
+          "(d4): the first sync's payloads")
+    check(all(o["diff_q"] == 0 for o in tr)
+          and max(o["scale_rel"] for o in tr) == 0.0,
+          "(d4): the first sync's payloads differ from the one-process "
+          "run's")
+    check(peak_gb < DIST_PEAK_GB, f"(d4): peak {peak_gb} GB")
+
+    # (d5): hierarchical at smoke width, (pod 2, data 2)
+    t0 = time.perf_counter()
+    hr = M.spawn(_dist_hier_rank, 4, backend="gloo", args=(3,),
+                 timeout_s=600)
+    _log_ranks([o["report"] for o in hr])
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(hr[0]["losses"],
+                                                       hier_losses_one))
+    rel = _tree_rel_l2(torch, hr[0]["params"], hier_one)
+    log(f"(d5) hierarchical smollm smoke on a (pod 2, data 2) mesh of 4 "
+        f"ranks, int8, H=2, 3 blocks: losses {hr[0]['losses']} against the "
+        f"one-process periodic K=2 run's {hier_losses_one}, rel "
+        f"{rel_loss:.3e}; params rel L2 {rel:.3e}; quant launches a rank "
+        f"{[o['launches'] for o in hr]}; {time.perf_counter() - t0:.1f} s")
+    check(rel_loss <= TRAIN_LOSS_REL and rel <= TRAIN_PARAMS_REL_L2,
+          f"(d5): rel {rel_loss} / {rel}")
+
+    # (d6): one NCCL world of one rank
+    t0 = time.perf_counter()
+    (nc,) = M.spawn(_dist_nccl_rank, 1, backend="nccl", args=(paths,),
+                    timeout_s=600)
+    _log_ranks([nc["report"]])
+    w_n = torch.from_numpy(nc["w"]).to(dev)
+    n_web = web.x_train.shape[0] // DIST_BS
+    rel = float((w_n - w_srdms).norm() / w_srdms.norm())
+    log(f"(d6) dms(backend='dist') K=1 on an NCCL world of one rank, webspam "
+        f"block {DIST_BS}, one epoch: rel L2(w) vs srdms {rel:.3e} (bound "
+        f"1e-6), bitwise {bool(torch.equal(w_n, w_srdms))}; hinge launches "
+        f"{nc['launches']} (expected {n_web}), {nc['cluster']} on the "
+        f"cluster kernel; {time.perf_counter() - t0:.1f} s")
+    check(rel <= 1e-6, f"(d6): rel {rel}")
+    check(nc["launches"] == n_web and nc["cluster"] == 0,
+          f"(d6): launches {nc['launches']}, cluster {nc['cluster']}, "
+          f"expected {n_web} on hinge.cu")
+    log(f"dist: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2395,15 +3008,26 @@ def main() -> int:
     def done(phase):
         log(f"[{time.perf_counter() - t_start:.1f} s] {phase} done")
 
+    # --dist-only: the build and phase dist alone, and no result line
+    dist_only = "--dist-only" in sys.argv[1:]
     card = phase_device(torch)
     done("build")
-    row = phase_kernel(torch, dev)
-    launches, eps = phase_main(torch, dev)
-    phase_svm_ladder(torch, dev, eps)
-    del eps
+    if not dist_only:
+        row = phase_kernel(torch, dev)
+        launches, eps = phase_main(torch, dev)
+        phase_svm_ladder(torch, dev, eps)
+        del eps
+        torch.cuda.empty_cache()
+        phase_modes(torch, dev)
+        done("SVM")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_dist(torch, dev, tmp)
+    _HOST.clear()
     torch.cuda.empty_cache()
-    phase_modes(torch, dev)
-    done("SVM")
+    done("dist")
+    if dist_only:
+        log("--dist-only: the later phases skipped, no result line")
+        return 0
     flash_rows = phase_flash(torch, dev)
     done("flash")
     from repro_torch.config import get_arch

@@ -17,6 +17,15 @@ made at the first save.
 
 ``async_write=True`` moves serialization and IO to a daemon thread;
 ``wait()`` joins outstanding writes (called before restore and at exit).
+
+Across processes (``mesh=``, a :class:`repro_torch.launch.mesh.Mesh`; each
+rank holding one replica of a trainer state, the leading dim of its
+params/opt/sync leaves 1) ``save`` gathers the replicas
+(:func:`repro_torch.core.local_sgd.gather_replicas`, a collective every rank
+calls) and only rank 0 writes, as the reference's process 0 does, so that a
+checkpoint is the same file whether the run had one process or K; the ranks
+wait for the write. ``restore`` reads that file on every rank and scatters
+it back (:func:`repro_torch.core.local_sgd.scatter_replicas`).
 """
 from __future__ import annotations
 
@@ -73,20 +82,31 @@ def _from_numpy(arr: np.ndarray, dtype: str, like, device):
 
 
 class CheckpointManager:
-    def __init__(self, cfg: CheckpointConfig):
+    def __init__(self, cfg: CheckpointConfig, mesh=None, axis: str = "pod"):
         self.cfg = cfg
         self.directory = cfg.directory
+        self.mesh, self.axis = mesh, axis
         self._lock = threading.Lock()
         self._pending: List[threading.Thread] = []
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, state, extra: Optional[Dict[str, Any]] = None,
              fingerprint: str = "") -> None:
+        if self.mesh is not None:
+            from repro_torch.core.local_sgd import gather_replicas
+            state = gather_replicas(state, self.mesh, self.axis)
+            if self.mesh.rank() != 0:
+                self._barrier()
+                return
         # copy to the host *before* any thread handoff so the caller can
         # keep changing device state
         leaves = [(k, _to_numpy(v), _dtype_name(v))
                   for k, v in zip(_paths(state), T.leaves(state))]
-        if self.cfg.async_write:
+        if self.mesh is not None:
+            # rank 0 writes while the others wait at the barrier
+            self._write(step, leaves, extra, fingerprint)
+            self._barrier()
+        elif self.cfg.async_write:
             t = threading.Thread(
                 target=self._write, args=(step, leaves, extra, fingerprint),
                 daemon=True)
@@ -134,6 +154,10 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:09d}"),
                           ignore_errors=True)
 
+    def _barrier(self) -> None:
+        import torch.distributed as dist
+        dist.barrier()
+
     def wait(self) -> None:
         with self._lock:
             pending, self._pending = self._pending, []
@@ -158,8 +182,8 @@ class CheckpointManager:
                 device: Union[str, torch.device, None] = None,
                 expected_fingerprint: str = "") -> Tuple[Any, Dict[str, Any]]:
         """Restore into the structure of ``like_state``: each tensor leaf on
-        ``device``, or where ``like_state``'s leaf lies. Returns
-        (state, extra)."""
+        ``device``, or where ``like_state``'s leaf lies (with a mesh, this
+        rank's replica of the state written). Returns (state, extra)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -183,4 +207,7 @@ class CheckpointManager:
         state = unflatten([_from_numpy(arrays[k], manifest["dtypes"][k], like,
                                        device)
                            for k, like in zip(keys, flat)])
+        if self.mesh is not None:
+            from repro_torch.core.local_sgd import scatter_replicas
+            state = scatter_replicas(state, self.mesh, self.axis)
         return state, manifest.get("extra", {})

@@ -11,8 +11,11 @@ default: gossip already removed the global barrier, delayed overlap
 additionally takes the two ppermutes off the block's critical path — the
 full straggler-decoupled schedule the ROADMAP's gossip item asks for.
 
-The port's trainer refuses the ``hierarchical`` presets: their data-axis
-sync runs across cards (ROADMAP §1 item 9).
+The ``hierarchical`` presets need a ``(pod, data)`` mesh of processes: the
+port's trainer all-reduces each replica's gradient over the ``data`` ranks
+every step and syncs the ``pod`` replicas every H steps
+(``repro_torch.core.local_sgd.make_local_sgd_block(…, mesh=…)``); on one
+process it refuses them, since ``periodic`` computes the same there.
 """
 from __future__ import annotations
 

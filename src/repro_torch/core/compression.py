@@ -14,7 +14,10 @@ run). Both give the reference's int8 payload bit for bit.
 
 On one card the K replicas are a leading dim of every leaf, so the functions
 take ``rows=True`` for a stacked ``(K, …)`` leaf: each replica's row gets its
-own scale, as each replica quantizes its own leaf in the reference.
+own scale, as each replica quantizes its own leaf in the reference. Across
+processes each rank holds one replica, a ``(1, …)`` leaf, and quantizes it
+alone (through the quant kernel on the card); the payloads meet in
+:func:`allgather_mean_dequant`.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core import collectives as CL
 from repro_torch.kernels.quant import ops as quant_ops
 from repro_torch.kernels.quant import ref as quant_ref
 
@@ -76,15 +80,20 @@ def compress_tree(delta, ef, *, rows: bool = False, impl: str = "kernel"):
     return tuple(unflatten([o[i] for o in out]) for i in range(3))
 
 
-def allgather_mean_dequant(q_tree, s_tree, *, impl: str = "kernel"):
+def allgather_mean_dequant(q_tree, s_tree, *, impl: str = "kernel",
+                           rep=CL.STACKED):
     """The replica mean of the dequantized int8 payloads.
 
     In the reference every replica all-gathers the others' ``(q, scale)``
     over the replica mesh axis and averages their dequantized values. On one
-    card the K replicas' payloads already lie stacked in ``(K, …)`` leaves
-    with ``(K,)`` scales, so the gather is the stacked leaf itself: each
-    leaf is dequantized row by row and averaged over dim 0, kept as a
-    ``(1, …)`` dim that broadcasts to every replica.
+    card (``rep`` the stacked axis) the K replicas' payloads already lie
+    stacked in ``(K, …)`` leaves with ``(K,)`` scales, so the gather is the
+    stacked leaf itself. Across processes (``rep`` a
+    :class:`repro_torch.core.collectives.Group`) the int8 payloads and the
+    f32 scales are all-gathered in rank order. Either way each leaf is
+    dequantized row by row, all K in that fixed order, and averaged over
+    dim 0, kept as a ``(1, …)`` dim that broadcasts to every replica.
     """
-    return T.map(lambda q, s: dequantize(q, s, impl=impl).mean(
-        dim=0, keepdim=True), q_tree, s_tree)
+    return T.map(lambda q, s: dequantize(rep.gather(q), rep.gather(s),
+                                         impl=impl).mean(dim=0, keepdim=True),
+                 q_tree, s_tree)

@@ -1,14 +1,27 @@
 """Local-SGD (MSF) trainer: the paper's DMS algorithm generalized to LMs, the
-port of ``repro.core.local_sgd`` on one card.
+port of ``repro.core.local_sgd``, on one process or across the ranks of a
+mesh (:mod:`repro_torch.launch.mesh`).
 
 Two step flavors, selected by ``SyncConfig.strategy``:
 
 * ``sync_every_step`` → :func:`make_ddp_step`: one optimizer step on the
-  gradient of the whole global batch (the paper's MSF = 1 analog).
+  gradient of the whole global batch (the paper's MSF = 1 analog); across
+  ranks each rank takes its rows and the gradient is all-reduced every
+  step.
 * ``periodic`` → :func:`make_local_sgd_block`: K replicas each take H
   optimizer steps on their own rows of every microbatch, then average
-  (:func:`repro_torch.core.sync.sync_point`). ``hierarchical`` needs a data
-  axis across cards (ROADMAP §1 item 9) and raises.
+  (:func:`repro_torch.core.sync.sync_point`). ``hierarchical`` is the same
+  block on a ``(pod, data)`` mesh: the replicas are the ``pod`` axis, synced
+  every H steps, and each replica's gradient is all-reduced over its
+  ``data`` ranks every step (reference ``core/sync.py``'s strategy table).
+
+Across ranks each rank holds one replica's params, moments and sync state
+(every leaf's leading dim 1, as the reference's inside ``shard_map``), takes
+the rows the reference's in-spec ``P(None, replica_axis)`` gives it
+(``DataPipeline(…, mesh=mesh)``), and syncs over the replica axis's
+collectives. :func:`scatter_replicas` and :func:`gather_replicas` take the
+one-process K-replica state to each rank's share and back (the port's
+``build_state_axes`` / ``state_shardings``).
 
 State layout (plain dict), the reference's:
 
@@ -48,6 +61,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.config.base import TrainConfig
+from repro_torch.core import collectives as CL
 from repro_torch.core import sync as S
 from repro_torch.device import wait
 from repro_torch.models import layers as L
@@ -124,13 +138,36 @@ def _rows(batch, lo: int, hi: int):
 # flavor A — every-step sync (paper baseline / canonical DDP)
 # ---------------------------------------------------------------------------
 
+def _data_group(mesh, cfg: TrainConfig):
+    """(group, size) of the mesh's within-replica data axis, or (None, 1):
+    the ranks a replica's gradient is all-reduced over every step."""
+    replica_axis = cfg.mesh.replica_axis or "pod"
+    others = [a for a in mesh.axes if a != replica_axis and mesh.size(a) > 1]
+    if not others:
+        return None, 1
+    if others != ["data"]:
+        raise ValueError(f"the trainer splits a replica over one 'data' axis; "
+                         f"the mesh has {mesh!r}")
+    return mesh.group("data"), mesh.size("data")
+
+
+def _world_mean(x: torch.Tensor, group, k: int) -> torch.Tensor:
+    out = x.detach().reshape(1).clone()
+    CL.all_reduce_mean_([out], group, k)
+    return out[0]
+
+
 def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1,
-                  telemetry=None) -> Callable:
+                  telemetry=None, mesh=None) -> Callable:
     """(state, batch) → (state, metrics): one optimizer step on the gradient
     of the whole batch. ``grad_accum`` > 1 takes the gradient over that many
     equal row slices of the batch, one after another, and averages them:
     with every position counted (no ``loss_mask``) that is the same mean
-    loss, for a smaller peak of activations."""
+    loss, for a smaller peak of activations. With a ``mesh`` ``batch`` is
+    this rank's rows (``DataPipeline(…, mesh=mesh)``) and the gradient and
+    the metrics are all-reduced to their mean over every rank of the mesh
+    (the reference shards the batch over all its axes), so each rank takes
+    the same step."""
     def step(state, batch):
         b = next(iter(batch.values())).shape[0]
         if grad_accum < 1 or b % grad_accum:
@@ -148,6 +185,11 @@ def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1,
             loss = loss + li
             aux = {k: aux.get(k, 0.0) + v for k, v in mi.items()}
             grads = gi if grads is None else T.map(torch.add, grads, gi)
+        if mesh is not None:
+            world = mesh.size()
+            CL.all_reduce_mean_(T.leaves(grads), None, world)
+            loss = _world_mean(loss, None, world)
+            aux = {k: _world_mean(v, None, world) for k, v in aux.items()}
         params, opt = apply_updates(cfg.optimizer, grads, state["opt"],
                                     state["params"], state["step"])
         new_state = {"params": params, "opt": opt, "sync": state["sync"],
@@ -162,8 +204,8 @@ def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1,
 # ---------------------------------------------------------------------------
 
 def make_local_sgd_block(model, cfg: TrainConfig, *,
-                         quant_impl: str = "kernel", telemetry=None
-                         ) -> Callable:
+                         quant_impl: str = "kernel", telemetry=None,
+                         mesh=None) -> Callable:
     """(state, batch) → (state, metrics).
 
     ``batch`` leaves are (H, B_global, …): H microbatches per sync block.
@@ -174,19 +216,41 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
     are updated in place and returned (see the module docstring); its
     params and sync state are left as they were.
 
+    With a ``mesh`` the replicas are its ``cfg.mesh.replica_axis`` (default
+    ``"pod"``, whose size must be ``cfg.mesh``'s), each rank holds one
+    (:func:`scatter_replicas`), ``batch`` leaves are (H, B_local, …), this
+    rank's rows (``DataPipeline(…, mesh=mesh)``), and the sync is over the
+    replica axis's collectives. Where the mesh also has a ``data`` axis of
+    more than one rank (``strategy="hierarchical"``, which needs one), the
+    replica's gradient and loss are all-reduced over it every step.
+
     ``telemetry`` records each block's wall time keyed by its H (the
     batch's leading dim, ``cfg.sync.period`` unless an H-ladder re-blocks
     the data) and its sync's time (:func:`timed_step`).
     """
-    if cfg.sync.strategy == "hierarchical":
-        raise NotImplementedError(
-            "strategy='hierarchical' syncs a data axis across cards every "
-            "step; the port has one card so far (ROADMAP §1 item 9)")
+    replica_axis = cfg.mesh.replica_axis or "pod"
+    data_group, n_data = None, 1
+    if mesh is not None:
+        k_cfg = cfg.mesh.axis_size(replica_axis)
+        if mesh.size(replica_axis) != k_cfg:
+            raise ValueError(f"mesh axis {replica_axis!r} has "
+                             f"{mesh.size(replica_axis)} ranks, but the "
+                             f"config has {k_cfg} replicas")
+        data_group, n_data = _data_group(mesh, cfg)
+    if cfg.sync.strategy == "hierarchical" and data_group is None:
+        raise ValueError(
+            "strategy='hierarchical' all-reduces each replica's gradient over "
+            "a data axis every step: pass a (pod, data) mesh with more than "
+            "one data rank (on one process 'periodic' computes the same)")
+    rep = CL.replicas(mesh, replica_axis)
     clock = SyncClock() if telemetry is not None else None
 
     def step_fn(state, batch):
         start = state["params"]
         k = T.leaves(start)[0].shape[0]
+        if mesh is not None and k != 1:
+            raise ValueError(f"a rank holds one replica (leading dim 1), "
+                             f"got {k}: scatter_replicas gives its share")
         h, b = next(iter(batch.values())).shape[:2]
         if b % k:
             raise ValueError(f"global batch {b} does not split over {k} "
@@ -202,6 +266,9 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
                 mb = _rows({n: v[j] for n, v in batch.items()},
                            r * per, (r + 1) * per)
                 loss, _, grads = value_and_grad(model, p_r, mb)
+                if data_group is not None:
+                    CL.all_reduce_mean_(T.leaves(grads), data_group, n_data)
+                    loss = _world_mean(loss, data_group, n_data)
                 new_p, new_o = apply_updates(cfg.optimizer, grads, o_r, p_r,
                                              state["step"] + j)
                 _write(p_r, new_p)
@@ -211,12 +278,17 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
         sync = (S.sync_point if clock is None
                 else clock.wrap(S.sync_point))
         params, sync_state = sync(start, params, state["sync"], cfg.sync,
-                                  impl=quant_impl)
-        metrics = {"loss": losses.mean(dim=1).mean()}
+                                  impl=quant_impl, mesh=mesh,
+                                  axis=replica_axis)
+        mean_loss = losses.mean(dim=1).mean()
+        if mesh is not None:
+            mean_loss = rep.mean(mean_loss.reshape(1))[0]
+        metrics = {"loss": mean_loss}
         if cfg.sync.eval_at_sync:
             metrics["sync_eval_loss"] = _sync_eval_loss(
                 model, cfg, params, sync_state,
-                {n: v[-1] for n, v in batch.items()}, per)
+                {n: v[-1] for n, v in batch.items()}, per, rep,
+                data_group, n_data)
         return ({"params": params, "opt": opt, "sync": sync_state,
                  "step": step}, metrics)
 
@@ -226,7 +298,8 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
 
 
 def _sync_eval_loss(model, cfg: TrainConfig, params, sync_state, last_mb,
-                    per: int) -> torch.Tensor:
+                    per: int, rep=CL.STACKED, data_group=None,
+                    n_data: int = 1) -> torch.Tensor:
     """The paper's per-sync convergence check (§V-C2): each replica's loss
     on its rows of the last microbatch under the *synchronized* model,
     averaged over replicas. Under overlap the block-end params are still
@@ -238,17 +311,22 @@ def _sync_eval_loss(model, cfg: TrainConfig, params, sync_state, last_mb,
         eval_params = T.map(lambda p, q: (p.float() + q).to(p.dtype),
                             params, sync_state["pending"])
     if cfg.sync.overlap == "chunked" or cfg.sync.topology != "all":
-        eval_params = T.map(lambda p: p.float().mean(dim=0, keepdim=True)
+        eval_params = T.map(lambda p: rep.mean(p.float())
                             .expand(p.shape).to(p.dtype), eval_params)
     k = T.leaves(params)[0].shape[0]
     with torch.no_grad():
         losses = [model.loss(_replica(eval_params, r),
                              _rows(last_mb, r * per, (r + 1) * per))[0]
                   for r in range(k)]
-    return torch.stack(losses).mean()
+    out = torch.stack(losses).mean()
+    if data_group is not None:
+        out = _world_mean(out, data_group, n_data)
+    if rep is not CL.STACKED:
+        out = rep.mean(out.reshape(1))[0]
+    return out
 
 
-def finalize_state(state, cfg: TrainConfig):
+def finalize_state(state, cfg: TrainConfig, mesh=None):
     """Make the trained state globally consistent before checkpoint/eval.
 
     Under ``overlap="delayed"``/``"chunked"`` and any gossip topology the
@@ -256,7 +334,9 @@ def finalize_state(state, cfg: TrainConfig):
     fully synchronized model (``sync.flush_overlap``) and clears the pending
     correction and the error-feedback residual (the flush folds the EF into
     the params), and re-seeds the async double buffers from the flushed
-    model. A no-op for ``overlap="none"`` with ``topology="all"``.
+    model. A no-op for ``overlap="none"`` with ``topology="all"``. With a
+    ``mesh`` the state is this rank's replica and the collapse is a mean
+    over the replica axis.
     """
     if cfg.sync.overlap == "none" and cfg.sync.topology == "all":
         return state
@@ -265,7 +345,8 @@ def finalize_state(state, cfg: TrainConfig):
         new_sync["pending"] = T.map(torch.zeros_like, new_sync["pending"])
     if "ef" in new_sync:
         new_sync["ef"] = T.map(torch.zeros_like, new_sync["ef"])
-    flushed = S.flush_overlap(state["params"], state["sync"], cfg.sync)
+    flushed = S.flush_overlap(state["params"], state["sync"], cfg.sync,
+                              mesh=mesh, axis=cfg.mesh.replica_axis or "pod")
     if "sent" in new_sync:
         new_sync["sent"], new_sync["mixbuf"] = S.init_async_buffers(
             flushed, cfg.sync.topology)
@@ -373,9 +454,48 @@ def timed_step(step_fn: Callable, h: Optional[int], telemetry, *,
     return timed
 
 
+# ---------------------------------------------------------------------------
+# the K-replica state across ranks
+# ---------------------------------------------------------------------------
+
+def _replicated_parts(state):
+    return [key for key in ("params", "opt", "sync") if key in state]
+
+
+def scatter_replicas(state, mesh, axis: str = "pod"):
+    """This rank's share of a one-process K-replica state (every leaf of
+    params/opt/sync stacked on a leading dim of K = ``mesh``'s ``axis``):
+    replica ``mesh.rank(axis)``, its leaves with a leading dim of 1, copied
+    onto the mesh's device; ``step`` as it is. Every rank passes the same
+    state (``interop.lm_train_state_from_jax`` followed by this gives
+    every rank the reference's state). The port's ``state_shardings``."""
+    k, r = mesh.size(axis), mesh.rank(axis)
+    out = dict(state)
+    for key in _replicated_parts(state):
+        def share(x):
+            if x.shape[0] != k:
+                raise ValueError(f"a {key} leaf of leading dim {x.shape[0]} "
+                                 f"is not stacked over the {k} replicas of "
+                                 f"axis {axis!r}")
+            return x[r:r + 1].to(mesh.device, copy=True)
+        out[key] = T.map(share, state[key])
+    return out
+
+
+def gather_replicas(state, mesh, axis: str = "pod"):
+    """The one-process K-replica state from every rank's share along
+    ``mesh``'s ``axis`` (a collective: every rank calls it, and gets the
+    whole state on its device); the inverse of :func:`scatter_replicas`."""
+    rep = CL.replicas(mesh, axis)
+    out = dict(state)
+    for key in _replicated_parts(state):
+        out[key] = T.map(rep.gather, state[key])
+    return out
+
+
 def make_train_step(model, cfg: TrainConfig, *, quant_impl: str = "kernel",
-                    telemetry=None) -> Callable:
+                    telemetry=None, mesh=None) -> Callable:
     if S.needs_replica_axis(cfg.sync):
         return make_local_sgd_block(model, cfg, quant_impl=quant_impl,
-                                    telemetry=telemetry)
-    return make_ddp_step(model, cfg, telemetry=telemetry)
+                                    telemetry=telemetry, mesh=mesh)
+    return make_ddp_step(model, cfg, telemetry=telemetry, mesh=mesh)

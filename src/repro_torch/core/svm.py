@@ -19,9 +19,12 @@ update is ``w ← w − α·mean_i ∇Jᵢ(w)`` with ``α = 1/(1+t)`` per epoch,
   carry from :func:`dms_stepper_init`, the K workers its leading dim; with
   :func:`dms_block_ladder` (a rung per block size) and
   :func:`dms_ladder_switch` the block size moves mid-run.
+  ``backend="dist"`` runs one worker a process, K the size of a mesh axis
+  (:mod:`repro_torch.launch.mesh`), the sync that axis's collectives:
+  the reference's ``backend="shard_map"``.
 * :func:`dms_timed_steps` — compute and sync as separate callables, timed
   into a :class:`repro_torch.core.telemetry.BlockTelemetry` (the paper's
-  Figs 10–12 method on one card).
+  Figs 10–12 method), on one card or across the ranks of a mesh.
 
 ``grad_impl="kernel"`` (the default) sends the block gradient through the
 hand-written CUDA hinge kernel on CUDA tensors (:mod:`repro_torch.kernels.hinge`)
@@ -42,6 +45,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.core import collectives as CL
 from repro_torch.device import resolve_device, wait
 from repro_torch.kernels.hinge import ops as hinge_ops
 from repro_torch.kernels.hinge import ref as hinge_ref
@@ -50,6 +54,7 @@ from repro_torch.runtime import graphs as G
 ArrayLike = Union[torch.Tensor, np.ndarray]
 OVERLAPS = ("none", "delayed", "chunked")
 TOPOLOGIES = ("all", "ring", "pairwise")
+BACKENDS = ("vmap", "dist")
 
 
 def _alpha(t: int, dtype: torch.dtype) -> torch.Tensor:
@@ -278,7 +283,6 @@ class DmsEpochs:
                  chunks: int = 4, topology: str = "all", graphs: bool = False):
         k, nb, _, d = xb.shape
         self.d, self.dtype = d, w0.dtype
-        self.blocking = overlap == "none" and topology == "all"
         self.modes = dict(workers=k, overlap=overlap, chunks=chunks,
                           topology=topology)
         step = dms_block_stepper(d=d, c=c, grad_impl=grad_impl,
@@ -317,8 +321,8 @@ class DmsEpochs:
         call's): row 0 after a blocking mean (K equal rows), else the worker
         mean (invariant under doubly stochastic mixing; under delayed,
         anchor + meanΔ of the last block)."""
-        w = self.carry["w"]
-        return w[0].clone() if self.blocking else w.mean(dim=0)[:self.d]
+        return dms_flush(self.carry, d=self.d, overlap=self.modes["overlap"],
+                         topology=self.modes["topology"])
 
 
 def _dms_async_vmap(w0: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
@@ -350,10 +354,10 @@ def _dms_async_vmap(w0: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
 
 def dms(w0: ArrayLike, x: ArrayLike, y: ArrayLike, *, workers: int,
         epochs: int, block_size: int, c: float = 1.0,
-        grad_impl: str = "kernel", backend: str = "vmap",
-        overlap: str = "none", chunks: int = 4, topology: str = "all",
-        gossip_async: bool = False,
-        device: Union[str, torch.device] = "cuda",
+        grad_impl: str = "kernel", backend: str = "vmap", mesh=None,
+        axis: str = "data", overlap: str = "none", chunks: int = 4,
+        topology: str = "all", gossip_async: bool = False,
+        device: Union[str, torch.device, None] = None,
         graphs: Optional[bool] = None) -> torch.Tensor:
     """Algorithm 3 entry point. ``block_size`` is points per worker per sync
     (the paper's MSF knob: larger block ⇒ lower sync frequency);
@@ -362,70 +366,164 @@ def dms(w0: ArrayLike, x: ArrayLike, y: ArrayLike, *, workers: int,
     "pairwise"} which workers it couples; ``gossip_async`` switches a gossip
     topology to the double-buffered unsynchronized-round exchange (requires
     ``overlap="none"``). ``x``/``y`` may be numpy arrays or tensors; a tensor
-    already on ``device`` is not copied. ``graphs``: each epoch one CUDA
-    graph replay (None: on a card, but under ``gossip_async``, whose loop
-    stays eager), the capture kept for later calls on the same data
-    (:data:`DMS_GRAPHS`), or eagerly (False); True on the CPU or with
-    ``gossip_async`` raises."""
+    already on ``device`` is not copied.
+
+    ``backend="vmap"`` runs the K workers on one device (default
+    ``"cuda"``). ``graphs``: each epoch one CUDA graph replay (None: on a
+    card, but under ``gossip_async``, whose loop stays eager), the capture
+    kept for later calls on the same data (:data:`DMS_GRAPHS`), or eagerly
+    (False); True on the CPU or with ``gossip_async`` raises.
+
+    ``backend="dist"`` is the reference's ``shard_map``: every rank of
+    ``mesh`` calls it with the same ``x`` and ``y``; the ranks along
+    ``axis`` (whose size must be ``workers``) are the K workers, rank r
+    takes row block r of the equal-load split, and the sync is the axis's
+    collectives (:func:`dms_block_stepper` with the mesh). It runs on the
+    mesh's device (default), eagerly: gloo's collectives cannot be captured
+    in a CUDA graph, and NCCL capture waits for ROADMAP item 19, so
+    ``graphs=True`` raises. Under ``delayed`` and ``gossip_async`` the
+    boundary's collective, which feeds only carried state, is waited for
+    at the next boundary. Every rank returns the flushed model (the same
+    on every rank under the blocking mean)."""
     if gossip_async and (topology == "all" or overlap != "none"):
         raise ValueError("gossip_async needs a gossip topology and "
                          f"overlap='none'; got topology={topology!r}, "
                          f"overlap={overlap!r}")
     if overlap not in OVERLAPS:
         raise ValueError(f"unknown overlap mode: {overlap!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} "
+                         f"({' | '.join(BACKENDS)})")
     if gossip_async and graphs:
         raise ValueError("gossip_async runs eagerly: its mixing matrix is "
                          "picked on the host block by block (graphs=False)")
-    dev = resolve_device(device)
+    if backend == "dist":
+        return _dms_dist(w0, x, y, workers=workers, epochs=epochs,
+                         block_size=block_size, c=c, grad_impl=grad_impl,
+                         mesh=mesh, axis=axis, overlap=overlap, chunks=chunks,
+                         topology=topology, gossip_async=gossip_async,
+                         device=device, graphs=graphs)
+    dev = resolve_device("cuda" if device is None else device)
     graphs = G.use_graphs(graphs, dev) and not gossip_async
     w0 = _as(w0, dev)
     xs, ys = _shard_data(x, y, workers)
     xs, ys = _as(xs, dev, w0.dtype), _as(ys, dev, w0.dtype)
-    if backend == "vmap":
-        return _dms_vmap(w0, xs, ys, epochs=epochs, block_size=block_size,
-                         c=c, grad_impl=grad_impl, overlap=overlap,
-                         chunks=chunks, topology=topology,
-                         gossip_async=gossip_async, graphs=graphs)
-    if backend == "shard_map":
-        raise NotImplementedError(
-            "backend='shard_map' (real collectives across devices) comes with "
-            "the distributed slice of the port: torch.distributed in place of "
-            "shard_map; use backend='vmap'")
-    raise ValueError(backend)
+    return _dms_vmap(w0, xs, ys, epochs=epochs, block_size=block_size,
+                     c=c, grad_impl=grad_impl, overlap=overlap,
+                     chunks=chunks, topology=topology,
+                     gossip_async=gossip_async, graphs=graphs)
+
+
+def _mesh_axis(mesh, axis: str, workers: int) -> None:
+    """Check that ``mesh``'s ``axis`` holds ``workers`` ranks."""
+    if mesh is None:
+        raise ValueError("backend='dist' needs a mesh "
+                         "(repro_torch.launch.mesh.make_mesh)")
+    if mesh.size(axis) != workers:
+        raise ValueError(f"mesh axis {axis!r} has {mesh.size(axis)} ranks, "
+                         f"but workers={workers}: one worker a rank")
+
+
+def _dms_dist(w0, x, y, *, workers: int, epochs: int, block_size: int,
+              c: float, grad_impl: str, mesh, axis: str, overlap: str,
+              chunks: int, topology: str, gossip_async: bool, device,
+              graphs) -> torch.Tensor:
+    """One worker a rank along ``mesh``'s ``axis``: the reference's
+    ``_dms_shard_map``. The worker's carry keeps a leading dim of 1, so
+    the blocks go through :func:`dms_block_stepper` as on one card."""
+    if graphs:
+        raise ValueError("backend='dist' runs eagerly (graphs=False): gloo's "
+                         "collectives cannot be captured in a CUDA graph, "
+                         "and NCCL capture is ROADMAP item 19")
+    _mesh_axis(mesh, axis, workers)
+    dev = resolve_device(mesh.device if device is None else device)
+    w0 = _as(w0, dev)
+    xs, ys = _shard_data(x, y, workers)
+    r = mesh.rank(axis)
+    # only this rank's row block is copied (x may be a memory map)
+    xs, ys = _as(xs[r:r + 1], dev, w0.dtype), _as(ys[r:r + 1], dev, w0.dtype)
+    _, n_local, d = xs.shape
+    nb = n_local // block_size
+    xb = xs[:, : nb * block_size].reshape(1, nb, block_size, d)
+    yb = ys[:, : nb * block_size].reshape(1, nb, block_size)
+    modes = dict(overlap=overlap, chunks=chunks, topology=topology,
+                 gossip_async=gossip_async)
+    step = dms_block_stepper(d=d, c=c, grad_impl=grad_impl, mesh=mesh,
+                             axis=axis, **modes)
+    carry = dms_stepper_init(w0, 1, **modes)
+    for t in range(epochs):
+        alpha = _alpha(t, w0.dtype)
+        for i in range(nb):
+            carry = step(carry, xb[:, i], yb[:, i], alpha)
+    return dms_flush(carry, d=d, overlap=overlap, topology=topology,
+                     mesh=mesh, axis=axis)
+
+
+def dms_flush(carry, *, d: int, overlap: str = "none", topology: str = "all",
+              mesh=None, axis: str = "data") -> torch.Tensor:
+    """A :func:`dms_block_stepper` carry collapsed to the synchronized
+    ``(d,)`` model (reference ``_carry_flush``): the blocking mean's model
+    as it is, else the worker mean (invariant under doubly stochastic
+    mixing; under delayed, anchor + meanΔ of the last block). Collectives
+    still in flight are waited for first."""
+    rep = CL.replicas(mesh, axis)
+    for v in carry.values():
+        CL.resolve(v)
+    w = carry["w"]
+    if overlap == "none" and topology == "all":
+        return w[0].clone()
+    return rep.mean(w)[0][:d]
 
 
 # ---------------------------------------------------------------------------
-# compute and sync timed apart — the paper's Figs 10–12 method on one card
+# compute and sync timed apart — the paper's Figs 10–12 method
 # ---------------------------------------------------------------------------
 
-def _round_select(x: torch.Tensor, cnt, fn) -> torch.Tensor:
-    """``fn(x, round)`` for the pairwise parity of ``cnt`` without reading
-    the counter on the host: both parities are computed and the one of
-    ``cnt % 2`` is kept (a device int scalar selects on the device)."""
-    if not isinstance(cnt, torch.Tensor):
+def _round_select(x: torch.Tensor, cnt, fn, rep=CL.STACKED) -> torch.Tensor:
+    """``fn(x, round)`` for the pairwise parity of ``cnt``. On one device
+    the counter is not read on the host: both parities are computed and the
+    one of ``cnt % 2`` is kept (a device int scalar selects on the device).
+    Across processes the ranks' counters advance alike, and each reads its
+    own, so only the round's exchange is made."""
+    if not isinstance(cnt, torch.Tensor) or rep is not CL.STACKED:
         return fn(x, int(cnt))
     return torch.where(cnt % 2 == 0, fn(x, 0), fn(x, 1))
 
 
-def _exchange(v: torch.Tensor, topology: str, cnt=None) -> torch.Tensor:
-    """The boundary exchange over the worker dim: the mean (kept as (K, …)),
-    or the topology's gossip mix (``cnt`` the pairwise round)."""
+def _exchange(v: torch.Tensor, topology: str, cnt=None,
+              rep=CL.STACKED) -> torch.Tensor:
+    """The boundary exchange over the worker axis ``rep``: the mean (kept
+    as (K, …)), or the topology's gossip mix (``cnt`` the pairwise
+    round)."""
     from repro_torch.core import sync as _sync
     if topology == "all":
-        return v.mean(dim=0, keepdim=True).expand(v.shape)
+        return rep.mean(v).expand(v.shape)
     if topology == "ring":
-        return _sync.gossip_mix(v, topology)
-    return _round_select(v, cnt, lambda x, r: _sync.gossip_mix(x, topology,
-                                                                r))
+        return _sync.gossip_mix(v, topology, rep=rep)
+    return _round_select(v, cnt, lambda x, r: _sync.gossip_mix(
+        x, topology, r, rep), rep)
 
 
-def _recv(v: torch.Tensor, topology: str, cnt=None) -> torch.Tensor:
+def _recv(v: torch.Tensor, topology: str, cnt=None,
+          rep=CL.STACKED) -> torch.Tensor:
     """Receive half of the gossip exchange (no self term)."""
     from repro_torch.core import sync as _sync
     if topology == "ring":
-        return _sync.gossip_recv(v, topology)
-    return _round_select(v, cnt, lambda x, r: _sync.gossip_recv(x, topology,
-                                                                 r))
+        return _sync.gossip_recv(v, topology, rep=rep)
+    return _round_select(v, cnt, lambda x, r: _sync.gossip_recv(
+        x, topology, r, rep), rep)
+
+
+def _exchange_later(v: torch.Tensor, topology: str, cnt, rep,
+                    self_term: bool = True) -> CL.Deferred:
+    """:func:`_exchange` (or :func:`_recv`, without ``self_term``) across
+    processes, issued and waited for at the returned Deferred's ``wait()``:
+    for a collective whose output feeds only carried state."""
+    from repro_torch.core import sync as _sync
+    if topology == "all":
+        return rep.mean(v, async_op=True)
+    rnd = None if topology == "ring" else int(cnt)
+    return _sync.gossip_later(v, topology, rnd, rep, self_term=self_term)
 
 
 def _segment(w: torch.Tensor, cnt, chunks: int) -> torch.Tensor:
@@ -439,19 +537,29 @@ def _segment(w: torch.Tensor, cnt, chunks: int) -> torch.Tensor:
     return (int(cnt) % chunks) * seg + cols
 
 
-def dms_timed_steps(*, block_size: int, c: float = 1.0,
-                    grad_impl: str = "kernel", overlap: str = "none",
-                    chunks: int = 4, topology: str = "all",
-                    gossip_async: bool = False, telemetry=None):
+def dms_timed_steps(mesh=None, axis: str = "data", *, block_size: int,
+                    c: float = 1.0, grad_impl: str = "kernel",
+                    overlap: str = "none", chunks: int = 4,
+                    topology: str = "all", gossip_async: bool = False,
+                    telemetry=None):
     """Returns (compute_step, sync_step), separately callable so that
     computation and communication are timed apart, as the paper's Figs
     10–12 instrument around MPI_AllReduce. The port of the reference's
-    ``dms_timed_steps`` with the K workers as the leading dim of every
-    argument (no mesh: ``xb`` is (K, bs, d), ``yb`` (K, bs)).
+    ``dms_timed_steps(mesh, axis, …)``: without a mesh the K workers are the
+    leading dim of every argument on one device (``xb`` (K, bs, d), ``yb``
+    (K, bs)); with a mesh each rank along ``axis`` passes its own worker's
+    (``xb`` (1, bs, d), per-worker tensors (1, …)) and the sync is the
+    axis's collectives.
 
     ``telemetry`` (a :class:`repro_torch.core.telemetry.BlockTelemetry`)
-    wraps both with host timers that wait for the card: each compute call
-    records ``block_size`` steps' compute time, each sync call one sync.
+    wraps both with host timers that wait for the card (and, across ranks,
+    for the collective's completion on the host): each compute call times
+    ``block_size`` steps' compute, each sync call one sync. Without a mesh
+    each time is recorded as it is taken. With a mesh the times are kept
+    on the rank, and ``sync_step.flush()`` — a collective every rank calls
+    after its timed window — records in the telemetry each call's time as
+    the max over the ranks (the slowest rank sets a synchronous block's
+    pace).
 
     ``compute(w, xb, yb, alpha) → w_locals`` (K, d): each worker's block
     update from a shared w (d,) under the blocking ``topology="all"``, from
@@ -480,6 +588,7 @@ def dms_timed_steps(*, block_size: int, c: float = 1.0,
         raise ValueError("gossip_async needs topology='ring'/'pairwise'")
     if overlap not in OVERLAPS:
         raise ValueError(f"unknown overlap mode: {overlap!r}")
+    rep = CL.replicas(mesh, axis)
 
     def compute(w, xb, yb, alpha):
         return w - alpha * block_grad(w, xb, yb, c, grad_impl)
@@ -489,17 +598,17 @@ def dms_timed_steps(*, block_size: int, c: float = 1.0,
 
         def sync(w_locals, sent, mixbuf, cnt):
             new_w = w_locals + mixbuf + (w_self - 1.0) * sent
-            return new_w, new_w, _recv(new_w, topology, cnt)
+            return new_w, new_w, _recv(new_w, topology, cnt, rep)
     elif gossip:
         def sync(w_locals, cnt):
-            return _exchange(w_locals, topology, cnt)
+            return _exchange(w_locals, topology, cnt, rep)
     elif overlap == "none":
         def sync(w_locals):
-            return w_locals.mean(dim=0)
+            return rep.mean(w_locals)[0]
     elif overlap == "delayed":
         def sync(w_start_locals, w_end_locals, pending):
             delta = w_end_locals - w_start_locals
-            mean = delta.mean(dim=0, keepdim=True)
+            mean = rep.mean(delta)
             return w_end_locals + pending, mean - delta
     else:
         def sync(w_end_locals, cnt):
@@ -509,26 +618,42 @@ def dms_timed_steps(*, block_size: int, c: float = 1.0,
             cols = _segment(w_end_locals, cnt, chunks)
             rows = w_end_locals.index_select(1, cols)
             return w_end_locals.index_copy(
-                1, cols, rows.mean(dim=0, keepdim=True).expand(rows.shape))
+                1, cols, rep.mean(rows).expand(rows.shape))
 
     if telemetry is None:
         return compute, sync
+    steps, syncs = [], []
 
-    def timed_compute(*args):
-        t0 = time.perf_counter()
-        out = compute(*args)
-        wait(out)
-        telemetry.record_step_time(time.perf_counter() - t0,
-                                   steps=block_size)
-        return out
+    def timed(fn, times):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            wait(out)
+            times.append(time.perf_counter() - t0)
+            if mesh is None:
+                record()
+            return out
+        return call
 
-    def timed_sync(*args):
-        t0 = time.perf_counter()
-        out = sync(*args)
-        wait(out)
-        telemetry.record_sync_time(time.perf_counter() - t0)
-        return out
+    def record():
+        for s in steps:
+            telemetry.record_step_time(s, steps=block_size)
+        for s in syncs:
+            telemetry.record_sync_time(s)
+        steps.clear()
+        syncs.clear()
 
+    def flush():
+        """Record the times kept since the last flush, each the max over
+        the mesh's ranks (a collective: every rank calls it, after the
+        same number of timed calls)."""
+        if mesh is not None and (steps or syncs):
+            both = CL.max_over(steps + syncs)
+            steps[:], syncs[:] = both[:len(steps)], both[len(steps):]
+        record()
+
+    timed_compute, timed_sync = timed(compute, steps), timed(sync, syncs)
+    timed_compute.flush = timed_sync.flush = flush
     return timed_compute, timed_sync
 
 
@@ -588,7 +713,8 @@ def dms_stepper_init(w0: torch.Tensor, workers: int, *, overlap: str = "none",
 
 def dms_block_stepper(*, d: int, c: float = 1.0, grad_impl: str = "kernel",
                       overlap: str = "none", chunks: int = 4,
-                      topology: str = "all", gossip_async: bool = False):
+                      topology: str = "all", gossip_async: bool = False,
+                      mesh=None, axis: str = "data"):
     """One DMS block (compute + boundary sync) as a step:
 
         step(carry, xblk, yblk, alpha) → carry
@@ -609,6 +735,14 @@ def dms_block_stepper(*, d: int, c: float = 1.0, grad_impl: str = "kernel",
 
     ``cnt`` stays on the device: the segment and the pairwise parity are
     selected there, so a block never waits for the host.
+
+    With a ``mesh`` each rank along ``axis`` is one worker: its carry and
+    blocks have a leading dim of 1 (``dms_stepper_init(w0, 1, …)``), the
+    exchange is the axis's collectives, and the pairwise parity is read on
+    the host. The exchange banked under delayed and ``gossip_async`` is
+    issued at its boundary and waited for at the next (the carry holds a
+    :class:`repro_torch.core.collectives.Deferred` in between; see
+    :func:`dms_flush`), so it runs under the next block's gradient.
     """
     if gossip_async and (topology == "all" or overlap != "none"):
         raise ValueError("gossip_async needs a gossip topology and "
@@ -619,6 +753,8 @@ def dms_block_stepper(*, d: int, c: float = 1.0, grad_impl: str = "kernel",
     if topology not in TOPOLOGIES:
         raise ValueError(f"unknown topology: {topology!r}")
     from repro_torch.core import sync as _sync
+    rep = CL.replicas(mesh, axis)
+    later = mesh is not None
 
     def bump(out, carry):
         if _needs_round(overlap, topology):
@@ -631,27 +767,36 @@ def dms_block_stepper(*, d: int, c: float = 1.0, grad_impl: str = "kernel",
         if gossip_async:
             w_self = _sync.gossip_self_weight(topology)
             w_end = w - alpha * block_grad(w, xblk, yblk, c, grad_impl)
-            new_w = w_end + carry["mixbuf"] + (w_self - 1.0) * carry["sent"]
-            return bump({"w": new_w, "sent": new_w,
-                         "mixbuf": _recv(new_w, topology, cnt)}, carry)
+            new_w = (w_end + CL.resolve(carry["mixbuf"])
+                     + (w_self - 1.0) * carry["sent"])
+            recv = (_exchange_later(new_w, topology, cnt, rep,
+                                    self_term=False) if later
+                    else _recv(new_w, topology, cnt))
+            return bump({"w": new_w, "sent": new_w, "mixbuf": recv}, carry)
         if overlap == "none":
             w_local = w - alpha * block_grad(w, xblk, yblk, c, grad_impl)
-            return bump({"w": _exchange(w_local, topology, cnt)}, carry)
+            return bump({"w": _exchange(w_local, topology, cnt, rep)}, carry)
         if overlap == "delayed":
             delta = -alpha * block_grad(w, xblk, yblk, c, grad_impl)
             w_end = w + delta
-            if topology != "all":
+            new_w = w_end + CL.resolve(carry["pending"])
+            if later:
+                ex = _exchange_later(w_end if topology != "all" else delta,
+                                     topology, cnt, rep)
+                pending = ex.then(lambda m: m - (w_end if topology != "all"
+                                                 else delta))
+            elif topology != "all":
                 pending = _exchange(w_end, topology, cnt) - w_end
             else:
                 pending = delta.mean(dim=0, keepdim=True) - delta
-            return bump({"w": w_end + carry["pending"], "pending": pending},
-                        carry)
+            return bump({"w": new_w, "pending": pending}, carry)
         # chunked: one w-segment value-exchanged per block
         dp = w.shape[-1]
         g = block_grad(w[:, :d], xblk, yblk, c, grad_impl)
         w_end = w - alpha * torch.nn.functional.pad(g, (0, dp - d))
         cols = _segment(w_end, cnt, chunks)
-        row = _exchange(w_end.index_select(1, cols), topology, cnt // chunks)
+        row = _exchange(w_end.index_select(1, cols), topology, cnt // chunks,
+                        rep)
         return {"w": w_end.index_copy(1, cols, row), "cnt": cnt + 1}
 
     return step
@@ -662,7 +807,8 @@ def dms_block_ladder(*, d: int, workers: int, block_sizes, c: float = 1.0,
                      chunks: int = 4, topology: str = "all",
                      gossip_async: bool = False,
                      dtype: torch.dtype = torch.float32,
-                     device: Union[str, torch.device] = "cuda"):
+                     device: Union[str, torch.device, None] = None,
+                     mesh=None, axis: str = "data"):
     """Block-size ladder for the SVM path — the DMS analog of the LM
     trainer's H-ladder (:mod:`repro_torch.runtime.ladder`): ``{bs: rung}``,
     one :func:`dms_block_stepper` (its carry layout is block-size
@@ -672,21 +818,29 @@ def dms_block_ladder(*, d: int, workers: int, block_sizes, c: float = 1.0,
     is built and loaded here (the hinge kernels, on the card with
     ``grad_impl="kernel"``), so no block waits on nvcc. A mid-run MSF move
     is :func:`dms_ladder_switch` on the carry + another rung + re-blocking
-    the data stream.
+    the data stream. ``device`` defaults to ``"cuda"``, or with a ``mesh``
+    to its device; with a mesh (whose ``axis`` must hold ``workers`` ranks)
+    a rung takes this rank's worker, ``xblk`` (1, bs, d) / ``yblk`` (1,
+    bs), and its sync is the axis's collectives (the reference's ladder
+    over ``mesh``, ``axis``).
     """
     from repro_torch.runtime.ladder import warm_kernels
-    dev = resolve_device(device)
+    if mesh is not None:
+        _mesh_axis(mesh, axis, workers)
+    dev = resolve_device(device if device is not None else
+                         mesh.device if mesh is not None else "cuda")
     step = dms_block_stepper(d=d, c=c, grad_impl=grad_impl, overlap=overlap,
                              chunks=chunks, topology=topology,
-                             gossip_async=gossip_async)
+                             gossip_async=gossip_async, mesh=mesh, axis=axis)
+    local = 1 if mesh is not None else workers
     kernels = ()
     if grad_impl == "kernel" and dev.type == "cuda":
         kernels = (hinge_ops.load_library, hinge_ops.load_cluster_library)
 
     def as_batch_step(bs):
         def rung(carry, xblk, yblk, alpha):
-            for name, t, shape in (("xblk", xblk, (workers, bs, d)),
-                                   ("yblk", yblk, (workers, bs))):
+            for name, t, shape in (("xblk", xblk, (local, bs, d)),
+                                   ("yblk", yblk, (local, bs))):
                 if tuple(t.shape) != shape or t.dtype != dtype \
                         or t.device.type != dev.type or (
                             dev.index is not None
@@ -705,7 +859,8 @@ def dms_block_ladder(*, d: int, workers: int, block_sizes, c: float = 1.0,
 
 def dms_ladder_switch(carry, *, overlap: str = "none", chunks: int = 4,
                       topology: str = "all", gossip_async: bool = False,
-                      d: Optional[int] = None):
+                      d: Optional[int] = None, mesh=None,
+                      axis: str = "data"):
     """Exact carry for resuming DMS at a different block size.
 
     Collapses the carry to the flushed model — delayed folds the pending
@@ -714,12 +869,15 @@ def dms_ladder_switch(carry, *, overlap: str = "none", chunks: int = 4,
     delayed; and the mean is the invariant consensus target under any
     gossip topology, chunked staleness included) — and re-seeds a fresh
     carry at that model via :func:`dms_stepper_init`. By construction the
-    result is bit-identical to a fresh start from the flushed weights.
+    result is bit-identical to a fresh start from the flushed weights. With
+    a ``mesh`` the carry is this rank's worker and the mean is over
+    ``axis``; a collective still in flight is waited for first.
     """
+    carry = {k: CL.resolve(v) for k, v in carry.items()}
     wk = carry["w"].float()
     if overlap == "delayed":
         wk = wk + carry["pending"].float()
-    w = wk.mean(dim=0)
+    w = CL.replicas(mesh, axis).mean(wk)[0]
     if overlap == "chunked" and d is not None:
         w = w[:d]
     return dms_stepper_init(w.to(carry["w"].dtype), carry["w"].shape[0],

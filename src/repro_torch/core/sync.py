@@ -14,21 +14,31 @@ with the reference's strategy × overlap × topology matrix (see
 a ring or rotating pairs, asynchronous gossip with double buffers, int8
 (error feedback, through the quant kernel) and int16 wires, and slowmo.
 
-On one card the K replicas are the leading dim of every leaf of
+The replica axis is a :mod:`repro_torch.core.collectives` object. On one
+card (no ``mesh``) the K replicas are the leading dim of every leaf of
 ``params``/``sync_state`` (the layout the reference's ``init_state(…,
 replicas=K)`` builds and ``dms(backend="vmap")`` uses), and the replica
-mesh axis's collectives become operations over that dim:
+mesh axis's collectives are operations over that dim:
 
 * ``lax.pmean``/``psum``/``pmax`` → a mean/sum/max over dim 0, kept as a
   ``(1, …)`` dim that broadcasts back to every replica;
-* ``lax.ppermute`` → indexing dim 0 by the permutation's sources
-  (:func:`_permute`);
+* ``lax.ppermute`` → indexing dim 0 by the permutation's sources;
 * ``lax.all_gather`` → the stacked leaf itself.
 
+Given a ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`) and its replica
+``axis``, each process holds one replica (every leaf's leading dim is 1, as
+in the reference inside ``shard_map``) and those operations are the axis
+group's ``torch.distributed`` collectives: an all-reduce, a
+``batch_isend_irecv`` of the permutation's pairs, an all-gather. The int16
+wire's sum runs on int32 (NCCL has no int16 reduction); the ``qmax = 32767
+// K`` guard keeps it exact, so it equals the reference's int16 ``psum``.
+
 The schedule counters (``chunk_idx``, ``gossip_round``) are read on the host
-(the reference selects with ``lax.switch``/``lax.cond``). ``torch.distributed``
-across cards is ROADMAP §1 item 9. The reference's ``sync_state_axes`` serves
-a sharded mesh only and has no counterpart here.
+(the reference selects with ``lax.switch``/``lax.cond``); across processes
+they advance alike on every rank, so no collective reads them. The
+reference's ``sync_state_axes`` places state on a sharded mesh; here
+:func:`repro_torch.core.local_sgd.scatter_replicas` gives each rank its
+replica's state.
 
 Every function is pure: it returns new tensors and leaves its arguments as
 they were (a returned leaf may share memory with an argument or with another
@@ -45,6 +55,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.config.base import SyncConfig
+from repro_torch.core import collectives as CL
 from repro_torch.core import compression as C
 from repro_torch.core import costmodel
 
@@ -157,22 +168,34 @@ def _gossip_perms(k: int, topology: str):
     raise ValueError(f"unknown gossip topology: {topology!r}")
 
 
-def _permute(x: torch.Tensor, perm) -> torch.Tensor:
-    """``lax.ppermute`` over the leading replica dim: replica ``dest``
-    receives replica ``src``'s row for every (src, dest) pair of ``perm``, a
-    permutation of the replicas (every gossip exchange is one). The rows
-    are gathered as slices, never through an index tensor made on the host:
-    that would be a copy to the card, which a CUDA graph cannot hold."""
-    src = [0] * x.shape[0]
-    for s, d in perm:
-        src[d] = s
-    return torch.cat([x[i:i + 1] for i in src])
-
-
 def _round(counter: Optional[torch.Tensor]) -> Optional[int]:
     """A replicated schedule counter (one value per replica, all equal) as a
     host int."""
     return None if counter is None else int(counter.reshape(-1)[0])
+
+
+def _terms(k: int, topology: str, round_idx):
+    """(the permutations one gossip exchange sends, the divisor of its
+    weighted sum): ring both shifts and thirds, pairwise the pairing of the
+    round's parity and halves."""
+    perms = _gossip_perms(k, topology)
+    if topology == "ring":
+        return perms, 3.0
+    if round_idx is None:
+        # a frozen pairing would "converge" each disjoint pair to its own
+        # mean and never reach global consensus
+        raise ValueError("topology='pairwise' alternates its pairing by "
+                         "round; pass round_idx")
+    return [perms[round_idx % 2]], 2.0
+
+
+def _combine(received, div: float, self_val=None):
+    """``(self + r₀ + r₁ …) / div`` summed left to right (no self term
+    without ``self_val``)."""
+    acc = self_val
+    for r in received:
+        acc = r if acc is None else acc + r
+    return acc / div
 
 
 def _mix_with(self_val, send, k: int, topology: str, round_idx):
@@ -185,15 +208,8 @@ def _mix_with(self_val, send, k: int, topology: str, round_idx):
     """
     if k == 1:
         return self_val
-    perms = _gossip_perms(k, topology)
-    if topology == "ring":
-        return (self_val + send(perms[0]) + send(perms[1])) / 3.0
-    if round_idx is None:
-        # a frozen pairing would "converge" each disjoint pair to its own
-        # mean and never reach global consensus
-        raise ValueError("topology='pairwise' alternates its pairing by "
-                         "round; pass round_idx")
-    return (self_val + send(perms[round_idx % 2])) / 2.0
+    perms, div = _terms(k, topology, round_idx)
+    return _combine([send(p) for p in perms], div, self_val)
 
 
 def gossip_self_weight(topology: str) -> float:
@@ -209,34 +225,43 @@ def gossip_self_weight(topology: str) -> float:
 def _recv_with(send, k: int, topology: str, round_idx):
     """Neighbor-weighted payload sum ``Σ_{j≠i} M_ij x_j`` — the receive
     half of one wire exchange (no self term)."""
-    perms = _gossip_perms(k, topology)
-    if topology == "ring":
-        return (send(perms[0]) + send(perms[1])) / 3.0
-    if round_idx is None:
-        raise ValueError("topology='pairwise' alternates its pairing by "
-                         "round; pass round_idx")
-    return send(perms[round_idx % 2]) / 2.0
+    perms, div = _terms(k, topology, round_idx)
+    return _combine([send(p) for p in perms], div)
 
 
-def gossip_mix(x: torch.Tensor, topology: str, round_idx=None):
-    """Mix a stacked ``(K, …)`` tensor with its topology neighbors — the
-    doubly stochastic gossip step ``x ← Σ_j M_ij x_j``. ``round_idx``
-    selects the pairwise pairing (required for ``pairwise``)."""
-    return _mix_with(x, lambda perm: _permute(x, perm), x.shape[0], topology,
-                     round_idx)
+def gossip_mix(x: torch.Tensor, topology: str, round_idx=None,
+               rep=CL.STACKED):
+    """Mix ``x`` with its topology neighbors over the replica axis ``rep``
+    (a stacked ``(K, …)`` tensor by default) — the doubly stochastic gossip
+    step ``x ← Σ_j M_ij x_j``. ``round_idx`` selects the pairwise pairing
+    (required for ``pairwise``)."""
+    return gossip_later(x, topology, round_idx, rep).wait()
 
 
-def gossip_recv(x: torch.Tensor, topology: str, round_idx=None):
+def gossip_recv(x: torch.Tensor, topology: str, round_idx=None,
+                rep=CL.STACKED):
     """Receive half of one gossip exchange: ``Σ_{j≠i} M_ij x_j``.
     ``gossip_mix(x) ≡ gossip_self_weight·x + gossip_recv(x)``."""
-    return _recv_with(lambda perm: _permute(x, perm), x.shape[0], topology,
-                      round_idx)
+    return gossip_later(x, topology, round_idx, rep, self_term=False).wait()
 
 
-def _div_exact(a: torch.Tensor, n) -> torch.Tensor:
-    """``a / n`` as an IEEE division (PyTorch applies a Python-scalar
-    divisor on CUDA as a reciprocal product)."""
-    return a / torch.full_like(a, n)
+def gossip_later(x: torch.Tensor, topology: str, round_idx=None,
+                 rep=CL.STACKED, self_term: bool = True) -> CL.Deferred:
+    """:func:`gossip_mix` (or, without ``self_term``, :func:`gossip_recv`)
+    with its exchanges issued and not waited for: the returned
+    :class:`repro_torch.core.collectives.Deferred` finishes them at its
+    ``wait()``, the same sums in the same order."""
+    k = rep.size(x)
+    if k == 1 and self_term:
+        return CL.done(x)
+    perms, div = _terms(k, topology, round_idx)
+    sends = [rep.permute(x, p, tag=j, async_op=True)
+             for j, p in enumerate(perms)]
+    return CL.Deferred(sends, lambda: _combine(
+        [d.wait() for d in sends], div, x if self_term else None))
+
+
+_div_exact = CL._div_exact
 
 
 def _wire_dequant(val: torch.Tensor, compression: str, impl: str
@@ -256,7 +281,7 @@ def _wire_dequant(val: torch.Tensor, compression: str, impl: str
 
 
 def _gossip_exchange(values, ef, cfg: SyncConfig, round_idx,
-                     impl: str = "kernel"):
+                     impl: str = "kernel", rep=CL.STACKED):
     """Neighbor-mixed tree under ``cfg.topology``/``cfg.compression``.
 
     Returns ``(mixed_tree, new_ef_tree_or_None)``. Compressed wires carry
@@ -272,12 +297,13 @@ def _gossip_exchange(values, ef, cfg: SyncConfig, round_idx,
         for v, e in zip(flat, T.leaves(ef)):
             val = v.float() + e
             deq = _wire_dequant(val, cfg.compression, impl)
-            mixed.append(_mix_with(deq, lambda perm, d=deq: _permute(d, perm),
-                                   v.shape[0], cfg.topology, round_idx))
+            mixed.append(_mix_with(deq,
+                                   lambda perm, d=deq: rep.permute(d, perm),
+                                   rep.size(v), cfg.topology, round_idx))
             new_ef.append(val - deq)
         return unflatten(mixed), unflatten(new_ef)
-    return T.map(lambda v: gossip_mix(v.float(), cfg.topology, round_idx),
-                 values), None
+    return T.map(lambda v: gossip_mix(v.float(), cfg.topology, round_idx,
+                                      rep), values), None
 
 
 def init_async_buffers(params, topology: str):
@@ -294,7 +320,7 @@ def init_async_buffers(params, topology: str):
 
 
 def _gossip_async_exchange(values, ef, cfg: SyncConfig, round_idx,
-                           impl: str = "kernel"):
+                           impl: str = "kernel", rep=CL.STACKED):
     """Double-buffered half-exchange: returns ``(recv_tree, sent_tree,
     new_ef_tree_or_None)`` — what lands in the buffers, consumed at the next
     boundary. Under compression ``sent`` is the own *dequantized* payload."""
@@ -304,17 +330,17 @@ def _gossip_async_exchange(values, ef, cfg: SyncConfig, round_idx,
         for v, e in zip(flat, T.leaves(ef)):
             val = v + e
             deq = _wire_dequant(val, cfg.compression, impl)
-            recv.append(_recv_with(lambda perm, d=deq: _permute(d, perm),
-                                   v.shape[0], cfg.topology, round_idx))
+            recv.append(_recv_with(lambda perm, d=deq: rep.permute(d, perm),
+                                   rep.size(v), cfg.topology, round_idx))
             sent.append(deq)
             new_ef.append(val - deq)
         return unflatten(recv), unflatten(sent), unflatten(new_ef)
-    return (T.map(lambda v: gossip_recv(v, cfg.topology, round_idx), values),
-            values, None)
+    return (T.map(lambda v: gossip_recv(v, cfg.topology, round_idx, rep),
+                  values), values, None)
 
 
 def _exchange_mean(values, ef, cfg: SyncConfig, round_idx=None,
-                   impl: str = "kernel"):
+                   impl: str = "kernel", rep=CL.STACKED):
     """Replica exchange of a tree of ``(K, …)`` leaves under
     cfg.compression.
 
@@ -324,28 +350,31 @@ def _exchange_mean(values, ef, cfg: SyncConfig, round_idx=None,
     new_ef_tree_or_None)``.
     """
     if cfg.topology != "all":
-        return _gossip_exchange(values, ef, cfg, round_idx, impl)
+        return _gossip_exchange(values, ef, cfg, round_idx, impl, rep)
     if cfg.compression == "int8":
         q, s, new_ef = C.compress_tree(values, ef, rows=True, impl=impl)
-        return C.allgather_mean_dequant(q, s, impl=impl), new_ef
+        return C.allgather_mean_dequant(q, s, impl=impl, rep=rep), new_ef
     if cfg.compression == "int16":
         # fixed-point 2-byte wire through an ordinary sum, with one scale
         # shared by the replicas (the reference's pmax) and headroom for the
-        # sum: K·qmax ≤ 32767
+        # sum: K·qmax ≤ 32767. The sum runs on int32 (across processes
+        # that is the wire: NCCL has no int16 reduction); the guard keeps it
+        # exact, so it equals an int16 sum
         flat, unflatten = T.flatten(values)
-        k = flat[0].shape[0] if flat else 1
+        k = rep.size(flat[0]) if flat else 1
         qmax = 32767 // k
         mean, new_ef = [], []
         for d, e in zip(flat, T.leaves(ef)):
             v = d + e
-            scale = _div_exact(torch.clamp(v.abs().amax(), min=1e-12), qmax)
+            scale = _div_exact(torch.clamp(rep.amax(v.abs()), min=1e-12),
+                               qmax)
             q = torch.clamp(torch.round(v / scale), -qmax, qmax
                             ).to(torch.int16)
-            summed = q.to(torch.int32).sum(dim=0, keepdim=True).float()
+            summed = rep.sum(q.to(torch.int32)).float()
             mean.append(_div_exact(summed * scale, k))
             new_ef.append(v - q.float() * scale)
         return unflatten(mean), unflatten(new_ef)
-    return T.map(lambda d: d.mean(dim=0, keepdim=True), values), None
+    return T.map(rep.mean, values), None
 
 
 def _slowmo_step(mean_delta, sync_state, new_state, cfg: SyncConfig):
@@ -379,9 +408,11 @@ def _cast_like(values, params):
 # ---------------------------------------------------------------------------
 
 def sync_point(params_start, params_end, sync_state: Dict[str, Any],
-               cfg: SyncConfig, *, impl: str = "kernel"
-               ) -> Tuple[Any, Dict[str, Any]]:
-    """One model synchronization over the leading replica dim.
+               cfg: SyncConfig, *, impl: str = "kernel", mesh=None,
+               axis: str = "pod") -> Tuple[Any, Dict[str, Any]]:
+    """One model synchronization over the replica axis: the leading dim of
+    every leaf on one process, or ``mesh``'s ``axis`` across processes
+    (each holding one replica; see the module docstring).
 
     ``params_start`` — the params the block started from (identical across
     replicas for ``overlap="none"``; per-replica under delayed/chunked and
@@ -389,27 +420,30 @@ def sync_point(params_start, params_end, sync_state: Dict[str, Any],
     ``impl`` selects the int8 wire's quantize/dequantize: the quant kernel
     (``"kernel"``) or its plain version (``"torch"``).
     """
+    rep = CL.replicas(mesh, axis)
     if cfg.gossip_async:
-        return _sync_point_gossip_async(params_end, sync_state, cfg, impl)
+        return _sync_point_gossip_async(params_end, sync_state, cfg, impl,
+                                        rep)
     if cfg.topology != "all" and cfg.overlap != "chunked":
-        return _sync_point_gossip(params_end, sync_state, cfg, impl)
+        return _sync_point_gossip(params_end, sync_state, cfg, impl, rep)
     if cfg.overlap == "delayed":
         return _sync_point_delayed(params_start, params_end, sync_state,
-                                   cfg, impl)
+                                   cfg, impl, rep)
     if cfg.overlap == "chunked":
-        return _sync_point_chunked(params_end, sync_state, cfg, impl)
+        return _sync_point_chunked(params_end, sync_state, cfg, impl, rep)
 
     delta = _f32_delta(params_end, params_start)
     new_state = dict(sync_state)
     mean_delta, new_ef = _exchange_mean(delta, sync_state.get("ef"), cfg,
-                                        impl=impl)
+                                        impl=impl, rep=rep)
     if new_ef is not None:
         new_state["ef"] = new_ef
     step_delta = _slowmo_step(mean_delta, sync_state, new_state, cfg)
     return _apply_f32(params_start, step_delta), new_state
 
 
-def _sync_point_delayed(params_start, params_end, sync_state, cfg, impl):
+def _sync_point_delayed(params_start, params_end, sync_state, cfg, impl,
+                        rep):
     """Stale-by-one averaging: compute this block's mean, apply last
     block's. Replica k's params stay ``anchor + own latest local delta``;
     applying ``pending = mean_{i−1} − Δ_{i−1,k}`` swaps the stale local
@@ -417,7 +451,7 @@ def _sync_point_delayed(params_start, params_end, sync_state, cfg, impl):
     delta = _f32_delta(params_end, params_start)
     new_state = dict(sync_state)
     mean_delta, new_ef = _exchange_mean(delta, sync_state.get("ef"), cfg,
-                                        impl=impl)
+                                        impl=impl, rep=rep)
     if new_ef is not None:
         new_state["ef"] = new_ef
     step_delta = _slowmo_step(mean_delta, sync_state, new_state, cfg)
@@ -427,7 +461,7 @@ def _sync_point_delayed(params_start, params_end, sync_state, cfg, impl):
     return new_params, new_state
 
 
-def _sync_point_gossip(params_end, sync_state, cfg, impl):
+def _sync_point_gossip(params_end, sync_state, cfg, impl, rep):
     """Gossip sync (ring/pairwise): mix parameter *values* with neighbors
     (value form keeps the replica mean invariant). ``overlap="delayed"``
     carries the gossip correction ``mix(w) − w`` one block stale."""
@@ -437,7 +471,7 @@ def _sync_point_gossip(params_end, sync_state, cfg, impl):
         new_state["gossip_round"] = rnd + 1
     vals = T.map(lambda p: p.float(), params_end)
     mixed, new_ef = _gossip_exchange(vals, sync_state.get("ef"), cfg,
-                                     _round(rnd), impl)
+                                     _round(rnd), impl, rep)
     if new_ef is not None:
         new_state["ef"] = new_ef
     if cfg.overlap == "delayed":
@@ -447,7 +481,7 @@ def _sync_point_gossip(params_end, sync_state, cfg, impl):
     return _cast_like(mixed, params_end), new_state
 
 
-def _sync_point_gossip_async(params_end, sync_state, cfg, impl):
+def _sync_point_gossip_async(params_end, sync_state, cfg, impl, rep):
     """Asynchronous (unsynchronized-round) gossip: mix with the *last
     received* neighbor snapshot. The correction applied here is
     ``mixbuf + M_ii·sent − sent``, the doubly stochastic mix of the snapshot
@@ -462,7 +496,7 @@ def _sync_point_gossip_async(params_end, sync_state, cfg, impl):
     new_w = T.map(lambda v, rb, s: v + rb + (w_self - 1.0) * s,
                   vals, sync_state["mixbuf"], sync_state["sent"])
     recv, sent, new_ef = _gossip_async_exchange(
-        new_w, sync_state.get("ef"), cfg, _round(rnd), impl)
+        new_w, sync_state.get("ef"), cfg, _round(rnd), impl, rep)
     new_state["mixbuf"] = recv
     new_state["sent"] = sent
     if new_ef is not None:
@@ -488,7 +522,7 @@ def chunk_assignment(leaves, chunks: int):
     return assign
 
 
-def _sync_point_chunked(params_end, sync_state, cfg, impl):
+def _sync_point_chunked(params_end, sync_state, cfg, impl, rep):
     """Value-average one shard of the tree per boundary (the shard of
     ``chunk_idx % chunks``; only its leaves cross the wire). Under a gossip
     topology the shard is neighbor-mixed, the pairwise round advancing once
@@ -511,7 +545,7 @@ def _sync_point_chunked(params_end, sync_state, cfg, impl):
     vals = {i: leaves[i].float() for i in sub}
     efs = {i: ef_leaves[i] for i in sub} if have_ef else None
     mean, new_ef = _exchange_mean(vals, efs, cfg, round_idx=idx // r,
-                                  impl=impl)
+                                  impl=impl, rep=rep)
     new_leaves = list(leaves)
     new_ef_leaves = list(ef_leaves)
     new_m = list(m_leaves) if slowmo else None
@@ -538,10 +572,13 @@ def _sync_point_chunked(params_end, sync_state, cfg, impl):
     return unflatten(new_leaves), new_state
 
 
-def flush_overlap(params, sync_state, cfg: SyncConfig, replica_dim: int = 0):
+def flush_overlap(params, sync_state, cfg: SyncConfig, *, mesh=None,
+                  axis: str = "pod"):
     """Collapse overlap staleness to the fully synchronized model.
 
-    ``params``/``sync_state`` in the stacked layout (leading replica dim).
+    ``params``/``sync_state`` in the stacked layout (leading replica dim),
+    or, with a ``mesh``, this rank's replica of them (the mean is then over
+    ``axis``).
     Under ``delayed`` ``params + pending`` is ``anchor + stepΔ`` on every
     replica; chunked, gossip and async-gossip replicas average to the
     consistent model. With compression on, the error-feedback residual is
@@ -557,8 +594,10 @@ def flush_overlap(params, sync_state, cfg: SyncConfig, replica_dim: int = 0):
         params = T.map(lambda p, e: (p.float() + e).to(p.dtype), params,
                        sync_state["ef"])
 
+    rep = CL.replicas(mesh, axis)
+
     def leaf(p):
-        m = torch.mean(p.float(), dim=replica_dim, keepdim=True)
+        m = rep.mean(p.float())
         return m.expand(p.shape).to(p.dtype).contiguous()
     return T.map(leaf, params)
 

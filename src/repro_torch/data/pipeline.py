@@ -2,9 +2,12 @@
 
 The pipeline owns an integer cursor (``state()`` / ``restore()``) and
 produces batches deterministically from (seed, step) on the host with numpy,
-byte-identical to the reference's. One process holds the whole batch (the
-reference's multi-host index slicing waits for ``torch.distributed``,
-ROADMAP §1 item 9); ``__next__`` places it on the pipeline's device.
+byte-identical to the reference's, and places them on the pipeline's device
+(``__next__``). Host sharding is index-based, as the reference's: given a
+``mesh`` (:class:`repro_torch.launch.mesh.Mesh`) each process takes only
+its slice of the global batch (:meth:`DataPipeline.process_slice`, the
+mesh's rank and size in place of ``jax.process_index()`` /
+``process_count()``); without one the slice is the whole batch.
 """
 from __future__ import annotations
 
@@ -20,11 +23,12 @@ from repro_torch.data.synthetic import synthetic_lm_batch
 class DataPipeline:
     def __init__(self, data_cfg: DataConfig, model_cfg: ModelConfig,
                  device: Union[str, torch.device] = "cpu",
-                 start_step: int = 0):
+                 start_step: int = 0, mesh=None):
         self.cfg = data_cfg
         self.model_cfg = model_cfg
         self.device = torch.device(device)
         self._step = int(start_step)
+        self.mesh = mesh
 
     # -- checkpointable cursor ------------------------------------------------
     def state(self) -> Dict[str, int]:
@@ -43,9 +47,26 @@ class DataPipeline:
             seed=self.cfg.seed,
         )
 
+    def process_slice(self, batch: Dict[str, np.ndarray]
+                      ) -> Dict[str, np.ndarray]:
+        """The rows this process contributes: row block ``rank`` of
+        ``size`` equal blocks of the global batch (the mesh's rank and
+        size; the whole batch without a mesh)."""
+        if self.mesh is None or self.mesh.size() == 1:
+            return batch
+        n_proc = self.mesh.size()
+        b = self.cfg.global_batch
+        if b % n_proc:
+            raise ValueError(f"global batch {b} does not split over "
+                             f"{n_proc} processes")
+        per = b // n_proc
+        lo = self.mesh.rank() * per
+        return {k: v[lo:lo + per] for k, v in batch.items()}
+
     def next_host(self) -> Dict[str, np.ndarray]:
-        """Advance the cursor and return the host (numpy) batch."""
-        batch = self._host_batch(self._step)
+        """Advance the cursor and return the host (numpy) batch, this
+        process's slice of it."""
+        batch = self.process_slice(self._host_batch(self._step))
         self._step += 1
         return batch
 

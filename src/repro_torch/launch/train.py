@@ -1,11 +1,27 @@
-"""End-to-end trainer, the port of ``repro.launch.train`` on one card: arch
-config → model (plain attention, as the reference trains) → MSF sync engine
-→ optimizer → data pipeline → checkpoint manager → fault-tolerant step
-runner, with the adaptive MSF controller and its H ladder.
+"""End-to-end trainer, the port of ``repro.launch.train``: arch config →
+model (plain attention, as the reference trains) → MSF sync engine →
+optimizer → data pipeline → checkpoint manager → fault-tolerant step
+runner, with the adaptive MSF controller and its H ladder, on one process
+or across the ranks of a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --smoke --device cpu --replicas 4 --steps 3 \\
         --set sync.strategy=periodic --set sync.period=2
+
+Across processes it runs under ``torchrun``, which starts the ranks, with
+``--backend gloo|nccl`` (one replica a rank; ``--replicas`` is then the
+world size, or with ``--data N`` the world is a ``(pod, data)`` mesh of
+``world / N`` replicas of N data ranks each, for ``sync.strategy=
+hierarchical``):
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --backend gloo --smoke --device cpu --steps 3 \\
+        --set sync.strategy=periodic --set sync.period=2
+
+Rank 0 prints the JSON line. The adaptive H ladder and the fault-tolerant
+restarts across ranks wait for a later slice (ROADMAP §1 item 9(b)): with
+``--backend``, ``sync.adaptive=true`` on a replica strategy raises
+ValueError.
 
 Under a replica strategy one step is one block of ``sync.period`` local
 steps on every replica, then a sync. The K replicas are the replica axis of
@@ -31,13 +47,15 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.config import (DataConfig, MeshConfig, TrainConfig,
+from repro_torch.config import (DataConfig, TrainConfig,
                                 config_fingerprint, get_arch, get_smoke)
 from repro_torch.config.cli import apply_overrides, build_parser
+from repro_torch.core import collectives as CL
 from repro_torch.core import local_sgd as LS
 from repro_torch.core import sync as SY
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_config
 from repro_torch.models.registry import build_model
 from repro_torch.runtime import StepRunner
 
@@ -106,8 +124,9 @@ def _build_ladder(cfg: TrainConfig, model, dev: torch.device, telemetry,
         telemetry=telemetry, device=dev, compile_counter=counter)
 
 
-def build_trainer(cfg: TrainConfig, device: Union[str, torch.device] = "cuda",
-                  *, quant_impl: str = "kernel"):
+def build_trainer(cfg: TrainConfig,
+                  device: Union[str, torch.device, None] = None,
+                  mesh=None, *, quant_impl: str = "kernel"):
     """Returns (step_fn, initial state, make_pipeline, model, telemetry,
     ladder), the reference's six.
 
@@ -131,8 +150,17 @@ def build_trainer(cfg: TrainConfig, device: Union[str, torch.device] = "cuda",
     :func:`adaptive_report` recommends an H for the next launch.
     ``telemetry`` is a live :class:`repro_torch.core.telemetry
     .BlockTelemetry` in both adaptive modes, ``None`` otherwise.
+
+    With a ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`, the default
+    device its own) each rank holds one replica: the state is this rank's
+    share (:func:`repro_torch.core.local_sgd.scatter_replicas` of the
+    one-process state, the same draw), ``make_pipeline`` yields this
+    rank's rows, and the step syncs over the mesh. There the ladder waits
+    for a later slice: ``sync.adaptive`` on a replica strategy raises
+    ValueError.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None else
+                         mesh.device if mesh is not None else "cuda")
     if cfg.model.family != "dense":
         raise NotImplementedError(f"training the {cfg.model.family!r} family "
                                   f"waits for a later slice (ROADMAP §1 "
@@ -142,19 +170,26 @@ def build_trainer(cfg: TrainConfig, device: Union[str, torch.device] = "cuda",
     replicas = (cfg.mesh.axis_size(cfg.mesh.replica_axis or "pod")
                 if use_replicas else 0)
     build_ladder = cfg.sync.adaptive and use_replicas
+    if build_ladder and mesh is not None:
+        raise ValueError("sync.adaptive on a replica strategy moves H over "
+                         "its ladder, which runs on one process only; the "
+                         "ladder across ranks waits for a later slice "
+                         "(ROADMAP §1 item 9(b))")
     counter = None
     if build_ladder:
         # made before any kernel is loaded, so the warmup's loads are
         # counted (and everything after mark() must be zero)
         from repro_torch.runtime.ladder import CompileCounter
         counter = CompileCounter()
-    step = LS.make_train_step(model, cfg, quant_impl=quant_impl)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    state = LS.init_state(model, cfg, gen, replicas=replicas)
+    state = LS.init_state(model, cfg, gen,
+                          replicas=1 if mesh is not None and use_replicas
+                          else replicas)
     h = cfg.sync.period if use_replicas else 0
 
     telemetry = None
     ladder = None
+    step = LS.make_train_step(model, cfg, quant_impl=quant_impl, mesh=mesh)
     if cfg.sync.adaptive:
         from repro_torch.core.telemetry import BlockTelemetry
         telemetry = BlockTelemetry()
@@ -166,24 +201,31 @@ def build_trainer(cfg: TrainConfig, device: Union[str, torch.device] = "cuda",
 
     def make_pipeline(start_step: int):
         pipe = DataPipeline(cfg.data, cfg.model, device=dev,
-                            start_step=start_step)
+                            start_step=start_step, mesh=mesh)
         cur_h = ladder.h if ladder is not None else h
         return _Blocked(pipe, cur_h) if cur_h else pipe
 
     return step, state, make_pipeline, model, telemetry, ladder
 
 
-def adaptive_report(cfg: TrainConfig, telemetry) -> dict:
+def adaptive_report(cfg: TrainConfig, telemetry, mesh=None) -> dict:
     """The non-ladder adaptive summary: the re-solve's recommendation for
-    the NEXT launch (``sync_every_step`` has no block to ladder). A single-H
-    run can't split T_step/T_sync from block times alone; it falls back to
-    the measured step time and the analytic sync. The parameter bytes are
-    divided over ``cfg.mesh``'s devices and the replica count uses
-    ``build_trainer``'s ``or "pod"`` fallback, as the reference prices
-    them."""
+    the NEXT launch (``sync_every_step`` has no block to ladder). A
+    single-H run can't split T_step/T_sync from block times alone; it falls
+    back to the measured step time and the analytic sync. The
+    parameter bytes are divided over ``cfg.mesh``'s devices and the replica
+    count uses ``build_trainer``'s ``or "pod"`` fallback, as the reference
+    prices them. With a ``mesh`` (a collective: every rank calls it) the
+    controller gets the ranks' measured T_step and T_sync, each the max over
+    the ranks."""
     from repro_torch.core.autotune import DCN_BW, TuneInputs, choose_period
     est = telemetry.estimates()
     t_step = est[0] if est else telemetry.per_step_s()
+    if mesh is not None:
+        got = CL.max_over([est[0] if est else -1.0, est[1] if est else -1.0,
+                           t_step if t_step else -1.0])
+        est = got[:2] if min(got[:2]) >= 0 else None
+        t_step = est[0] if est else (got[2] if got[2] >= 0 else None)
     rec = None
     if t_step:
         inp = TuneInputs(
@@ -197,7 +239,11 @@ def adaptive_report(cfg: TrainConfig, telemetry) -> dict:
             target_overhead=cfg.sync.adapt_target_overhead,
             max_drift=cfg.sync.adapt_max_drift,
             sync_time_override=est[1] if est else None)
-    return {"telemetry": telemetry.to_dict(), "recommended_h": rec}
+    out = {"telemetry": telemetry.to_dict(), "recommended_h": rec}
+    if mesh is not None:
+        out["ranks_max"] = {"t_step_s": t_step,
+                            "t_sync_s": est[1] if est else None}
+    return out
 
 
 def main(argv=None) -> None:
@@ -206,26 +252,49 @@ def main(argv=None) -> None:
                    help="reduced config (2 layers, seq 64)")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--replicas", type=int, default=1,
-                   help="local-SGD replicas K on the one device")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+                   help="local-SGD replicas K on the one device (across "
+                        "ranks: the world size over --data)")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+    p.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                   help="run as a rank of the world torchrun started, its "
+                        "collectives on this backend")
+    p.add_argument("--data", type=int, default=1,
+                   help="across ranks: data ranks a replica (a (pod, data) "
+                        "mesh when > 1)")
     args = p.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if args.backend is not None:
+        from repro_torch.launch import mesh as M
+        dev = M.init_from_env(args.backend, args.device)
+        world = torch.distributed.get_world_size()
+        if world % args.data:
+            raise ValueError(f"--data {args.data} does not divide the "
+                             f"world of {world}")
+        replicas = world // args.data
+        shape, axes = (((replicas, args.data), ("pod", "data"))
+                       if args.data > 1 else ((replicas,), ("pod",)))
+        mesh = M.make_mesh(shape, axes)
+    else:
+        dev = resolve_device(args.device or "cuda")
+        replicas, shape, axes = args.replicas, (args.replicas,), ("pod",)
     model_cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
-    mesh_cfg = MeshConfig(shape=(args.replicas,), axis_names=("pod",),
-                          replica_axis="pod")
+    mesh_cfg = mesh_config(shape, axes)
     cfg = TrainConfig(model=model_cfg, mesh=mesh_cfg,
                       data=DataConfig(seq_len=64 if args.smoke else 4096,
-                                      global_batch=2 * args.replicas),
+                                      global_batch=2 * replicas
+                                      * (args.data if mesh else 1)),
                       steps=args.steps)
     cfg = apply_overrides(cfg, args.overrides)
 
-    step, state, make_pipeline, _, telemetry, ladder = build_trainer(cfg, dev)
+    step, state, make_pipeline, _, telemetry, ladder = build_trainer(
+        cfg, dev, mesh)
     # checkpoints only into a directory the caller names: the default one
     # is shared by every run on the host
     named = any(o.split("=", 1)[0].strip() == "checkpoint.directory"
                 for o in args.overrides)
-    ckpt = CheckpointManager(cfg.checkpoint) if named else None
+    ckpt = CheckpointManager(cfg.checkpoint, mesh=mesh) if named else None
     runner = StepRunner(step, ckpt, cfg.fault, cfg.checkpoint.interval_steps,
                         make_pipeline, fingerprint=config_fingerprint(cfg),
                         ladder=ladder)
@@ -246,6 +315,9 @@ def main(argv=None) -> None:
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }
+    if mesh is not None:
+        out["ranks"] = mesh.size()
+        out["backend"] = mesh.backend
     if ladder is not None:
         # the live H-ladder run: trajectory, switches, per-rung telemetry
         # and the compile count
@@ -253,8 +325,11 @@ def main(argv=None) -> None:
         out["adaptive"]["controller_history"] = [
             list(t) for t in ladder.controller.history]
     elif telemetry is not None:
-        out["adaptive"] = adaptive_report(cfg, telemetry)
-    print(json.dumps(out))
+        out["adaptive"] = adaptive_report(cfg, telemetry, mesh)
+    if mesh is None or mesh.rank() == 0:
+        print(json.dumps(out))
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

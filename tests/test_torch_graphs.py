@@ -27,7 +27,7 @@ from repro.models.registry import build_model as jbuild
 from repro_torch import interop
 from repro_torch import tree as T
 from repro_torch.config import get_smoke
-from repro_torch.core import svm, sync
+from repro_torch.core import collectives, svm, sync
 from repro_torch.data import make_svm_dataset
 from repro_torch.launch.serve import ServeEngine
 from repro_torch.models import attention as TA
@@ -311,12 +311,13 @@ def test_dms_epochs_reset(webspam, overlap, topology):
 
 @pytest.mark.parametrize("topology", ["ring", "pairwise"])
 def test_permute_by_slices_is_the_gather(topology):
-    """The gossip exchange's rows gathered by slices are the index gather
-    of the same permutation, bitwise, for each of the topology's wires."""
+    """The gossip exchange's rows gathered by slices (the one-card replica
+    axis's ``permute``) are the index gather of the same permutation,
+    bitwise, for each of the topology's wires."""
     x = torch.from_numpy(np.random.default_rng(4).normal(
         size=(8, 5, 3)).astype(np.float32))
     for perm in sync._gossip_perms(8, topology):
         src = [0] * 8
         for s, d in perm:
             src[d] = s
-        assert torch.equal(sync._permute(x, perm), x[src])
+        assert torch.equal(collectives.STACKED.permute(x, perm), x[src])

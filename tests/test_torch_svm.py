@@ -207,11 +207,17 @@ def test_dms_rejects_unknown_overlap_under_gossip(ds):
                  overlap="stale", device="cpu")
 
 
-def test_dms_shard_map_not_ported(ds):
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tsvm.dms(torch.zeros(ds.features), ds.x_train[:256], ds.y_train[:256],
-                 workers=4, epochs=1, block_size=8, backend="shard_map",
-                 device="cpu")
+def test_dms_dist_refuses_graphs_and_a_missing_mesh(ds):
+    """``backend="dist"`` (the reference's ``shard_map``, held across
+    processes by ``tests/test_torch_dist_svm.py``) runs eagerly and needs a
+    mesh; a mesh of the wrong size raises there."""
+    kw = dict(workers=4, epochs=1, block_size=8, backend="dist",
+              device="cpu")
+    x, y = ds.x_train[:256], ds.y_train[:256]
+    with pytest.raises(ValueError, match="runs eagerly"):
+        tsvm.dms(torch.zeros(ds.features), x, y, graphs=True, **kw)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tsvm.dms(torch.zeros(ds.features), x, y, **kw)
 
 
 def test_entry_points_need_cuda_by_default(ds):

@@ -42,8 +42,11 @@ from repro_torch.config import (DataConfig, MeshConfig, OptimizerConfig,
 from repro_torch.configs import smollm_360m as tconfigs
 from repro_torch.core import local_sgd as LS
 from repro_torch.data import DataPipeline
+from repro_torch.launch import mesh as M
 from repro_torch.launch import train as ttrain
 from repro_torch.models.registry import build_model as tbuild
+
+import torch_dist_ranks as R
 
 torch.set_num_threads(1)
 
@@ -340,10 +343,26 @@ def test_lm_train_state_from_jax_rejects_bad_layouts(reference):
     assert state["params"]["layers"]["mlp"]["w_up"].shape[:2] == (K, 2)
 
 
-def test_hierarchical_not_ported():
+def test_mesh_must_match_the_replicas():
+    """A mesh whose replica axis does not hold the config's replicas
+    raises on its rank and in the caller of ``spawn``; hierarchical needs a
+    data axis of processes (held across ranks by
+    ``tests/test_torch_dist_train.py``)."""
+    with pytest.raises(ValueError, match="has 1 ranks, but the config has 2"):
+        M.spawn(R.mismatched_mesh, 1, backend="gloo", device="cpu",
+                args=(_model_cfgs()[1],), timeout_s=300)
     cfg = _train_cfg(SyncConfig(strategy="hierarchical", period=H))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="data axis"):
         LS.make_local_sgd_block(tbuild(cfg.model, attn_impl="torch"), cfg)
+
+
+def test_adaptive_ladder_refuses_a_mesh():
+    """The H ladder runs on one process: ``sync.adaptive`` on a replica
+    strategy with a mesh raises, on its rank and in the caller of
+    ``spawn``, rather than run a fixed H."""
+    with pytest.raises(ValueError, match="ladder"):
+        M.spawn(R.adaptive_on_a_mesh, 1, backend="gloo", device="cpu",
+                args=(_model_cfgs()[1],), timeout_s=300)
 
 
 def test_train_cli_on_cpu(capsys):
