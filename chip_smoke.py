@@ -64,8 +64,24 @@ entry points and holds every run to its plain-version twin:
    (pod 2, data 2) mesh against the one-process periodic trainer at K = 2;
    (d6) ``dms(backend="dist")`` on an NCCL world of one rank against
    ``srdms`` (relative 1e-6), every hinge launch counted on ``hinge.cu``;
-   ``--dist-only`` runs the build and this
-   phase alone, with no result line;
+   then the adaptive path across ranks: (d7), on (d4)'s two ranks, the
+   adaptive trainer at full width (ladder (1, 2, 4) from H = 4): a
+   scripted move 4 -> 2 after block 2 held bitwise on each rank to the
+   one-process K = 2 run's replica (sha256 of every params, opt and sync
+   leaf and of the first sync's int8 payloads and scales), then 6 blocks
+   under the live controller (trajectory, T_step and T_sync as the max
+   over the ranks, no compile after the warmup on any rank, 22 quant
+   launches a block, the small all-reduces' count and time a block, the
+   ranks' peaks under 75 GB together); (d8), on (d5)'s four ranks, phase
+   (c) across ranks: a fault on rank 1 only after the first checkpoint
+   and before it, each replay bitwise on every rank to phase (c)'s
+   one-process run, checkpoints written by rank 0 only, a 2 s hold-up on
+   rank 1 recorded by every rank's watchdog; (d9), on (d1)'s eight ranks,
+   the SVM block ladder on epsilon (an epoch at 64, the switch, one at
+   128) bitwise the one-process K = 8 ladder, every hinge launch on the
+   cluster kernel, and (d3)'s block-64 times feeding a controller over the
+   rungs on every rank, its pick agreed; ``--dist-only`` runs the build
+   and this phase alone, with no result line;
 5. the flash-attention kernels against their plain version: the f32
    split-TF32 kernel (wgmma, TMA) at the ``TestFlashAttention`` shapes and
    the three full-width f32 prefills, zamba2-1.2b's, smollm-360m's and
@@ -281,6 +297,14 @@ DIST_TIMED_BS, DIST_TIMED_BLOCKS = (16, 64, 256, 1024), 24
 DIST_COLL_CALLS = 50
 DIST_TRAIN_K, DIST_TRAIN_H, DIST_TRAIN_BLOCKS = 2, 4, 2
 DIST_PEAK_GB = 75.0
+# (d7): the adaptive trainer across the two ranks: a scripted move 4 -> 2
+# after block 2 over 3 blocks, then blocks under the live controller
+D7_SCRIPT, D7_SCRIPTED_BLOCKS, D7_LIVE_BLOCKS = {2: 2}, 3, 6
+# (d8): fault and restart across 4 ranks; rank 1 held up this long before
+# the last step of the straggle run (the deadline is half of it)
+D8_K, D8_STRAGGLE_S = 4, 2.0
+# (d9): the SVM block ladder across the 8 ranks, an epoch at each size
+D9_SIZES = (64, 128)
 # host arrays of the SVM data sets, kept by phases 3 and 4 for phase dist
 _HOST = {}
 DMS_MODES = [("none", "all", False), ("delayed", "all", False),
@@ -2291,11 +2315,11 @@ def phase_adaptive_train(torch, dev, model_cfg, seq_len, global_batch,
     return launches
 
 
-def ttrain_blocked(cfg, h, start, dev):
+def ttrain_blocked(cfg, h, start, dev, mesh=None):
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch.train import _Blocked
     return _Blocked(DataPipeline(cfg.data, cfg.model, device=dev,
-                                 start_step=start), h)
+                                 start_step=start, mesh=mesh), h)
 
 
 class ScriptedController:
@@ -2317,48 +2341,67 @@ class ScriptedController:
         return self.h
 
 
-def phase_fault_restart(torch, dev, model_cfg, replicas=4, steps=6):
+FAULT_SCRIPT, FAULT_STEPS, FAULT_CKPT_EVERY = {2: 1, 3: 2}, 6, 3
+
+
+def _fault_cfg(model_cfg, replicas):
+    from repro_torch.config import SyncConfig
+    return _train_cfg(model_cfg, SyncConfig(
+        strategy="periodic", period=2, compression="int8", adaptive=True,
+        adapt_ladder=(1, 2)), 64, 2 * replicas, replicas)
+
+
+def _fault_run(torch, dev, cfg, fault, directory, mesh=None):
+    """``StepRunner`` over a ladder that moves 2 -> 1 after block 2 and back
+    1 -> 2 after block 3, a checkpoint every 3 blocks into ``directory``,
+    ``fault`` (a ``FaultToleranceConfig``) injected; with a ``mesh`` this
+    rank's runner. Returns (final state, step reached, runner, ladder,
+    quant launches, the steps this process wrote a checkpoint at)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import CheckpointConfig, config_fingerprint
+    from repro_torch.kernels.quant import ops
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.runtime import LadderRuntime, StepRunner
+    step, state, _, _, tel, live = build_trainer(cfg, dev, mesh)
+    ladder = LadderRuntime(live.rungs, live.switch_fn,
+                           ScriptedController(2, FAULT_SCRIPT),
+                           telemetry=tel, device=dev,
+                           compile_counter=live.compile_counter, mesh=mesh)
+
+    def blocked(start):
+        return ttrain_blocked(cfg, ladder.h, start, dev, mesh)
+
+    ckpt = CheckpointManager(CheckpointConfig(
+        directory=directory, interval_steps=FAULT_CKPT_EVERY), mesh=mesh)
+    writes, write = [], ckpt._write
+    ckpt._write = lambda at, *a: (writes.append(at), write(at, *a))[1]
+    runner = StepRunner(step, ckpt, fault, FAULT_CKPT_EVERY, blocked,
+                        fingerprint=config_fingerprint(cfg), ladder=ladder,
+                        mesh=mesh)
+    ops.LAUNCHES = 0
+    state, end = runner.run(state, 0, FAULT_STEPS)
+    torch.cuda.synchronize()
+    return state, end, runner, ladder, ops.LAUNCHES, writes
+
+
+def phase_fault_restart(torch, dev, model_cfg, replicas=4):
     """(c) Fault and restart on the card at smoke width, int8 on the quant
     kernel: ``StepRunner`` over a ladder that moves 2 -> 1 after block 2
     and back 1 -> 2 after block 3, on the checkpoint every 3 blocks; a
     fault after that checkpoint (step 4) and one before it (step 2, after
     the first move) both replay bitwise the run without one, the rung
     restored."""
-    import tempfile
-
     from repro_torch import tree as T
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.config import (CheckpointConfig, FaultToleranceConfig,
-                                    SyncConfig, config_fingerprint)
-    from repro_torch.kernels.quant import ops
-    from repro_torch.launch.train import build_trainer
-    from repro_torch.runtime import LadderRuntime, StepRunner
-    sync_cfg = SyncConfig(strategy="periodic", period=2, compression="int8",
-                          adaptive=True, adapt_ladder=(1, 2))
-    cfg = _train_cfg(model_cfg, sync_cfg, 64, 2 * replicas, replicas)
+    from repro_torch.config import FaultToleranceConfig
+    steps = FAULT_STEPS
+    cfg = _fault_cfg(model_cfg, replicas)
     finals = {}
     with tempfile.TemporaryDirectory(dir=REPO) as tmp:
         for fail_at in (-1, 4, 2):
-            step, state, make_pipeline, _, tel, live = build_trainer(cfg, dev)
-            ladder = LadderRuntime(live.rungs, live.switch_fn,
-                                   ScriptedController(2, {2: 1, 3: 2}),
-                                   telemetry=tel, device=dev,
-                                   compile_counter=live.compile_counter)
-
-            def blocked(start, ladder=ladder):
-                return ttrain_blocked(cfg, ladder.h, start, dev)
-
-            ckpt_cfg = CheckpointConfig(directory=os.path.join(
-                tmp, f"f{fail_at}"), interval_steps=3)
-            fault = FaultToleranceConfig(inject_failure_at=fail_at)
-            runner = StepRunner(step, CheckpointManager(ckpt_cfg), fault,
-                                ckpt_cfg.interval_steps, blocked,
-                                fingerprint=config_fingerprint(cfg),
-                                ladder=ladder)
-            ops.LAUNCHES = 0
-            state, end = runner.run(state, 0, steps)
-            torch.cuda.synchronize()
-            launches = ops.LAUNCHES
+            state, end, runner, ladder, launches, _ = _fault_run(
+                torch, dev, cfg, FaultToleranceConfig(
+                    inject_failure_at=fail_at),
+                os.path.join(tmp, f"f{fail_at}"))
             ckpts = runner.ckpt.all_steps()
             finals[fail_at] = _host(torch, state)
             log(f"fault/restart (fault at step {fail_at}): {end} steps, "
@@ -2376,7 +2419,7 @@ def phase_fault_restart(torch, dev, model_cfg, replicas=4, steps=6):
                 check(launches == 2 * n_leaves * steps,
                       f"fault/restart: {launches} quant launches, expected "
                       f"{2 * n_leaves} a block")
-            del state, step, ladder, live, runner
+            del state, ladder, runner
     for fail_at in (4, 2):
         _same(torch, finals[fail_at], finals[-1],
               f"fault at step {fail_at}: the replay vs the run without one")
@@ -2456,12 +2499,14 @@ def _log_ranks(reports):
 
 
 def _dist_svm_rank(paths, timed_bs, timed_blocks):
-    """(d1)–(d3) on one of the K ranks: epsilon dms, the webspam modes, and
-    the timed pair at each block size."""
+    """(d1)–(d3) and (d9) on one of the K ranks: epsilon dms, the timed pair
+    at each block size (at block DIST_BS feeding the SVM ladder's
+    controller), the SVM block ladder, and the webspam modes."""
     import torch
     import torch.distributed as dist
+    from repro_torch.config import SyncConfig
+    from repro_torch.core import autotune, svm
     from repro_torch.core import collectives as CL
-    from repro_torch.core import svm
     from repro_torch.core.telemetry import BlockTelemetry
     from repro_torch.kernels.hinge import ops
     from repro_torch.launch import mesh as M
@@ -2506,7 +2551,43 @@ def _dist_svm_rank(paths, timed_bs, timed_blocks):
                               shard[1][:, i * bs:(i + 1) * bs], alpha))
         sync.flush()
         out["d3"][bs] = tel.estimates()
-    del shard
+        if bs == DIST_BS:
+            # (d9): this run's times, the max over the ranks, feed a
+            # controller over the SVM rungs on every rank; its pick agreed
+            ctrl = autotune.AdaptiveController(
+                SyncConfig(strategy="periodic", period=bs),
+                param_bytes_per_chip=4 * d, replicas=DIST_K, telemetry=tel,
+                ladder=SVM_RUNGS, h0=bs)
+            for _ in range(timed_blocks):
+                ctrl.observe_block()
+            CL.agree({"block size": ctrl.h})
+            out["d9_pick"] = dict(h=ctrl.h, history=ctrl.history,
+                                  est=tel.estimates())
+
+    # (d9): the block ladder, an epoch at each of D9_SIZES, the switch
+    # between them; the counts set to 0 just before, read just after
+    ladder = svm.dms_block_ladder(d=d, workers=DIST_K, block_sizes=SVM_RUNGS,
+                                  mesh=mesh)
+    carry = svm.dms_stepper_init(torch.zeros(d, device=dev), 1)
+    n_local = shard[0].shape[1]
+    dist.barrier()
+    _wait(torch, dev)
+    ops.LAUNCHES = ops.CLUSTER_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for t, bs in enumerate(D9_SIZES):
+        if t:
+            carry = svm.dms_ladder_switch(carry, d=d, mesh=mesh)
+        nb = n_local // bs
+        xb = shard[0][:, :nb * bs].reshape(1, nb, bs, d)
+        yb = shard[1][:, :nb * bs].reshape(1, nb, bs)
+        alpha = svm._alpha(t, torch.float32)
+        for i in range(nb):
+            carry = ladder[bs](carry, xb[:, i], yb[:, i], alpha)
+    _wait(torch, dev)
+    out["d9"] = dict(w=carry["w"][0].cpu().numpy(),
+                     wall=time.perf_counter() - t0, launches=ops.LAUNCHES,
+                     cluster=ops.CLUSTER_LAUNCHES)
+    del shard, carry
     # the port's pmean (all-gather, stacked mean) beside the reference's
     # (psum / K: an all-reduce) on the same w, in turns, each call waited
     # for on the host and the card
@@ -2652,6 +2733,201 @@ def _dist_hier_rank(blocks):
                 report=_rank_report(torch, mesh, "hierarchical"))
 
 
+def _digests(torch, tree):
+    """The sha256 of each tensor leaf's bytes, in leaf order, each leaf
+    copied to the host through one page-locked buffer."""
+    import hashlib
+    from repro_torch import tree as T
+    leaves = [x for x in T.leaves(tree) if isinstance(x, torch.Tensor)]
+    most = max(x.numel() * x.element_size() for x in leaves)
+    buf = torch.empty(most, dtype=torch.uint8,
+                      pin_memory=leaves[0].is_cuda)
+    out = []
+    for x in leaves:
+        n = x.numel() * x.element_size()
+        buf[:n].copy_(x.detach().contiguous().view(-1).view(torch.uint8))
+        out.append(hashlib.sha256(buf[:n].numpy()).hexdigest()[:16])
+    return out
+
+
+def _d7_cfg():
+    from repro_torch.config import SyncConfig, get_arch
+    return _train_cfg(get_arch("smollm-360m"), SyncConfig(
+        strategy="periodic", period=4, compression="int8", adaptive=True,
+        adapt_ladder=(1, 2, 4), adapt_every=2), TRAIN_SEQ, DIST_TRAIN_K,
+        DIST_TRAIN_K)
+
+
+def _scripted_adaptive(torch, dev, cfg, mesh=None):
+    """(d7)'s scripted run: the adaptive trainer's ladder with its move
+    4 -> 2 after block 2 scripted, D7_SCRIPTED_BLOCKS blocks through
+    ``StepRunner`` (checkpoints off); with a ``mesh`` this rank's replica.
+    Returns each replica's sha256 digests of its state leaves (params, opt,
+    sync) and of its first sync's int8 payloads and scales, with the
+    losses, the trajectory, the quant launches and the compiles after the
+    warmup."""
+    from repro_torch import tree as T
+    from repro_torch.config import FaultToleranceConfig
+    from repro_torch.core import compression
+    from repro_torch.kernels.quant import ops
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.runtime import LadderRuntime, StepRunner
+    step, state, _, _, tel, live = build_trainer(cfg, dev, mesh)
+    ladder = LadderRuntime(live.rungs, live.switch_fn,
+                           ScriptedController(4, D7_SCRIPT), telemetry=tel,
+                           device=dev, compile_counter=live.compile_counter,
+                           mesh=mesh)
+    runner = StepRunner(step, None, FaultToleranceConfig(max_restarts=0), 1,
+                        lambda start: ttrain_blocked(cfg, ladder.h, start,
+                                                     dev, mesh),
+                        ladder=ladder, mesh=mesh)
+    first, inner = [], compression.compress_tree
+
+    def capture(delta, ef, **kw):
+        q, scale, new_ef = inner(delta, ef, **kw)
+        if not first:
+            first.append(T.leaves(q) + T.leaves(scale))
+        return q, scale, new_ef
+
+    compression.compress_tree = capture
+    ops.LAUNCHES = 0
+    try:
+        state, end = runner.run(state, 0, D7_SCRIPTED_BLOCKS)
+    finally:
+        compression.compress_tree = inner
+    torch.cuda.synchronize()
+    parts = {key: state[key] for key in ("params", "opt", "sync")}
+    k = T.leaves(parts["params"])[0].shape[0]
+    digests = [_digests(torch, T.map(lambda x: x[r:r + 1], parts))
+               + _digests(torch, [x[r:r + 1] for x in first[0]])
+               for r in range(k)]
+    return dict(digests=digests, step=state["step"], end=end,
+                losses=[m["loss"] for m in runner.metrics_log],
+                trajectory=ladder.trajectory, launches=ops.LAUNCHES,
+                compiles=ladder.compile_counter.since_mark,
+                n_leaves=len(T.leaves(parts["params"])))
+
+
+def _dist_adaptive_rank():
+    """(d7) on one of the two ranks: the scripted run (its digests), then
+    D7_LIVE_BLOCKS blocks under the live controller, every small
+    all-reduce of the run (times and agreements) timed."""
+    import torch
+    from repro_torch.config import FaultToleranceConfig
+    from repro_torch.core import collectives as CL
+    from repro_torch.kernels.quant import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.runtime import StepRunner
+    _rank_setup(torch)
+    mesh = M.make_mesh((DIST_TRAIN_K,), ("pod",))
+    dev = mesh.device
+    cfg = _d7_cfg()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"scripted": _scripted_adaptive(torch, dev, cfg, mesh)}
+    out["scripted"]["wall"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # the live run; the quant library dropped first, as in a fresh process,
+    # so that the ladder's warmup must load it
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops._LIB = None
+    step, state, make_pipeline, _, tel, ladder = build_trainer(cfg, dev, mesh)
+    runner = StepRunner(step, None, FaultToleranceConfig(max_restarts=0), 1,
+                        make_pipeline, ladder=ladder, mesh=mesh)
+    calls, inner = [], CL.max_over
+
+    def timed(values, group=None):
+        t1 = time.perf_counter()
+        got = inner(values, group)
+        calls.append(time.perf_counter() - t1)
+        return got
+
+    CL.max_over = timed
+    ops.LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        state, end = runner.run(state, 0, D7_LIVE_BLOCKS)
+        _wait(torch, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        CL.max_over = inner
+    launches = ops.LAUNCHES
+    peak = _peak(torch, dev)
+    own = ladder.compile_counter.since_mark
+    ad = ladder.to_dict()
+    out["live"] = dict(
+        end=end, wall=wall, trajectory=ad["h_trajectory"],
+        history=ladder.controller.history, est=tel.estimates(),
+        compiles_total=ad["compiles_total"],
+        compiles_after_warmup=ad["compiles_after_warmup"], own=own,
+        ranks=ad["ranks"], launches=launches, peak=peak,
+        walls=[m["elapsed"] for m in runner.metrics_log],
+        losses=[m["loss"] for m in runner.metrics_log],
+        small_calls=len(calls), small_s=sum(calls))
+    del state, step, ladder, runner
+    torch.cuda.empty_cache()
+    out["report"] = _rank_report(torch, mesh, "adaptive train")
+    out["report"]["peak"] = peak
+    return out
+
+
+def _dist_trainers_rank(paths, h, blocks):
+    """(d4), then (d7), on the same two ranks."""
+    return {"d4": _dist_train_rank(paths, h, blocks),
+            "d7": _dist_adaptive_rank()}
+
+
+def _dist_fault_rank(tmp, straggle_s):
+    """(d8) on one of D8_K ranks: phase (c)'s runs across the ranks, the
+    fault (or the straggle) on rank 1 only; returns each run's gathered
+    final state (on the host), restarts, watchdog events, the steps this
+    rank wrote a checkpoint at, trajectory and quant launches."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.config import FaultToleranceConfig, get_smoke
+    from repro_torch.core import local_sgd
+    from repro_torch.launch import mesh as M
+    _rank_setup(torch)
+    mesh = M.make_mesh((D8_K,), ("pod",))
+    r = mesh.rank()
+    cfg = _fault_cfg(get_smoke("smollm-360m"), D8_K)
+    runs = {
+        "none": FaultToleranceConfig(),
+        "fault@4": FaultToleranceConfig(inject_failure_at=4 if r == 1
+                                        else -1),
+        "fault@2": FaultToleranceConfig(inject_failure_at=2 if r == 1
+                                        else -1),
+        "straggle": FaultToleranceConfig(
+            step_deadline_sec=straggle_s / 2,
+            inject_straggle_sec=straggle_s if r == 1 else 0.0,
+            inject_failure_at=FAULT_STEPS if r == 1 else -1)}
+    out = {}
+    for name, fault in runs.items():
+        state, end, runner, ladder, launches, writes = _fault_run(
+            torch, mesh.device, cfg, fault, os.path.join(tmp, f"d8_{name}"),
+            mesh)
+        whole = local_sgd.gather_replicas(state, mesh)
+        out[name] = dict(
+            end=end, restarts=runner.restarts, events=runner.watchdog.events,
+            writes=writes, trajectory=ladder.trajectory, launches=launches,
+            compiles=ladder.compile_counter.since_mark,
+            final=T.map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
+                        else x, {k: whole[k] for k in ("params", "opt",
+                                                       "sync", "step")}))
+        del state, whole, runner, ladder
+    out["report"] = _rank_report(torch, mesh, "fault")
+    return out
+
+
+def _dist_four_rank(blocks, tmp, straggle_s):
+    """(d5), then (d8), on the same four ranks (the (d8) mesh is the world
+    on one ``pod`` axis)."""
+    return {"d5": _dist_hier_rank(blocks),
+            "d8": _dist_fault_rank(tmp, straggle_s)}
+
+
 def _dist_nccl_rank(paths):
     """(d6) the one rank of an NCCL world: dms(backend="dist") at K = 1."""
     import torch
@@ -2731,6 +3007,9 @@ def phase_dist(torch, dev, tmp):
                     epochs=DIST_EPOCHS, block_size=DIST_BS, device=dev)
     acc_one = float(svm.accuracy(w_one, xt, yt))
     eps_test = (xt, yt)
+    # (d9)'s twin: the block ladder on one process at K = DIST_K
+    w_lad, wall_lad, n_lad, _, _ = _svm_chain(torch, dev, (x, y, xt, yt),
+                                              D9_SIZES, "kernel", DIST_K)
     del x, y
     xw, yw, xwt, ywt = on_card(web)
     web_one = [svm.dms(torch.zeros(xw.shape[1], device=dev), xw, yw,
@@ -2778,6 +3057,20 @@ def phase_dist(torch, dev, tmp):
     hier_one, _, _, hier_losses_one, _, _, _ = _run_blocks(
         torch, hier_cfg, dev, "kernel", 3)
     hier_one = T.map(lambda p: p.cpu(), hier_one["params"])
+    # (d7)'s twin: the scripted adaptive run at K = 2 on one process
+    t0 = time.perf_counter()
+    d7_one = _scripted_adaptive(torch, dev, _d7_cfg())
+    d7_one["wall"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # (d8)'s twin: phase (c)'s run without a fault, K = D8_K on one process
+    from repro_torch.config import FaultToleranceConfig
+    c_state, _, _, c_ladder, _, _ = _fault_run(
+        torch, dev, _fault_cfg(get_smoke("smollm-360m"), D8_K),
+        FaultToleranceConfig(), os.path.join(tmp, "c_one"))
+    c_one = _host(torch, {k: c_state[k] for k in ("params", "opt", "sync",
+                                                  "step")})
+    c_trajectory = c_ladder.trajectory
+    del c_state, c_ladder
     _wait(torch, dev)
     torch.cuda.empty_cache()
     log(f"dist: one-process twins done in "
@@ -2907,11 +3200,47 @@ def phase_dist(torch, dev, tmp):
     check(all(np.isfinite(t) and t > 0 for t in colls.values()),
           f"(d3): collective times {colls}")
 
-    # (d4): the trainer across two ranks at full width
+    # (d9): the SVM block ladder across the ranks against its one-process
+    # twin, and the controller's agreed pick
+    d9 = [o["d9"] for o in ranks]
+    w9 = d9[0]["w"]
+    same = all(o["w"].tobytes() == w9.tobytes() for o in d9)
+    twin = bool(torch.equal(torch.from_numpy(w9).to(dev), w_lad))
+    per_rank = sum(n_local // bs for bs in D9_SIZES)
+    launches = [o["launches"] for o in d9]
+    cluster = [o["cluster"] for o in d9]
+    picks = [o["d9_pick"] for o in ranks]
+    t_step, t_sync = picks[0]["est"]
+    log(f"(d9) svm block ladder epsilon across {DIST_K} ranks (gloo, one "
+        f"card), rungs {SVM_RUNGS}: an epoch at {D9_SIZES[0]}, the switch, "
+        f"an epoch at {D9_SIZES[1]}: w bitwise equal on all ranks {same}, "
+        f"bitwise the one-process K={DIST_K} ladder {twin} (one process "
+        f"{n_lad} launches, {wall_lad:.4f} s); hinge launches a rank "
+        f"{launches} (expected {per_rank}), on the cluster kernel {cluster}; "
+        f"wall max {max(o['wall'] for o in d9):.4f} s, "
+        f"{1e3 * max(o['wall'] for o in d9) / per_rank:.2f} ms a block")
+    log(f"(d9) the controller over {SVM_RUNGS} on every rank, fed (d3)'s "
+        f"block-{DIST_BS} run ({DIST_TIMED_BLOCKS} blocks, the max over the "
+        f"ranks): T_step {1e6 * t_step:.4f} us a point, T_sync "
+        f"{1e6 * t_sync:.4f} us a block; picks {[p['h'] for p in picks]} "
+        f"(agreed), history {picks[0]['history']}; phase (b) runs the same "
+        f"controller on one card")
+    check(same and twin, "(d9): the ladder's model differs across ranks or "
+          "from the one-process ladder")
+    check(launches == [per_rank] * DIST_K == cluster,
+          f"(d9): launches {launches}, cluster {cluster}, expected "
+          f"{per_rank} a rank on the cluster kernel")
+    check(all(p == picks[0] for p in picks) and picks[0]["h"] in SVM_RUNGS,
+          f"(d9): picks {picks}")
+
+    # (d4): the trainer across two ranks at full width, then (d7) on them
     t0 = time.perf_counter()
-    tr = M.spawn(_dist_train_rank, DIST_TRAIN_K, backend="gloo",
-                 args=(paths, DIST_TRAIN_H, DIST_TRAIN_BLOCKS), timeout_s=900)
+    both = M.spawn(_dist_trainers_rank, DIST_TRAIN_K, backend="gloo",
+                   args=(paths, DIST_TRAIN_H, DIST_TRAIN_BLOCKS),
+                   timeout_s=1200)
     train_s = time.perf_counter() - t0
+    tr = [o["d4"] for o in both]
+    ad = [o["d7"] for o in both]
     _log_ranks([o["report"] for o in tr])
     n_leaves = len(tr[0]["own"])
     expect = DIST_TRAIN_BLOCKS * n_leaves * 2
@@ -2956,10 +3285,89 @@ def phase_dist(torch, dev, tmp):
           "run's")
     check(peak_gb < DIST_PEAK_GB, f"(d4): peak {peak_gb} GB")
 
-    # (d5): hierarchical at smoke width, (pod 2, data 2)
+    # (d7): the scripted move held to the one-process twin, then the live
+    # controller
+    _log_ranks([o["report"] for o in ad])
+    sc = [o["scripted"] for o in ad]
+    digest_ok = [o["digests"][0] == d7_one["digests"][r]
+                 for r, o in enumerate(sc)]
+    n_dig = len(d7_one["digests"][0])
+    log(f"(d7) adaptive train {model_cfg.name} across {DIST_TRAIN_K} ranks "
+        f"(gloo, one card), int8, 1 x {TRAIN_SEQ} tokens a replica step, "
+        f"ladder (1, 2, 4) from H=4: the scripted move {D7_SCRIPT} over "
+        f"{D7_SCRIPTED_BLOCKS} blocks, trajectory {sc[0]['trajectory']} "
+        f"(one process {d7_one['trajectory']}); each rank's params, opt, "
+        f"sync and first sync's int8 payloads and scales ({n_dig} sha256 "
+        f"digests) bitwise the one-process K={DIST_TRAIN_K} run's replica "
+        f"{digest_ok}; losses {sc[0]['losses']} (one process "
+        f"{d7_one['losses']}); quant launches a rank "
+        f"{[o['launches'] for o in sc]} (one process {d7_one['launches']}); "
+        f"compiles after warmup {[o['compiles'] for o in sc]}; wall max "
+        f"{max(o['wall'] for o in sc):.1f} s (one process "
+        f"{d7_one['wall']:.1f} s, with digests)")
+    check(all(digest_ok), "(d7): the scripted run differs from the "
+          "one-process run")
+    check(all(o["losses"] == d7_one["losses"] for o in sc),
+          "(d7): the scripted run's losses differ")
+    check(all(o["trajectory"] == d7_one["trajectory"] ==
+              [(0, 4), (2, 2)] for o in sc),
+          f"(d7): trajectories {[o['trajectory'] for o in sc]}")
+    n_leaves = d7_one["n_leaves"]
+    expect_sc = 2 * n_leaves * D7_SCRIPTED_BLOCKS
+    check(all(o["launches"] == expect_sc for o in sc)
+          and all(o["compiles"] == 0 for o in sc),
+          f"(d7): scripted launches {[o['launches'] for o in sc]}, expected "
+          f"{expect_sc}")
+    lv = [o["live"] for o in ad]
+    t_step, t_sync = lv[0]["est"]
+    peak_gb = sum(o["peak"] for o in lv) / 1e9
+    per_block = lv[0]["small_calls"] / lv[0]["end"]
+    small_ms = 1e3 * max(o["small_s"] for o in lv) / lv[0]["end"]
+    block_s = sum(max(o["walls"][i] for o in lv)
+                  for i in range(lv[0]["end"])) / lv[0]["end"]
+    log(f"(d7) the live controller, {D7_LIVE_BLOCKS} blocks: H trajectory "
+        f"{lv[0]['trajectory']}, history {lv[0]['history']}; T_step "
+        f"{t_step:.6f} s a replica step, T_sync {1e3 * t_sync:.3f} ms a sync "
+        f"(the max over the ranks; CUDA events around sync_point; phase (a) "
+        f"runs the same ladder on one card); block walls "
+        f"{[round(w, 4) for w in lv[0]['walls']]} s (max over the ranks); "
+        f"losses {lv[0]['losses']}; compiles after warmup a rank "
+        f"{[o['own'] for o in lv]} (to_dict's max "
+        f"{lv[0]['compiles_after_warmup']}, total "
+        f"{lv[0]['compiles_total']}); quant launches a rank "
+        f"{[o['launches'] for o in lv]} (expected {2 * n_leaves} a block); "
+        f"small all-reduces (block times, watchdog, agreements) "
+        f"{per_block:.1f} a block, {small_ms:.2f} ms a block (host clock, "
+        f"the wait for the other rank in it), "
+        f"{100 * small_ms / 1e3 / block_s:.3f}% of a {block_s:.3f} s block; "
+        f"peak memory "
+        f"{[round(o['peak'] / 2**30, 2) for o in lv]} GiB, {peak_gb:.2f} GB "
+        f"in all (bound {DIST_PEAK_GB}); the spawn of (d4) and (d7) "
+        f"{train_s:.1f} s")
+    check(all(o["trajectory"] == lv[0]["trajectory"]
+              and o["est"] == lv[0]["est"] for o in lv),
+          "(d7): the ranks' trajectories or telemetry differ")
+    check(all(o["end"] == D7_LIVE_BLOCKS and o["own"] == 0 for o in lv)
+          and lv[0]["compiles_after_warmup"] == 0
+          and lv[0]["compiles_total"] > 0 and lv[0]["ranks"] == DIST_TRAIN_K,
+          f"(d7): blocks / compiles {[(o['end'], o['own']) for o in lv]}")
+    check(all(h in (1, 2, 4) for _, h in lv[0]["trajectory"]),
+          f"(d7): a rung outside the ladder {lv[0]['trajectory']}")
+    check(all(o["launches"] == 2 * n_leaves * D7_LIVE_BLOCKS for o in lv),
+          f"(d7): live quant launches {[o['launches'] for o in lv]}")
+    check(all(np.isfinite(o["losses"]).all() for o in lv),
+          "(d7): losses not finite")
+    check(np.isfinite(t_step) and np.isfinite(t_sync) and t_step > 0
+          and t_sync > 0, f"(d7): T_step {t_step} T_sync {t_sync}")
+    check(peak_gb < DIST_PEAK_GB, f"(d7): peak {peak_gb} GB")
+
+    # (d5): hierarchical at smoke width, (pod 2, data 2); then (d8), fault
+    # and restart, on the same four ranks
     t0 = time.perf_counter()
-    hr = M.spawn(_dist_hier_rank, 4, backend="gloo", args=(3,),
-                 timeout_s=600)
+    four = M.spawn(_dist_four_rank, 4, backend="gloo",
+                   args=(3, tmp, D8_STRAGGLE_S), timeout_s=900)
+    four_s = time.perf_counter() - t0
+    hr = [o["d5"] for o in four]
     _log_ranks([o["report"] for o in hr])
     rel_loss = max(abs(a - b) / abs(b) for a, b in zip(hr[0]["losses"],
                                                        hier_losses_one))
@@ -2971,6 +3379,58 @@ def phase_dist(torch, dev, tmp):
         f"{[o['launches'] for o in hr]}; {time.perf_counter() - t0:.1f} s")
     check(rel_loss <= TRAIN_LOSS_REL and rel <= TRAIN_PARAMS_REL_L2,
           f"(d5): rel {rel_loss} / {rel}")
+
+    fr = [o["d8"] for o in four]
+    _log_ranks([o["report"] for o in fr])
+    n_leaves = len(T.leaves(c_one["params"]))
+    for name in ("none", "fault@4", "fault@2", "straggle"):
+        runs = [o[name] for o in fr]
+        seen = [[(e["step"], round(e["elapsed"], 3)) for e in o["events"]]
+                for o in runs]
+        log(f"(d8) fault/restart across {D8_K} ranks, smollm smoke, int8, "
+            f"run {name} (on rank 1 only): steps {[o['end'] for o in runs]}, "
+            f"restarts {[o['restarts'] for o in runs]}, trajectory "
+            f"{runs[0]['trajectory']}, checkpoint writes a rank "
+            f"{[o['writes'] for o in runs]}, watchdog events a rank "
+            f"{seen}, "
+            f"quant launches a rank {[o['launches'] for o in runs]}, "
+            f"compiles after warmup {[o['compiles'] for o in runs]}")
+        for r, o in enumerate(runs):
+            _same(torch, o["final"], c_one, f"(d8) {name} rank {r} vs phase "
+                  f"(c)'s one-process run")
+        # a restart before the first checkpoint goes back to the start rung,
+        # which the trajectory records
+        check(all(o["end"] == FAULT_STEPS and o["compiles"] == 0
+                  and o["trajectory"] == runs[0]["trajectory"] for o in runs)
+              and runs[0]["trajectory"][-1] == c_trajectory[-1]
+              and (runs[0]["trajectory"] == c_trajectory
+                   or name == "fault@2"),
+              f"(d8) {name}: steps, compiles or trajectory")
+        check([o["restarts"] for o in runs]
+              == [int(name.startswith("fault"))] * D8_K,
+              f"(d8) {name}: restarts {[o['restarts'] for o in runs]}")
+        check(all(o["launches"] > 0 for o in runs),
+              f"(d8) {name}: no quant launch")
+        if name != "straggle":
+            check(runs[0]["writes"] == [3, 6]
+                  and all(o["writes"] == [] for o in runs[1:]),
+                  f"(d8) {name}: checkpoint writes "
+                  f"{[o['writes'] for o in runs]}")
+    none = [o["none"] for o in fr]
+    check(all(o["launches"] == 2 * n_leaves * FAULT_STEPS for o in none),
+          f"(d8): quant launches {[o['launches'] for o in none]}")
+    events = [o["straggle"]["events"] for o in fr]
+    last = [e for e in events[0] if e["step"] == FAULT_STEPS - 1]
+    check(all(e == events[0] for e in events) and last
+          and last[0]["elapsed"] >= D8_STRAGGLE_S / 2,
+          f"(d8): watchdog events {events}")
+    log(f"(d8): every run on every rank bitwise phase (c)'s one-process "
+        f"K={D8_K} run without a fault (params, opt, sync, step): the fault "
+        f"on rank 1 after the step-3 checkpoint (rank 0's file restored on "
+        f"every rank) and before it (each rank's own start copy); rank 1's "
+        f"{D8_STRAGGLE_S} s hold-up before step {FAULT_STEPS - 1}, outside "
+        f"its own clock, recorded by every rank; the spawn of (d5) and (d8) "
+        f"{four_s:.1f} s")
 
     # (d6): one NCCL world of one rank
     t0 = time.perf_counter()

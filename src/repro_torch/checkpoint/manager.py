@@ -25,7 +25,9 @@ params/opt/sync leaves 1) ``save`` gathers the replicas
 calls) and only rank 0 writes, as the reference's process 0 does, so that a
 checkpoint is the same file whether the run had one process or K; the ranks
 wait for the write. ``restore`` reads that file on every rank and scatters
-it back (:func:`repro_torch.core.local_sgd.scatter_replicas`).
+it back (:func:`repro_torch.core.local_sgd.scatter_replicas`). With
+``axis=None`` the state is the same on every rank (data parallelism's):
+rank 0 writes it as it is, and every rank reads it back as it is.
 """
 from __future__ import annotations
 
@@ -82,7 +84,8 @@ def _from_numpy(arr: np.ndarray, dtype: str, like, device):
 
 
 class CheckpointManager:
-    def __init__(self, cfg: CheckpointConfig, mesh=None, axis: str = "pod"):
+    def __init__(self, cfg: CheckpointConfig, mesh=None,
+                 axis: Optional[str] = "pod"):
         self.cfg = cfg
         self.directory = cfg.directory
         self.mesh, self.axis = mesh, axis
@@ -93,10 +96,11 @@ class CheckpointManager:
     def save(self, step: int, state, extra: Optional[Dict[str, Any]] = None,
              fingerprint: str = "") -> None:
         if self.mesh is not None:
-            from repro_torch.core.local_sgd import gather_replicas
-            state = gather_replicas(state, self.mesh, self.axis)
+            if self.axis is not None:
+                from repro_torch.core.local_sgd import gather_replicas
+                state = gather_replicas(state, self.mesh, self.axis)
             if self.mesh.rank() != 0:
-                self._barrier()
+                self.barrier()
                 return
         # copy to the host *before* any thread handoff so the caller can
         # keep changing device state
@@ -105,7 +109,7 @@ class CheckpointManager:
         if self.mesh is not None:
             # rank 0 writes while the others wait at the barrier
             self._write(step, leaves, extra, fingerprint)
-            self._barrier()
+            self.barrier()
         elif self.cfg.async_write:
             t = threading.Thread(
                 target=self._write, args=(step, leaves, extra, fingerprint),
@@ -154,7 +158,9 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:09d}"),
                           ignore_errors=True)
 
-    def _barrier(self) -> None:
+    def barrier(self) -> None:
+        """Every rank of the mesh waits here for the others (rank 0 after
+        its write)."""
         import torch.distributed as dist
         dist.barrier()
 
@@ -207,7 +213,7 @@ class CheckpointManager:
         state = unflatten([_from_numpy(arrays[k], manifest["dtypes"][k], like,
                                        device)
                            for k, like in zip(keys, flat)])
-        if self.mesh is not None:
+        if self.mesh is not None and self.axis is not None:
             from repro_torch.core.local_sgd import scatter_replicas
             state = scatter_replicas(state, self.mesh, self.axis)
         return state, manifest.get("extra", {})

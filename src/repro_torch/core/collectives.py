@@ -24,6 +24,10 @@ a host buffer, the op runs there, and the result is copied back.
 Every staged call is counted in :data:`STAGED` under its op's name; nothing
 retries an op elsewhere after a failure.
 
+Decisions that every rank must take alike (the ladder's next H, a restart
+after a fault on one rank) go through :func:`agree`, one small all-reduce
+that raises where the ranks differ; times go through :func:`max_over`.
+
 ``async_op=True`` issues a collective and returns a :class:`Deferred`, whose
 ``wait()`` finishes it (the reference lets XLA schedule a collective whose
 output feeds only carried state under the next block's compute; here the
@@ -32,7 +36,7 @@ caller waits at the next boundary).
 from __future__ import annotations
 
 from collections import Counter
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -143,7 +147,7 @@ class Group:
         one-card mean of the same rows (an all-reduce would sum in the
         order of its ring). The price: each rank takes in (K − 1) copies of
         x, where the reference's ``psum`` all-reduce takes in 2(K − 1)/K,
-        and holds K of them (ROADMAP §1 item 9(b))."""
+        and holds K of them (ROADMAP §1 item 9)."""
         pending = self.gather(x, async_op=True)
         out = pending.then(lambda g: g.mean(dim=0, keepdim=True))
         return out if async_op else out.wait()
@@ -232,3 +236,30 @@ def max_over(values: Sequence[float], group=None) -> Tuple[float, ...]:
     t = torch.tensor(list(values), dtype=torch.float64, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return tuple(t.tolist())
+
+
+class Disagreement(RuntimeError):
+    """Ranks that must take one decision hold different values."""
+
+
+def agree(values: Dict[str, float], group=None,
+          maxes: Sequence[float] = ()) -> Tuple[float, ...]:
+    """Check that every rank of ``group`` (the world by default) holds the
+    same ``values`` (a few host numbers by name: a decision all ranks must
+    take alike) and return ``maxes``' max over the ranks. One all-reduce
+    (MAX of the values, of their negations and of ``maxes``) gives each
+    value's max and min; where they differ it raises
+    :class:`Disagreement` on every rank, naming the values."""
+    names = list(values)
+    vals = [float(values[n]) for n in names]
+    got = max_over(vals + [-v for v in vals] + [float(m) for m in maxes],
+                   group)
+    n = len(vals)
+    split = {name: (-got[n + i], got[i]) for i, name in enumerate(names)
+             if got[i] != -got[n + i]}
+    if split:
+        raise Disagreement(
+            "the ranks disagree: " + ", ".join(
+                f"{name} ranges from {lo:g} to {hi:g}"
+                for name, (lo, hi) in split.items()))
+    return got[2 * n:]

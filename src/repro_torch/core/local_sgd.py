@@ -293,7 +293,8 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
                  "step": step}, metrics)
 
     if telemetry is not None:
-        return timed_step(step_fn, None, telemetry, sync_clock=clock)
+        return timed_step(step_fn, None, telemetry, sync_clock=clock,
+                          mesh=mesh)
     return step_fn
 
 
@@ -353,7 +354,7 @@ def finalize_state(state, cfg: TrainConfig, mesh=None):
     return {**state, "params": flushed, "sync": new_sync}
 
 
-def ladder_switch_state(state, cfg: TrainConfig):
+def ladder_switch_state(state, cfg: TrainConfig, mesh=None):
     """Exact state for resuming the schedule at a *different* H mid-run —
     the H-ladder runtime's switch transform (layout-preserving).
 
@@ -369,16 +370,20 @@ def ladder_switch_state(state, cfg: TrainConfig):
     error feedback, where the flush is a no-op, the EF residual's replica
     mean is folded into the params (what the next sync's average would have
     spread to every replica) and the buffer zeroed. The state given is left
-    as it was; a returned leaf may be one of its tensors.
+    as it was; a returned leaf may be one of its tensors. With a ``mesh``
+    the state is this rank's replica and every replica mean is over the
+    replica axis (the same stacked mean as one process's, so the switched
+    state is bitwise the one-process switch's row for this replica).
     """
     sync = state["sync"]
     if (cfg.sync.overlap == "none" and cfg.sync.topology == "all"
             and "ef" in sync):
-        params = T.map(lambda p, e: (p.float() + e.mean(dim=0, keepdim=True))
-                       .to(p.dtype), state["params"], sync["ef"])
+        rep = CL.replicas(mesh, cfg.mesh.replica_axis or "pod")
+        params = T.map(lambda p, e: (p.float() + rep.mean(e)).to(p.dtype),
+                       state["params"], sync["ef"])
         state = {**state, "params": params,
                  "sync": {**sync, "ef": T.map(torch.zeros_like, sync["ef"])}}
-    state = finalize_state(state, cfg)
+    state = finalize_state(state, cfg, mesh)
     new_sync = dict(state["sync"])
     for counter in ("chunk_idx", "gossip_round"):
         if counter in new_sync:
@@ -427,7 +432,8 @@ class SyncClock:
 
 
 def timed_step(step_fn: Callable, h: Optional[int], telemetry, *,
-               sync_clock: Optional[SyncClock] = None) -> Callable:
+               sync_clock: Optional[SyncClock] = None,
+               mesh=None) -> Callable:
     """Wrap a (state, batch) step with the block-time telemetry hook.
 
     The timer brackets the host-side call and waits for the card on the
@@ -440,7 +446,11 @@ def timed_step(step_fn: Callable, h: Optional[int], telemetry, *,
     goes in beside it and the split is exact. The reference's ``jit_step``
     parameter is gone: the port has no jit, so the step is timed as it is
     (the reference's ``jit_step=False``). The telemetry's warmup discards
-    the first sample, inflated by a first kernel load.
+    the first sample, inflated by a first kernel load. With a ``mesh`` the
+    block wall and the sync seconds are each the max over the world's ranks
+    (one all-reduce a block, :func:`repro_torch.core.collectives.max_over`),
+    so every rank's telemetry holds the same samples: the world's block, as
+    slow as its slowest rank, as the reference's one controller sees it.
     """
     def timed(state, batch):
         t0 = time.perf_counter()
@@ -448,6 +458,10 @@ def timed_step(step_fn: Callable, h: Optional[int], telemetry, *,
         wait(out[0]["params"])
         wall = time.perf_counter() - t0
         sync_s = sync_clock.take() if sync_clock is not None else None
+        if mesh is not None:
+            wall, sync_s = CL.max_over(
+                [wall, -1.0 if sync_s is None else sync_s])
+            sync_s = None if sync_s < 0 else sync_s
         steps = h if h is not None else next(iter(batch.values())).shape[0]
         telemetry.record_block(steps, wall, sync_s)
         return out

@@ -99,7 +99,17 @@ def init_from_env(backend: str, device=None,
                   timeout_s: float = 1800.0) -> torch.device:
     """Join the world ``torchrun`` started (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``); returns the rank's
-    device."""
+    device. A process that has joined its world already (a rank that
+    :func:`spawn` started) stays in it: its device is returned, and
+    ``backend`` and ``device``'s type must be its own."""
+    if dist.is_initialized():
+        dev = rank_device()
+        if dist.get_backend() != backend or (
+                device is not None and torch.device(device).type != dev.type):
+            raise ValueError(f"this rank joined its world with "
+                             f"{dist.get_backend()} on {dev}, not {backend} "
+                             f"on {device}")
+        return dev
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     dev = _default_device(int(os.environ.get("LOCAL_RANK", rank)), device)
     _join(backend, dev, rank, world, timeout_s, init_method="env://")

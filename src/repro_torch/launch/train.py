@@ -19,9 +19,10 @@ hierarchical``):
         --set sync.strategy=periodic --set sync.period=2
 
 Rank 0 prints the JSON line. The adaptive H ladder and the fault-tolerant
-restarts across ranks wait for a later slice (ROADMAP §1 item 9(b)): with
-``--backend``, ``sync.adaptive=true`` on a replica strategy raises
-ValueError.
+restarts run across ranks too: every rank's controller sees the world's
+block times and the ranks agree on each move of H; a fault on one rank
+restarts every rank (:mod:`repro_torch.runtime.ft`). Under
+``hierarchical`` the ladder moves H for the ``pod`` replicas.
 
 Under a replica strategy one step is one block of ``sync.period`` local
 steps on every replica, then a sync. The K replicas are the replica axis of
@@ -99,19 +100,22 @@ def _block_kernels(cfg: TrainConfig, dev: torch.device, quant_impl: str):
 
 
 def _build_ladder(cfg: TrainConfig, model, dev: torch.device, telemetry,
-                  counter, replicas: int, quant_impl: str):
+                  counter, replicas: int, quant_impl: str, mesh=None):
     """Ladder warmup: every kernel the block reaches built and loaded (the
     int8 sync's quant kernel, on the card), a rung per H (the block timed
     into the telemetry at the H of its batch, with its sync's time), the
     switch transform, and the controller in ladder mode. ``counter.mark()``
-    closes the warmup window the zero-compiles check measures from."""
+    closes the warmup window the zero-compiles check measures from. With a
+    ``mesh`` a rung takes this rank's rows and syncs over the mesh, the
+    switch's means are over its replica axis, and the ranks agree on every
+    move."""
     from repro_torch.core.autotune import DCN_BW, AdaptiveController
     from repro_torch.runtime.ladder import LadderRuntime, compile_rungs
 
     rungs = cfg.sync.ladder_rungs()
-    sample = DataPipeline(cfg.data, cfg.model).next_host()
+    sample = DataPipeline(cfg.data, cfg.model, mesh=mesh).next_host()
     block = LS.make_local_sgd_block(model, cfg, quant_impl=quant_impl,
-                                    telemetry=telemetry)
+                                    telemetry=telemetry, mesh=mesh)
     warmed = compile_rungs(block, sample, rungs,
                            kernels=_block_kernels(cfg, dev, quant_impl))
     ctrl = AdaptiveController(
@@ -120,8 +124,8 @@ def _build_ladder(cfg: TrainConfig, model, dev: torch.device, telemetry,
         lr=cfg.optimizer.learning_rate, telemetry=telemetry, ladder=rungs)
     counter.mark()
     return LadderRuntime(
-        warmed, lambda s: LS.ladder_switch_state(s, cfg), ctrl,
-        telemetry=telemetry, device=dev, compile_counter=counter)
+        warmed, lambda s: LS.ladder_switch_state(s, cfg, mesh), ctrl,
+        telemetry=telemetry, device=dev, compile_counter=counter, mesh=mesh)
 
 
 def build_trainer(cfg: TrainConfig,
@@ -155,9 +159,11 @@ def build_trainer(cfg: TrainConfig,
     device its own) each rank holds one replica: the state is this rank's
     share (:func:`repro_torch.core.local_sgd.scatter_replicas` of the
     one-process state, the same draw), ``make_pipeline`` yields this
-    rank's rows, and the step syncs over the mesh. There the ladder waits
-    for a later slice: ``sync.adaptive`` on a replica strategy raises
-    ValueError.
+    rank's rows, and the step syncs over the mesh. The ladder is then live
+    on every rank: its rungs take this rank's rows, every rank's telemetry
+    holds the world's block times (the max over the ranks) and the ranks
+    agree on each move of H, which is the mesh's replica-axis size's own
+    (the ``pod`` replicas under ``hierarchical``).
     """
     dev = resolve_device(device if device is not None else
                          mesh.device if mesh is not None else "cuda")
@@ -170,11 +176,6 @@ def build_trainer(cfg: TrainConfig,
     replicas = (cfg.mesh.axis_size(cfg.mesh.replica_axis or "pod")
                 if use_replicas else 0)
     build_ladder = cfg.sync.adaptive and use_replicas
-    if build_ladder and mesh is not None:
-        raise ValueError("sync.adaptive on a replica strategy moves H over "
-                         "its ladder, which runs on one process only; the "
-                         "ladder across ranks waits for a later slice "
-                         "(ROADMAP §1 item 9(b))")
     counter = None
     if build_ladder:
         # made before any kernel is loaded, so the warmup's loads are
@@ -195,7 +196,7 @@ def build_trainer(cfg: TrainConfig,
         telemetry = BlockTelemetry()
         if build_ladder:
             ladder = _build_ladder(cfg, model, dev, telemetry, counter,
-                                   replicas, quant_impl)
+                                   replicas, quant_impl, mesh)
         else:
             step = LS.timed_step(step, 1, telemetry)
 
@@ -294,10 +295,15 @@ def main(argv=None) -> None:
     # is shared by every run on the host
     named = any(o.split("=", 1)[0].strip() == "checkpoint.directory"
                 for o in args.overrides)
-    ckpt = CheckpointManager(cfg.checkpoint, mesh=mesh) if named else None
+    # across ranks rank 0 writes: the replicas gathered, or DDP's state,
+    # the same on every rank, as it is
+    axis = ((cfg.mesh.replica_axis or "pod")
+            if SY.needs_replica_axis(cfg.sync) else None)
+    ckpt = (CheckpointManager(cfg.checkpoint, mesh=mesh, axis=axis)
+            if named else None)
     runner = StepRunner(step, ckpt, cfg.fault, cfg.checkpoint.interval_steps,
                         make_pipeline, fingerprint=config_fingerprint(cfg),
-                        ladder=ladder)
+                        ladder=ladder, mesh=mesh)
     t0 = time.perf_counter()
     state, final_step = runner.run(state, 0, cfg.steps)
     if ckpt is not None:

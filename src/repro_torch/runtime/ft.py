@@ -22,6 +22,29 @@ then: the runner keeps its own copy of it on the host, and of the ladder's
 rung, until its first checkpoint (only when ``max_restarts > 0``). With no
 checkpoint manager (``ckpt_manager=None``) nothing is written, and every
 restart goes back to that copy.
+
+Across ranks (``mesh=``, each rank one replica of the state, its collectives
+over the mesh) a fault on one rank restarts every rank. Before each step
+every rank runs its injector, catches its :class:`SimulatedFault` into a
+flag, and the flags go through one all-reduce
+(:func:`repro_torch.core.collectives.agree`, which also checks that the
+ranks are at the same step): if any rank faulted, every rank restores, and
+none enters the step's collectives alone. So ``restarts`` is the same on
+every rank, and passing ``max_restarts`` raises on every rank. After the
+run's first checkpoint every rank restores rank 0's file (the manager's
+gather and scatter, ``CheckpointManager(mesh=)``); before it, each rank goes
+back to its own host copy of its replica. The watchdog judges each step by
+its elapsed time's max over the ranks (a step waits for its slowest rank),
+so every rank records the same stragglers. A rank's clock starts before the
+flag's all-reduce: a rank held up before the step is the others' wait there.
+
+An exception raised inside ``step_fn`` is not agreed, a
+:class:`SimulatedFault` included (the other ranks are in the step's
+collectives and cannot hear of it): with a mesh it propagates, and the
+launcher stops the other ranks (:func:`repro_torch.launch.mesh.spawn`), as
+the reference re-raises anything that is not a ``SimulatedFault``. On one
+process a ``SimulatedFault`` from ``step_fn`` restores as an injected one
+does.
 """
 from __future__ import annotations
 
@@ -32,6 +55,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.config.base import FaultToleranceConfig
+from repro_torch.core import collectives as CL
 from repro_torch.device import wait
 
 
@@ -92,13 +116,15 @@ class StepRunner:
     it is given in place. ``make_pipeline(start_step) -> iterator`` rebuilds
     the data pipeline at a cursor — the restore path uses it to resume data
     exactly where the checkpoint was taken. ``ckpt_manager`` may be None:
-    no checkpoints.
+    no checkpoints. With a ``mesh`` (see the module docstring) every rank
+    runs a runner over its replica, its ``ckpt_manager`` made with the same
+    mesh; ``fault_cfg`` may differ between ranks in what it injects only.
     """
 
     def __init__(self, step_fn: Callable, ckpt_manager,
                  fault_cfg: FaultToleranceConfig, ckpt_interval: int,
                  make_pipeline: Callable[[int], Any], fingerprint: str = "",
-                 ladder=None):
+                 ladder=None, mesh=None):
         self.step_fn = step_fn
         self.ckpt = ckpt_manager
         self.cfg = fault_cfg
@@ -111,6 +137,7 @@ class StepRunner:
         # rungs, and the (flushed) state continues under the new rung with
         # the data pipeline re-blocked at the new H from its cursor
         self.ladder = ladder
+        self.mesh = mesh
         self.watchdog = StragglerWatchdog(fault_cfg.step_deadline_sec)
         self.injector = FaultInjector(fault_cfg)
         self.restarts = 0
@@ -143,11 +170,13 @@ class StepRunner:
                     break
                 step_fn = (self.ladder.step_fn if self.ladder is not None
                            else self.step_fn)
+                t0 = None
                 try:
-                    self.injector.before_step(step)
-                    t0 = time.perf_counter()
+                    t0 = self._before_step(step)
                     state, metrics = step_fn(state, batch)
                 except SimulatedFault:
+                    if self.mesh is not None and t0 is not None:
+                        raise       # raised inside the step: not agreed
                     self.restarts += 1
                     if self.restarts > self.cfg.max_restarts:
                         raise
@@ -155,6 +184,8 @@ class StepRunner:
                     continue
                 wait(metrics)
                 elapsed = time.perf_counter() - t0
+                if self.mesh is not None:
+                    (elapsed,) = CL.max_over([elapsed])
                 straggled = self.watchdog.check(step, elapsed)
                 self.metrics_log.append(
                     {"step": step, "elapsed": elapsed, "straggled": straggled,
@@ -164,6 +195,27 @@ class StepRunner:
         finally:
             self._start = None
         return state, step
+
+    def _before_step(self, step: int) -> float:
+        """The injector before ``step``, then the step's start on this
+        rank's clock; with a mesh the ranks agree on the step and on
+        whether any of them faulted. Raises the fault (with a mesh, on every
+        rank if any faulted)."""
+        fault = None
+        try:
+            self.injector.before_step(step)
+        except SimulatedFault as exc:
+            fault = exc
+        t0 = time.perf_counter()
+        if self.mesh is not None:
+            (faulted,) = CL.agree({"step": step},
+                                  maxes=[float(fault is not None)])
+            if faulted and fault is None:
+                fault = SimulatedFault(f"a fault on another rank before "
+                                       f"step {step}")
+        if fault is not None:
+            raise fault
+        return t0
 
     def _after_block(self, state, step: int, pipeline):
         """The ladder's move, then the checkpoint: a move that falls on a
@@ -192,6 +244,8 @@ class StepRunner:
             return (_place_like(host, like_state), start,
                     self.make_pipeline(start))
         self.ckpt.wait()
+        if self.mesh is not None:
+            self.ckpt.barrier()    # rank 0's file is whole for every rank
         latest = self.ckpt.latest_step()
         state, extra = self.ckpt.restore(
             like_state, expected_fingerprint=self.fingerprint)

@@ -25,6 +25,15 @@ first use (:mod:`repro_torch.kernels.nvcc`). So:
   ladder's warmup the whole adaptive run (blocks, switches, checkpoints)
   must add none.
 
+On one process, or on every rank of a mesh (``mesh=``, one replica a
+rank). Across ranks each rank runs its own controller over the same
+samples: the timed rungs record the world's block, each time the max over
+the ranks (:func:`repro_torch.core.local_sgd.timed_step`), so every
+controller re-solves to the same H; before any switch the ranks
+:func:`~repro_torch.core.collectives.agree` on it, and a rank whose
+controller went elsewhere makes every rank raise. The switch's replica
+means are over the mesh's replica axis.
+
 The rungs stay eager: a rung as one CUDA graph per H is ROADMAP §1 item 19.
 The runtime is host-driven and knows nothing about the model, only about
 (state, batch) callables; the SVM path gets the same treatment from
@@ -37,6 +46,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core import collectives as CL
 from repro_torch.kernels import nvcc
 
 
@@ -115,13 +125,15 @@ class LadderRuntime:
     and the runner re-blocks the data pipeline (:attr:`h` is the current
     rung). ``trajectory`` records every ``(block, H)`` transition,
     including the start. ``device`` is where the rungs' state lives
-    (:meth:`place`).
+    (:meth:`place`). With a ``mesh`` every rank holds one and
+    :meth:`on_block` and :meth:`to_dict` are collectives every rank calls.
     """
 
     def __init__(self, rungs: Dict[int, Callable], switch_fn: Callable,
                  controller, telemetry=None,
                  device: Union[str, torch.device, None] = None,
-                 compile_counter: Optional[CompileCounter] = None):
+                 compile_counter: Optional[CompileCounter] = None,
+                 mesh=None):
         if controller.h not in rungs:
             raise ValueError(
                 f"controller start rung {controller.h} not in compiled "
@@ -132,6 +144,7 @@ class LadderRuntime:
         self.telemetry = telemetry
         self.device = None if device is None else torch.device(device)
         self.compile_counter = compile_counter
+        self.mesh = mesh
         self.blocks = 0
         self.switches = 0
         self.trajectory: List[Tuple[int, int]] = [(0, controller.h)]
@@ -149,13 +162,18 @@ class LadderRuntime:
 
         Returns ``(state, switched)``; on a switch the state has been
         flushed and re-seeded by the switch transform and the caller must
-        re-block its data pipeline at the new :attr:`h`.
+        re-block its data pipeline at the new :attr:`h`. With a mesh the
+        ranks agree on the block count and the new H first (one small
+        all-reduce) and raise :class:`~repro_torch.core.collectives
+        .Disagreement` where they differ.
         """
         self.blocks += 1
         h_prev = self.controller.h
         # the timing already landed in the shared telemetry through the
         # timed rungs; this only advances the re-solve cadence
         self.controller.observe_block()
+        if self.mesh is not None:
+            CL.agree({"ladder block": self.blocks, "H": self.controller.h})
         if self.controller.h != h_prev:
             state = self.switch_fn(state)
             self.switches += 1
@@ -194,6 +212,8 @@ class LadderRuntime:
                      if isinstance(x, torch.Tensor) else x, state)
 
     def to_dict(self) -> dict:
+        """The run's summary; with a mesh also ``ranks``, and the compile
+        counts are the max over the ranks."""
         out = {
             "ladder": sorted(self.rungs),
             "h": self.h,
@@ -201,9 +221,14 @@ class LadderRuntime:
             "switches": self.switches,
             "h_trajectory": [list(t) for t in self.trajectory],
         }
+        if self.mesh is not None:
+            out["ranks"] = self.mesh.size()
         if self.compile_counter is not None:
-            out["compiles_total"] = self.compile_counter.count
-            out["compiles_after_warmup"] = self.compile_counter.since_mark
+            counts = (self.compile_counter.count,
+                      self.compile_counter.since_mark)
+            if self.mesh is not None:
+                counts = tuple(int(c) for c in CL.max_over(counts))
+            out["compiles_total"], out["compiles_after_warmup"] = counts
         if self.telemetry is not None:
             out["telemetry"] = self.telemetry.to_dict()
         return out

@@ -357,12 +357,14 @@ def test_mesh_must_match_the_replicas():
 
 
 def test_adaptive_ladder_refuses_a_mesh():
-    """The H ladder runs on one process: ``sync.adaptive`` on a replica
-    strategy with a mesh raises, on its rank and in the caller of
-    ``spawn``, rather than run a fixed H."""
-    with pytest.raises(ValueError, match="ladder"):
-        M.spawn(R.adaptive_on_a_mesh, 1, backend="gloo", device="cpu",
-                args=(_model_cfgs()[1],), timeout_s=300)
+    """The H ladder runs across ranks: ``sync.adaptive`` on a replica
+    strategy with a mesh gives a live ladder on every rank. It refuses a
+    mesh whose replica axis does not hold the config's replicas, rather
+    than run another K."""
+    (got,) = M.spawn(R.adaptive_on_a_mesh, 1, backend="gloo", device="cpu",
+                     args=(_model_cfgs()[1],), timeout_s=300)
+    assert got[1] == (True, [1, 2], 1)
+    assert "has 1 ranks, but the config has 2 replicas" in got[2]
 
 
 def test_train_cli_on_cpu(capsys):

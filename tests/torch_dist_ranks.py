@@ -271,14 +271,362 @@ def mismatched_mesh(model_cfg):
 
 
 def adaptive_on_a_mesh(model_cfg):
-    """``sync.adaptive`` on a replica strategy with a mesh: the ladder runs
-    on one process only, so ``build_trainer`` raises."""
+    """``sync.adaptive`` on a replica strategy with a mesh: on a mesh whose
+    replica axis holds the config's replicas ``build_trainer`` returns a
+    live ladder (its rungs, and its summary naming the ranks); on one that
+    does not it raises (the error is returned)."""
     from repro_torch.config import MeshConfig, SyncConfig, TrainConfig
     from repro_torch.launch.train import build_trainer
+    from repro_torch.runtime import LadderRuntime
     mesh = M.make_mesh((1,), ("pod",))
+    out = {}
+    for k in (1, 2):
+        cfg = TrainConfig(model=model_cfg,
+                          mesh=MeshConfig(shape=(k,), axis_names=("pod",),
+                                          replica_axis="pod"),
+                          sync=SyncConfig(strategy="periodic", period=2,
+                                          adaptive=True, adapt_ladder=(1, 2)))
+        try:
+            ladder = build_trainer(cfg, mesh=mesh)[-1]
+        except ValueError as exc:
+            out[k] = str(exc)
+            continue
+        out[k] = (isinstance(ladder, LadderRuntime), sorted(ladder.rungs),
+                  ladder.to_dict()["ranks"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the adaptive MSF path across ranks: the H ladder and the fault runner
+# ---------------------------------------------------------------------------
+
+class Scripted:
+    """A controller whose moves are a script {block: H} (``per_rank``: a
+    script of each rank's own)."""
+
+    def __init__(self, h0, script):
+        self.h = h0
+        self.script = dict(script)
+        self._blocks = 0
+        self.history = [(0, h0)]
+
+    def observe_block(self, **_kw):
+        self._blocks += 1
+        if self._blocks in self.script:
+            self.h = self.script[self._blocks]
+            self.history.append((self._blocks, self.h))
+        return self.h
+
+
+def _rows(tree, lo, per, axis):
+    """Rows ``[lo, lo + per)`` of every leaf along ``axis``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        np.take(v, np.arange(lo, lo + per), axis=axis)))
+        for k, v in tree.items()}
+
+
+def drive_ladder(ladder, state, blocks, mesh=None, axis=None):
+    """``blocks`` (H, B, …) dicts through the ladder's rungs, the switch
+    where H changes: (state, losses, the state gathered before and after
+    the switch). With a mesh each block is this rank's rows, and the
+    states are gathered over ``axis``."""
+    from repro_torch.core import local_sgd as LS
+
+    def whole(s):
+        # copies: a later block steps the moments of its input in place
+        s = LS.gather_replicas(s, mesh, axis) if mesh is not None else s
+        return T.map(np.copy, _np({k: s[k] for k in ("params", "opt",
+                                                     "sync")}))
+
+    losses, pre, switched = [], None, None
+    for b, block in enumerate(blocks):
+        h = next(iter(block.values())).shape[0]
+        if h != ladder.h:
+            pre = whole(state)
+            state = ladder.switch_fn(state)
+            switched = whole(state)
+            ladder.controller.h = h
+        state, metrics = ladder.rungs[h](state, block)
+        losses.append(float(metrics["loss"]))
+    return state, losses, pre, switched, whole
+
+
+class _FakeClock:
+    """``time`` for ``local_sgd.timed_step``: each block's first reading
+    is the last one's end, its second that plus ``wall``."""
+
+    def __init__(self):
+        self.t, self.wall, self._open = 0.0, 0.0, False
+
+    def perf_counter(self):
+        if self._open:
+            self.t += self.wall
+        self._open = not self._open
+        return self.t
+
+
+def skewed_controllers(mesh, step_s, sync_s, blocks):
+    """Each rank's block wall ``step_s[r]·H + sync_s[r]`` and sync
+    ``sync_s[r]`` through ``timed_step`` into its telemetry and a ladder
+    (1, 2, 4) controller of its own: the ranks' trajectories and the
+    samples the telemetry recorded (the max over the ranks)."""
+    from repro_torch.config import SyncConfig
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.core.autotune import AdaptiveController
+    from repro_torch.core.telemetry import BlockTelemetry
+    from repro_torch.runtime import LadderRuntime
+    r = mesh.rank()
+    clock, real = _FakeClock(), LS.time
+    tel = BlockTelemetry()
+    cfg = SyncConfig(strategy="periodic", period=2, adaptive=True,
+                     adapt_ladder=(1, 2, 4), adapt_every=2)
+    ctrl = AdaptiveController(cfg, param_bytes_per_chip=1 << 20, replicas=4,
+                              telemetry=tel, ladder=(1, 2, 4))
+
+    class _Sync:
+        def take(self):
+            return sync_s[r]
+
+    def step(state, batch):
+        clock.wall = step_s[r] * batch["tokens"].shape[0] + sync_s[r]
+        return state, {}
+
+    timed = LS.timed_step(step, None, tel, sync_clock=_Sync(), mesh=mesh)
+    ladder = LadderRuntime({h: timed for h in (1, 2, 4)}, lambda s: s, ctrl,
+                           telemetry=tel, mesh=mesh)
+    samples = []
+    record = tel.record_block
+    tel.record_block = lambda h, w, s=None: (samples.append((h, w, s)),
+                                             record(h, w, s))[1]
+    LS.time = clock
+    try:
+        state = {"params": torch.zeros(1)}
+        for _ in range(blocks):
+            state, _ = ladder.step_fn(state, {"tokens":
+                                              torch.zeros(ladder.h, 1)})
+            state, _ = ladder.on_block(state)
+    finally:
+        LS.time = real
+    return {"trajectory": ladder.trajectory, "samples": samples}
+
+
+def disagreeing_controllers(mesh):
+    """Rank 0's controller moves to H = 1 after the first block, the
+    others' stay at 2: every rank raises at that block's agreement."""
+    from repro_torch.core.collectives import Disagreement
+    from repro_torch.runtime import LadderRuntime
+    script = {1: 1} if mesh.rank() == 0 else {}
+    ladder = LadderRuntime({1: None, 2: None}, lambda s: s,
+                           Scripted(2, script), mesh=mesh)
+    try:
+        ladder.on_block({})
+    except Disagreement as exc:
+        return str(exc)
+    return None
+
+
+def ladder_runs(init, blocks, model_cfg, opt, data, cli_argv):
+    """On 4 ranks: (1) ``build_trainer``'s ladder on a 4-rank ``data``
+    replica axis from the reference's initial state, 3 blocks at H = 2,
+    the switch, 2 at H = 4 (each rank its rows of the reference's
+    blocks); (2) the same on a (pod 2, data 2) mesh under
+    ``hierarchical`` from the seeded state; (3) skewed per-rank timings
+    through each rank's controller; (4) controllers that disagree; (5) the
+    CLI, whose end leaves the world."""
+    import contextlib
+    import io
+    from repro_torch import interop
+    from repro_torch.config import (DataConfig, MeshConfig, OptimizerConfig,
+                                    SyncConfig, TrainConfig)
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.launch import train as ttrain
+    torch.set_num_threads(1)
+    out = {}
+    mesh = M.make_mesh((4,), ("data",))
+    r = mesh.rank()
+    sync = SyncConfig(strategy="periodic", period=2, compression="int8",
+                      adaptive=True, adapt_ladder=(2, 4))
     cfg = TrainConfig(model=model_cfg,
-                      mesh=MeshConfig(shape=(1,), axis_names=("pod",),
-                                      replica_axis="pod"),
-                      sync=SyncConfig(strategy="periodic", period=2,
-                                      adaptive=True, adapt_ladder=(1, 2)))
-    build_trainer(cfg, mesh=mesh)
+                      mesh=MeshConfig(shape=(4, 1), axis_names=("data",
+                                                                "model"),
+                                      replica_axis="data"),
+                      sync=sync, optimizer=OptimizerConfig(**opt),
+                      data=DataConfig(**data))
+    _, _, _, _, _, ladder = ttrain.build_trainer(cfg, "cpu", mesh)
+    state = LS.scatter_replicas(interop.lm_train_state_from_jax(
+        {"opt": {}, "sync": {}, **init}, cfg), mesh, "data")
+    per = data["global_batch"] // 4
+    mine = [_rows(b, r * per, per, 1) for b in blocks]
+    state, losses, pre, switched, whole = drive_ladder(ladder, state, mine,
+                                                       mesh, "data")
+    try:
+        ladder.rungs[2](state, mine[-1])
+        refused = False
+    except ValueError:
+        refused = True
+    out["ladder"] = dict(losses=losses, pre=pre, switched=switched,
+                         final=whole(state), step=state["step"],
+                         summary=ladder.to_dict(), refused=refused)
+
+    mesh22 = M.make_mesh((2, 2), ("pod", "data"))
+    hcfg = TrainConfig(model=model_cfg,
+                       mesh=MeshConfig(shape=(2, 2), axis_names=("pod",
+                                                                 "data"),
+                                       replica_axis="pod"),
+                       sync=SyncConfig(strategy="hierarchical", period=2,
+                                       compression="int8", adaptive=True,
+                                       adapt_ladder=(2, 4)),
+                       optimizer=OptimizerConfig(**opt),
+                       data=DataConfig(**data))
+    _, state, _, _, _, hladder = ttrain.build_trainer(hcfg, "cpu", mesh22)
+    mine = [_rows(b, r * per, per, 1) for b in blocks]
+    state, losses, _, _, whole = drive_ladder(hladder, state, mine, mesh22,
+                                              "pod")
+    out["hierarchical"] = dict(losses=losses, final=whole(state),
+                               summary=hladder.to_dict())
+
+    out["skewed"] = skewed_controllers(
+        mesh, step_s=[0.01, 0.01, 0.01, 0.01],
+        sync_s=[0.001, 0.001, 0.001, 2.0], blocks=4)
+    out["disagree"] = disagreeing_controllers(mesh)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ttrain.main(cli_argv)
+    out["cli"] = buf.getvalue()
+    return out
+
+
+def _fault_cfg(kind, r, steps, straggle_s):
+    """Each rank's fault config for a run: the fault or straggle on rank 1
+    only."""
+    from repro_torch.config import FaultToleranceConfig
+    if kind == "exhausted":
+        return FaultToleranceConfig(max_restarts=0,
+                                    inject_failure_at=1 if r == 1 else -1)
+    if kind == "straggle":
+        return FaultToleranceConfig(
+            step_deadline_sec=straggle_s / 2,
+            inject_straggle_sec=straggle_s if r == 1 else 0.0,
+            inject_failure_at=steps if r == 1 else -1)
+    fail_at = int(kind[len("fault@"):]) if kind.startswith("fault@") else -1
+    return FaultToleranceConfig(inject_failure_at=fail_at if r == 1 else -1)
+
+
+def fault_runs(cfg, kinds, steps, ckpt_root, straggle_s):
+    """``StepRunner`` over a scripted ladder (2 → 1 after block 2, 1 → 2
+    after block 3), checkpoints every 3 blocks, on a 4-rank ``pod`` mesh,
+    once for each of ``kinds``: a run without a fault, ``fault@N`` (a
+    fault on rank 1 before step N), ``straggle`` (rank 1 held up before
+    the last step) and ``exhausted`` (a fault on rank 1 with no restart
+    allowed). Returns each run's gathered final state, restarts, watchdog
+    events, checkpoint writes and what was raised."""
+    import os
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import CheckpointConfig, config_fingerprint
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import train as ttrain
+    from repro_torch.runtime import LadderRuntime, StepRunner
+    from repro_torch.runtime.ft import SimulatedFault
+    torch.set_num_threads(1)
+    mesh = M.make_mesh((4,), ("pod",))
+    r = mesh.rank()
+    out = {}
+    for kind in kinds:
+        step, state, _, _, tel, live = ttrain.build_trainer(cfg, "cpu", mesh)
+        ladder = LadderRuntime(live.rungs, live.switch_fn,
+                               Scripted(2, {2: 1, 3: 2}), telemetry=tel,
+                               device="cpu",
+                               compile_counter=live.compile_counter,
+                               mesh=mesh)
+
+        def blocked(start, ladder=ladder):
+            return ttrain._Blocked(DataPipeline(cfg.data, cfg.model,
+                                                start_step=start, mesh=mesh),
+                                   ladder.h)
+
+        ckpt = CheckpointManager(CheckpointConfig(
+            directory=os.path.join(ckpt_root, kind), interval_steps=3),
+            mesh=mesh)
+        writes = []
+        write = ckpt._write
+        ckpt._write = lambda s, *a: (writes.append(s), write(s, *a))[1]
+        runner = StepRunner(step, ckpt, _fault_cfg(kind, r, steps,
+                                                   straggle_s), 3, blocked,
+                            fingerprint=config_fingerprint(cfg),
+                            ladder=ladder, mesh=mesh)
+        raised = None
+        try:
+            state, end = runner.run(state, 0, steps)
+        except SimulatedFault as exc:
+            raised, end = str(exc), None
+        got = dict(end=end, restarts=runner.restarts, raised=raised,
+                   events=runner.watchdog.events, writes=writes,
+                   trajectory=ladder.trajectory,
+                   losses=[(m["step"], m["loss"])
+                           for m in runner.metrics_log])
+        if raised is None:
+            whole = LS.gather_replicas(state, mesh)
+            got["final"] = _np({k: whole[k] for k in ("params", "opt",
+                                                      "sync")})
+            got["step"] = whole["step"]
+        out[kind] = got
+    out["ddp"] = _ddp_fault_runs(mesh, cfg, ckpt_root)
+    return out
+
+
+def _ddp_fault_runs(mesh, cfg, ckpt_root):
+    """Data parallelism (every rank the same state) through ``StepRunner``
+    with rank-0 checkpoints every 2 steps, without a fault and with one on
+    rank 1 before step 3: each run's final params and restarts."""
+    import dataclasses
+    import os
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import (CheckpointConfig, FaultToleranceConfig,
+                                    SyncConfig)
+    from repro_torch.launch import train as ttrain
+    from repro_torch.runtime import StepRunner
+    cfg = dataclasses.replace(cfg, sync=SyncConfig())
+    out = {}
+    for fail_at in (-1, 3):
+        step, state, make_pipeline, _, _, _ = ttrain.build_trainer(
+            cfg, "cpu", mesh)
+        ckpt = CheckpointManager(CheckpointConfig(
+            directory=os.path.join(ckpt_root, f"ddp{fail_at}")),
+            mesh=mesh, axis=None)
+        runner = StepRunner(step, ckpt, FaultToleranceConfig(
+            inject_failure_at=fail_at if mesh.rank() == 1 else -1), 2,
+            make_pipeline, mesh=mesh)
+        state, end = runner.run(state, 0, 4)
+        out[fail_at] = dict(end=end, restarts=runner.restarts,
+                            params=_np(state["params"]),
+                            files=ckpt.all_steps())
+    return out
+
+
+def fault_inside_the_step(with_mesh):
+    """A ``SimulatedFault`` raised inside the second step's ``step_fn``: on
+    a 1-rank mesh it propagates; on one process the runner restores its
+    start state and runs on (returns restarts and the final w)."""
+    from repro_torch.config import (DataConfig, FaultToleranceConfig,
+                                    ModelConfig)
+    from repro_torch.data import DataPipeline
+    from repro_torch.runtime import StepRunner
+    from repro_torch.runtime.ft import SimulatedFault
+    mesh = M.make_mesh((1,), ("pod",)) if with_mesh else None
+    calls = []
+
+    def step(state, batch):
+        calls.append(1)
+        if len(calls) == 2:
+            raise SimulatedFault("inside the step")
+        return {"w": state["w"] + 1}, {"loss": torch.zeros(())}
+
+    runner = StepRunner(step, None, FaultToleranceConfig(), 1,
+                        lambda s: DataPipeline(
+                            DataConfig(seq_len=4, global_batch=2),
+                            ModelConfig(vocab_size=17), start_step=s),
+                        mesh=mesh)
+    state, _ = runner.run({"w": torch.zeros(())}, 0, 3)
+    return runner.restarts, float(state["w"])
