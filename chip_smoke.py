@@ -139,7 +139,26 @@ entry points and holds every run to its plain-version twin:
    scripted move 2 → 1, checkpoints every 3 blocks): a fault after the
    checkpoint and one before it both replay bitwise the run without one;
 9. every other sync mode (delayed, chunked, ring, pairwise, async ring,
-   int16) at smoke width, kernel path against plain path;
+   int16) at smoke width, kernel path against plain path; then phase
+   train_ssm, training the SSM and hybrid families through
+   ``build_trainer``: (t1) zamba2-1.2b at full width (38 layers, the shared
+   block after every 6), local SGD with K = 2, H = 4, the int8 sync on the
+   quant kernel and ``remat="full"``, 4 × 2,048 tokens a microbatch (2
+   sequences a replica step), 2 blocks, then the plain path from the same
+   state and batches: held as phase 8 holds smollm (losses relative 1e-3,
+   params relative L2 1e-3), the first sync's int8 payloads and scales
+   bitwise, quant launches ``2 × leaves × blocks`` (their count on a line
+   of its own), peak memory under 75 GB, with the block wall, trained
+   tokens/s, sync ms a block and one profiled block's idle share; (t2)
+   mamba2-2.7b at full width (64 layers) on one replica, every step
+   synchronized (MSF = 1), ``remat="full"``, 2 steps of 2 × 2,048 tokens:
+   finite losses, step wall, tokens/s, peak memory under 75 GB; (t3) one
+   loss and gradient at full width with the depth cut to 4 layers
+   (zamba2's to 6, the period of its shared block) under ``remat="none"``
+   against ``"full"`` (and ``"dots"`` for smollm-360m), bitwise or within
+   relative 1e-6 with the leaves named, the peak memory of each; and
+   ``ssd_chunked``'s checkpointed chunks against the unchecked loop at
+   mamba2's width, one layer, bitwise;
 10. the SSD chunk-scan kernels: the CUDA-core one (``ssd.cu``) against the
     exact recurrence at the ``TestSSD`` shapes in f32 (rtol 1e-3 / atol
     2e-4); the tensor-core one (``ssd_tc.cu``) at the same shapes in bf16
@@ -178,6 +197,7 @@ no JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -209,6 +229,11 @@ QUANT_MAIN = ((4, 32 * 960 * 2560), True)
 # later int8 value moves one step; a wrong scale or sync is O(1)
 TRAIN_LOSS_REL, TRAIN_PARAMS_REL_L2 = 1e-3, 1e-3
 TRAIN_K, TRAIN_H, TRAIN_SEQ, TRAIN_BATCH = 4, 4, 2048, 8
+# phase train_ssm: (t1) zamba2-1.2b, K = 2, H = 4, 2 sequences a replica
+# step; (t3) remat at full width, the depth cut to this many layers
+TRAIN_SSM_K, TRAIN_SSM_H, TRAIN_SSM_BATCH = 2, 4, 4
+REMAT_DEPTH = 4
+TRAIN_SSM_PEAK_GB = 75.0
 W_REL_L2, ACC_DIFF = 1e-3, 0.005
 HINGE_SHAPES = [(8, 8), (100, 22), (257, 254), (512, 2000), (64, 128), (33, 7)]
 # tests/test_kernels.py::TestFlashAttention: (b, sq, sk, h, kv, dh, causal,
@@ -355,7 +380,7 @@ def device_ms(torch, fn, arg_sets, runs: int = 21) -> float:
     return float(np.median(times))
 
 
-def device_busy(torch, fn):
+def device_busy(torch, fn, host_ops: bool = True):
     """Run ``fn()`` once under ``torch.profiler`` and return (device busy
     s, span s, device activities, top kernels, activities by name), all of
     that one run (a CUDA graph's replays show each kernel they run): busy is
@@ -364,26 +389,36 @@ def device_busy(torch, fn):
     event recorded before ``fn`` to one recorded after it, so busy/span is
     the share of that window the device worked. The profiler slows the
     host, so the idle share it gives is an upper bound of the unprofiled
-    run's."""
+    run's. ``host_ops=False`` records the device's activities alone and
+    reads the profiler's raw records (a run of hundreds of thousands of
+    kernels and millions of host operators takes the profiler minutes to
+    parse into its events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
     span = start.elapsed_time(end) * 1e-3
     by_name, counts = {}, {}
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if host_ops:
+        device = [(e.name, e.time_range.elapsed_us() * 1e-6)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA]
+    else:
+        device = [(e.name(), e.duration_ns() * 1e-9)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
     check(bool(device), "the profiler recorded no device activity")
-    for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us() * 1e-6
-        counts[e.name] = counts.get(e.name, 0) + 1
+    for name, secs in device:
+        by_name[name] = by_name.get(name, 0.0) + secs
+        counts[name] = counts.get(name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return sum(by_name.values()), span, len(device), top, counts
 
@@ -1843,8 +1878,10 @@ def quant_nonfinite(torch, dev):
 
 
 def _tree_rel_l2(torch, got, want) -> float:
+    """Relative L2 of ``got`` to ``want`` over all leaves; a leaf on the
+    host is brought to the card one at a time."""
     from repro_torch import tree as T
-    num = sum(float((a.float() - b.float()).square().sum())
+    num = sum(float((a.to(b.device).float() - b.float()).square().sum())
               for a, b in zip(T.leaves(got), T.leaves(want)))
     den = sum(float(b.float().square().sum()) for b in T.leaves(want))
     return (num / den) ** 0.5
@@ -1974,10 +2011,11 @@ def phase_train(torch, dev, model_cfg, seq_len, global_batch, replicas, h):
         f"leaves (K={replicas} rows each) bitwise equal, kernel and plain")
     del captured[:]
 
-    # one profiled block on the kernel path
-    busy = device_busy(torch, lambda: step(state, batches[-1]))
-    log_busy(f"train block (kernel path, {h} x {replicas} replica steps)",
-             *busy)
+    # one profiled block on the kernel path, its device activities alone
+    busy = device_busy(torch, lambda: step(state, batches[-1]),
+                       host_ops=False)
+    log_busy(f"train block (kernel path, {h} x {replicas} replica steps, "
+             f"the device's activities alone)", *busy)
     del state, params, step
     torch.cuda.empty_cache()
 
@@ -2307,9 +2345,11 @@ def phase_adaptive_train(torch, dev, model_cfg, seq_len, global_batch,
 
     pipe = make_pipeline(runner.metrics_log[-1]["step"] + 1)
     batch = next(pipe)
-    busy = device_busy(torch, lambda: ladder.step_fn(state, batch))
+    busy = device_busy(torch, lambda: ladder.step_fn(state, batch),
+                       host_ops=False)
     log_busy(f"adaptive train block (rung H={ladder.h}, {ladder.h} x "
-             f"{replicas} replica steps)", *busy)
+             f"{replicas} replica steps, the device's activities alone)",
+             *busy)
     del state, step, ladder, runner, batch
     torch.cuda.empty_cache()
     return launches
@@ -2461,6 +2501,328 @@ def phase_train_modes(torch, dev, model_cfg, replicas=4, h=2, blocks=3):
               f"{sync_cfg.msf_label}: quant launches {nk} / {np_}")
         del runs, sk, sp
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase train_ssm: training the SSM and hybrid families, remat
+# ---------------------------------------------------------------------------
+
+def _peak_line(peak) -> str:
+    return f"{peak / 2**30:.2f} GiB = {peak / 1e9:.2f} GB"
+
+
+def _release(torch) -> None:
+    """Collect what is unreachable, then hand the card's cached blocks
+    back before the next full-width run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ssd_heads(model_cfg) -> int:
+    return model_cfg.ssm.expand * model_cfg.d_model // model_cfg.ssm.head_dim
+
+
+def _first_sync_check(torch, results):
+    """A ``compress_tree`` stand-in that, at the first sync only, holds
+    every leaf's int8 payload and scales of the quant kernel to the plain
+    version's, bitwise, one leaf at a time (no copy of the tree is kept);
+    ``results`` gets one bool a leaf. The comparison's own launches are
+    taken off the count."""
+    from repro_torch import tree as T
+    from repro_torch.core import compression
+    from repro_torch.kernels.quant import ops, ref
+    inner = compression.compress_tree
+
+    def capture(delta, ef, **kw):
+        if not results:
+            before = ops.LAUNCHES
+            for d, e in zip(T.leaves(delta), T.leaves(ef)):
+                v = d.float() + e
+                qk, sk = ops.quantize(v, rows=True)
+                qp, sp = ref.quantize(v, rows=True)
+                results.append(torch.equal(qk, qp) and torch.equal(sk, sp))
+                del v, qk, sk, qp, sp
+            ops.LAUNCHES = before
+        return inner(delta, ef, **kw)
+    return inner, capture
+
+
+def _train_ssm_local(torch, dev, model_cfg, k, h, seq_len, batch, blocks):
+    """(t1): local SGD on the hybrid at full width with the int8 sync on
+    the quant kernel and ``remat="full"``, then the plain path from the
+    same state and batches. Returns the kernel path's quant launches."""
+    from repro_torch import tree as T
+    from repro_torch.config import SyncConfig
+    from repro_torch.core import compression
+    sync_cfg = SyncConfig(strategy="periodic", period=h, compression="int8")
+    cfg = dataclasses.replace(
+        _train_cfg(model_cfg, sync_cfg, seq_len, batch, k), remat="full")
+    tokens = h * batch * seq_len
+    log(f"train_ssm (t1) {model_cfg.name}: {model_cfg.n_layers} Mamba2 "
+        f"layers, d_model {model_cfg.d_model}, {_ssd_heads(model_cfg)} SSD "
+        f"heads, the shared attention block after every "
+        f"{model_cfg.shared_block_every}; "
+        f"{model_cfg.dtype} compute, f32 master params, remat=full; K={k} "
+        f"replicas, H={h}, {sync_cfg.msf_label}; AdamW; {batch} x {seq_len} "
+        f"tokens a microbatch ({batch // k} sequences a replica step)")
+    same = []
+    inner, capture = _first_sync_check(torch, same)
+    torch.cuda.reset_peak_memory_stats()
+    compression.compress_tree = capture
+    t0 = time.perf_counter()
+    try:
+        state, step, batches, losses_k, walls_k, sync_k, launches = \
+            _run_blocks(torch, cfg, dev, "kernel", blocks)
+    finally:
+        compression.compress_tree = inner
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_leaves = len(T.leaves(state["params"]))
+    expect = 2 * blocks * n_leaves
+    log(f"train_ssm (t1) kernel path ({run_s:.1f} s with the trainer's "
+        f"build and the first sync's check): losses {losses_k} (first "
+        f"beside ln {model_cfg.vocab_size} = "
+        f"{np.log(model_cfg.vocab_size):.4f}); block wall {walls_k} s, sync "
+        f"{sync_k} ms a block (CUDA events), {tokens / walls_k[-1]:.1f} "
+        f"trained tokens/s in block {blocks}; peak memory {_peak_line(peak)} "
+        f"(bound {TRAIN_SSM_PEAK_GB} GB)")
+    log(f"train_ssm (t1) quant launches: {launches} (expected {expect}: one "
+        f"quantize and one dequantize per leaf per sync, {n_leaves} leaves, "
+        f"{blocks} blocks)")
+    check(launches == expect, f"train_ssm (t1): {launches} quant launches, "
+          f"expected {expect}")
+    check(all(np.isfinite(losses_k)), f"train_ssm (t1): losses {losses_k}")
+    check(peak < TRAIN_SSM_PEAK_GB * 1e9, f"train_ssm (t1): peak {peak} B")
+    check(len(same) == n_leaves and all(same),
+          f"train_ssm (t1): the first sync's int8 payloads of "
+          f"{same.count(False)} of {len(same)} leaves differ between the "
+          f"kernel and the plain version")
+    log(f"train_ssm (t1) first sync: the int8 payloads and scales of all "
+        f"{n_leaves} leaves (K={k} rows each; per-head vectors, conv weights, "
+        f"zero biases and the shared block among them) bitwise equal, kernel "
+        f"and plain")
+    for leaf in T.leaves(state["params"]):
+        check(torch.equal(leaf[0], leaf[-1]), "train_ssm (t1): replicas "
+              "differ after a blocking sync")
+    # replica 0's params on the host: the plain path's run needs the card
+    kept = T.map(lambda x: x[0].to("cpu", copy=True), state["params"])
+    t0 = time.perf_counter()
+    busy = device_busy(torch, lambda: step(state, batches[-1]),
+                       host_ops=False)
+    log_busy(f"train_ssm (t1) block (kernel path, {h} x {k} replica steps, "
+             f"the device's activities alone; {time.perf_counter() - t0:.1f} "
+             f"s with the profiler's processing)", *busy)
+    del state, step
+    _release(torch)
+
+    state_p, _, _, losses_p, walls_p, sync_p, launches_p = _run_blocks(
+        torch, cfg, dev, "torch", blocks)
+    check(launches_p == 0, "train_ssm (t1): the plain path launched the "
+          "quant kernel")
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    rel = _tree_rel_l2(torch, kept, T.map(lambda x: x[0], state_p["params"]))
+    log(f"train_ssm (t1) plain path: losses {losses_p}; block wall {walls_p} "
+        f"s, sync {sync_p} ms; kernel vs plain: losses rel {rel_loss:.3e} "
+        f"(bound {TRAIN_LOSS_REL}), params rel L2 {rel:.3e} (bound "
+        f"{TRAIN_PARAMS_REL_L2})")
+    check(rel_loss <= TRAIN_LOSS_REL, f"train_ssm (t1) losses rel {rel_loss}")
+    check(rel <= TRAIN_PARAMS_REL_L2, f"train_ssm (t1) params rel L2 {rel}")
+    del state_p, kept
+    _release(torch)
+    return launches
+
+
+def _train_ssm_ddp(torch, dev, model_cfg, seq_len, batch, steps):
+    """(t2): the SSM at full width, one replica, every step synchronized
+    (MSF = 1), ``remat="full"``."""
+    from repro_torch.config import SyncConfig
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models.registry import analytic_param_count
+    cfg = dataclasses.replace(
+        _train_cfg(model_cfg, SyncConfig(), seq_len, batch, 1),
+        remat="full")
+    copy_gb = 4 * analytic_param_count(model_cfg) / 1e9
+    log(f"train_ssm (t2) {model_cfg.name}: {model_cfg.n_layers} layers, "
+        f"d_model {model_cfg.d_model}, {_ssd_heads(model_cfg)} SSD heads, "
+        f"state {model_cfg.ssm.state_dim}; remat=full; one replica, "
+        f"sync_every_step (MSF = 1), AdamW, {batch} x {seq_len} tokens a "
+        f"step. One replica: local SGD keeps about five f32 copies of the "
+        f"params a replica (params, the block's start copy, two moments, the "
+        f"error-feedback residual) at {copy_gb:.2f} GB a copy, so K = 2 "
+        f"({10 * copy_gb:.1f} GB) does not fit on one card")
+    torch.cuda.reset_peak_memory_stats()
+    step, state, make_pipeline, _, _, _ = build_trainer(cfg, dev)
+    pipe = make_pipeline(0)
+    batches = [next(pipe) for _ in range(steps)]
+    losses, walls = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train_ssm (t2) losses {losses} (first beside ln "
+        f"{model_cfg.vocab_size} = {np.log(model_cfg.vocab_size):.4f}); step "
+        f"wall {walls} s, {batch * seq_len / walls[-1]:.1f} trained tokens/s "
+        f"in step {steps}; peak memory {_peak_line(peak)} (bound "
+        f"{TRAIN_SSM_PEAK_GB} GB)")
+    check(all(np.isfinite(losses)), f"train_ssm (t2): losses {losses}")
+    check(peak < TRAIN_SSM_PEAK_GB * 1e9, f"train_ssm (t2): peak {peak} B")
+    del state, step, batches
+    _release(torch)
+
+
+def _grad_runs(torch, dev, model_cfg, remats, seq_len, batch):
+    """{remat: (loss, grads, peak bytes)}: one loss-and-gradient of each
+    remat on the same seeded params and tokens."""
+    from repro_torch.config import SyncConfig
+    from repro_torch.core import local_sgd
+    from repro_torch.models.registry import build_model
+    cfg = _train_cfg(model_cfg, SyncConfig(), seq_len, batch, 1)
+    model = build_model(model_cfg, attn_impl="torch", ssd_impl="torch")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = local_sgd.init_state(model, cfg, gen)["params"]
+    tokens = torch.randint(0, model_cfg.vocab_size, (batch, seq_len + 1),
+                           generator=gen, device=dev)
+    data = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    out = {}
+    for remat in remats:
+        m = build_model(model_cfg, attn_impl="torch", ssd_impl="torch",
+                        remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = local_sgd.value_and_grad(m, params, data)
+        torch.cuda.synchronize()
+        out[remat] = (loss, grads, torch.cuda.max_memory_allocated())
+        del grads
+    return out
+
+
+def _hold_bitwise(torch, label, runs):
+    """Every run's loss and gradient leaves against ``"none"``'s: bitwise,
+    or within relative 1e-6 with the leaves that differ named."""
+    from repro_torch import tree as T
+    loss0, grads0, _ = runs["none"]
+    names = [k for k, _ in _named_leaves(grads0)]
+    for remat, (loss, grads, peak) in runs.items():
+        if remat == "none":
+            continue
+        differ = []
+        for name, a, b in zip(names, T.leaves(grads), T.leaves(grads0)):
+            if not torch.equal(a, b):
+                rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+                differ.append((name, rel))
+        loss_rel = abs(float(loss - loss0)) / abs(float(loss0))
+        same = (f"bitwise, the loss and all {len(names)} gradient leaves"
+                if torch.equal(loss, loss0) and not differ else
+                f"differ: loss rel {loss_rel:.3e}, leaves {differ}")
+        log(f"train_ssm (t3) {label} remat={remat} vs none: loss "
+            f"{float(loss):.6f} / {float(loss0):.6f}, {same}; peak memory "
+            f"{_peak_line(peak)} against {_peak_line(runs['none'][2])}")
+        check(loss_rel <= 1e-6 and all(rel <= 1e-6 for _, rel in differ),
+              f"train_ssm (t3) {label} remat={remat}: {differ}")
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree)
+                for leaf in _named_leaves(tree[key], f"{prefix}/{key}")]
+    return [(prefix, tree)]
+
+
+def _remat_on_the_card(torch, dev, depth, seq_len, batch):
+    """(t3): remat none against full (and dots for the dense family) at
+    full width and a cut depth, and the checkpointed SSD chunks against the
+    unchecked loop at mamba2's width, one layer."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import ssm
+    # the products' deterministic algorithms (the embedding's backward
+    # without atomics); warn only where cuBLAS asks for a workspace setting
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch, remats, layers in (
+                ("mamba2-2.7b", ("none", "full"), depth),
+                # the shared block follows every 6th layer: 6 is the
+                # smallest depth that has it
+                ("zamba2-1.2b", ("none", "full"), 6),
+                ("smollm-360m", ("none", "full", "dots"), depth)):
+            cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+            runs = _grad_runs(torch, dev, cfg, remats, seq_len, batch)
+            _hold_bitwise(torch, f"{arch} (full width, depth cut to "
+                          f"{layers})", runs)
+            del runs
+            torch.cuda.empty_cache()
+
+        s = get_arch("mamba2-2.7b").ssm
+        h = s.expand * get_arch("mamba2-2.7b").d_model // s.head_dim
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def draw(*shape, scale=1.0, shift=0.0):
+            return (torch.randn(shape, generator=gen, device=dev) * scale
+                    + shift)
+        inputs = [draw(batch, seq_len, h, s.head_dim),
+                  torch.nn.functional.softplus(draw(batch, seq_len, h)),
+                  -torch.exp(draw(h, scale=0.5)),
+                  draw(batch, seq_len, s.state_dim),
+                  draw(batch, seq_len, s.state_dim)]
+        gy = draw(batch, seq_len, h, s.head_dim)
+        gs = draw(batch, h, s.state_dim, s.head_dim)
+        got = {}
+        real = ssm.checkpoint
+        for label, ckpt in (("checkpointed", real),
+                            ("unchecked", lambda fn, *a, **kw: fn(*a))):
+            ssm.checkpoint = ckpt
+            try:
+                leaves = [t.detach().requires_grad_() for t in inputs]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                y, state = ssm.ssd_chunked(*leaves, s.chunk_size)
+                grads = torch.autograd.grad(
+                    (y * gy).sum() + (state * gs).sum(), leaves)
+                torch.cuda.synchronize()
+                got[label] = ([y.detach(), state.detach(), *grads],
+                              torch.cuda.max_memory_allocated())
+            finally:
+                ssm.checkpoint = real
+            del y, state, grads, leaves
+        a, b = got["checkpointed"][0], got["unchecked"][0]
+        names = ["y", "state", "dx", "ddt", "da", "dB", "dC"]
+        differ = [n for n, u, v in zip(names, a, b) if not torch.equal(u, v)]
+        finite = all(bool(torch.isfinite(t).all()) for t in a)
+        log(f"train_ssm (t3) ssd_chunked at mamba2's width ({batch} x "
+            f"{seq_len}, {h} heads of {s.head_dim}, state {s.state_dim}, "
+            f"chunk {s.chunk_size}), checkpointed chunks vs the unchecked "
+            f"loop: " + ("bitwise, y, state and the 5 gradients" if not
+                         differ else f"differ in {differ}")
+            + f"; finite {finite}; peak memory "
+            f"{_peak_line(got['checkpointed'][1])} against "
+            f"{_peak_line(got['unchecked'][1])}")
+        check(not differ and finite, f"train_ssm (t3) ssd_chunked: {differ}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+
+
+def phase_train_ssm(torch, dev):
+    """Training the SSM and hybrid families through ``build_trainer``:
+    (t1) the hybrid's local SGD with the int8 sync, (t2) the SSM every
+    step, (t3) remat on the card. Returns (t1)'s quant launches."""
+    from repro_torch.config import get_arch
+    t0 = time.perf_counter()
+    launches = _train_ssm_local(torch, dev, get_arch("zamba2-1.2b"),
+                                TRAIN_SSM_K, TRAIN_SSM_H, TRAIN_SEQ,
+                                TRAIN_SSM_BATCH, 2)
+    log(f"train_ssm (t1): {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    _train_ssm_ddp(torch, dev, get_arch("mamba2-2.7b"), TRAIN_SEQ, 2, 2)
+    log(f"train_ssm (t2): {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    _remat_on_the_card(torch, dev, REMAT_DEPTH, TRAIN_SEQ, 2)
+    log(f"train_ssm (t3): {time.perf_counter() - t2:.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3506,6 +3868,10 @@ def main() -> int:
     phase_fault_restart(torch, dev, get_smoke("smollm-360m"))
     phase_train_modes(torch, dev, get_smoke("smollm-360m"))
     done("quant and training")
+    ssm_quant_launches = phase_train_ssm(torch, dev)
+    log(f"train_ssm quant launches (t1, on the quant kernel): "
+        f"{ssm_quant_launches}")
+    done("train_ssm")
     ssd_row = phase_ssd(torch, dev)
     ssd_launches = phase_serve(
         torch, dev, get_arch("mamba2-2.7b"), SERVE_BATCH, SERVE_PROMPT,

@@ -3,9 +3,10 @@
 Same field names, defaults and methods as the reference (a test compares
 them), and the same ``replace`` (dotted keys), ``asdict`` and
 ``config_fingerprint``. On one card there is no device mesh: ``MeshConfig``
-names the replica axis and its size (the local-SGD replica count K), and
-``TrainConfig.remat``/``scan_layers`` are kept for the reference's fields
-only (the port loops over layers and keeps every activation).
+names the replica axis and its size (the local-SGD replica count K).
+``TrainConfig.remat`` is the trainer's activation checkpointing, as in the
+reference; ``scan_layers`` is kept for the reference's fields only (the
+port loops over layers).
 """
 from __future__ import annotations
 

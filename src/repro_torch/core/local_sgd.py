@@ -40,7 +40,12 @@ started from (the sync's ``params_start``) and steps a copy of them, and it
 steps the optimizer moments of the state it is given in place, as the
 reference's trainer donates its state to the jitted block
 (``donate_argnums``) and XLA reuses the buffers: the given state's ``opt``
-is the returned state's, and the given state must not be stepped again. A
+is the returned state's, and the given state must not be stepped again.
+The every-step flavor updates the given params and moments in place the same
+way. Each update is written leaf by leaf
+(:func:`repro_torch.optim.apply_updates_`), and the blocking sync writes the
+synchronized params over the block's working copy (``sync_point(…,
+donate=True)``), so no second copy of either is alive at once. A
 caller that needs to step from a state twice keeps its own copy
 (:class:`repro_torch.runtime.ft.StepRunner` keeps one on the host). A block
 that left its moments alone would hold a second copy of them (two f32
@@ -65,7 +70,7 @@ from repro_torch.core import collectives as CL
 from repro_torch.core import sync as S
 from repro_torch.device import wait
 from repro_torch.models import layers as L
-from repro_torch.optim import apply_updates, init_opt_state
+from repro_torch.optim import apply_updates_, init_opt_state
 
 
 # ---------------------------------------------------------------------------
@@ -125,11 +130,6 @@ def _replica(tree, r: int):
     return T.map(lambda x: x[r], tree)
 
 
-def _write(dst_tree, src_tree) -> None:
-    for dst, src in zip(T.leaves(dst_tree), T.leaves(src_tree)):
-        dst.copy_(src)
-
-
 def _rows(batch, lo: int, hi: int):
     return {k: v[lo:hi] for k, v in batch.items()}
 
@@ -160,8 +160,11 @@ def _world_mean(x: torch.Tensor, group, k: int) -> torch.Tensor:
 def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1,
                   telemetry=None, mesh=None) -> Callable:
     """(state, batch) → (state, metrics): one optimizer step on the gradient
-    of the whole batch. ``grad_accum`` > 1 takes the gradient over that many
-    equal row slices of the batch, one after another, and averages them:
+    of the whole batch, written into the given state's params and optimizer
+    moments (:func:`repro_torch.optim.apply_updates_`, the reference's
+    donated state), which the returned state holds. ``grad_accum`` > 1
+    takes the gradient over that many equal row slices of the batch, one
+    after another, and averages them:
     with every position counted (no ``loss_mask``) that is the same mean
     loss, for a smaller peak of activations. With a ``mesh`` ``batch`` is
     this rank's rows (``DataPipeline(…, mesh=mesh)``) and the gradient and
@@ -190,10 +193,10 @@ def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1,
             CL.all_reduce_mean_(T.leaves(grads), None, world)
             loss = _world_mean(loss, None, world)
             aux = {k: _world_mean(v, None, world) for k, v in aux.items()}
-        params, opt = apply_updates(cfg.optimizer, grads, state["opt"],
-                                    state["params"], state["step"])
-        new_state = {"params": params, "opt": opt, "sync": state["sync"],
-                     "step": state["step"] + 1}
+        apply_updates_(cfg.optimizer, grads, state["opt"], state["params"],
+                       state["step"])
+        new_state = {"params": state["params"], "opt": state["opt"],
+                     "sync": state["sync"], "step": state["step"] + 1}
         return new_state, {"loss": loss, **aux}
 
     return timed_step(step, 1, telemetry) if telemetry is not None else step
@@ -269,17 +272,16 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
                 if data_group is not None:
                     CL.all_reduce_mean_(T.leaves(grads), data_group, n_data)
                     loss = _world_mean(loss, data_group, n_data)
-                new_p, new_o = apply_updates(cfg.optimizer, grads, o_r, p_r,
-                                             state["step"] + j)
-                _write(p_r, new_p)
-                _write(o_r, new_o)
+                apply_updates_(cfg.optimizer, grads, o_r, p_r,
+                               state["step"] + j)
+                del grads
                 losses[r, j] = loss
         step = state["step"] + h
         sync = (S.sync_point if clock is None
                 else clock.wrap(S.sync_point))
         params, sync_state = sync(start, params, state["sync"], cfg.sync,
                                   impl=quant_impl, mesh=mesh,
-                                  axis=replica_axis)
+                                  axis=replica_axis, donate=True)
         mean_loss = losses.mean(dim=1).mean()
         if mesh is not None:
             mean_loss = rep.mean(mean_loss.reshape(1))[0]

@@ -1,5 +1,7 @@
 """End-to-end trainer, the port of ``repro.launch.train``: arch config →
-model (plain attention, as the reference trains) → MSF sync engine →
+model (any family the port has, dense, ssm or hybrid, with the plain
+attention and chunked SSD scan the reference trains with, and
+``cfg.remat``'s activation checkpointing) → MSF sync engine →
 optimizer → data pipeline → checkpoint manager → fault-tolerant step
 runner, with the adaptive MSF controller and its H ladder, on one process
 or across the ranks of a mesh.
@@ -7,6 +9,10 @@ or across the ranks of a mesh.
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --smoke --device cpu --replicas 4 --steps 3 \\
         --set sync.strategy=periodic --set sync.period=2
+
+``--arch mamba2-2.7b`` or ``--arch zamba2-1.2b`` trains the SSM or hybrid
+family the same way; ``--set remat=full`` checkpoints each layer (``dots``
+too for the dense family), as a full-width model on one card needs.
 
 Across processes it runs under ``torchrun``, which starts the ranks, with
 ``--backend gloo|nccl`` (one replica a rank; ``--replicas`` is then the
@@ -134,12 +140,16 @@ def build_trainer(cfg: TrainConfig,
     """Returns (step_fn, initial state, make_pipeline, model, telemetry,
     ladder), the reference's six.
 
-    The state is drawn on ``device`` from a generator seeded ``cfg.seed``
-    (K copies of one draw under a replica strategy). The step updates the
-    optimizer moments of the state it is given in place, as the
-    reference's trainer donates its state to the jitted step: keep a copy
-    of a state to step from it again. ``make_pipeline(start)`` yields the
-    step's batches from data step ``start``: (H, B, S) blocks of the
+    The model is ``cfg.model``'s family (dense, ssm or hybrid) with the
+    plain attention and chunked SSD scan (``attn_impl="torch"``,
+    ``ssd_impl="torch"``) and ``cfg.remat``. The state is drawn on
+    ``device`` from a generator seeded ``cfg.seed`` (K copies of one draw
+    under a replica strategy). The step updates the optimizer moments of
+    the state it is given in place (and, under ``sync_every_step``, its
+    params), as the reference's trainer donates its state to the jitted
+    step: keep a copy of a state to step from it again.
+    ``make_pipeline(start)`` yields the step's batches from data step
+    ``start``: (H, B, S) blocks of the
     current H microbatches under a replica strategy, (B, S) batches
     otherwise. ``quant_impl`` is the int8 wire's quantize/dequantize (the
     quant kernel, or its plain version with ``"torch"``).
@@ -167,11 +177,8 @@ def build_trainer(cfg: TrainConfig,
     """
     dev = resolve_device(device if device is not None else
                          mesh.device if mesh is not None else "cuda")
-    if cfg.model.family != "dense":
-        raise NotImplementedError(f"training the {cfg.model.family!r} family "
-                                  f"waits for a later slice (ROADMAP §1 "
-                                  f"item 14); the port serves it")
-    model = build_model(cfg.model, attn_impl="torch")
+    model = build_model(cfg.model, attn_impl="torch", ssd_impl="torch",
+                        remat=cfg.remat)
     use_replicas = SY.needs_replica_axis(cfg.sync)
     replicas = (cfg.mesh.axis_size(cfg.mesh.replica_axis or "pod")
                 if use_replicas else 0)

@@ -9,9 +9,13 @@ application point has its own KV cache (shared weights, distinct state):
 Mamba2 layers' layer-stacked cache under ``"mamba"``.
 
 The prefill's SSD scans take ``ssd_impl`` and its shared block ``attn_impl``
-(``"kernel"``: the CUDA kernels on the card). As in the reference, the
+(``"kernel"``: the CUDA kernels on the card, forward only); ``loss`` needs
+both ``"torch"``, the reference's training path. As in the reference, the
 shared block takes the current hidden state (the published model's input
-concatenation and LoRA adapters are left out there too).
+concatenation and LoRA adapters are left out there too), and ``remat`` (any
+value but ``"none"``) checkpoints each Mamba2 layer where a gradient is
+taken, never the shared block, whose gradient sums over its
+``n_layers // shared_block_every`` uses.
 """
 from __future__ import annotations
 
@@ -24,16 +28,16 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (LM, layer_decode, layer_defs,
-                                            layer_fwd)
+                                            layer_fwd, remat_layer)
 
 
 class HybridModel(LM):
-    """Serving: ``param_defs``/``init``/``load``, ``prefill``,
+    """``param_defs``/``init``/``load``, ``loss``, ``prefill``,
     ``init_cache``, ``decode_step``, with the contract of
     :class:`repro_torch.models.transformer.LM`."""
 
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "kernel",
-                 ssd_impl: str = "kernel"):
+                 ssd_impl: str = "kernel", remat: str = "none"):
         if cfg.family != "hybrid" or cfg.shared_block_every <= 0:
             raise ValueError(f"HybridModel builds family 'hybrid' with "
                              f"shared_block_every > 0, not {cfg.family!r} / "
@@ -47,6 +51,7 @@ class HybridModel(LM):
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.ssd_impl = ssd_impl
+        self.remat = remat
         self.dtype = getattr(torch, cfg.dtype)
         self.n_groups = cfg.n_layers // cfg.shared_block_every
 
@@ -83,10 +88,14 @@ class HybridModel(LM):
         if return_cache and cache is None:
             cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
         layers = L.layer_list(params["layers"])
+        fwd = S.block_fwd
+        if self.remat != "none" and torch.is_grad_enabled() \
+                and not return_cache:
+            fwd = remat_layer(S.block_fwd, "full")
         for g, (group, shared) in enumerate(self._groups()):
             for i in group:
-                x = S.block_fwd(layers[i], x, cfg, self.ssd_impl,
-                                cache["mamba"] if return_cache else None, i)
+                x = fwd(layers[i], x, cfg, self.ssd_impl,
+                        cache["mamba"] if return_cache else None, i)
             if not shared:
                 continue
             out = layer_fwd(params["shared"], x, positions, cfg, "causal", 0,
@@ -100,6 +109,25 @@ class HybridModel(LM):
         x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
         return (x, cache) if return_cache else x
 
+    # --------------------------------------------------------------- train
+    def loss(self, params: L.Params, batch
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"tokens": (B,S) int, "targets": (B,S) int} → (mean
+        next-token NLL over every position, {"ce": it}), differentiable in
+        the params: the reference's ``HybridModel.loss``, which takes no
+        ``loss_mask``.
+
+        Raises under ``attn_impl="kernel"`` or ``ssd_impl="kernel"``: both
+        kernels are forward only."""
+        if "kernel" in (self.attn_impl, self.ssd_impl):
+            raise ValueError("HybridModel.loss needs attn_impl='torch' and "
+                             "ssd_impl='torch': the flash-attention and SSD "
+                             "kernels are forward only, and the reference "
+                             "trains through its plain attention and "
+                             "chunked scan")
+        return self._ce(params, batch)
+
+    # ------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
                    device=None) -> Dict[str, torch.Tensor]:

@@ -21,10 +21,13 @@ Model = Union[DecoderLM, SSMModel, HybridModel]
 
 
 def build_model(cfg: ModelConfig, *, attn_impl: str = "kernel",
-                ssd_impl: str = "kernel") -> Model:
+                ssd_impl: str = "kernel", remat: str = "none") -> Model:
     """The model of ``cfg.family``. ``attn_impl`` selects the attention of a
     full sequence (dense, hybrid) and ``ssd_impl`` the prefill's SSD scan
-    (ssm, hybrid): ``"kernel"`` or ``"torch"``."""
+    (ssm, hybrid): ``"kernel"`` or ``"torch"``. ``remat`` is the
+    reference's activation checkpointing of each layer where a gradient is
+    taken: ``"full"`` or ``"dots"`` for dense (another value checkpoints
+    nothing), any value but ``"none"`` for ssm and hybrid."""
     if cfg.family not in FAMILIES:
         raise KeyError(f"unknown family {cfg.family!r}; known "
                        f"{sorted(FAMILIES)}")
@@ -32,13 +35,14 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "kernel",
         raise ValueError(f"unknown ssd impl {ssd_impl!r} "
                          f"({' | '.join(SSD_IMPLS)})")
     if cfg.family == "ssm":
-        return SSMModel(cfg, ssd_impl=ssd_impl)
+        return SSMModel(cfg, ssd_impl=ssd_impl, remat=remat)
     if cfg.family == "hybrid":
-        return HybridModel(cfg, attn_impl=attn_impl, ssd_impl=ssd_impl)
+        return HybridModel(cfg, attn_impl=attn_impl, ssd_impl=ssd_impl,
+                           remat=remat)
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP §1 item 16)")
-    return DecoderLM(cfg, attn_impl=attn_impl)
+    return DecoderLM(cfg, attn_impl=attn_impl, remat=remat)
 
 
 def _def_leaves(defs, path=()):

@@ -28,11 +28,12 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, remat_layer
 
 SSD_IMPLS = ("kernel", "torch")
 
@@ -41,13 +42,45 @@ SSD_IMPLS = ("kernel", "torch")
 # chunked SSD (the plain twin of kernels/ssd)
 # ---------------------------------------------------------------------------
 
+def _chunk(state: torch.Tensor, xq: torch.Tensor, dtq: torch.Tensor,
+           bq: torch.Tensor, cq: torch.Tensor, a32: torch.Tensor,
+           tri: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the scan: the carried (b,h,n,p) state and the chunk's
+    inputs → (new state, y (b,Q,h,p))."""
+    cum = torch.cumsum(dtq * a32, dim=1)                         # (b,Q,h)
+    total = cum[:, -1]                                           # (b,h)
+    # mask BEFORE exp: for s > t the raw exponent is large-positive (cum
+    # decreases), and exp → inf followed by where(…, 0) still NaNs the
+    # backward (inf · 0 cotangent)
+    darg = cum[:, :, None, :] - cum[:, None, :, :]               # (b,t,s,h)
+    ldec = torch.exp(torch.where(tri, darg, -60.0))
+    ldec = torch.where(tri, ldec, 0.0)
+    scores = torch.einsum("btn,bsn->bts", cq, bq)
+    sc = scores[..., None] * ldec * dtq[:, None, :, :]           # (b,t,s,h)
+    y = torch.einsum("btsh,bshp->bthp", sc, xq)
+    c_scaled = cq[:, :, None, :] * torch.exp(cum)[..., None]     # (b,t,h,n)
+    y = y + torch.einsum("bthn,bhnp->bthp", c_scaled, state)
+    b_scaled = bq[:, :, None, :] * (dtq * torch.exp(
+        total[:, None, :] - cum))[..., None]                     # (b,s,h,n)
+    state = torch.exp(total)[:, :, None, None] * state + \
+        torch.einsum("bshn,bshp->bhnp", b_scaled, xq)
+    return state, y
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 bm: torch.Tensor, cm: torch.Tensor, chunk: int,
                 init_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,L,H,P) · dt: (B,L,H) · a: (H,) · bm/cm: (B,L,N) → (y in x's
     dtype, state (B,H,N,P) f32): chunks of ``min(chunk, L)`` steps, L padded
-    with Δ = 0 steps, all in f32, as the reference computes it."""
+    with Δ = 0 steps, all in f32, as the reference computes it.
+
+    Where a gradient is being taken (grad enabled and an input that
+    requires it) each chunk is checkpointed, as the reference's scan body
+    is: the backward keeps only the (B,H,N,P) carry a chunk and recomputes
+    the chunk's (B,Q,Q,H) decay tensors (``use_reentrant=False``, which
+    ``torch.autograd.grad`` needs). Otherwise the chunks run as a plain
+    loop."""
     b, l, h, p = x.shape
     n = bm.shape[-1]
     q = min(chunk, l)
@@ -67,24 +100,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              if init_state is None else init_state.float())
     idx = torch.arange(q, device=x.device)
     tri = (idx[None, :] <= idx[:, None])[None, :, :, None]      # (1,t,s,1)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x32, dt32, bm32, cm32, a32, state))
     ys = []
     for c in range(nc):
-        xq, dtq, bq, cq = x32[:, c], dt32[:, c], bm32[:, c], cm32[:, c]
-        cum = torch.cumsum(dtq * a32, dim=1)                     # (b,Q,h)
-        total = cum[:, -1]                                       # (b,h)
-        # mask BEFORE exp, as the reference does (s > t would overflow)
-        darg = cum[:, :, None, :] - cum[:, None, :, :]           # (b,t,s,h)
-        ldec = torch.exp(torch.where(tri, darg, -60.0))
-        ldec = torch.where(tri, ldec, 0.0)
-        scores = torch.einsum("btn,bsn->bts", cq, bq)
-        sc = scores[..., None] * ldec * dtq[:, None, :, :]       # (b,t,s,h)
-        y = torch.einsum("btsh,bshp->bthp", sc, xq)
-        c_scaled = cq[:, :, None, :] * torch.exp(cum)[..., None]  # (b,t,h,n)
-        y = y + torch.einsum("bthn,bhnp->bthp", c_scaled, state)
-        b_scaled = bq[:, :, None, :] * (dtq * torch.exp(
-            total[:, None, :] - cum))[..., None]                 # (b,s,h,n)
-        state = torch.exp(total)[:, :, None, None] * state + \
-            torch.einsum("bshn,bshp->bhnp", b_scaled, xq)
+        args = (state, x32[:, c], dt32[:, c], bm32[:, c], cm32[:, c], a32,
+                tri)
+        state, y = (checkpoint(_chunk, *args, use_reentrant=False) if remat
+                    else _chunk(*args))
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, l + pad, h, p)[:, :l]
     return y.to(x.dtype), state
@@ -314,15 +337,17 @@ def block_decode(lp: L.Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class SSMModel(LM):
-    """The attention-free Mamba2 LM, serving: ``param_defs``/``init``/
-    ``load``, ``prefill``, ``init_cache``, ``decode_step``, with the
+    """The attention-free Mamba2 LM: ``param_defs``/``init``/``load``,
+    ``loss``, ``prefill``, ``init_cache``, ``decode_step``, with the
     contract of :class:`repro_torch.models.transformer.LM`.
     ``ssd_impl``: ``"kernel"`` (the CUDA SSD kernel on the card; forward
     only, so serving only) or ``"torch"`` (:func:`ssd_chunked`, the
-    reference's model path). Training the SSM waits for a later slice
-    (ROADMAP §1 item 14)."""
+    reference's model path, which it trains with). ``remat``: any value but
+    ``"none"`` checkpoints each block where a gradient is taken, as the
+    reference does."""
 
-    def __init__(self, cfg: ModelConfig, *, ssd_impl: str = "kernel"):
+    def __init__(self, cfg: ModelConfig, *, ssd_impl: str = "kernel",
+                 remat: str = "none"):
         if cfg.family != "ssm":
             raise ValueError(f"SSMModel builds family 'ssm', not "
                              f"{cfg.family!r}")
@@ -331,6 +356,7 @@ class SSMModel(LM):
                              f"({' | '.join(SSD_IMPLS)})")
         self.cfg = cfg
         self.ssd_impl = ssd_impl
+        self.remat = remat
         self.dtype = getattr(torch, cfg.dtype)
 
     # ----------------------------------------------------------- parameters
@@ -356,11 +382,31 @@ class SSMModel(LM):
         if return_cache and cache is None:
             cache = self.init_cache(x.shape[0], x.shape[1], dtype=x.dtype,
                                     device=x.device)
+        fwd = block_fwd
+        if self.remat != "none" and torch.is_grad_enabled() \
+                and not return_cache:
+            fwd = remat_layer(block_fwd, "full")
         for i, lp in enumerate(L.layer_list(params["layers"])):
-            x = block_fwd(lp, x, cfg, self.ssd_impl,
-                          cache if return_cache else None, i)
+            x = fwd(lp, x, cfg, self.ssd_impl,
+                    cache if return_cache else None, i)
         x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
         return (x, cache) if return_cache else x
+
+    # --------------------------------------------------------------- train
+    def loss(self, params: L.Params, batch
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"tokens": (B,S) int, "targets": (B,S) int} → (mean
+        next-token NLL over every position, {"ce": it}), differentiable in
+        the params: the reference's ``SSMModel.loss``, which takes no
+        ``loss_mask``.
+
+        Raises under ``ssd_impl="kernel"``: the SSD kernel is forward only
+        (the reference's model path never calls its kernel either)."""
+        if self.ssd_impl == "kernel":
+            raise ValueError("SSMModel.loss needs ssd_impl='torch': the SSD "
+                             "kernel is forward only, and the reference "
+                             "trains through its chunked scan")
+        return self._ce(params, batch)
 
     def init_cache(self, batch_size: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,

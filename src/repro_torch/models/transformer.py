@@ -14,18 +14,46 @@ duck-typed model API, parameters passed in:
 The layer stack is a Python loop over ``params["layers"]``: an
 ``nn.ModuleList`` or list of per-layer params, or the reference's stacked
 layout (a dict of ``(n_layers, …)`` leaves, read as per-layer views; the
-reference scans it). MoE and the prefix-LM VLM come with later slices.
+reference scans it), and ``remat`` checkpoints each layer as the
+reference's ``_maybe_remat`` does (:func:`remat_layer`). MoE and the
+prefix-LM VLM come with later slices.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+import functools
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.losses import ce_loss
+
+
+REMAT_POLICIES = ("none", "full", "dots")
+# what "dots" keeps: the 2-D matrix products, the products with no batch
+# dims of JAX's dots_with_no_batch_dims_saveable (the batched ones are bmm)
+_SAVED_PRODUCTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def remat_layer(fn: Callable, remat: str) -> Callable:
+    """``fn`` (a layer's forward) under the reference's ``_maybe_remat``
+    policy: ``"full"`` checkpoints it (the backward keeps its inputs and
+    recomputes the rest); ``"dots"`` keeps the outputs of its 2-D matrix
+    products as well and recomputes everything else, the batched products
+    too; any other value leaves ``fn`` as it is. Non-reentrant, as
+    ``torch.autograd.grad`` needs, and bitwise the gradient of ``fn``."""
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _SAVED_PRODUCTS))
+    return fn
 
 
 def layer_defs(cfg: ModelConfig) -> L.ParamDefs:
@@ -96,6 +124,18 @@ class LM:
     def _embed_inputs(self, params: L.Params, batch) -> torch.Tensor:
         return L.embed(params["embed"], batch["tokens"], self.dtype)
 
+    def _ce(self, params: L.Params, batch, mask=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(mean next-token NLL of ``batch``'s targets, {"ce": it}) through
+        ``backbone``, over the positions of ``mask`` (all without one)."""
+        cfg = self.cfg
+        x = self.backbone(params, self._embed_inputs(params, batch))
+        table = params["embed"]["embedding"] if cfg.tie_embeddings \
+            else params["out_embedding"]
+        loss = ce_loss(x, table, batch["targets"], mask=mask,
+                       chunk=cfg.ce_chunk)
+        return loss, {"ce": loss}
+
     def _logits_last(self, params: L.Params, x_last: torch.Tensor
                      ) -> torch.Tensor:
         table = params["embed"]["embedding"] if self.cfg.tie_embeddings \
@@ -117,9 +157,12 @@ class DecoderLM(LM):
     """Dense decoder-only LM. ``attn_impl``: ``"kernel"`` (the CUDA
     flash-attention kernel on the card; forward only, so serving only) or
     ``"torch"`` (the plain twins of the reference's ``"jnp"``, which the
-    reference trains with). Its cache is ``{"k","v"}: (L,B,S,KV,hd)``."""
+    reference trains with). ``remat`` (``"none"``, ``"full"``, ``"dots"``)
+    checkpoints each layer where a gradient is taken (:func:`remat_layer`).
+    Its cache is ``{"k","v"}: (L,B,S,KV,hd)``."""
 
-    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "kernel"):
+    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "kernel",
+                 remat: str = "none"):
         if cfg.family != "dense" or cfg.is_moe:
             raise NotImplementedError(
                 f"family {cfg.family!r} (MoE: {cfg.is_moe}) is not ported "
@@ -129,6 +172,7 @@ class DecoderLM(LM):
                              f"({' | '.join(A.IMPLS)})")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.remat = remat
         self.dtype = getattr(torch, cfg.dtype)
 
     # ----------------------------------------------------------- parameters
@@ -158,9 +202,11 @@ class DecoderLM(LM):
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         if return_cache and cache is None:
             cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
+        fwd = (remat_layer(layer_fwd, self.remat)
+               if torch.is_grad_enabled() and not return_cache else layer_fwd)
         for i, lp in enumerate(L.layer_list(params["layers"])):
-            out = layer_fwd(lp, x, positions, cfg, "causal", 0,
-                            self.attn_impl, return_kv=return_cache)
+            out = fwd(lp, x, positions, cfg, "causal", 0, self.attn_impl,
+                      return_cache)
             if return_cache:
                 x, k, v = out
                 cache["k"][i, :, :s] = k
@@ -186,14 +232,7 @@ class DecoderLM(LM):
                              "flash-attention kernel is forward only, and the "
                              "reference trains with its plain attention "
                              "(attn_impl='jnp')")
-        cfg = self.cfg
-        x = self._embed_inputs(params, batch)
-        x = self.backbone(params, x)
-        table = params["embed"]["embedding"] if cfg.tie_embeddings \
-            else params["out_embedding"]
-        loss = ce_loss(x, table, batch["targets"], mask=batch.get("loss_mask"),
-                       chunk=cfg.ce_chunk)
-        return loss, {"ce": loss}
+        return self._ce(params, batch, batch.get("loss_mask"))
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, max_len: int,

@@ -5,9 +5,10 @@ Params, gradients and moments are nested dicts of tensors of one structure
 (:mod:`repro_torch.tree`). ``init_opt_state`` builds the state,
 ``apply_updates`` maps ``(grads, state, params, step) → (new_params,
 new_state)`` and leaves its inputs as they were, as the reference's pure
-functions do. Every update is computed in f32, in the reference's order of
-operations; the learning rate is an f32 scalar computed as the reference
-computes it.
+functions do; ``apply_updates_`` writes the same values into the params and
+moments it is given, leaf by leaf. Every update is computed in f32, in the
+reference's order of operations; the learning rate is an f32 scalar
+computed as the reference computes it.
 
 Schedules include the paper's ``α = 1/(1+t)`` epoch-decaying rate
 (``paper_inverse``), used by the SVM reproduction.
@@ -98,54 +99,70 @@ def _maybe_clip(grads, clip: float):
     return T.map(lambda g: (g * scale).to(g.dtype), grads)
 
 
-def apply_updates(cfg: OptimizerConfig, grads, state: OptState, params,
-                  step: Step, lr: Optional[torch.Tensor] = None):
-    """Returns (new_params, new_state). ``step`` is the global step counter."""
+MOMENTS = {"sgd": (), "momentum": ("mu",), "adamw": ("mu", "nu")}
+
+
+def _leaf_update(cfg: OptimizerConfig, lr, bc, p, g, moments):
+    """One leaf's (new param, (new moments…)), in f32 in the reference's
+    order of operations; its temporaries die when it returns."""
+    p32 = p.float()
+    if cfg.name == "sgd":
+        if cfg.weight_decay:
+            p32 = p32 * (1.0 - lr * cfg.weight_decay)
+        return (p32 - lr * g.float()).to(p.dtype), ()
+    if cfg.name == "momentum":
+        (m,) = moments
+        m32 = cfg.momentum * m.float() + g.float()
+        if cfg.weight_decay:
+            p32 = p32 * (1.0 - lr * cfg.weight_decay)
+        return (p32 - lr * m32).to(p.dtype), (m32.to(m.dtype),)
+    m, v = moments
+    g32 = g.float()
+    m32 = cfg.beta1 * m.float() + (1 - cfg.beta1) * g32
+    v32 = cfg.beta2 * v.float() + (1 - cfg.beta2) * g32 * g32
+    mhat = m32 / bc[0]
+    vhat = v32 / bc[1]
+    if cfg.weight_decay:
+        p32 = p32 * (1.0 - lr * cfg.weight_decay)
+    p32 = p32 - lr * mhat / (torch.sqrt(vhat) + cfg.eps)
+    return p32.to(p.dtype), (m32.to(m.dtype), v32.to(v.dtype))
+
+
+def _write(p, moments, p_new, moments_new) -> None:
+    p.copy_(p_new)
+    for m, m_new in zip(moments, moments_new):
+        m.copy_(m_new)
+
+
+def apply_updates_(cfg: OptimizerConfig, grads, state: OptState, params,
+                   step: Step, lr: Optional[torch.Tensor] = None) -> None:
+    """The update written into ``params`` and ``state``'s moments leaf by
+    leaf, as the reference's trainer donates its state to the jitted step
+    and XLA updates the buffers in place: no second copy of the params or
+    moments is alive at once, only one leaf's temporaries. ``step`` is the
+    global step counter."""
+    if cfg.name not in MOMENTS:
+        raise ValueError(f"unknown optimizer {cfg.name!r}")
     if lr is None:
         lr = make_schedule(cfg)(step)
-    grads = _maybe_clip(grads, cfg.grad_clip)
-
-    if cfg.name == "sgd":
-        def upd(p, g):
-            p32 = p.float()
-            if cfg.weight_decay:
-                p32 = p32 * (1.0 - lr * cfg.weight_decay)
-            return (p32 - lr * g.float()).to(p.dtype)
-        return T.map(upd, params, grads), state
-
-    if cfg.name == "momentum":
-        flat, unflatten = T.flatten(params)
-        new_p, new_mu = [], []
-        for p, g, m in zip(flat, T.leaves(grads), T.leaves(state["mu"])):
-            m32 = cfg.momentum * m.float() + g.float()
-            p32 = p.float()
-            if cfg.weight_decay:
-                p32 = p32 * (1.0 - lr * cfg.weight_decay)
-            new_p.append((p32 - lr * m32).to(p.dtype))
-            new_mu.append(m32.to(m.dtype))
-        return unflatten(new_p), {"mu": unflatten(new_mu)}
-
+    bc = None
     if cfg.name == "adamw":
         t = _f32(step) + 1.0
-        bc1 = 1.0 - torch.pow(_f32(cfg.beta1), t)
-        bc2 = 1.0 - torch.pow(_f32(cfg.beta2), t)
-        flat, unflatten = T.flatten(params)
-        new_p, new_mu, new_nu = [], [], []
-        for p, g, m, v in zip(flat, T.leaves(grads), T.leaves(state["mu"]),
-                              T.leaves(state["nu"])):
-            g32 = g.float()
-            m32 = cfg.beta1 * m.float() + (1 - cfg.beta1) * g32
-            v32 = cfg.beta2 * v.float() + (1 - cfg.beta2) * g32 * g32
-            mhat = m32 / bc1
-            vhat = v32 / bc2
-            p32 = p.float()
-            if cfg.weight_decay:
-                p32 = p32 * (1.0 - lr * cfg.weight_decay)
-            p32 = p32 - lr * mhat / (torch.sqrt(vhat) + cfg.eps)
-            new_p.append(p32.to(p.dtype))
-            new_mu.append(m32.to(m.dtype))
-            new_nu.append(v32.to(v.dtype))
-        return unflatten(new_p), {"mu": unflatten(new_mu),
-                                  "nu": unflatten(new_nu)}
+        bc = (1.0 - torch.pow(_f32(cfg.beta1), t),
+              1.0 - torch.pow(_f32(cfg.beta2), t))
+    grads = _maybe_clip(grads, cfg.grad_clip)
+    flat = T.leaves(params)
+    moments = [T.leaves(state[name]) for name in MOMENTS[cfg.name]]
+    per_leaf = list(zip(*moments)) if moments else [()] * len(flat)
+    for p, g, ms in zip(flat, T.leaves(grads), per_leaf):
+        _write(p, ms, *_leaf_update(cfg, lr, bc, p, g, ms))
 
-    raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+def apply_updates(cfg: OptimizerConfig, grads, state: OptState, params,
+                  step: Step, lr: Optional[torch.Tensor] = None):
+    """Returns (new_params, new_state), the inputs left as they were: the
+    values :func:`apply_updates_` writes, into copies."""
+    new_params = T.map(torch.clone, params)
+    new_state = T.map(torch.clone, state)
+    apply_updates_(cfg, grads, new_state, new_params, step, lr)
+    return new_params, new_state

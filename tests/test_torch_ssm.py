@@ -378,7 +378,9 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
 
 def test_registry_builds_ssm_and_hybrid():
     """The two families are built with their impls; bad impls and families
-    raise; the trainer refuses them (their training is a later slice)."""
+    raise; the trainer builds them on its training path (the plain
+    attention and chunked scan; ``tests/test_torch_train_ssm.py`` trains
+    them)."""
     ssm = tbuild(get_smoke("mamba2-2.7b"), ssd_impl="torch")
     hyb = tbuild(get_smoke("zamba2-1.2b"), attn_impl="torch")
     assert type(ssm).__name__ == "SSMModel" and ssm.ssd_impl == "torch"
@@ -390,5 +392,6 @@ def test_registry_builds_ssm_and_hybrid():
             tbuild(get_smoke(arch), ssd_impl="pallas")
     with pytest.raises(ValueError):
         tbuild(get_smoke("zamba2-1.2b"), attn_impl="jnp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_trainer(TrainConfig(model=get_smoke("mamba2-2.7b")), "cpu")
+    model = build_trainer(TrainConfig(model=get_smoke("mamba2-2.7b")),
+                          "cpu")[3]
+    assert type(model).__name__ == "SSMModel" and model.ssd_impl == "torch"
