@@ -125,7 +125,9 @@ entry points and holds every run to its plain-version twin:
    on the kernel path (quant launches counted: one quantize and one
    dequantize per leaf per sync) and 2 on the plain path from the same state
    and batches, held to each other (losses relative 1e-3, params relative L2
-   1e-3) and the first sync's int8 payloads bitwise; then one profiled
+   1e-3) and the first sync's int8 payloads, scales and error-feedback
+   residuals bitwise (the quantize launch the trainer makes, against the
+   plain version a replica row at a time); then one profiled
    block, and 4 ``make_ddp_step`` steps (MSF = 1) at the same global batch;
    then (a) the adaptive trainer on the same model: ``sync.adaptive`` over
    the ladder (1, 2, 4) from H = 4, one forced switch after block 1 held
@@ -146,9 +148,9 @@ entry points and holds every run to its plain-version twin:
    quant kernel and ``remat="full"``, 4 × 2,048 tokens a microbatch (2
    sequences a replica step), 2 blocks, then the plain path from the same
    state and batches: held as phase 8 holds smollm (losses relative 1e-3,
-   params relative L2 1e-3), the first sync's int8 payloads and scales
-   bitwise, quant launches ``2 × leaves × blocks`` (their count on a line
-   of its own), peak memory under 75 GB, with the block wall, trained
+   params relative L2 1e-3), the first sync's int8 payloads, scales and
+   residuals bitwise, quant launches ``2 × leaves × blocks`` (their count
+   on a line of its own), peak memory under 75 GB, with the block wall, trained
    tokens/s, sync ms a block and one profiled block's idle share; (t2)
    mamba2-2.7b at full width (64 layers) on one replica, every step
    synchronized (MSF = 1), ``remat="full"``, 2 steps of 2 × 2,048 tokens:
@@ -380,7 +382,7 @@ def device_ms(torch, fn, arg_sets, runs: int = 21) -> float:
     return float(np.median(times))
 
 
-def device_busy(torch, fn, host_ops: bool = True):
+def device_busy(torch, fn):
     """Run ``fn()`` once under ``torch.profiler`` and return (device busy
     s, span s, device activities, top kernels, activities by name), all of
     that one run (a CUDA graph's replays show each kernel they run): busy is
@@ -389,32 +391,24 @@ def device_busy(torch, fn, host_ops: bool = True):
     event recorded before ``fn`` to one recorded after it, so busy/span is
     the share of that window the device worked. The profiler slows the
     host, so the idle share it gives is an upper bound of the unprofiled
-    run's. ``host_ops=False`` records the device's activities alone and
-    reads the profiler's raw records (a run of hundreds of thousands of
-    kernels and millions of host operators takes the profiler minutes to
-    parse into its events)."""
+    run's. It records the device's activities alone and reads the
+    profiler's raw records, not its parsed events, which take minutes to
+    build for a run of hundreds of thousands of kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA]
-    if host_ops:
-        activities.insert(0, ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
     span = start.elapsed_time(end) * 1e-3
     by_name, counts = {}, {}
-    if host_ops:
-        device = [(e.name, e.time_range.elapsed_us() * 1e-6)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA]
-    else:
-        device = [(e.name(), e.duration_ns() * 1e-9)
-                  for e in prof.profiler.kineto_results.events()
-                  if e.device_type() == DeviceType.CUDA]
+    device = [(e.name(), e.duration_ns() * 1e-9)
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
     check(bool(device), "the profiler recorded no device activity")
     for name, secs in device:
         by_name[name] = by_name.get(name, 0.0) + secs
@@ -429,7 +423,8 @@ def log_busy(label, busy, span, count, top, counts=None):
     idle share), and where the device time went."""
     names = "; ".join(f"{n[:48]} {1e3 * t:.3f} ms" for n, t in top)
     log(f"{label}: device busy {1e3 * busy:.3f} ms of a {1e3 * span:.3f} ms "
-        f"span (one profiled run), idle share {100 * (1 - busy / span):.1f}%; "
+        f"span (one profiled run, device activities alone), idle share "
+        f"{100 * (1 - busy / span):.1f}%; "
         f"{count} device activities; top: {names}")
 
 
@@ -1948,7 +1943,6 @@ def phase_train(torch, dev, model_cfg, seq_len, global_batch, replicas, h):
     from repro_torch import tree as T
     from repro_torch.config import SyncConfig
     from repro_torch.core import compression, local_sgd
-    from repro_torch.kernels.quant import ops, ref
     blocks = 2
     sync_cfg = SyncConfig(strategy="periodic", period=h, compression="int8")
     cfg = _train_cfg(model_cfg, sync_cfg, seq_len, global_batch, replicas)
@@ -1960,17 +1954,9 @@ def phase_train(torch, dev, model_cfg, seq_len, global_batch, replicas, h):
         f"{global_batch} x {seq_len} tokens a microbatch "
         f"({global_batch // replicas} sequences a replica)")
 
-    # the first sync's int8 payloads: the kernel path's delta + ef of every
-    # leaf, quantized by the kernel and by the plain version afterwards
-    captured = []
-    inner = compression.compress_tree
-
-    def capture(delta, ef, **kw):
-        if not captured:
-            captured.extend(d.float() + e for d, e in
-                            zip(T.leaves(delta), T.leaves(ef)))
-        return inner(delta, ef, **kw)
-
+    # the first sync's int8 payloads, scales and residuals, kernel and plain
+    same = []
+    inner, capture = _first_sync_check(torch, same)
     torch.cuda.reset_peak_memory_stats()
     compression.compress_tree = capture
     try:
@@ -1998,24 +1984,18 @@ def phase_train(torch, dev, model_cfg, seq_len, global_batch, replicas, h):
               "a blocking sync")
     kept = T.map(lambda x: x[0].clone(), params)
 
-    check(len(captured) == n_leaves, f"train: captured {len(captured)} leaves")
-    before = ops.LAUNCHES
-    for v in captured:
-        qk, sk = ops.quantize(v, rows=True)
-        qp, sp = ref.quantize(v, rows=True)
-        check(torch.equal(qk, qp) and torch.equal(sk, sp),
-              "train: the first sync's int8 payload differs between the "
-              "kernel and the plain version")
-    ops.LAUNCHES = before
-    log(f"train first sync: the int8 payloads and scales of all {n_leaves} "
-        f"leaves (K={replicas} rows each) bitwise equal, kernel and plain")
-    del captured[:]
+    check(len(same) == n_leaves and all(same),
+          f"train: the first sync's int8 payloads of {same.count(False)} of "
+          f"{len(same)} leaves differ between the kernel and the plain "
+          f"version")
+    log(f"train first sync: the int8 payloads, scales and residuals of all "
+        f"{n_leaves} leaves (K={replicas} rows each) bitwise equal, kernel "
+        f"and plain")
 
-    # one profiled block on the kernel path, its device activities alone
-    busy = device_busy(torch, lambda: step(state, batches[-1]),
-                       host_ops=False)
-    log_busy(f"train block (kernel path, {h} x {replicas} replica steps, "
-             f"the device's activities alone)", *busy)
+    # one profiled block on the kernel path
+    busy = device_busy(torch, lambda: step(state, batches[-1]))
+    log_busy(f"train block (kernel path, {h} x {replicas} replica steps)",
+             *busy)
     del state, params, step
     torch.cuda.empty_cache()
 
@@ -2345,11 +2325,9 @@ def phase_adaptive_train(torch, dev, model_cfg, seq_len, global_batch,
 
     pipe = make_pipeline(runner.metrics_log[-1]["step"] + 1)
     batch = next(pipe)
-    busy = device_busy(torch, lambda: ladder.step_fn(state, batch),
-                       host_ops=False)
+    busy = device_busy(torch, lambda: ladder.step_fn(state, batch))
     log_busy(f"adaptive train block (rung H={ladder.h}, {ladder.h} x "
-             f"{replicas} replica steps, the device's activities alone)",
-             *busy)
+             f"{replicas} replica steps)", *busy)
     del state, step, ladder, runner, batch
     torch.cuda.empty_cache()
     return launches
@@ -2524,13 +2502,16 @@ def _ssd_heads(model_cfg) -> int:
 
 def _first_sync_check(torch, results):
     """A ``compress_tree`` stand-in that, at the first sync only, holds
-    every leaf's int8 payload and scales of the quant kernel to the plain
-    version's, bitwise, one leaf at a time (no copy of the tree is kept);
-    ``results`` gets one bool a leaf. The comparison's own launches are
-    taken off the count."""
+    every leaf's int8 payload, scales and error-feedback residual from the
+    launch the trainer makes (the quantize that writes the residual in the
+    same pass) to the plain version's, bitwise, one leaf at a time (no copy
+    of the tree is kept); ``results`` gets one bool a leaf. The plain
+    version runs a replica row at a time (each row is quantized alone), so
+    the check holds less of a large leaf at once. The comparison's own
+    launches are taken off the count."""
     from repro_torch import tree as T
     from repro_torch.core import compression
-    from repro_torch.kernels.quant import ops, ref
+    from repro_torch.kernels.quant import ops
     inner = compression.compress_tree
 
     def capture(delta, ef, **kw):
@@ -2538,10 +2519,16 @@ def _first_sync_check(torch, results):
             before = ops.LAUNCHES
             for d, e in zip(T.leaves(delta), T.leaves(ef)):
                 v = d.float() + e
-                qk, sk = ops.quantize(v, rows=True)
-                qp, sp = ref.quantize(v, rows=True)
-                results.append(torch.equal(qk, qp) and torch.equal(sk, sp))
-                del v, qk, sk, qp, sp
+                got = compression._quantize_residual(v, True, "kernel")
+                same = True
+                for r in range(v.shape[0]):
+                    want = compression._quantize_residual(v[r:r + 1], True,
+                                                          "torch")
+                    same &= all(torch.equal(g[r:r + 1], w)
+                                for g, w in zip(got, want))
+                    del want
+                results.append(same)
+                del v, got
             ops.LAUNCHES = before
         return inner(delta, ef, **kw)
     return inner, capture
@@ -2597,21 +2584,20 @@ def _train_ssm_local(torch, dev, model_cfg, k, h, seq_len, batch, blocks):
           f"train_ssm (t1): the first sync's int8 payloads of "
           f"{same.count(False)} of {len(same)} leaves differ between the "
           f"kernel and the plain version")
-    log(f"train_ssm (t1) first sync: the int8 payloads and scales of all "
-        f"{n_leaves} leaves (K={k} rows each; per-head vectors, conv weights, "
-        f"zero biases and the shared block among them) bitwise equal, kernel "
-        f"and plain")
+    log(f"train_ssm (t1) first sync: the int8 payloads, scales and residuals "
+        f"of all {n_leaves} leaves (K={k} rows each; per-head vectors, conv "
+        f"weights, zero biases and the shared block among them) bitwise "
+        f"equal, kernel and plain")
     for leaf in T.leaves(state["params"]):
         check(torch.equal(leaf[0], leaf[-1]), "train_ssm (t1): replicas "
               "differ after a blocking sync")
     # replica 0's params on the host: the plain path's run needs the card
     kept = T.map(lambda x: x[0].to("cpu", copy=True), state["params"])
     t0 = time.perf_counter()
-    busy = device_busy(torch, lambda: step(state, batches[-1]),
-                       host_ops=False)
-    log_busy(f"train_ssm (t1) block (kernel path, {h} x {k} replica steps, "
-             f"the device's activities alone; {time.perf_counter() - t0:.1f} "
-             f"s with the profiler's processing)", *busy)
+    busy = device_busy(torch, lambda: step(state, batches[-1]))
+    log_busy(f"train_ssm (t1) block (kernel path, {h} x {k} replica steps; "
+             f"{time.perf_counter() - t0:.1f} s with the profiler's "
+             f"processing)", *busy)
     del state, step
     _release(torch)
 

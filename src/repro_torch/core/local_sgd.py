@@ -44,11 +44,11 @@ is the returned state's, and the given state must not be stepped again.
 The every-step flavor updates the given params and moments in place the same
 way. Each update is written leaf by leaf
 (:func:`repro_torch.optim.apply_updates_`), and the blocking sync writes the
-synchronized params over the block's working copy (``sync_point(…,
-donate=True)``), so no second copy of either is alive at once. A
-caller that needs to step from a state twice keeps its own copy
-(:class:`repro_torch.runtime.ft.StepRunner` keeps one on the host). A block
-that left its moments alone would hold a second copy of them (two f32
+synchronized params over the block's working copy, which it is handed
+(:func:`repro_torch.core.sync.sync_point`), so no second copy of either is
+alive at once. A caller that needs to step from a state twice keeps its own
+copy (:class:`repro_torch.runtime.ft.StepRunner` keeps one on the host). A
+block that left its moments alone would hold a second copy of them (two f32
 values a parameter a replica) while it runs, which a full-width model on
 one card cannot afford (``scripts/train_peak_memory.py``).
 
@@ -281,7 +281,7 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
                 else clock.wrap(S.sync_point))
         params, sync_state = sync(start, params, state["sync"], cfg.sync,
                                   impl=quant_impl, mesh=mesh,
-                                  axis=replica_axis, donate=True)
+                                  axis=replica_axis)
         mean_loss = losses.mean(dim=1).mean()
         if mesh is not None:
             mean_loss = rep.mean(mean_loss.reshape(1))[0]

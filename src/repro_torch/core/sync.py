@@ -40,7 +40,8 @@ reference's ``sync_state_axes`` places state on a sharded mesh; here
 :func:`repro_torch.core.local_sgd.scatter_replicas` gives each rank its
 replica's state.
 
-Every function is pure: it returns new tensors and leaves its arguments as
+Every function but the blocking ``sync_point``, which writes its result into
+``params_end``, is pure: it returns new tensors and leaves its arguments as
 they were (a returned leaf may share memory with an argument or with another
 returned leaf, as JAX arrays may).
 
@@ -387,24 +388,20 @@ def _slowmo_step(mean_delta, sync_state, new_state, cfg: SyncConfig):
     return T.map(lambda mm: cfg.slowmo_lr * mm, m)
 
 
-def _f32_delta(params_end, params_start, donate: bool = False):
-    """end − start in f32; with ``donate`` an f32 leaf of ``params_end``
-    holds its own delta (the same subtraction, in place)."""
-    def leaf(e, s):
-        if donate and e.dtype == torch.float32:
-            return e.sub_(s.float())
-        return e.float() - s.float()
-    return T.map(leaf, params_end, params_start)
+def _f32_delta(params_end, params_start):
+    return T.map(lambda e, s: e.float() - s.float(), params_end,
+                 params_start)
 
 
-def _apply_f32(params, delta, out=None):
-    """params + delta in f32, in the params' dtypes; with ``out`` written
-    into its leaves one at a time and ``out`` returned."""
-    if out is None:
-        return T.map(lambda p, d: (p.float() + d).to(p.dtype), params, delta)
-    for o, p, d in zip(T.leaves(out), T.leaves(params), T.leaves(delta)):
-        o.copy_((p.float() + d).to(p.dtype))
-    return out
+def _apply_f32(params, delta):
+    return T.map(lambda p, d: (p.float() + d).to(p.dtype), params, delta)
+
+
+def _delta_into(e: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """e − s in f32, written into ``e`` where it is f32."""
+    if e.dtype == torch.float32:
+        return e.sub_(s.float())
+    return e.float() - s.float()
 
 
 def _cast_like(values, params):
@@ -420,8 +417,7 @@ def _cast_like(values, params):
 
 def sync_point(params_start, params_end, sync_state: Dict[str, Any],
                cfg: SyncConfig, *, impl: str = "kernel", mesh=None,
-               axis: str = "pod", donate: bool = False
-               ) -> Tuple[Any, Dict[str, Any]]:
+               axis: str = "pod") -> Tuple[Any, Dict[str, Any]]:
     """One model synchronization over the replica axis: the leading dim of
     every leaf on one process, or ``mesh``'s ``axis`` across processes
     (each holding one replica; see the module docstring).
@@ -432,12 +428,13 @@ def sync_point(params_start, params_end, sync_state: Dict[str, Any],
     ``impl`` selects the int8 wire's quantize/dequantize: the quant kernel
     (``"kernel"``) or its plain version (``"torch"``).
 
-    ``donate=True`` hands ``params_end`` over (the local-SGD block's working
-    copy; the reference donates its state): the blocking global sync
-    computes its f32 leaves' deltas in place and writes the synchronized
-    params into them, bitwise the same values, and returns ``params_end``.
-    At full width that keeps one copy of the params fewer alive. The other
-    modes leave ``params_end`` as it was either way.
+    The blocking global sync takes ``params_end`` over, as the reference's
+    trainer donates its state (``params_end`` is the local-SGD block's
+    working copy, and must not share memory with ``params_start``): it
+    computes its f32 leaves' deltas in place, writes the synchronized
+    params into its leaves and returns it. At full width that keeps one
+    copy of the params fewer alive. The other modes leave ``params_end`` as
+    it was.
     """
     rep = CL.replicas(mesh, axis)
     if cfg.gossip_async:
@@ -451,7 +448,7 @@ def sync_point(params_start, params_end, sync_state: Dict[str, Any],
     if cfg.overlap == "chunked":
         return _sync_point_chunked(params_end, sync_state, cfg, impl, rep)
 
-    delta = _f32_delta(params_end, params_start, donate)
+    delta = T.map(_delta_into, params_end, params_start)
     new_state = dict(sync_state)
     mean_delta, new_ef = _exchange_mean(delta, sync_state.get("ef"), cfg,
                                         impl=impl, rep=rep)
@@ -459,8 +456,10 @@ def sync_point(params_start, params_end, sync_state: Dict[str, Any],
     if new_ef is not None:
         new_state["ef"] = new_ef
     step_delta = _slowmo_step(mean_delta, sync_state, new_state, cfg)
-    return (_apply_f32(params_start, step_delta,
-                       out=params_end if donate else None), new_state)
+    for e, s, d in zip(T.leaves(params_end), T.leaves(params_start),
+                       T.leaves(step_delta)):
+        torch.add(s.float(), d, out=e)
+    return params_end, new_state
 
 
 def _sync_point_delayed(params_start, params_end, sync_state, cfg, impl,

@@ -102,36 +102,41 @@ def _maybe_clip(grads, clip: float):
 MOMENTS = {"sgd": (), "momentum": ("mu",), "adamw": ("mu", "nu")}
 
 
-def _leaf_update(cfg: OptimizerConfig, lr, bc, p, g, moments):
-    """One leaf's (new param, (new moments…)), in f32 in the reference's
-    order of operations; its temporaries die when it returns."""
+def _into(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """``t`` where an f32 result can be written into it, else None (the
+    result is a new f32 tensor, rounded into ``t`` after its last use)."""
+    return t if t.dtype == torch.float32 else None
+
+
+def _leaf_update_(cfg: OptimizerConfig, lr, bc, p, g, moments) -> None:
+    """One leaf's update, in f32 in the reference's order of operations,
+    written into ``p`` and its moments: each one's last operation writes its
+    result there (``out=``); its temporaries die when it returns."""
     p32 = p.float()
-    if cfg.name == "sgd":
-        if cfg.weight_decay:
-            p32 = p32 * (1.0 - lr * cfg.weight_decay)
-        return (p32 - lr * g.float()).to(p.dtype), ()
-    if cfg.name == "momentum":
-        (m,) = moments
-        m32 = cfg.momentum * m.float() + g.float()
-        if cfg.weight_decay:
-            p32 = p32 * (1.0 - lr * cfg.weight_decay)
-        return (p32 - lr * m32).to(p.dtype), (m32.to(m.dtype),)
-    m, v = moments
-    g32 = g.float()
-    m32 = cfg.beta1 * m.float() + (1 - cfg.beta1) * g32
-    v32 = cfg.beta2 * v.float() + (1 - cfg.beta2) * g32 * g32
-    mhat = m32 / bc[0]
-    vhat = v32 / bc[1]
     if cfg.weight_decay:
         p32 = p32 * (1.0 - lr * cfg.weight_decay)
-    p32 = p32 - lr * mhat / (torch.sqrt(vhat) + cfg.eps)
-    return p32.to(p.dtype), (m32.to(m.dtype), v32.to(v.dtype))
-
-
-def _write(p, moments, p_new, moments_new) -> None:
-    p.copy_(p_new)
-    for m, m_new in zip(moments, moments_new):
-        m.copy_(m_new)
+    if cfg.name == "sgd":
+        torch.sub(p32, lr * g.float(), out=p)
+        return
+    if cfg.name == "momentum":
+        (m,) = moments
+        m32 = torch.add(cfg.momentum * m.float(), g.float(), out=_into(m))
+        torch.sub(p32, lr * m32, out=p)
+        new = (m32,)
+    else:
+        m, v = moments
+        g32 = g.float()
+        m32 = torch.add(cfg.beta1 * m.float(), (1 - cfg.beta1) * g32,
+                        out=_into(m))
+        v32 = torch.add(cfg.beta2 * v.float(), (1 - cfg.beta2) * g32 * g32,
+                        out=_into(v))
+        mhat = m32 / bc[0]
+        vhat = v32 / bc[1]
+        torch.sub(p32, lr * mhat / (torch.sqrt(vhat) + cfg.eps), out=p)
+        new = (m32, v32)
+    for mom, m32 in zip(moments, new):
+        if m32 is not mom:
+            mom.copy_(m32)
 
 
 def apply_updates_(cfg: OptimizerConfig, grads, state: OptState, params,
@@ -155,7 +160,7 @@ def apply_updates_(cfg: OptimizerConfig, grads, state: OptState, params,
     moments = [T.leaves(state[name]) for name in MOMENTS[cfg.name]]
     per_leaf = list(zip(*moments)) if moments else [()] * len(flat)
     for p, g, ms in zip(flat, T.leaves(grads), per_leaf):
-        _write(p, ms, *_leaf_update(cfg, lr, bc, p, g, ms))
+        _leaf_update_(cfg, lr, bc, p, g, ms)
 
 
 def apply_updates(cfg: OptimizerConfig, grads, state: OptState, params,

@@ -192,10 +192,21 @@ def test_sync_point_matches_reference(reference, i):
         state = _subtree(reference, f"{tag}/in/sync")
         before = {k: v.clone() for k, v in
                   _flat({"s": start, "e": end, "y": state}).items()}
+        wire = _subtree(reference, f"{tag}/out/wire")
+        if wire:
+            # the payload of the inputs, taken before the sync is handed end
+            values = (T.map(lambda e, s: e - s, end, start)
+                      if cfg.topology == "all" else end)
+            q, scale, _ = TC.compress_tree(values, state["ef"], rows=True)
         params, new_state = TS.sync_point(start, end, state, cfg)
         after = _flat({"s": start, "e": end, "y": state})
-        assert all(torch.equal(before[k], after[k]) for k in before), \
+        # the blocking sync writes its params into end, which it is handed
+        handed = (not cfg.gossip_async and cfg.topology == "all"
+                  and cfg.overlap == "none")
+        assert all(torch.equal(before[k], after[k]) for k in before
+                   if not (handed and k.startswith("/e/"))), \
             "sync_point changed its inputs"
+        assert not handed or params is end
         want_p = _flat(_subtree(reference, f"{tag}/out/params"))
         want_s = _flat(_subtree(reference, f"{tag}/out/sync"))
         got_p, got_s = _flat(params), _flat(new_state)
@@ -214,11 +225,7 @@ def test_sync_point_matches_reference(reference, i):
                 atol=(DIFF_ATOL if key.startswith(("/ef/", "/pending/"))
                       else ATOL),
                 err_msg=f"{tag} sync{key}")
-        wire = _subtree(reference, f"{tag}/out/wire")
         if wire:
-            values = (T.map(lambda e, s: e - s, end, start)
-                      if cfg.topology == "all" else end)
-            q, scale, _ = TC.compress_tree(values, state["ef"], rows=True)
             for name, got in (("q", q), ("scale", scale)):
                 for key, want in _flat(wire[name]).items():
                     got_leaf = _flat(got)[key].numpy()

@@ -575,11 +575,11 @@ def test_build_trainer_takes_the_training_path():
                                   dict(compression="int8", slowmo=0.5)],
                          ids=["none", "int8", "int16", "int8-slowmo"])
 def test_donated_sync_is_bitwise(mode):
-    """``sync_point(…, donate=True)``, as the local-SGD block calls it: the
-    blocking sync writes the params it returns into ``params_end``'s
-    leaves (an f32 leaf holding its delta on the way, a bf16 one not),
-    bitwise the values of the sync that leaves its inputs alone; the start
-    params and the sync state are left as they were."""
+    """The blocking ``sync_point`` writes the params it returns into
+    ``params_end``'s leaves, which it is handed (an f32 leaf holding its
+    delta on the way, a bf16 one not), bitwise the values of the same steps
+    as pure functions; the start params and the sync state are left as
+    they were."""
     from repro_torch.core import sync as TS
     cfg = SyncConfig(strategy="periodic", period=H, **mode)
     rng = np.random.default_rng(4)
@@ -600,10 +600,14 @@ def test_donated_sync_is_bitwise(mode):
             (rng.standard_normal(tuple(e.shape)) * 1e-4).astype(np.float32)),
             state["ef"])
     kept = T.map(torch.clone, {"start": start, "state": state})
-    want_p, want_s = TS.sync_point(start, T.map(torch.clone, end), state,
-                                   cfg, impl="torch")
-    got_p, got_s = TS.sync_point(start, end, state, cfg, impl="torch",
-                                 donate=True)
+    # the same steps as pure functions: a new delta, a new result
+    delta = TS._f32_delta(end, start)
+    want_s = dict(state)
+    mean, ef = TS._exchange_mean(delta, state.get("ef"), cfg, impl="torch")
+    if ef is not None:
+        want_s["ef"] = ef
+    want_p = TS._apply_f32(start, TS._slowmo_step(mean, state, want_s, cfg))
+    got_p, got_s = TS.sync_point(start, end, state, cfg, impl="torch")
     assert got_p is end
     for a, b in zip(T.leaves(got_p) + T.leaves(got_s),
                     T.leaves(want_p) + T.leaves(want_s)):

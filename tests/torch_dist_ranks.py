@@ -153,14 +153,15 @@ def sync_modes(modes, inputs):
         for start, end, state in boundaries:
             mine = [T.map(lambda a: torch.from_numpy(np.array(a[r:r + 1])),
                           tree) for tree in (start, end, state)]
-            params, new_state = TS.sync_point(*mine, cfg, mesh=mesh,
-                                              axis="pod")
             wire = None
             if "ef" in mine[2]:
                 values = (T.map(lambda e, s: e - s, mine[1], mine[0])
                           if cfg.topology == "all" else mine[1])
                 q, s, _ = TC.compress_tree(values, mine[2]["ef"], rows=True)
                 wire = (_np(q), _np(s))
+            # before the sync, which may write its params into mine[1]
+            params, new_state = TS.sync_point(*mine, cfg, mesh=mesh,
+                                              axis="pod")
             got.append((_np(params), _np(new_state), wire))
         out.append(got)
     return out
