@@ -6,7 +6,7 @@
 Builds the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` with
 nvcc (one compiler per source, all started together), holds each against its
 plain PyTorch version on the card, then drives the port's paths (SVM
-training, LM serving of three model families, LM training) through their
+training, LM serving of every model family, LM training) through their
 entry points and holds every run to its plain-version twin:
 
 1. device, versions, kernel build times and the compiler's register report;
@@ -90,11 +90,15 @@ entry points and holds every run to its plain-version twin:
    flops on the TF32 tensor cores and on the f32 CUDA cores), and the
    split's own floor (three TF32 products) beside them; the bf16 tensor-core kernel (wgmma, TMA) at ragged, GQA,
    prefix and dh 32–256 cases and the serving paths' prefill shapes,
-   smollm-360m's and zamba2-1.2b's (rtol 2**-7 / atol 1e-4, one bf16 ulp,
+   smollm-360m's and zamba2-1.2b's, and phase families' (llama3.2-3b's,
+   qwen3-moe's GQA group 16, phi3.5-moe's 32/8 heads of 128,
+   paligemma-3b's dh 256 causal ∪ prefix,
+   whisper's encoder and its cross-attention of 384 rows over 1,500 keys)
+   (rtol 2**-7 / atol 1e-4, one bf16 ulp,
    a limit SDPA must fail at smollm's); inputs no TMA map can describe (an
    f32 q, k, v 4 bytes into a fused projection, bf16 at dh 70) on the
    CUDA-core kernel; each launch counted on the kernel it must take, with
-   its time, the plain version's, the bound, and at both bf16 serving
+   its time, the plain version's, the bound, and at the bf16 serving
    shapes SDPA's as a yardstick, the achieved TFLOP/s and the share of the
    bound;
 6. the serving path: ``ServeEngine.generate`` on smollm-360m at full width
@@ -188,7 +192,25 @@ entry points and holds every run to its plain-version twin:
     Mamba2 layers, the shared attention block after every 6: 38 SSD and 6
     flash launches per prefill, on the tensor-core kernels in bf16; in f32
     the SSD ones on ``ssd.cu`` and the flash ones on the split-TF32
-    kernel).
+    kernel);
+13. phase families, every other family the port serves, each at full
+    width in bf16 on seeded weights drawn leaf by leaf, 4 requests: the
+    dense llama3.2-3b (1,920 prompt tokens + 128 new), internlm2-1.8b and
+    qwen2.5-3b (1,920 + 16); the MoE phi3.5-moe (depth cut to 24 of 32
+    layers) and qwen3-moe (12 of 94), 1,920 + 16; the prefix-LM VLM
+    paligemma-3b (seeded patches of 256 positions + 1,920 + 16); the
+    encoder-decoder whisper-base (seeded frames of 1,500, 384 + 64). Each
+    as phase 6 holds smollm: ``generate`` with graph replays, flash
+    launches counted a prefill (one an attention, whisper's three a
+    layer, all on the bf16 tensor-core kernel), peak memory under 75 GB, a
+    second call with no capture, and engines with ``graphs=False`` and on
+    the plain path on the same copy of the weights: tokens identical,
+    teacher-forced logits bitwise graph against eager, the kernel path
+    against the plain path at relative L2 0.1 for every model (an MoE's
+    routing agreement by layer printed); each MoE also in f32 at depth 4,
+    the split-TF32 kernel path against the plain path at relative L2 1e-2.
+    Before them, equal gates over 16 and 128 experts route on the card to
+    experts 0..k-1, as the reference's top-k picks them.
 
 The line before the last is the kernels' JSON record (five kernels: the
 flash route twice, bf16 and f32); the last line is
@@ -267,6 +289,18 @@ FLASH_HYBRID = (4, 1920, 1920, 32, 32, 64, True, 0)
 # llama32-3b's (24/8 heads of 128, src/repro/configs/llama32_3b.py)
 FLASH_F32_FULL = [FLASH_HYBRID, FLASH_MAIN,
                   (4, 1920, 1920, 24, 8, 128, True, 0)]
+# bf16 prefill shapes of the families phase: llama3.2-3b's (24/8 heads of
+# 128), qwen3-moe's (GQA group 16), phi3.5-moe's (32/8 heads of 128),
+# paligemma-3b's (one KV head of 256,
+# causal ∪ its 256 image positions over 256 + 1,920 positions), whisper's
+# encoder (1,500 frames, full) and its decoder's cross-attention (384
+# tokens over the 1,500 frames)
+FLASH_FAMILY_SHAPES = [(4, 1920, 1920, 24, 8, 128, True, 0),
+                       (4, 1920, 1920, 64, 4, 128, True, 0),
+                       (4, 1920, 1920, 32, 8, 128, True, 0),
+                       (4, 2176, 2176, 8, 1, 256, True, 256),
+                       (4, 1500, 1500, 8, 8, 64, False, 0),
+                       (4, 384, 1500, 8, 8, 64, False, 0)]
 # bf16: the kernel and the plain version both compute in f32 and round only
 # the output, so they differ by a rounding flip, at most one bf16 ulp
 # (rtol 2**-7 is at least one ulp of any value), and near zero by the two
@@ -314,6 +348,18 @@ SSM_F32_LOGITS_REL_L2 = 1e-2
 # at zamba2-1.2b (1.03x). A subtly wrong kernel lands O(1) away (unrelated
 # logits of equal norm are ~1.4 apart), above 1.5 x 0.509 = 0.76.
 SSM_BF16_VS_F32_FACTOR = 1.5
+# phase families: (arch, layers kept (None: all), prompt tokens, new tokens)
+# a request, 4 requests; an MoE's f32 check at MOE_F32_DEPTH layers over
+# MOE_F32_STEPS decode steps
+FAMILY_RUNS = [("llama3.2-3b", None, 1920, 128),
+               ("internlm2-1.8b", None, 1920, 16),
+               ("qwen2.5-3b", None, 1920, 16),
+               ("phi3.5-moe-42b-a6.6b", 24, 1920, 16),
+               ("qwen3-moe-235b-a22b", 12, 1920, 16),
+               ("paligemma-3b", None, 1920, 16),
+               ("whisper-base", None, 384, 64)]
+FAMILY_PEAK_GB = 75.0
+MOE_F32_DEPTH, MOE_F32_STEPS = 4, 16
 # phase dist: K ranks on the one card, gloo between them
 DIST_K, DIST_BS, DIST_EPOCHS = 8, 64, 2
 DIST_MODES = [("delayed", "all", False), ("chunked", "all", False),
@@ -334,6 +380,8 @@ D8_K, D8_STRAGGLE_S = 4, 2.0
 D9_SIZES = (64, 128)
 # host arrays of the SVM data sets, kept by phases 3 and 4 for phase dist
 _HOST = {}
+# device_ms's side stream, made at its first call
+_SIDE = {}
 DMS_MODES = [("none", "all", False), ("delayed", "all", False),
              ("chunked", "all", False), ("none", "ring", False),
              ("none", "pairwise", False), ("none", "ring", True),
@@ -357,8 +405,10 @@ def device_ms(torch, fn, arg_sets, runs: int = 21) -> float:
     """Device time of one ``fn(*args)`` call: a CUDA graph of one call per
     argument set (distinct buffers, more bytes than L2 holds where the shape
     allows, so every call reads cold data, as the training loop does) is
-    replayed ``runs`` times after warm-up; the median run over its calls."""
-    side = torch.cuda.Stream()
+    replayed ``runs`` times after warm-up; the median run over its calls.
+    The warm-up runs on one kept side stream: each new stream would get a
+    cuBLAS workspace of its own, which stays allocated."""
+    side = _SIDE.setdefault("stream", torch.cuda.Stream())
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for args in arg_sets:
@@ -989,7 +1039,7 @@ def phase_flash(torch, dev):
              for shape in FLASH_SHAPES + FLASH_F32_FULL]
     cases += [(shape, torch.bfloat16, BF16_RTOL, BF16_ATOL)
               for shape in [FLASH_BF16] + FLASH_TC_SHAPES +
-              [FLASH_MAIN, FLASH_HYBRID]]
+              [FLASH_MAIN, FLASH_HYBRID] + FLASH_FAMILY_SHAPES]
     rows = {}
     for i, (shape, dtype, rtol, atol) in enumerate(cases):
         causal, prefix = shape[6], shape[7]
@@ -1072,18 +1122,27 @@ def phase_flash(torch, dev):
                                    bound_ms=bound_ms, bound_by=bound_by,
                                    library_ms=library_ms)
             continue
-        if shape in (FLASH_MAIN, FLASH_HYBRID):
+        if shape in [FLASH_MAIN, FLASH_HYBRID] + FLASH_FAMILY_SHAPES:
             # the yardstick: one PyTorch call for the same function (heads
-            # first, as it takes them); the port never calls it
+            # first, as it takes them; the mask given where a prefix widens
+            # the causal one); the port never calls it
+            mask = None
+            if prefix:
+                rows_ = torch.arange(sq, device=dev)[:, None]
+                cols = torch.arange(sk, device=dev)[None]
+                mask = (cols <= rows_) | (cols < prefix)
+
             def library(q, k, v):
                 return sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), is_causal=True,
+                            v.transpose(1, 2), attn_mask=mask,
+                            is_causal=causal and mask is None,
                             enable_gqa=True)
             lib_out = library(q, k, v).transpose(1, 2)
             lib_err = float((lib_out.float() - want.float()).abs().max())
             library_ms = device_ms(torch, library, sets)
             flops = flash_flops(shape)
-            log(f"flash {label}: SDPA {library_ms * 1e3:.4f} us; kernel "
+            log(f"flash {label}: SDPA {library_ms * 1e3:.4f} us (max abs "
+                f"diff vs plain {lib_err:.3e}); kernel "
                 f"{flops / ms * 1e-9:.1f} TFLOP/s of the function's "
                 f"{flops / 1e9:.2f} GFLOP ({1.5 * flops / ms * 1e-9:.1f} "
                 f"TFLOP/s counting the split P·V it computes), "
@@ -1138,13 +1197,17 @@ def rel_l2(torch, a, b) -> float:
 
 def serve_launches(cfg, bf16=True):
     """Kernel launches one prefill makes on the kernel path: the flash
-    kernels once per attention application, the SSD kernels once per Mamba2
+    kernels once per attention application (the enc-dec's three a decoder
+    layer and encoder layer together), the SSD kernels once per Mamba2
     layer. In bf16 all on the tensor-core kernels; in f32 the flash ones on
     the split-TF32 kernel and the SSD ones on ``ssd.cu``."""
     if cfg.family == "ssm":
         flash, ssd = 0, cfg.n_layers
     elif cfg.family == "hybrid":
         flash, ssd = cfg.n_layers // cfg.shared_block_every, cfg.n_layers
+    elif cfg.family == "audio":
+        # the encoder's layers, and each decoder layer's self- and cross-
+        flash, ssd = cfg.n_encoder_layers + 2 * cfg.n_layers, 0
     else:
         flash, ssd = cfg.n_layers, 0
     return {"flash_attention": flash,
@@ -1579,6 +1642,313 @@ def hold_bf16_to_f32(torch, cfg, bf16_logits, f32_logits, factor):
     check(dist["kernel"] <= factor * dist["torch"],
           f"serve {cfg.name}: the bf16 kernel path is {dist['kernel']} from "
           f"f32, over {factor} x the bf16 plain path's {dist['torch']}")
+
+
+class RoutingRecorder:
+    """Within ``with``: the expert indices (T, k) of every MoE routing the
+    port makes, in call order (one call a layer in a prefill), copied;
+    ``repro_torch.models.moe.top_k_routing`` wrapped, and restored on
+    exit."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        route = self.orig = self.moe.top_k_routing
+
+        def recorded(logits, k):
+            weights, indices = route(logits, k)
+            self.calls.append(indices.clone())
+            return weights, indices
+        self.moe.top_k_routing = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k_routing = self.orig
+
+
+def family_extras(torch, dev, cfg, batch, seed):
+    """The VLM's patch embeddings or the audio family's frame embeddings
+    (the stub frontends' outputs), numpy-seeded normal draws in bf16."""
+    rng = np.random.default_rng(seed)
+    size = {"vlm": ("patches", cfg.num_image_tokens),
+            "audio": ("frames", cfg.n_audio_frames)}.get(cfg.family)
+    if size is None:
+        return {}
+    return {size[0]: torch.from_numpy(rng.normal(
+        size=(batch, size[1], cfg.d_model)).astype(np.float32)).to(
+            dev, torch.bfloat16)}
+
+
+def _family_paths(torch, engines, prompts, extras, forced, counters, route):
+    """Prefill, then the decode loop teacher-forced on ``forced``, through
+    each engine: per path the prefill's logits, launches and wall, every
+    step's logits and the decode's ms a step; with ``route`` the MoE
+    routings of the prefill."""
+    runs = {}
+    start = engines["graph"].start(prompts.shape[1])
+    for name, eng in engines.items():
+        torch.cuda.synchronize()
+        reset(counters)
+        recorder = RoutingRecorder() if route else None
+        t0 = time.perf_counter()
+        if recorder is not None:
+            with recorder:
+                logits, _ = eng.prefill(prompts, extras)
+        else:
+            logits, _ = eng.prefill(prompts, extras)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = read(counters)
+        eng.decode_loop(prompts.shape[0])     # captured here, not timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = _forced_steps(eng, logits, start, forced)
+        torch.cuda.synchronize()
+        runs[name] = dict(
+            logits=logits, steps=steps, launches=launches,
+            prefill_s=prefill_s, routes=recorder.calls if route else None,
+            decode_ms=1e3 * (time.perf_counter() - t0) / forced.shape[1])
+    return runs
+
+
+def _moe_f32(torch, dev, cfg, prompts, extras, forced, counters):
+    """The MoE config at MOE_F32_DEPTH layers in f32: the kernel path (the
+    split-TF32 flash kernel) against the plain path on one copy of the
+    weights, prefill and teacher-forced steps' logits held to
+    SSM_F32_LOGITS_REL_L2, with the routing agreement."""
+    from repro_torch.launch.serve import ServeEngine
+    c = dataclasses.replace(cfg, n_layers=MOE_F32_DEPTH, dtype="float32")
+    max_len = prompts.shape[1] + forced.shape[1] + 1
+    kernel = ServeEngine(c, dev, max_len=max_len, dtype=torch.float32,
+                         graphs=False)
+    engines = {"graph": kernel,
+               "plain": ServeEngine(c, dev, max_len=max_len,
+                                    dtype=torch.float32, attn_impl="torch",
+                                    graphs=False, params=kernel.params)}
+    runs = _family_paths(torch, engines, prompts, extras, forced, counters,
+                         True)
+    expect = serve_launches(c, bf16=False)
+    check(runs["graph"]["launches"] == expect,
+          f"{cfg.name} f32 prefill launches {runs['graph']['launches']}, "
+          f"expected {expect}")
+    kr, tr = runs["graph"], runs["plain"]
+    rels = [rel_l2(torch, a, b) for a, b in
+            zip([kr["logits"]] + kr["steps"], [tr["logits"]] + tr["steps"])]
+    agree = [float((a == b).float().mean())
+             for a, b in zip(kr["routes"], tr["routes"])]
+    log(f"family {cfg.name} f32 at depth {MOE_F32_DEPTH}, kernel vs plain: "
+        f"prefill logits rel L2 {rels[0]:.4e}, {len(rels) - 1} decode steps "
+        f"max {max(rels[1:]):.4e} (bound {SSM_F32_LOGITS_REL_L2}); routing "
+        f"agreement by layer {[round(a, 6) for a in agree]}; launches "
+        f"{kr['launches']}")
+    check(max(rels) <= SSM_F32_LOGITS_REL_L2,
+          f"{cfg.name} f32 kernel vs plain logits rel L2 {max(rels)}")
+    del engines, kernel, runs, kr, tr
+    torch.cuda.empty_cache()
+
+
+def phase_family(torch, dev, arch, depth, prompt_len, gen, seed):
+    """One family model at full width (``depth`` layers kept, all if None)
+    served as phase 6 serves smollm: ``generate`` on the kernel path with
+    the decode loop as graph replays (flash launches counted: one an
+    attention a prefill, all on the bf16 tensor-core kernel; peak memory
+    under FAMILY_PEAK_GB), once more (no capture), then an engine with
+    ``graphs=False`` and one on the plain path (``attn_impl="torch"``),
+    both on the first engine's weights (one copy): tokens identical, the
+    teacher-forced logits of the replayed step bitwise the eager step's,
+    the kernel path against the plain path (relative L2 LOGITS_REL_L2 for
+    every family; an MoE's routing agreement by layer is logged, and an MoE
+    also runs the f32 check at MOE_F32_DEPTH layers)."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.runtime import graphs as G
+    cfg = get_arch(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    counters = serve_counters()
+    expect = serve_launches(cfg)
+    t_model = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(SERVE_BATCH, prompt_len))).to(dev)
+    extras = family_extras(torch, dev, cfg, SERVE_BATCH, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, dev, max_len=before + prompt_len + gen + 1)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    weights = sum(p.numel() * p.element_size()
+                  for p in engine.params.parameters())
+    log(f"family {cfg.name} ({cfg.family}): {cfg.n_layers} layers"
+        f"{f' (of {get_arch(arch).n_layers})' if depth else ''}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, {n_params / 1e9:.3f} B params, bf16 "
+        f"weights {weights / 1e9:.2f} GB drawn leaf by leaf in "
+        f"{time.perf_counter() - t0:.2f} s ({resident / 1e9:.2f} GB held on the "
+        f"card before them); {SERVE_BATCH} x ({before} image "
+        f"positions + {prompt_len} prompt tokens + {gen} new), "
+        f"{cfg.n_audio_frames} audio frames")
+
+    # the main path, as a user calls it: the decode loop as graph replays
+    reset(counters)
+    captures = G.CAPTURES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, gen, extras)
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    peak = torch.cuda.max_memory_allocated()
+    check(tokens.shape == (SERVE_BATCH, gen), f"tokens {tokens.shape}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"{cfg.name}: generated token ids out of range")
+    check(launches == expect, f"{cfg.name}: launches in one generate "
+          f"{launches}, expected {expect} (one prefill; decode runs none)")
+    check(peak < FAMILY_PEAK_GB * 1e9, f"{cfg.name}: peak {peak / 1e9:.2f} "
+          f"GB over {FAMILY_PEAK_GB} GB")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = engine.generate(prompts, gen, extras)
+    wall_again = time.perf_counter() - t0
+    check(G.CAPTURES - captures == 1, f"{cfg.name}: {G.CAPTURES - captures} "
+          f"captures over two generate calls")
+    check(np.array_equal(again, tokens),
+          f"{cfg.name}: a second generate gave other tokens")
+    eager = ServeEngine(cfg, dev, max_len=engine.max_len, graphs=False,
+                        params=engine.params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens_e = eager.generate(prompts, gen, extras)
+    wall_e = time.perf_counter() - t0
+    check(np.array_equal(tokens_e, tokens),
+          f"{cfg.name}: graphs=False generated other tokens "
+          f"({int((tokens_e != tokens).sum())} of {tokens.size} differ)")
+    check(G.CAPTURES - captures == 1, f"{cfg.name}: the eager engine "
+          f"captured")
+    log(f"family {cfg.name} generate (graphs): wall {wall:.4f} s, "
+        f"{tokens.size / wall:.1f} new tokens/s (the first call: it "
+        f"captures the step); again {wall_again:.4f} s, "
+        f"{tokens.size / wall_again:.1f} new tokens/s (no capture); "
+        f"graphs=False {wall_e:.4f} s, {tokens.size / wall_e:.1f} new "
+        f"tokens/s; tokens identical; 1 capture; flash launches in the "
+        f"prefill {launches['flash_attention_tc']} of "
+        f"{launches['flash_attention']} on the bf16 tensor-core kernel; "
+        f"peak memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB; weights "
+        f"{weights / 1e9:.2f} GB)")
+
+    # graph, eager and plain paths, step by step on the graph's tokens
+    plain = ServeEngine(cfg, dev, max_len=engine.max_len, attn_impl="torch",
+                        graphs=False, params=engine.params)
+    forced = torch.from_numpy(tokens).to(dev).long()
+    runs = _family_paths(torch, {"graph": engine, "eager": eager,
+                                 "plain": plain}, prompts, extras, forced,
+                         counters, cfg.is_moe)
+    none = {name: 0 for name in counters}
+    check(runs["graph"]["launches"] == expect
+          and runs["eager"]["launches"] == expect
+          and runs["plain"]["launches"] == none,
+          f"{cfg.name}: prefill launches "
+          f"{[r['launches'] for r in runs.values()]}")
+    gr, er, pr = runs["graph"], runs["eager"], runs["plain"]
+    same = [torch.equal(a, b) for a, b in zip(gr["steps"], er["steps"])]
+    check(torch.equal(gr["logits"], er["logits"]) and all(same),
+          f"{cfg.name}: graphed decode logits differ from the eager step's "
+          f"at steps {[i for i, v in enumerate(same) if not v]}")
+    greedy = torch.stack([torch.argmax(t, dim=-1) for t in
+                          [gr["logits"]] + gr["steps"][:-1]], dim=1)
+    check(torch.equal(greedy, forced),
+          f"{cfg.name}: the logits do not reproduce the generated tokens")
+    for t in [gr["logits"]] + gr["steps"]:
+        check(bool(torch.isfinite(t).all()), f"{cfg.name}: logits not finite")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prefill(prompts, extras)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rels = [rel_l2(torch, a, b) for a, b in
+            zip([gr["logits"]] + gr["steps"], [pr["logits"]] + pr["steps"])]
+    agree = float((torch.argmax(gr["logits"], -1)
+                   == torch.argmax(pr["logits"], -1)).float().mean())
+    routing = ""
+    if cfg.is_moe:
+        by_layer = [float((a == b).float().mean())
+                    for a, b in zip(gr["routes"], pr["routes"])]
+        check(len(by_layer) == cfg.n_layers, f"{cfg.name}: "
+              f"{len(by_layer)} routings recorded of {cfg.n_layers} layers")
+        routing = (f"; MoE routing agreement of the (token, slot) experts, "
+                   f"kernel vs plain prefill, by layer "
+                   f"{[round(a, 6) for a in by_layer]} (min "
+                   f"{min(by_layer):.6f})")
+    log(f"family {cfg.name} prefill {float(np.median(times)):.4f} s (median "
+        f"of 3; first {gr['prefill_s']:.4f} s, eager engine "
+        f"{er['prefill_s']:.4f} s, plain path {pr['prefill_s']:.4f} s); "
+        f"decode teacher-forced: graph {gr['decode_ms']:.3f} ms a step "
+        f"({1e3 * SERVE_BATCH / gr['decode_ms']:.1f} tokens/s), eager "
+        f"{er['decode_ms']:.3f} ms ({1e3 * SERVE_BATCH / er['decode_ms']:.1f}"
+        f" tokens/s), {er['decode_ms'] / gr['decode_ms']:.2f}x; "
+        f"teacher-forced logits graph vs eager: {sum(same)} of {len(same)} "
+        f"steps bitwise")
+    log(f"family {cfg.name} bf16 kernel vs plain: prefill logits rel L2 "
+        f"{rels[0]:.4e}, {len(rels) - 1} decode steps max "
+        f"{max(rels[1:]):.4e} median {float(np.median(rels[1:])):.4e} "
+        f"(bound {LOGITS_REL_L2}); first-token agreement "
+        f"{agree:.2f}{routing}")
+    check(max(rels) <= LOGITS_REL_L2, f"{cfg.name}: bf16 kernel vs plain "
+          f"logits rel L2 {max(rels)} > {LOGITS_REL_L2}")
+    peak_all = torch.cuda.max_memory_allocated()
+    check(peak_all < FAMILY_PEAK_GB * 1e9, f"{cfg.name}: peak "
+          f"{peak_all / 1e9:.2f} GB over {FAMILY_PEAK_GB} GB")
+    del engine, eager, plain, runs, gr, er, pr
+    torch.cuda.empty_cache()
+    if cfg.is_moe:
+        _moe_f32(torch, dev, cfg, prompts, extras,
+                 forced[:, :MOE_F32_STEPS], counters)
+    log(f"family {cfg.name}: peak memory of the three engines "
+        f"{peak_all / 1e9:.2f} GB; {time.perf_counter() - t_model:.1f} s")
+    return launches
+
+
+def phase_families(torch, dev):
+    """Every family the port serves beside smollm, mamba2 and zamba2, each
+    through :func:`phase_family` (FAMILY_RUNS), after a check on the card
+    that equal gates route to the lowest experts (the reference's order);
+    returns the flash launches of each model's generate. The SVM phases'
+    kept captures and cuBLAS's workspaces (32 MiB a stream it ran on) are
+    dropped first: an MoE's peak nears FAMILY_PEAK_GB."""
+    from repro_torch.core import svm
+    from repro_torch.models import moe
+    svm.DMS_GRAPHS.clear()
+    _release(torch)
+    held = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    _release(torch)
+    log(f"families: {held / 1e9:.3f} GB held on the card at the start, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB once cuBLAS's "
+        f"workspaces (one a stream it ran on) were dropped")
+    for e, k in ((16, 2), (128, 8)):
+        _, idx = moe.top_k_routing(torch.zeros((SERVE_BATCH * SERVE_PROMPT,
+                                                e), device=dev), k)
+        check(torch.equal(idx, torch.arange(k, device=dev).expand_as(idx)),
+              f"equal gates over {e} experts routed to {idx[0].tolist()}")
+        logits = torch.from_numpy(np.random.default_rng(e).normal(
+            size=(SERVE_BATCH * SERVE_PROMPT, e)).astype(np.float32))
+        _, on_card = moe.top_k_routing(logits.to(dev), k)
+        _, on_cpu = moe.top_k_routing(logits, k)
+        check(torch.equal(on_card.cpu(), on_cpu),
+              f"top-{k} of {e} experts differs between the card and the CPU")
+    log("families: equal gates over 16 and 128 experts route to experts "
+        "0..k-1 on the card; random gates route as on the CPU")
+    launches = {}
+    for i, (arch, depth, prompt_len, gen) in enumerate(FAMILY_RUNS):
+        launches[arch] = phase_family(torch, dev, arch, depth, prompt_len,
+                                      gen, 700 + i)
+    return launches
 
 
 def ssd_inputs(torch, dev, seed, shape, dtype, copies=1):
@@ -3814,7 +4184,8 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def done(phase):
-        log(f"[{time.perf_counter() - t_start:.1f} s] {phase} done")
+        log(f"[{time.perf_counter() - t_start:.1f} s] {phase} done; "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
 
     # --dist-only: the build and phase dist alone, and no result line
     dist_only = "--dist-only" in sys.argv[1:]
@@ -3868,6 +4239,12 @@ def main() -> int:
         torch, dev, get_arch("zamba2-1.2b"), SERVE_BATCH, SERVE_PROMPT,
         SERVE_GEN, None, SSM_F32_LOGITS_REL_L2,
         bf16_factor=SSM_BF16_VS_F32_FACTOR)[1]["flash_attention_tc32"]
+    done("SSM and hybrid serving")
+    t_families = time.perf_counter()
+    family_launches = phase_families(torch, dev)
+    log(f"families: flash launches a generate {family_launches}; phase "
+        f"{time.perf_counter() - t_families:.1f} s")
+    done("families")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hinge_block_grad", "route": "cuda",

@@ -38,8 +38,7 @@ class SSMConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Unified architecture description covering every assigned family
-    (the port builds the dense, ssm and hybrid families)."""
+    """Unified architecture description covering every assigned family."""
 
     name: str = "unnamed"
     family: str = "dense"          # dense | moe | ssm | hybrid | audio | vlm

@@ -18,6 +18,19 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
+def same_device(a: Union[str, torch.device],
+                b: Union[str, torch.device]) -> bool:
+    """Whether ``a`` and ``b`` name one device: a CUDA device given without
+    an index (``"cuda"``) is the current card, as a tensor placed there
+    reports it (``cuda:0``)."""
+    def where(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return d.type, torch.cuda.current_device()
+        return d.type, d.index
+    return where(a) == where(b)
+
+
 def wait(tree) -> None:
     """Wait for every card that holds a tensor of ``tree`` (a tensor, or a
     tree of them); nothing to wait for on the CPU. The port's

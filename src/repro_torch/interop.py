@@ -50,31 +50,35 @@ def _tensor(value, device=None) -> torch.Tensor:
 
 def lm_params_from_jax(params: Mapping[str, Any], cfg: ModelConfig
                        ) -> Dict[str, torch.Tensor]:
-    """The reference's LM param pytree (``DecoderLM.init``'s nested dict,
-    as numpy) as the port's state dict: nested keys joined by dots, and the
-    scanned ``layers`` subtree (every leaf with a leading ``n_layers`` dim)
-    split into one entry per layer, ``layers.<i>.<key>``. Load it with
-    :meth:`repro_torch.models.transformer.DecoderLM.load`."""
+    """The reference's LM param pytree (a model's ``init``, a nested dict,
+    as numpy) as the port's state dict: nested keys joined by dots, and
+    each scanned layer stack (every leaf with a leading depth dim: ``layers``
+    and the enc-dec's ``dec_layers`` of ``n_layers``, its ``enc_layers`` of
+    ``n_encoder_layers``; an MoE's ``(n_layers, E, …)`` expert leaves too)
+    split into one entry per layer, ``<stack>.<i>.<key>``. Load it with the
+    port's model's ``load``."""
     out: Dict[str, torch.Tensor] = {}
+    stacks = {"layers": cfg.n_layers, "dec_layers": cfg.n_layers,
+              "enc_layers": cfg.n_encoder_layers}
 
-    def walk(prefix: str, node, layer=None):
+    def walk(prefix: str, node, layer=None, depth=None):
         for key, value in node.items():
             if isinstance(value, Mapping):
-                walk(f"{prefix}{key}.", value, layer)
+                walk(f"{prefix}{key}.", value, layer, depth)
                 continue
             arr = np.asarray(value)
             if layer is not None:
-                if arr.shape[:1] != (cfg.n_layers,):
+                if arr.shape[:1] != (depth,):
                     raise ValueError(f"{prefix}{key}: leading dim "
-                                     f"{arr.shape[:1]} is not n_layers "
-                                     f"{cfg.n_layers}")
+                                     f"{arr.shape[:1]} is not the stack's "
+                                     f"depth {depth}")
                 arr = arr[layer]
             out[prefix + key] = _tensor(arr)
 
     for key, value in params.items():
-        if key == "layers":
-            for i in range(cfg.n_layers):
-                walk(f"layers.{i}.", value, i)
+        if key in stacks:
+            for i in range(stacks[key]):
+                walk(f"{key}.{i}.", value, i, stacks[key])
         elif isinstance(value, Mapping):
             walk(f"{key}.", value)
         else:

@@ -2,11 +2,13 @@
 
 The port of ``repro.launch.serve``: a batch of prompts is prefilled once
 (written into the model's decode cache: k, v of ``max_len`` for attention,
-the O(1) SSM state and conv tails for Mamba2 layers), then stepped token by
-token. Params are cast to the serving dtype (bf16). It runs on the card
-unless ``device="cpu"`` is given; without a card and without that it raises.
-It serves the dense (smollm-360m), ssm (mamba2-2.7b) and hybrid
-(zamba2-1.2b) families.
+the O(1) SSM state and conv tails for Mamba2 layers, the encoder's k, v for
+cross-attention), then stepped token by token. Params are in the serving
+dtype (bf16). It runs on the card unless ``device="cpu"`` is given; without
+a card and without that it raises. It serves every family of the
+reference: dense, moe, vlm (``extras={"patches": (B, P, D)}``, decoding
+from position P + S), ssm, hybrid and audio (``extras={"frames": (B, T,
+D)}``).
 
 As the reference jits its decode step, the engine compiles its decode loop:
 on the card each greedy step (embedding, layers, logits, ``argmax``, the
@@ -31,15 +33,19 @@ import torch
 from repro_torch import tree as T
 from repro_torch.config import get_arch, get_smoke
 from repro_torch.config.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, same_device
 from repro_torch.models.registry import build_model
 from repro_torch.runtime import graphs as G
 
 
 class ServeEngine:
     """Greedy batched generation on one device. ``params`` is a state dict
-    (e.g. from :func:`repro_torch.interop.lm_params_from_jax`); without it
-    the weights are drawn from a generator seeded 0 on the device.
+    (e.g. from :func:`repro_torch.interop.lm_params_from_jax`), loaded in
+    ``dtype``; or another engine's ``params`` (a ParamTree of ``dtype`` on
+    the device), served as it is, without a copy; without it the weights are
+    drawn on the device from a generator seeded 0, leaf by leaf in f32, each
+    cast to ``dtype`` before the next is drawn (the values of a draw in f32
+    cast afterwards, without an f32 copy of the whole model).
     ``attn_impl`` and ``ssd_impl`` select the prefill's attention and SSD
     scan: ``"kernel"`` (the CUDA kernels on the card) or ``"torch"``.
     ``graphs``: the decode loop as CUDA graph replays (None: on a card),
@@ -64,11 +70,18 @@ class ServeEngine:
         self.max_len = max_len
         self.dtype = dtype
         if params is None:
-            tree = self.model.init(
-                torch.Generator(self.device).manual_seed(0))
+            self.params = self.model.init(
+                torch.Generator(self.device).manual_seed(0), dtype)
+        elif isinstance(params, torch.nn.Module):
+            held = {(p.dtype, p.device) for p in params.parameters()}
+            if not all(t == dtype and same_device(d, self.device)
+                       for t, d in held):
+                raise ValueError(f"params held as {sorted(map(str, held))}; "
+                                 f"the engine serves {dtype} on "
+                                 f"{self.device}")
+            self.params = params
         else:
-            tree = self.model.load(params, self.device)
-        self.params = tree.to(dtype)  # floating params only, as the reference
+            self.params = self.model.load(params, self.device, dtype)
         self._caches: Dict[int, Dict[str, torch.Tensor]] = {}
         self._loops: Dict[int, "DecodeLoop"] = {}
 
@@ -80,17 +93,29 @@ class ServeEngine:
         return self._caches[batch]
 
     @torch.no_grad()
-    def prefill(self, prompts: torch.Tensor
+    def prefill(self, prompts: torch.Tensor,
+                extras: Optional[Mapping[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """prompts (B, S) → (last-position logits (B, V), the decode cache
-        of B rows, zeroed and written by the prefill: its first S positions
-        of ``max_len`` for attention, the final state and conv tails for
-        Mamba2 layers). The cache is the engine's own: the next prefill of
-        B rows zeroes and overwrites it, so it is valid until then."""
+        of B rows, zeroed and written by the prefill: its first
+        :meth:`start` positions of ``max_len`` for attention, the final state
+        and conv tails for Mamba2 layers, the encoder's k, v for
+        cross-attention). ``extras``: the VLM's ``patches`` (B, P, D), the
+        audio family's ``frames`` (B, T, D), moved to the device. The cache
+        is the engine's own: the next prefill of B rows zeroes and
+        overwrites it, so it is valid until then."""
         cache = self.cache(prompts.shape[0])
         for leaf in T.leaves(cache):
             leaf.zero_()
-        return self.model.prefill(self.params, {"tokens": prompts}, cache)
+        batch = {"tokens": prompts}
+        for name, value in (extras or {}).items():
+            batch[name] = torch.as_tensor(value, device=self.device)
+        return self.model.prefill(self.params, batch, cache)
+
+    def start(self, prompt_len: int) -> int:
+        """The position a prompt of ``prompt_len`` tokens decodes from: its
+        length, after the VLM's image prefix."""
+        return self.model.positions_before() + prompt_len
 
     @torch.no_grad()
     def decode(self, token: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -116,19 +141,23 @@ class ServeEngine:
         return self._loops[batch]
 
     def generate(self, prompts: Union[np.ndarray, torch.Tensor],
-                 gen_tokens: int) -> np.ndarray:
-        """prompts: (B, S_prompt) int → (B, gen_tokens) int32, greedy."""
+                 gen_tokens: int,
+                 extras: Optional[Mapping[str, torch.Tensor]] = None
+                 ) -> np.ndarray:
+        """prompts: (B, S_prompt) int → (B, gen_tokens) int32, greedy.
+        ``extras`` as :meth:`prefill` takes them."""
         prompts = torch.as_tensor(prompts, device=self.device).long()
         b, s_prompt = prompts.shape
-        if s_prompt + gen_tokens > self.max_len:
-            raise ValueError(f"{s_prompt} prompt + {gen_tokens} new tokens "
-                             f"exceed max_len {self.max_len}")
-        logits, _ = self.prefill(prompts)
+        start = self.start(s_prompt)
+        if start + gen_tokens > self.max_len:
+            raise ValueError(f"{start} prefilled positions + {gen_tokens} new "
+                             f"tokens exceed max_len {self.max_len}")
+        logits, _ = self.prefill(prompts, extras)
         loop = self.decode_loop(b)
-        loop.start(logits, s_prompt)
+        loop.start(logits, start)
         for _ in range(gen_tokens):
             loop.step()
-        return loop.tokens(s_prompt, gen_tokens)
+        return loop.tokens(start, gen_tokens)
 
 
 class DecodeLoop:
@@ -165,7 +194,7 @@ class DecodeLoop:
 
     def start(self, logits: torch.Tensor, index: int) -> None:
         """Begin after a prefill: its logits' argmax is the token at
-        position ``index`` (the prompt's length)."""
+        position ``index`` (:meth:`ServeEngine.start`)."""
         self.token.copy_(torch.argmax(logits, dim=-1, keepdim=True))
         self.index.fill_(index)
 
@@ -196,10 +225,20 @@ def main(argv=None) -> None:
     prompts = rng.integers(1, cfg.vocab_size,
                            size=(args.requests, args.prompt_len),
                            dtype=np.int32)
-    engine = ServeEngine(cfg, args.device,
-                         max_len=args.prompt_len + args.gen_tokens + 1)
+    # zero patches and frames, as the reference's CLI feeds them
+    extras = {}
+    if cfg.family == "vlm":
+        extras["patches"] = torch.zeros(
+            (args.requests, cfg.num_image_tokens, cfg.d_model))
+    if cfg.family == "audio":
+        extras["frames"] = torch.zeros(
+            (args.requests, cfg.n_audio_frames, cfg.d_model))
+    max_len = args.prompt_len + args.gen_tokens + 1
+    if cfg.family == "vlm":
+        max_len += cfg.num_image_tokens     # the image prefix's positions
+    engine = ServeEngine(cfg, args.device, max_len=max_len)
     t0 = time.perf_counter()
-    tokens = engine.generate(prompts, args.gen_tokens)
+    tokens = engine.generate(prompts, args.gen_tokens, extras)
     dt = time.perf_counter() - t0
     dev = engine.device
     print(json.dumps({

@@ -1,5 +1,5 @@
 """End-to-end trainer, the port of ``repro.launch.train``: arch config →
-model (any family the port has, dense, ssm or hybrid, with the plain
+model (the dense, ssm or hybrid family, with the plain
 attention and chunked SSD scan the reference trains with, and
 ``cfg.remat``'s activation checkpointing) → MSF sync engine →
 optimizer → data pipeline → checkpoint manager → fault-tolerant step
@@ -11,8 +11,11 @@ or across the ranks of a mesh.
         --set sync.strategy=periodic --set sync.period=2
 
 ``--arch mamba2-2.7b`` or ``--arch zamba2-1.2b`` trains the SSM or hybrid
-family the same way; ``--set remat=full`` checkpoints each layer (``dots``
-too for the dense family), as a full-width model on one card needs.
+family the same way, and the other dense archs (internlm2-1.8b, llama3.2-3b,
+qwen2.5-3b) as smollm-360m; ``--set remat=full`` checkpoints each layer
+(``dots`` too for the dense family), as a full-width model on one card
+needs. The moe, vlm and audio archs serve only: training them waits for
+ROADMAP §1 item 20.
 
 Across processes it runs under ``torchrun``, which starts the ranks, with
 ``--backend gloo|nccl`` (one replica a rank; ``--replicas`` is then the
@@ -64,7 +67,11 @@ from repro_torch.data.pipeline import DataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import mesh_config
 from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import TRAINING_WAITS
 from repro_torch.runtime import StepRunner
+
+# the families the trainer takes; the others serve only (ROADMAP §1 item 20)
+TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class _Blocked:
@@ -140,7 +147,9 @@ def build_trainer(cfg: TrainConfig,
     """Returns (step_fn, initial state, make_pipeline, model, telemetry,
     ladder), the reference's six.
 
-    The model is ``cfg.model``'s family (dense, ssm or hybrid) with the
+    The model is ``cfg.model``'s family (dense, ssm or hybrid; the moe,
+    vlm and audio families raise NotImplementedError: their training waits
+    for ROADMAP §1 item 20) with the
     plain attention and chunked SSD scan (``attn_impl="torch"``,
     ``ssd_impl="torch"``) and ``cfg.remat``. The state is drawn on
     ``device`` from a generator seeded ``cfg.seed`` (K copies of one draw
@@ -175,6 +184,8 @@ def build_trainer(cfg: TrainConfig,
     agree on each move of H, which is the mesh's replica-axis size's own
     (the ``pod`` replicas under ``hierarchical``).
     """
+    if cfg.model.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(TRAINING_WAITS.format(cfg.model.family))
     dev = resolve_device(device if device is not None else
                          mesh.device if mesh is not None else "cuda")
     model = build_model(cfg.model, attn_impl="torch", ssd_impl="torch",

@@ -1,4 +1,6 @@
-"""Attention: GQA/MQA/MHA, RoPE, causal/prefix masks, KV-cache decode.
+"""Attention: GQA/MQA/MHA, RoPE, causal/prefix masks, KV-cache decode, and
+the enc-dec cross-attention (``kv_x`` / ``cross=True``: no RoPE, a fixed
+cache of the encoder's k, v).
 
 The port of ``repro.models.attention`` on one device (no mesh, so decode is
 the reference's single-shard math). Layouts are the reference's: activations
@@ -51,10 +53,13 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _project_qkv(params: L.Params, x: torch.Tensor):
+def _project_qkv(params: L.Params, x: torch.Tensor,
+                 kv_x: Optional[torch.Tensor] = None):
+    """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``."""
+    src = x if kv_x is None else kv_x
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    k = _proj(src, params["wk"])
+    v = _proj(src, params["wv"])
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -124,9 +129,11 @@ def _sdpa_chunked(q, k, v, mask_mode: str, prefix_len: int,
 def full_attention(params: L.Params, x: torch.Tensor,
                    positions: torch.Tensor, cfg: ModelConfig,
                    mask_mode: str = "causal", prefix_len: int = 0,
+                   kv_x: Optional[torch.Tensor] = None,
                    impl: str = "kernel", return_kv: bool = False):
-    """Training / prefill self-attention over a full sequence (the
-    reference's cross-attention, ``kv_x``, comes with the enc-dec family).
+    """Training / prefill attention over a full sequence, or cross-attention
+    from ``x`` (B, S, D) to ``kv_x`` (B, T, D): k and v projected from
+    ``kv_x``, and no RoPE on q or k (the enc-dec cross-attention).
 
     ``return_kv=True`` also returns the (post-RoPE) k, v: the prefill path
     stores them as the decode cache. Under ``impl="kernel"`` the prefix mode
@@ -136,10 +143,11 @@ def full_attention(params: L.Params, x: torch.Tensor,
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r} "
                          f"({' | '.join(IMPLS)})")
-    q, k, v = _project_qkv(params, x)
-    cos, sin = rotary_cos_sin(positions, cfg)
-    q = L.apply_rope(q, cos, sin)
-    k = L.apply_rope(k, cos, sin)
+    q, k, v = _project_qkv(params, x, kv_x)
+    if kv_x is None:
+        cos, sin = rotary_cos_sin(positions, cfg)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
     if impl == "kernel":
         out = fa_ops.flash_attention(
             q, k, v, causal=mask_mode != "full",
@@ -226,23 +234,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_step_attention(params: L.Params, x: torch.Tensor,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
-                          index: torch.Tensor, cfg: ModelConfig
+                          index: torch.Tensor, cfg: ModelConfig,
+                          cross: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Single-token self-attention step; returns (y, cache_k, cache_v).
+    """Single-token attention step; returns (y, cache_k, cache_v).
 
     x: (B,1,d). cache_k/v: (B,S,KV,hd). ``index``: the position, a (1,)
     int64 device tensor (:func:`decode_index`). The new k, v are written
     into the caches in place at ``index`` (the reference donates the cache
     buffers and updates them functionally; in place is the same result
-    without a second cache in memory). The reference's ``cross=True``
-    (enc-dec cross-attention) comes with the enc-dec family.
+    without a second cache in memory). ``cross=True`` is the enc-dec
+    cross-attention against the fixed encoder states: no RoPE, no cache
+    write, every one of the cache's S positions attended (the reference's
+    ``eff_index = S − 1``, here a device tensor too, so the step captures).
     """
-    q, k_new, v_new = _project_qkv(params, x)
-    pos = index.to(torch.int32).expand(x.shape[0], 1)
-    cos, sin = rotary_cos_sin(pos, cfg)
-    q = L.apply_rope(q, cos, sin)
-    k_new = L.apply_rope(k_new, cos, sin)
-    cache_k.index_copy_(1, index, k_new.to(cache_k.dtype))
-    cache_v.index_copy_(1, index, v_new.to(cache_v.dtype))
+    if cross:
+        q = _proj(x, params["wq"])
+        if "bq" in params:
+            q = q + params["bq"].to(x.dtype)
+        index = torch.full_like(index, cache_k.shape[1] - 1)
+    else:
+        q, k_new, v_new = _project_qkv(params, x)
+        pos = index.to(torch.int32).expand(x.shape[0], 1)
+        cos, sin = rotary_cos_sin(pos, cfg)
+        q = L.apply_rope(q, cos, sin)
+        k_new = L.apply_rope(k_new, cos, sin)
+        cache_k.index_copy_(1, index, k_new.to(cache_k.dtype))
+        cache_v.index_copy_(1, index, v_new.to(cache_v.dtype))
     out = decode_attention(q, cache_k, cache_v, index)
     return _out_proj(out, params["wo"]), cache_k, cache_v

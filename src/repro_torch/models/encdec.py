@@ -1,0 +1,179 @@
+"""Whisper-style encoder-decoder backbone (audio frontend stubbed).
+
+The port of ``repro.models.encdec.EncDecModel``, serving only (its training
+waits for ROADMAP §1 item 20). As in the reference, the conv frontend is a
+stub: the encoder takes precomputed frame embeddings (B, n_audio_frames,
+d_model). The encoder stack runs full (non-causal) self-attention with RoPE;
+each decoder layer runs causal self-attention, cross-attention over the
+encoder output (k, v projected from it, no RoPE), then the MLP; the
+unembedding is the token embedding.
+
+The decode cache is ``{"self_k", "self_v"}`` (n_layers, B, max_len, KV, hd),
+which grows with the generated tokens, and ``{"cross_k", "cross_v"}``
+(n_layers, B, n_audio_frames, KV, hd), written once by the prefill from the
+encoder output and only read after. ``attn_impl="kernel"`` takes the flash
+kernel for all three attentions of a prefill (the encoder's, the decoder's
+causal one, its cross-attention over T ≠ S keys).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import LM, TRAINING_WAITS
+
+
+def _enc_layer_defs(cfg: ModelConfig) -> L.ParamDefs:
+    return {
+        "ln1": L.norm_defs(cfg.d_model, cfg.norm_type),
+        "attn": A.attn_defs(cfg),
+        "ln2": L.norm_defs(cfg.d_model, cfg.norm_type),
+        "mlp": L.mlp_defs(cfg.d_model, cfg.d_ff),
+    }
+
+
+def _dec_layer_defs(cfg: ModelConfig) -> L.ParamDefs:
+    return {
+        "ln1": L.norm_defs(cfg.d_model, cfg.norm_type),
+        "self_attn": A.attn_defs(cfg),
+        "ln_x": L.norm_defs(cfg.d_model, cfg.norm_type),
+        "cross_attn": A.attn_defs(cfg),
+        "ln2": L.norm_defs(cfg.d_model, cfg.norm_type),
+        "mlp": L.mlp_defs(cfg.d_model, cfg.d_ff),
+    }
+
+
+class EncDecModel(LM):
+    """``param_defs``/``init``/``load``, ``prefill`` (batch ``{"tokens",
+    "frames"}``), ``init_cache``, ``decode_step``, with the contract of
+    :class:`repro_torch.models.transformer.LM`."""
+
+    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "kernel"):
+        if (cfg.family != "audio" or cfg.n_encoder_layers <= 0
+                or cfg.n_audio_frames <= 0):
+            raise ValueError(f"EncDecModel builds family 'audio' with "
+                             f"encoder layers and audio frames, not "
+                             f"{cfg.family!r} / {cfg.n_encoder_layers} / "
+                             f"{cfg.n_audio_frames}")
+        if attn_impl not in A.IMPLS:
+            raise ValueError(f"unknown attention impl {attn_impl!r} "
+                             f"({' | '.join(A.IMPLS)})")
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        self.dtype = getattr(torch, cfg.dtype)
+
+    # ----------------------------------------------------------- parameters
+    def param_defs(self) -> L.ParamDefs:
+        cfg = self.cfg
+        return {
+            "embed": L.embed_defs(cfg.vocab_size, cfg.d_model),
+            "enc_layers": [_enc_layer_defs(cfg)] * cfg.n_encoder_layers,
+            "enc_norm": L.norm_defs(cfg.d_model, cfg.norm_type),
+            "dec_layers": [_dec_layer_defs(cfg)] * cfg.n_layers,
+            "final_norm": L.norm_defs(cfg.d_model, cfg.norm_type),
+        }
+
+    def _norm(self, params: L.Params, x: torch.Tensor) -> torch.Tensor:
+        return L.apply_norm(params, x, self.cfg.norm_type, self.cfg.norm_eps)
+
+    def _logits_last(self, params: L.Params, x_last: torch.Tensor
+                     ) -> torch.Tensor:
+        return x_last @ params["embed"]["embedding"].to(x_last.dtype).T
+
+    # -------------------------------------------------------------- encoder
+    def encode(self, params: L.Params, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, T, D) → the encoder output (B, T, D), in the
+        activations' dtype."""
+        cfg = self.cfg
+        x = frames.to(dtype=self.dtype)
+        b, t, _ = x.shape
+        positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        for lp in L.layer_list(params["enc_layers"]):
+            x = x + A.full_attention(lp["attn"], self._norm(lp["ln1"], x),
+                                     positions, cfg, mask_mode="full",
+                                     impl=self.attn_impl)
+            x = x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x))
+        return self._norm(params["enc_norm"], x)
+
+    # -------------------------------------------------------------- decoder
+    def _dec_layer(self, lp: L.Params, x: torch.Tensor,
+                   positions: torch.Tensor, enc_out: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """One decoder layer over a full sequence: (x, (self k, self v,
+        cross k, cross v))."""
+        cfg = self.cfg
+        out, sk, sv = A.full_attention(
+            lp["self_attn"], self._norm(lp["ln1"], x), positions, cfg,
+            mask_mode="causal", impl=self.attn_impl, return_kv=True)
+        x = x + out
+        out, ck, cv = A.full_attention(
+            lp["cross_attn"], self._norm(lp["ln_x"], x), positions, cfg,
+            mask_mode="full", kv_x=enc_out, impl=self.attn_impl,
+            return_kv=True)
+        x = x + out
+        x = x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x))
+        return x, (sk, sv, ck, cv)
+
+    # ------------------------------------------------------------- serving
+    def loss(self, params: L.Params, batch):
+        raise NotImplementedError(TRAINING_WAITS.format(self.cfg.family))
+
+    def prefill(self, params: L.Params, batch,
+                cache: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"tokens": (B,S) int, "frames": (B,T,D)} → (last-position
+        logits (B,V), the decode cache): each decoder layer's self k, v at
+        ``[i, :, :S]`` and its cross k, v over the T frames, written into
+        the given cache or a new one of self length S."""
+        enc_out = self.encode(params, batch["frames"])
+        x = L.embed(params["embed"], batch["tokens"], self.dtype)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        if cache is None:
+            cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
+        for i, lp in enumerate(L.layer_list(params["dec_layers"])):
+            x, (sk, sv, ck, cv) = self._dec_layer(lp, x, positions, enc_out)
+            cache["self_k"][i, :, :s] = sk
+            cache["self_v"][i, :, :s] = sv
+            cache["cross_k"][i] = ck
+            cache["cross_v"][i] = cv
+        x = self._norm(params["final_norm"], x)
+        return self._logits_last(params, x[:, -1]), cache
+
+    def init_cache(self, batch_size: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device=None) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        own = A.init_cache(cfg, batch_size, max_len, cfg.n_layers, dtype,
+                           device)
+        cross = A.init_cache(cfg, batch_size, cfg.n_audio_frames,
+                             cfg.n_layers, dtype, device)
+        return {"self_k": own["k"], "self_v": own["v"],
+                "cross_k": cross["k"], "cross_v": cross["v"]}
+
+    def decode_step(self, params: L.Params, batch
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"token": (B,1) int, "cache": {...}, "index": an int or
+        an integer device tensor of one element}. The self cache is updated
+        in place and the cache returned."""
+        cfg = self.cfg
+        x = L.embed(params["embed"], batch["token"], self.dtype)
+        cache = batch["cache"]
+        index = A.decode_index(batch["index"], x.device)
+        for i, lp in enumerate(L.layer_list(params["dec_layers"])):
+            out, _, _ = A.decode_step_attention(
+                lp["self_attn"], self._norm(lp["ln1"], x),
+                cache["self_k"][i], cache["self_v"][i], index, cfg)
+            x = x + out
+            out, _, _ = A.decode_step_attention(
+                lp["cross_attn"], self._norm(lp["ln_x"], x),
+                cache["cross_k"][i], cache["cross_v"][i], index, cfg,
+                cross=True)
+            x = x + out
+            x = x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x))
+        x = self._norm(params["final_norm"], x)
+        return self._logits_last(params, x[:, -1]), cache

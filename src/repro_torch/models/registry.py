@@ -1,8 +1,12 @@
 """Model registry: family → model class, plus exact analytic parameter
-counts. The port builds the dense, ssm and hybrid families.
+counts. The port builds every family of the reference: dense, moe, vlm,
+ssm, hybrid and audio.
 
 ``analytic_param_count`` sums the model's own ``param_defs()`` shape
 declarations, so it is exact by construction, as the reference's is.
+``active_only=True`` scales the MoE expert tensors (the router and the
+three expert weights, the reference's ``"experts"`` logical axis) by
+top_k/E: the MODEL_FLOPS = 6·N_active·D roofline convention.
 """
 from __future__ import annotations
 
@@ -11,23 +15,26 @@ from typing import Union
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.hybrid import HybridModel
 from repro_torch.models.ssm import SSD_IMPLS, SSMModel
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import DecoderLM, PrefixVLM
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
-Model = Union[DecoderLM, SSMModel, HybridModel]
+Model = Union[DecoderLM, PrefixVLM, SSMModel, HybridModel, EncDecModel]
 
 
 def build_model(cfg: ModelConfig, *, attn_impl: str = "kernel",
                 ssd_impl: str = "kernel", remat: str = "none") -> Model:
     """The model of ``cfg.family``. ``attn_impl`` selects the attention of a
-    full sequence (dense, hybrid) and ``ssd_impl`` the prefill's SSD scan
-    (ssm, hybrid): ``"kernel"`` or ``"torch"``. ``remat`` is the
+    full sequence (every family but ssm) and ``ssd_impl`` the prefill's SSD
+    scan (ssm, hybrid): ``"kernel"`` or ``"torch"``. ``remat`` is the
     reference's activation checkpointing of each layer where a gradient is
     taken: ``"full"`` or ``"dots"`` for dense (another value checkpoints
-    nothing), any value but ``"none"`` for ssm and hybrid."""
+    nothing), any value but ``"none"`` for ssm and hybrid; the moe, vlm and
+    audio families serve only (their training waits for ROADMAP §1 item
+    20)."""
     if cfg.family not in FAMILIES:
         raise KeyError(f"unknown family {cfg.family!r}; known "
                        f"{sorted(FAMILIES)}")
@@ -39,10 +46,10 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "kernel",
     if cfg.family == "hybrid":
         return HybridModel(cfg, attn_impl=attn_impl, ssd_impl=ssd_impl,
                            remat=remat)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP §1 item 16)")
-    return DecoderLM(cfg, attn_impl=attn_impl, remat=remat)
+    if cfg.family == "audio":
+        return EncDecModel(cfg, attn_impl=attn_impl)
+    cls = PrefixVLM if cfg.family == "vlm" else DecoderLM
+    return cls(cfg, attn_impl=attn_impl, remat=remat)
 
 
 def _def_leaves(defs, path=()):
@@ -58,15 +65,14 @@ def _def_leaves(defs, path=()):
 
 def analytic_param_count(cfg: ModelConfig, active_only: bool = False,
                          include_embeddings: bool = True) -> int:
-    """The parameter count of ``cfg``'s model, summed over its declarations
-    (``active_only`` scales MoE expert tensors by top_k/E in the reference;
-    the MoE family waits for ROADMAP §1 item 16 and raises here)."""
-    if cfg.is_moe or cfg.family == "moe":
-        raise NotImplementedError("parameter counts of the MoE family wait "
-                                  "for its port (ROADMAP §1 item 16)")
+    """The parameter count of ``cfg``'s model, summed over its declarations;
+    ``active_only`` counts top_k of the E experts of each MoE tensor."""
     total = 0
     for keys, p in _def_leaves(build_model(cfg).param_defs()):
         if not include_embeddings and "embed" in keys[0]:
             continue
-        total += math.prod(p.shape)
+        n = math.prod(p.shape)
+        if active_only and "moe" in keys:
+            n = int(n * cfg.moe.top_k / max(1, cfg.moe.num_experts))
+        total += n
     return int(total)

@@ -1,11 +1,12 @@
-"""Decoder-only transformer LM, dense family: serving and training.
+"""Decoder-only transformer LM (dense and MoE) and the prefix-LM VLM.
 
 The port of ``repro.models.transformer.DecoderLM`` with the reference's
 duck-typed model API, parameters passed in:
 
     param_defs()                          → nested dict of Param
-    init(generator)                       → ParamTree (the params)
-    load(state_dict, device)              → ParamTree
+    init(generator, dtype=None)           → ParamTree (the params)
+    load(state_dict, device, dtype=None)  → ParamTree
+    positions_before()                    → cache positions before a prompt
     loss(params, batch)                   → (scalar, metrics dict)
     prefill(params, batch)                → (last_logits, cache)
     decode_step(params, batch)            → (logits, cache)
@@ -15,8 +16,11 @@ The layer stack is a Python loop over ``params["layers"]``: an
 ``nn.ModuleList`` or list of per-layer params, or the reference's stacked
 layout (a dict of ``(n_layers, …)`` leaves, read as per-layer views; the
 reference scans it), and ``remat`` checkpoints each layer as the
-reference's ``_maybe_remat`` does (:func:`remat_layer`). MoE and the
-prefix-LM VLM come with later slices.
+reference's ``_maybe_remat`` does (:func:`remat_layer`). The MoE family's
+layers take :func:`repro_torch.models.moe.moe_ffn` in place of the MLP;
+:class:`PrefixVLM` puts stub patch embeddings before the text under a
+prefix-LM mask. Both serve; their training (the MoE's load-balance term)
+waits for ROADMAP §1 item 20.
 """
 from __future__ import annotations
 
@@ -30,10 +34,13 @@ from torch.utils.checkpoint import (checkpoint,
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.losses import ce_loss
 
 
 REMAT_POLICIES = ("none", "full", "dots")
+TRAINING_WAITS = ("training the {} family waits for ROADMAP §1 item 20 (its "
+                  "loss, the MoE's load-balance term, build_trainer)")
 # what "dots" keeps: the 2-D matrix products, the products with no batch
 # dims of JAX's dots_with_no_batch_dims_saveable (the batched ones are bmm)
 _SAVED_PRODUCTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
@@ -57,12 +64,24 @@ def remat_layer(fn: Callable, remat: str) -> Callable:
 
 
 def layer_defs(cfg: ModelConfig) -> L.ParamDefs:
-    return {
+    defs: L.ParamDefs = {
         "ln1": L.norm_defs(cfg.d_model, cfg.norm_type),
         "attn": A.attn_defs(cfg),
         "ln2": L.norm_defs(cfg.d_model, cfg.norm_type),
-        "mlp": L.mlp_defs(cfg.d_model, cfg.d_ff),
     }
+    if cfg.is_moe:
+        defs["moe"] = M.moe_defs(cfg)
+    else:
+        defs["mlp"] = L.mlp_defs(cfg.d_model, cfg.d_ff)
+    return defs
+
+
+def ffn(lp: L.Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The block's feed-forward: the MoE layer (without its aux term, which
+    training adds: ROADMAP §1 item 20) or the dense MLP."""
+    if cfg.is_moe:
+        return M.moe_ffn(lp["moe"], h, cfg)
+    return L.mlp(lp["mlp"], h)
 
 
 def layer_fwd(lp: L.Params, x: torch.Tensor, positions: torch.Tensor,
@@ -77,7 +96,7 @@ def layer_fwd(lp: L.Params, x: torch.Tensor, positions: torch.Tensor,
         attn_out, k, v = attn_out
     x = x + attn_out
     h = L.apply_norm(lp["ln2"], x, cfg.norm_type, cfg.norm_eps)
-    x = x + L.mlp(lp["mlp"], h)
+    x = x + ffn(lp, h, cfg)
     if return_kv:
         return x, k, v
     return x
@@ -94,32 +113,45 @@ def layer_decode(lp: L.Params, x: torch.Tensor, cache_k: torch.Tensor,
         lp["attn"], h, cache_k, cache_v, index, cfg)
     x = x + attn_out
     h = L.apply_norm(lp["ln2"], x, cfg.norm_type, cfg.norm_eps)
-    return x + L.mlp(lp["mlp"], h), cache_k, cache_v
+    return x + ffn(lp, h, cfg), cache_k, cache_v
 
 
 class LM:
     """What the port's LMs share: params drawn or loaded against
     ``param_defs()``, and a prefill through ``backbone`` to the last
     position's logits. A subclass sets ``cfg`` and ``dtype`` and defines
-    ``param_defs``, ``backbone``, ``init_cache`` and ``decode_step``."""
+    ``param_defs``, ``backbone`` (or its own ``prefill``), ``init_cache``
+    and ``decode_step``."""
 
     cfg: ModelConfig
     dtype: torch.dtype
 
-    def init(self, gen: torch.Generator) -> L.ParamTree:
-        """Fresh params drawn from ``gen``, on its device."""
+    def init(self, gen: torch.Generator,
+             dtype: Optional[torch.dtype] = None) -> L.ParamTree:
+        """Fresh params drawn from ``gen``, on its device, in ``dtype``
+        (``param_dtype`` by default). Each leaf is drawn in f32 and cast
+        before the next is drawn, so the values are those of a draw in f32
+        cast afterwards, without an f32 copy of the whole tree."""
         return L.ParamTree(L.init_params(
-            self.param_defs(), gen, getattr(torch, self.cfg.param_dtype)))
+            self.param_defs(), gen,
+            dtype or getattr(torch, self.cfg.param_dtype)))
 
-    def load(self, state_dict: Mapping[str, torch.Tensor],
-             device) -> L.ParamTree:
+    def load(self, state_dict: Mapping[str, torch.Tensor], device,
+             dtype: Optional[torch.dtype] = None) -> L.ParamTree:
         """Params from a state dict (keys ``embed.embedding``,
         ``layers.<i>.attn.wq``, …): every key and shape is checked against
-        :meth:`param_defs`, the values are cast to ``param_dtype``."""
+        :meth:`param_defs`, the values are cast to ``dtype``
+        (``param_dtype`` by default)."""
         params = L.ParamTree(L.empty_params(
-            self.param_defs(), getattr(torch, self.cfg.param_dtype), device))
+            self.param_defs(), dtype or getattr(torch, self.cfg.param_dtype),
+            device))
         params.load_state_dict(state_dict, strict=True)
         return params
+
+    def positions_before(self) -> int:
+        """Cache positions a prefill fills before the prompt's tokens (the
+        VLM's image prefix); a prompt of S tokens decodes from this + S."""
+        return 0
 
     def _embed_inputs(self, params: L.Params, batch) -> torch.Tensor:
         return L.embed(params["embed"], batch["tokens"], self.dtype)
@@ -154,19 +186,20 @@ class LM:
 
 
 class DecoderLM(LM):
-    """Dense decoder-only LM. ``attn_impl``: ``"kernel"`` (the CUDA
+    """Dense or MoE decoder-only LM. ``attn_impl``: ``"kernel"`` (the CUDA
     flash-attention kernel on the card; forward only, so serving only) or
     ``"torch"`` (the plain twins of the reference's ``"jnp"``, which the
     reference trains with). ``remat`` (``"none"``, ``"full"``, ``"dots"``)
     checkpoints each layer where a gradient is taken (:func:`remat_layer`).
     Its cache is ``{"k","v"}: (L,B,S,KV,hd)``."""
 
+    families = ("dense", "moe")
+
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "kernel",
                  remat: str = "none"):
-        if cfg.family != "dense" or cfg.is_moe:
-            raise NotImplementedError(
-                f"family {cfg.family!r} (MoE: {cfg.is_moe}) is not ported "
-                f"yet (ROADMAP §1 item 16)")
+        if cfg.family not in self.families:
+            raise ValueError(f"{type(self).__name__} builds families "
+                             f"{self.families}, not {cfg.family!r}")
         if attn_impl not in A.IMPLS:
             raise ValueError(f"unknown attention impl {attn_impl!r} "
                              f"({' | '.join(A.IMPLS)})")
@@ -191,22 +224,24 @@ class DecoderLM(LM):
     def backbone(self, params: L.Params, x: torch.Tensor,
                  return_cache: bool = False,
                  cache: Optional[Dict[str, torch.Tensor]] = None):
-        """x: (B, S, D) embedded inputs → final hidden (+ cache), causal
-        (the prefix-LM mask of the reference's VLM comes with that family).
-        With ``return_cache`` each layer's k, v is written into
+        """x: (B, S, D) embedded inputs → final hidden (+ cache), causal, or
+        causal ∪ the first :meth:`positions_before` positions (the VLM's
+        prefix-LM mask). With ``return_cache`` each layer's k, v is written into
         ``cache[name][i, :, :S]``: the given cache (e.g. of ``max_len``), or
         one of length S in the activations' dtype.
         """
         cfg = self.cfg
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        prefix_len = self.positions_before()
+        mask_mode = "prefix" if prefix_len else "causal"
         if return_cache and cache is None:
             cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
         fwd = (remat_layer(layer_fwd, self.remat)
                if torch.is_grad_enabled() and not return_cache else layer_fwd)
         for i, lp in enumerate(L.layer_list(params["layers"])):
-            out = fwd(lp, x, positions, cfg, "causal", 0, self.attn_impl,
-                      return_cache)
+            out = fwd(lp, x, positions, cfg, mask_mode, prefix_len,
+                      self.attn_impl, return_cache)
             if return_cache:
                 x, k, v = out
                 cache["k"][i, :, :s] = k
@@ -226,7 +261,10 @@ class DecoderLM(LM):
 
         Raises under ``attn_impl="kernel"``: the flash kernel has no backward
         (nor has the reference's, which trains with ``attn_impl="jnp"``), so
-        its attention would get no gradient."""
+        its attention would get no gradient. Raises NotImplementedError for
+        the MoE family, whose loss carries the load-balance term."""
+        if self.cfg.is_moe:
+            raise NotImplementedError(TRAINING_WAITS.format(self.cfg.family))
         if self.attn_impl == "kernel":
             raise ValueError("DecoderLM.loss needs attn_impl='torch': the "
                              "flash-attention kernel is forward only, and the "
@@ -255,3 +293,25 @@ class DecoderLM(LM):
                                    index, cfg)
         x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
         return self._logits_last(params, x[:, -1]), cache
+
+
+class PrefixVLM(DecoderLM):
+    """PaliGemma-style VLM: stub patch embeddings (B, P, D) as a prefix
+    before the text, a decoder backbone, prefix-LM attention (causal ∪ the
+    P image positions: bidirectional over the prefix). A prefill of S text
+    tokens fills P + S cache positions and gives the last text position's
+    logits; decoding goes on from position P + S. ``batch["patches"]`` is
+    cast to the activations' dtype, as in the reference."""
+
+    families = ("vlm",)
+
+    def positions_before(self) -> int:
+        return self.cfg.num_image_tokens
+
+    def _embed_inputs(self, params: L.Params, batch) -> torch.Tensor:
+        text = L.embed(params["embed"], batch["tokens"], self.dtype)
+        patches = batch["patches"].to(device=text.device, dtype=self.dtype)
+        return torch.cat([patches, text], dim=1)
+
+    def loss(self, params: L.Params, batch):
+        raise NotImplementedError(TRAINING_WAITS.format(self.cfg.family))

@@ -25,7 +25,7 @@ to count (``torch.profiler``).
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -33,6 +33,10 @@ from repro_torch import tree as T
 
 # graph captures so far in this process
 CAPTURES = 0
+# the side stream every capture on a card runs on, by device index: cuBLAS
+# keeps a workspace for each stream it has run on, so a new stream a capture
+# would leave one more allocated for the life of the process
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
 
 
 def use_graphs(graphs: Optional[bool], device: torch.device) -> bool:
@@ -53,12 +57,13 @@ class Compiled:
 
     ``args`` are tensors, or trees of them (:mod:`repro_torch.tree`), whose
     storage the body reads and writes at every call. The capture runs on a
-    side stream into a private memory pool, with no warm-up call before it,
-    so it never runs the body on the live buffers. A graph reads and writes
-    its buffers by address: after the capture ``fn`` and ``args`` are
-    dropped, and the caller keeps alive every buffer it replays on. A call
-    returns the body's output: under a graph, tensors of its pool that the
-    next replay overwrites, so copy what must outlive it inside the body.
+    side stream (one kept a card) into a private memory pool, with no
+    warm-up call before it, so it never runs the body on the live buffers.
+    A graph reads and writes its buffers by address: after the capture
+    ``fn`` and ``args`` are dropped, and the caller keeps alive every
+    buffer it replays on. A call returns the body's output: under a graph,
+    tensors of its pool that the next replay overwrites, so copy what must
+    outlive it inside the body.
     ``capture_s`` is the host time of the capture, ``end_s`` the part of it
     that ended the capture (PyTorch instantiates the graph there)."""
 
@@ -83,7 +88,9 @@ class Compiled:
         dev = next(iter(devices))
         t0 = time.perf_counter()
         with torch.cuda.device(dev):
-            side = torch.cuda.Stream()
+            side = _CAPTURE_STREAMS.get(dev.index)
+            if side is None:
+                side = _CAPTURE_STREAMS[dev.index] = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 # cuBLAS makes its handle at its first product, and cannot

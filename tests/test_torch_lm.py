@@ -341,10 +341,22 @@ def test_serve_cli_on_cpu(capsys):
 
 
 def test_other_families_not_ported():
-    for family in ("moe", "audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbuild(dataclasses.replace(tconfigs.smoke(), family=family))
+    """Every family builds; an unknown family or attention impl raises;
+    training the moe, vlm and audio families (their loss, build_trainer)
+    waits for ROADMAP §1 item 20 and raises naming it."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.train import build_trainer
     with pytest.raises(KeyError):
         tbuild(dataclasses.replace(tconfigs.smoke(), family="rnn"))
     with pytest.raises(ValueError):
         tbuild(tconfigs.smoke(), attn_impl="pallas")
+    for arch in ("phi3.5-moe-42b-a6.6b", "paligemma-3b", "whisper-base"):
+        cfg = get_smoke(arch)
+        model = tbuild(cfg, attn_impl="torch")
+        params = model.init(torch.Generator().manual_seed(0))
+        with pytest.raises(NotImplementedError, match="item 20"):
+            model.loss(params, {"tokens": torch.ones(1, 4, dtype=torch.long),
+                                "targets": torch.ones(1, 4,
+                                                      dtype=torch.long)})
+        with pytest.raises(NotImplementedError, match="item 20"):
+            build_trainer(TrainConfig(model=cfg), device="cpu")
