@@ -258,6 +258,18 @@ TRAIN_K, TRAIN_H, TRAIN_SEQ, TRAIN_BATCH = 4, 4, 2048, 8
 TRAIN_SSM_K, TRAIN_SSM_H, TRAIN_SSM_BATCH = 2, 4, 4
 REMAT_DEPTH = 4
 TRAIN_SSM_PEAK_GB = 75.0
+# phase train_families, at published widths: (f1) whisper-base, K = 4,
+# H = 4, 8 sequences of its 448-token context (1,500 seeded frames each) a
+# replica step; (f2) phi3.5-moe with its depth cut to FAM_MOE_LAYERS, one
+# replica, 2 x 2,048 tokens a step: its local SGD at K = 2 runs out of the
+# card's memory at one layer, at 2 and at 4 sequences a replica step (on an
+# H100 80GB HBM3, 700 W: scripts/train_peak_memory.py --arch
+# phi3.5-moe-42b-a6.6b --layers 1 --replicas 2 --batch 4|2 --remat full);
+# (f3) paligemma-3b, one replica, 2 x (256 seeded patches + 1,920 text
+# tokens) a step
+FAM_AUDIO_K, FAM_AUDIO_H, FAM_AUDIO_BATCH, FAM_AUDIO_SEQ = 4, 4, 8, 448
+FAM_MOE_LAYERS, FAM_MOE_BATCH = 2, 2
+FAM_VLM_TEXT = 1920
 W_REL_L2, ACC_DIFF = 1e-3, 0.005
 HINGE_SHAPES = [(8, 8), (100, 22), (257, 254), (512, 2000), (64, 128), (33, 7)]
 # tests/test_kernels.py::TestFlashAttention: (b, sq, sk, h, kv, dh, causal,
@@ -2265,10 +2277,24 @@ def _train_cfg(model_cfg, sync, seq_len, global_batch, replicas):
         data=DataConfig(seq_len=seq_len, global_batch=global_batch))
 
 
-def _run_blocks(torch, cfg, dev, impl, blocks, on_block=None, mesh=None):
+def _seed_stubs(torch, batches, seed, dev):
+    """The stub frontends' inputs of each batch (the VLM's patches, the
+    audio frames) drawn from ``seed`` in their dtype, in place of the
+    pipeline's zeros."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for batch in batches:
+        for key in ("patches", "frames"):
+            if key in batch:
+                batch[key] = torch.randn(batch[key].shape, generator=gen,
+                                         device=dev).to(batch[key].dtype)
+
+
+def _run_blocks(torch, cfg, dev, impl, blocks, on_block=None, mesh=None,
+                stub_seed=None):
     """``blocks`` train steps through ``build_trainer`` on path ``impl``
-    from the seeded state (with a ``mesh``, this rank's replica and rows);
-    returns (state, losses, walls, sync_ms, launches)."""
+    from the seeded state (with a ``mesh``, this rank's replica and rows;
+    with a ``stub_seed``, the stub inputs drawn from it); returns (state,
+    losses, walls, sync_ms, launches)."""
     from repro_torch.core import sync
     from repro_torch.kernels.quant import ops
     from repro_torch.launch.train import build_trainer
@@ -2276,6 +2302,8 @@ def _run_blocks(torch, cfg, dev, impl, blocks, on_block=None, mesh=None):
                                                         quant_impl=impl)
     pipe = make_pipeline(0)
     batches = [next(pipe) for _ in range(blocks)]
+    if stub_seed is not None:
+        _seed_stubs(torch, batches, stub_seed, dev)
     inner, events = sync.sync_point, []
 
     def timed_sync(*args, **kw):
@@ -2904,24 +2932,25 @@ def _first_sync_check(torch, results):
     return inner, capture
 
 
-def _train_ssm_local(torch, dev, model_cfg, k, h, seq_len, batch, blocks):
-    """(t1): local SGD on the hybrid at full width with the int8 sync on
-    the quant kernel and ``remat="full"``, then the plain path from the
-    same state and batches. Returns the kernel path's quant launches."""
+def _train_local(torch, dev, label, model_cfg, about, k, h, seq_len, batch,
+                 blocks, tokens, stub_seed=None):
+    """Local SGD at full width with the int8 sync on the quant kernel and
+    ``remat="full"``, then the plain path from the same state and batches:
+    the losses, the params after ``blocks`` blocks and the first sync's
+    int8 payloads held to the plain path's, the quant launches counted, the
+    peak held, one block profiled. ``tokens`` are the trained tokens a block
+    (the text alone for the VLM). Returns the kernel path's quant
+    launches."""
     from repro_torch import tree as T
     from repro_torch.config import SyncConfig
     from repro_torch.core import compression
     sync_cfg = SyncConfig(strategy="periodic", period=h, compression="int8")
     cfg = dataclasses.replace(
         _train_cfg(model_cfg, sync_cfg, seq_len, batch, k), remat="full")
-    tokens = h * batch * seq_len
-    log(f"train_ssm (t1) {model_cfg.name}: {model_cfg.n_layers} Mamba2 "
-        f"layers, d_model {model_cfg.d_model}, {_ssd_heads(model_cfg)} SSD "
-        f"heads, the shared attention block after every "
-        f"{model_cfg.shared_block_every}; "
-        f"{model_cfg.dtype} compute, f32 master params, remat=full; K={k} "
-        f"replicas, H={h}, {sync_cfg.msf_label}; AdamW; {batch} x {seq_len} "
-        f"tokens a microbatch ({batch // k} sequences a replica step)")
+    log(f"{label} {model_cfg.name}: {about}; {model_cfg.dtype} compute, f32 "
+        f"master params, remat=full; K={k} replicas, H={h}, "
+        f"{sync_cfg.msf_label}; AdamW; {batch} x {seq_len} tokens a "
+        f"microbatch ({batch // k} sequences a replica step)")
     same = []
     inner, capture = _first_sync_check(torch, same)
     torch.cuda.reset_peak_memory_stats()
@@ -2929,88 +2958,110 @@ def _train_ssm_local(torch, dev, model_cfg, k, h, seq_len, batch, blocks):
     t0 = time.perf_counter()
     try:
         state, step, batches, losses_k, walls_k, sync_k, launches = \
-            _run_blocks(torch, cfg, dev, "kernel", blocks)
+            _run_blocks(torch, cfg, dev, "kernel", blocks,
+                        stub_seed=stub_seed)
     finally:
         compression.compress_tree = inner
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     n_leaves = len(T.leaves(state["params"]))
     expect = 2 * blocks * n_leaves
-    log(f"train_ssm (t1) kernel path ({run_s:.1f} s with the trainer's "
-        f"build and the first sync's check): losses {losses_k} (first "
-        f"beside ln {model_cfg.vocab_size} = "
-        f"{np.log(model_cfg.vocab_size):.4f}); block wall {walls_k} s, sync "
-        f"{sync_k} ms a block (CUDA events), {tokens / walls_k[-1]:.1f} "
-        f"trained tokens/s in block {blocks}; peak memory {_peak_line(peak)} "
-        f"(bound {TRAIN_SSM_PEAK_GB} GB)")
-    log(f"train_ssm (t1) quant launches: {launches} (expected {expect}: one "
+    log(f"{label} kernel path ({run_s:.1f} s with the trainer's build and "
+        f"the first sync's check): losses {losses_k} (first beside ln "
+        f"{model_cfg.vocab_size} = {np.log(model_cfg.vocab_size):.4f}); "
+        f"block wall {walls_k} s, sync {sync_k} ms a block (CUDA events), "
+        f"{tokens / walls_k[-1]:.1f} trained tokens/s in block {blocks}; "
+        f"peak memory {_peak_line(peak)} (bound {TRAIN_SSM_PEAK_GB} GB)")
+    log(f"{label} quant launches: {launches} (expected {expect}: one "
         f"quantize and one dequantize per leaf per sync, {n_leaves} leaves, "
         f"{blocks} blocks)")
-    check(launches == expect, f"train_ssm (t1): {launches} quant launches, "
+    check(launches == expect, f"{label}: {launches} quant launches, "
           f"expected {expect}")
-    check(all(np.isfinite(losses_k)), f"train_ssm (t1): losses {losses_k}")
-    check(peak < TRAIN_SSM_PEAK_GB * 1e9, f"train_ssm (t1): peak {peak} B")
+    check(all(np.isfinite(losses_k)), f"{label}: losses {losses_k}")
+    check(peak < TRAIN_SSM_PEAK_GB * 1e9, f"{label}: peak {peak} B")
     check(len(same) == n_leaves and all(same),
-          f"train_ssm (t1): the first sync's int8 payloads of "
-          f"{same.count(False)} of {len(same)} leaves differ between the "
-          f"kernel and the plain version")
-    log(f"train_ssm (t1) first sync: the int8 payloads, scales and residuals "
-        f"of all {n_leaves} leaves (K={k} rows each; per-head vectors, conv "
-        f"weights, zero biases and the shared block among them) bitwise "
-        f"equal, kernel and plain")
+          f"{label}: the first sync's int8 payloads of {same.count(False)} "
+          f"of {len(same)} leaves differ between the kernel and the plain "
+          f"version")
+    log(f"{label} first sync: the int8 payloads, scales and residuals of "
+        f"all {n_leaves} leaves (K={k} rows each) bitwise equal, kernel and "
+        f"plain")
     for leaf in T.leaves(state["params"]):
-        check(torch.equal(leaf[0], leaf[-1]), "train_ssm (t1): replicas "
-              "differ after a blocking sync")
+        check(torch.equal(leaf[0], leaf[-1]), f"{label}: replicas differ "
+              f"after a blocking sync")
     # replica 0's params on the host: the plain path's run needs the card
     kept = T.map(lambda x: x[0].to("cpu", copy=True), state["params"])
     t0 = time.perf_counter()
     busy = device_busy(torch, lambda: step(state, batches[-1]))
-    log_busy(f"train_ssm (t1) block (kernel path, {h} x {k} replica steps; "
+    log_busy(f"{label} block (kernel path, {h} x {k} replica steps; "
              f"{time.perf_counter() - t0:.1f} s with the profiler's "
              f"processing)", *busy)
     del state, step
     _release(torch)
 
     state_p, _, _, losses_p, walls_p, sync_p, launches_p = _run_blocks(
-        torch, cfg, dev, "torch", blocks)
-    check(launches_p == 0, "train_ssm (t1): the plain path launched the "
-          "quant kernel")
+        torch, cfg, dev, "torch", blocks, stub_seed=stub_seed)
+    check(launches_p == 0, f"{label}: the plain path launched the quant "
+          f"kernel")
+    plain = T.map(lambda x: x[0], state_p["params"])
     rel_loss = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
-    rel = _tree_rel_l2(torch, kept, T.map(lambda x: x[0], state_p["params"]))
-    log(f"train_ssm (t1) plain path: losses {losses_p}; block wall {walls_p} "
-        f"s, sync {sync_p} ms; kernel vs plain: losses rel {rel_loss:.3e} "
+    rel = _tree_rel_l2(torch, kept, plain)
+    bitwise = losses_k == losses_p and all(
+        torch.equal(a.to(b.device), b)
+        for a, b in zip(T.leaves(kept), T.leaves(plain)))
+    log(f"{label} plain path: losses {losses_p}; block wall {walls_p} s, "
+        f"sync {sync_p} ms; kernel vs plain: losses rel {rel_loss:.3e} "
         f"(bound {TRAIN_LOSS_REL}), params rel L2 {rel:.3e} (bound "
-        f"{TRAIN_PARAMS_REL_L2})")
-    check(rel_loss <= TRAIN_LOSS_REL, f"train_ssm (t1) losses rel {rel_loss}")
-    check(rel <= TRAIN_PARAMS_REL_L2, f"train_ssm (t1) params rel L2 {rel}")
-    del state_p, kept
+        f"{TRAIN_PARAMS_REL_L2}); the whole run bitwise (losses and every "
+        f"param after {blocks} blocks): {'yes' if bitwise else 'no'}")
+    check(rel_loss <= TRAIN_LOSS_REL, f"{label} losses rel {rel_loss}")
+    check(rel <= TRAIN_PARAMS_REL_L2, f"{label} params rel L2 {rel}")
+    del state_p, kept, plain
     _release(torch)
     return launches
 
 
-def _train_ssm_ddp(torch, dev, model_cfg, seq_len, batch, steps):
-    """(t2): the SSM at full width, one replica, every step synchronized
-    (MSF = 1), ``remat="full"``."""
+def _train_every_step(torch, dev, label, model_cfg, about, seq_len, batch,
+                      steps, tokens, stub_seed=None, repeat=False):
+    """One replica at full width, every step synchronized (MSF = 1),
+    ``remat="full"``: finite losses, the peak held, one step profiled.
+    ``tokens`` are the trained tokens a step. With ``repeat`` the first
+    step's loss and gradient are taken twice at the start params and held
+    bitwise."""
+    from repro_torch import tree as T
     from repro_torch.config import SyncConfig
+    from repro_torch.core import local_sgd
     from repro_torch.launch.train import build_trainer
-    from repro_torch.models.registry import analytic_param_count
     cfg = dataclasses.replace(
         _train_cfg(model_cfg, SyncConfig(), seq_len, batch, 1),
         remat="full")
-    copy_gb = 4 * analytic_param_count(model_cfg) / 1e9
-    log(f"train_ssm (t2) {model_cfg.name}: {model_cfg.n_layers} layers, "
-        f"d_model {model_cfg.d_model}, {_ssd_heads(model_cfg)} SSD heads, "
-        f"state {model_cfg.ssm.state_dim}; remat=full; one replica, "
+    log(f"{label} {model_cfg.name}: {about}; remat=full; one replica, "
         f"sync_every_step (MSF = 1), AdamW, {batch} x {seq_len} tokens a "
-        f"step. One replica: local SGD keeps about five f32 copies of the "
-        f"params a replica (params, the block's start copy, two moments, the "
-        f"error-feedback residual) at {copy_gb:.2f} GB a copy, so K = 2 "
-        f"({10 * copy_gb:.1f} GB) does not fit on one card")
+        f"step")
     torch.cuda.reset_peak_memory_stats()
-    step, state, make_pipeline, _, _, _ = build_trainer(cfg, dev)
+    step, state, make_pipeline, model, _, _ = build_trainer(cfg, dev)
     pipe = make_pipeline(0)
     batches = [next(pipe) for _ in range(steps)]
-    losses, walls = [], []
+    if stub_seed is not None:
+        _seed_stubs(torch, batches, stub_seed, dev)
+    if repeat:
+        # both takes on the card: a host copy of the gradients would stay
+        # in the page-locked cache beside earlier phases' and fill the
+        # host's memory
+        takes = [local_sgd.value_and_grad(model, state["params"], batches[0])
+                 for _ in range(2)]
+        losses = [float(t[0]) for t in takes]
+        differ = [i for i, (a, b) in enumerate(zip(T.leaves(takes[0][2]),
+                                                   T.leaves(takes[1][2])))
+                  if not torch.equal(a, b)]
+        log(f"{label} step 1's loss and gradient taken twice at the start "
+            f"params: losses {losses[0]} / {losses[1]}, the "
+            f"{len(T.leaves(takes[0][2]))} gradient leaves bitwise equal: "
+            f"{'yes' if not differ else f'no, leaves {differ}'}")
+        check(not differ and losses[0] == losses[1],
+              f"{label}: a repeated gradient differs in leaves {differ}")
+        del takes
+    losses, walls, aux = [], [], []
     for b in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3018,21 +3069,30 @@ def _train_ssm_ddp(torch, dev, model_cfg, seq_len, batch, steps):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
+        if "aux" in metrics:
+            aux.append(float(metrics["aux"]))
     peak = torch.cuda.max_memory_allocated()
-    log(f"train_ssm (t2) losses {losses} (first beside ln "
-        f"{model_cfg.vocab_size} = {np.log(model_cfg.vocab_size):.4f}); step "
-        f"wall {walls} s, {batch * seq_len / walls[-1]:.1f} trained tokens/s "
-        f"in step {steps}; peak memory {_peak_line(peak)} (bound "
-        f"{TRAIN_SSM_PEAK_GB} GB)")
-    check(all(np.isfinite(losses)), f"train_ssm (t2): losses {losses}")
-    check(peak < TRAIN_SSM_PEAK_GB * 1e9, f"train_ssm (t2): peak {peak} B")
-    del state, step, batches
+    log(f"{label} losses {losses} (first beside ln {model_cfg.vocab_size} = "
+        f"{np.log(model_cfg.vocab_size):.4f}); step wall {walls} s, "
+        f"{tokens / walls[-1]:.1f} trained tokens/s in step {steps}; peak "
+        f"memory {_peak_line(peak)} (bound {TRAIN_SSM_PEAK_GB} GB)")
+    if aux:
+        log(f"{label} the MoE's load-balance term (aux, the mean over the "
+            f"layers) a step: {aux}")
+    check(all(np.isfinite(losses)), f"{label}: losses {losses}")
+    check(peak < TRAIN_SSM_PEAK_GB * 1e9, f"{label}: peak {peak} B")
+    t0 = time.perf_counter()
+    busy = device_busy(torch, lambda: step(state, batches[-1]))
+    log_busy(f"{label} step ({time.perf_counter() - t0:.1f} s with the "
+             f"profiler's processing)", *busy)
+    del state, step, model, batches
     _release(torch)
 
 
 def _grad_runs(torch, dev, model_cfg, remats, seq_len, batch):
-    """{remat: (loss, grads, peak bytes)}: one loss-and-gradient of each
-    remat on the same seeded params and tokens."""
+    """{remat: (loss, grads, peak bytes, bytes held before)}: one
+    loss-and-gradient of each remat on the same seeded params and tokens
+    (and stub inputs), the earlier runs' gradients kept."""
     from repro_torch.config import SyncConfig
     from repro_torch.core import local_sgd
     from repro_torch.models.registry import build_model
@@ -3043,26 +3103,35 @@ def _grad_runs(torch, dev, model_cfg, remats, seq_len, batch):
     tokens = torch.randint(0, model_cfg.vocab_size, (batch, seq_len + 1),
                            generator=gen, device=dev)
     data = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    from repro_torch.data.pipeline import stub_inputs
+    dtype = getattr(torch, model_cfg.dtype)
+    data.update({k: torch.from_numpy(v).to(dev, dtype)
+                 for k, v in stub_inputs(model_cfg, batch).items()})
+    _seed_stubs(torch, [data], 1, dev)
     out = {}
     for remat in remats:
         m = build_model(model_cfg, attn_impl="torch", ssd_impl="torch",
                         remat=remat)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         loss, _, grads = local_sgd.value_and_grad(m, params, data)
         torch.cuda.synchronize()
-        out[remat] = (loss, grads, torch.cuda.max_memory_allocated())
+        out[remat] = (loss, grads, torch.cuda.max_memory_allocated(), held)
         del grads
     return out
 
 
-def _hold_bitwise(torch, label, runs):
+def _hold_bitwise(torch, label, runs, tag="train_ssm (t3)"):
     """Every run's loss and gradient leaves against ``"none"``'s: bitwise,
-    or within relative 1e-6 with the leaves that differ named."""
+    or within relative 1e-6 with the leaves that differ named; each run's
+    peak memory above what was held before it (the earlier runs'
+    gradients among that)."""
     from repro_torch import tree as T
-    loss0, grads0, _ = runs["none"]
+    loss0, grads0 = runs["none"][:2]
+    added = {r: run[2] - run[3] for r, run in runs.items()}
     names = [k for k, _ in _named_leaves(grads0)]
-    for remat, (loss, grads, peak) in runs.items():
+    for remat, (loss, grads, _, _) in runs.items():
         if remat == "none":
             continue
         differ = []
@@ -3074,11 +3143,12 @@ def _hold_bitwise(torch, label, runs):
         same = (f"bitwise, the loss and all {len(names)} gradient leaves"
                 if torch.equal(loss, loss0) and not differ else
                 f"differ: loss rel {loss_rel:.3e}, leaves {differ}")
-        log(f"train_ssm (t3) {label} remat={remat} vs none: loss "
+        log(f"{tag} {label} remat={remat} vs none: loss "
             f"{float(loss):.6f} / {float(loss0):.6f}, {same}; peak memory "
-            f"{_peak_line(peak)} against {_peak_line(runs['none'][2])}")
+            f"above what was held before the run {_peak_line(added[remat])} "
+            f"against {_peak_line(added['none'])}")
         check(loss_rel <= 1e-6 and all(rel <= 1e-6 for _, rel in differ),
-              f"train_ssm (t3) {label} remat={remat}: {differ}")
+              f"{tag} {label} remat={remat}: {differ}")
 
 
 def _named_leaves(tree, prefix=""):
@@ -3167,16 +3237,161 @@ def phase_train_ssm(torch, dev):
     step, (t3) remat on the card. Returns (t1)'s quant launches."""
     from repro_torch.config import get_arch
     t0 = time.perf_counter()
-    launches = _train_ssm_local(torch, dev, get_arch("zamba2-1.2b"),
-                                TRAIN_SSM_K, TRAIN_SSM_H, TRAIN_SEQ,
-                                TRAIN_SSM_BATCH, 2)
+    cfg = get_arch("zamba2-1.2b")
+    launches = _train_local(
+        torch, dev, "train_ssm (t1)", cfg,
+        f"{cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, "
+        f"{_ssd_heads(cfg)} SSD heads, the shared attention block after "
+        f"every {cfg.shared_block_every}", TRAIN_SSM_K, TRAIN_SSM_H,
+        TRAIN_SEQ, TRAIN_SSM_BATCH, 2,
+        TRAIN_SSM_H * TRAIN_SSM_BATCH * TRAIN_SEQ)
     log(f"train_ssm (t1): {time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
-    _train_ssm_ddp(torch, dev, get_arch("mamba2-2.7b"), TRAIN_SEQ, 2, 2)
+    from repro_torch.models.registry import analytic_param_count
+    cfg = get_arch("mamba2-2.7b")
+    copy_gb = 4 * analytic_param_count(cfg) / 1e9
+    _train_every_step(
+        torch, dev, "train_ssm (t2)", cfg,
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {_ssd_heads(cfg)} "
+        f"SSD heads, state {cfg.ssm.state_dim}. One replica: local SGD "
+        f"keeps about five f32 copies of the params a replica (params, the "
+        f"block's start copy, two moments, the error-feedback residual) at "
+        f"{copy_gb:.2f} GB a copy, so K = 2 ({10 * copy_gb:.1f} GB) does "
+        f"not fit on one card", TRAIN_SEQ, 2, 2, 2 * TRAIN_SEQ)
     log(f"train_ssm (t2): {time.perf_counter() - t1:.1f} s")
     t2 = time.perf_counter()
     _remat_on_the_card(torch, dev, REMAT_DEPTH, TRAIN_SEQ, 2)
     log(f"train_ssm (t3): {time.perf_counter() - t2:.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase train_families: training the MoE, VLM and audio families
+# ---------------------------------------------------------------------------
+
+def _expert_wire(torch, dev, model_cfg, k, seed=3):
+    """The int8 sync's wire on a full-size stacked MoE expert leaf of one
+    layer, (K, 1, E, D, F): ``compress_tree`` and the replica mean of the
+    dequantized payloads on the quant kernel against the plain version,
+    bitwise. Returns the kernel's launches (outside the main path's
+    count)."""
+    from repro_torch.core import compression
+    from repro_torch.kernels.quant import ops
+    e, d, f = model_cfg.moe.num_experts, model_cfg.d_model, model_cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (k, 1, e, d, f)
+    delta = {"w_up": torch.randn(shape, generator=gen, device=dev) * 1e-3}
+    ef = {"w_up": torch.randn(shape, generator=gen, device=dev) * 1e-5}
+    before = ops.LAUNCHES
+    got = compression.compress_tree(delta, ef, rows=True, impl="kernel")
+    mean = compression.allgather_mean_dequant(got[0], got[1], impl="kernel")
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES - before
+    ops.LAUNCHES = before
+    want = compression.compress_tree(delta, ef, rows=True, impl="torch")
+    same = [(part, torch.equal(g["w_up"], w["w_up"])) for part, g, w in
+            zip(("q", "scale", "residual"), got, want)]
+    plain = compression.allgather_mean_dequant(want[0], want[1],
+                                               impl="torch")
+    same.append(("mean", torch.equal(mean["w_up"], plain["w_up"])))
+    log(f"train_families (f2) the int8 wire on {model_cfg.name}'s expert "
+        f"leaf w_up {shape} ({k * e * d * f / 1e6:.1f} M values, "
+        f"{e * d * f / 1e6:.1f} M a replica), quant kernel vs plain: "
+        + ", ".join(f"{p} {'bitwise' if ok else 'DIFFER'}" for p, ok in same)
+        + f"; {launches} kernel launches (a check, not counted on the main "
+        f"path)")
+    check(all(ok for _, ok in same), f"train_families (f2) expert wire: "
+          f"{same}")
+    del delta, ef, got, mean, want, plain
+    _release(torch)
+    return launches
+
+
+def phase_train_families(torch, dev):
+    """Training the MoE, VLM and audio families through ``build_trainer``:
+    (f1) whisper-base's local SGD with the int8 sync on the quant kernel,
+    (f2) phi3.5-moe at a cut depth and the int8 wire on its expert leaf,
+    (f3) paligemma-3b every step, (f4) remat at full width. Returns (f1)'s
+    quant launches."""
+    from repro_torch import tree as T
+    from repro_torch.config import get_arch
+    from repro_torch.models.registry import analytic_param_count
+    t0 = time.perf_counter()
+    cfg = get_arch("whisper-base")
+    k, h, rows = FAM_AUDIO_K, FAM_AUDIO_H, FAM_AUDIO_BATCH
+    seq = FAM_AUDIO_SEQ
+    launches = _train_local(
+        torch, dev, "train_families (f1)", cfg,
+        f"{cfg.n_encoder_layers} encoder and {cfg.n_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.n_audio_frames} seeded frames a "
+        f"sequence, its {seq}-token context, "
+        f"{analytic_param_count(cfg) / 1e6:.1f} M params", k, h, seq,
+        rows * k, 2, h * rows * k * seq, stub_seed=11)
+    log(f"train_families (f1): {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b"),
+                              n_layers=FAM_MOE_LAYERS)
+    full = get_arch("phi3.5-moe-42b-a6.6b")
+    _train_every_step(
+        torch, dev, "train_families (f2)", cfg,
+        f"depth cut to {FAM_MOE_LAYERS} of {full.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.moe.num_experts} experts of d_ff "
+        f"{cfg.d_ff}, top-{cfg.moe.top_k}, "
+        f"{analytic_param_count(cfg) / 1e9:.3f} B params "
+        f"({4 * analytic_param_count(cfg) / 1e9:.2f} GB a f32 copy). One "
+        f"replica: local SGD at K = 2 runs out of the card's memory at one "
+        f"layer (five f32 copies a replica, 62.5 GB, and a step's "
+        f"gradients and the optimizer's temporaries beside them)",
+        TRAIN_SEQ, FAM_MOE_BATCH, 2, FAM_MOE_BATCH * TRAIN_SEQ, repeat=True)
+    _expert_wire(torch, dev, full, 2)
+    log(f"train_families (f2): {time.perf_counter() - t1:.1f} s")
+
+    t2 = time.perf_counter()
+    cfg = get_arch("paligemma-3b")
+    _train_every_step(
+        torch, dev, "train_families (f3)", cfg,
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_image_tokens} seeded patches before {FAM_VLM_TEXT} text "
+        f"tokens, vocab {cfg.vocab_size}, "
+        f"{analytic_param_count(cfg) / 1e9:.3f} B params. One replica: at "
+        f"about five f32 copies a replica K = 2 does not fit on one card",
+        FAM_VLM_TEXT, 2, 2, 2 * FAM_VLM_TEXT, stub_seed=12)
+    log(f"train_families (f3): {time.perf_counter() - t2:.1f} s")
+
+    t3 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch, layers, seq in (("whisper-base", 2, FAM_AUDIO_SEQ),
+                                  ("phi3.5-moe-42b-a6.6b", 1, TRAIN_SEQ),
+                                  ("paligemma-3b", 2, FAM_VLM_TEXT)):
+            cfg = get_arch(arch)
+            cuts = {"n_layers": layers}
+            if cfg.family == "audio":
+                cuts["n_encoder_layers"] = layers
+            cfg = dataclasses.replace(cfg, **cuts)
+            runs = _grad_runs(torch, dev, cfg, ("none", "full", "dots"), seq,
+                              2)
+            _hold_bitwise(torch, f"{arch} (full width, depth cut to "
+                          f"{layers})", runs, tag="train_families (f4)")
+            if cfg.family == "audio":
+                # the enc-dec checkpoints each layer whole for any remat
+                # but none: dots is full's run, value for value
+                same = torch.equal(runs["dots"][0], runs["full"][0]) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        T.leaves(runs["dots"][1]), T.leaves(runs["full"][1])))
+                log(f"train_families (f4) {arch}: dots against full, the "
+                    f"whole-layer checkpoint of both stacks, as the "
+                    f"reference's: the loss and every gradient bitwise "
+                    f"{'yes' if same else 'no'}")
+                check(same, f"train_families (f4) {arch}: dots differs from "
+                      f"full")
+            del runs
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"train_families (f4): {time.perf_counter() - t3:.1f} s; phase "
         f"{time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -4229,6 +4444,10 @@ def main() -> int:
     log(f"train_ssm quant launches (t1, on the quant kernel): "
         f"{ssm_quant_launches}")
     done("train_ssm")
+    family_quant_launches = phase_train_families(torch, dev)
+    log(f"train_families quant launches (f1, on the quant kernel): "
+        f"{family_quant_launches}")
+    done("train_families")
     ssd_row = phase_ssd(torch, dev)
     ssd_launches = phase_serve(
         torch, dev, get_arch("mamba2-2.7b"), SERVE_BATCH, SERVE_PROMPT,

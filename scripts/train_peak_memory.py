@@ -2,12 +2,16 @@
 """Peak device memory of one full-width local-SGD block, as the trainer
 runs it and as it would run if the block left its input state alone.
 
-    python3 scripts/train_peak_memory.py
+    python3 scripts/train_peak_memory.py [--arch ARCH] [--layers N]
+        [--replicas K] [--period H] [--batch B] [--seq S]
+        [--variants "in place,moments copied"]
 
-The trainer of ``chip_smoke.py``'s phase 8: smollm-360m at full width (32
-layers, bf16 compute, f32 master params), K = 4 replicas, H = 4, int8 sync
-with error feedback on the quant kernel, AdamW, 8 × 2,048 tokens a
-microbatch. For each of
+By default the trainer of ``chip_smoke.py``'s phase 8: smollm-360m at full
+width (32 layers, bf16 compute, f32 master params), K = 4 replicas, H = 4,
+int8 sync with error feedback on the quant kernel, AdamW, 8 × 2,048 tokens
+a microbatch (B is the global batch, B / K sequences a replica step);
+``--layers`` cuts the depth, ``--replicas 1 --period 1`` takes the every-step
+sync (MSF = 1, no int8 wire). For each of
 
 * ``in place``: the trainer's step (``build_trainer``), which updates the
   optimizer moments of the state it is given in place, as the reference's
@@ -34,6 +38,19 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 
 
 def main() -> int:
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--arch", default="smollm-360m")
+    p.add_argument("--layers", type=int, default=0,
+                   help="depth cut to this many layers (0: all)")
+    p.add_argument("--replicas", type=int, default=4)
+    p.add_argument("--period", type=int, default=4)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=2048)
+    p.add_argument("--remat", default="none")
+    p.add_argument("--variants", default="in place,moments copied")
+    args = p.parse_args()
+    import dataclasses
     import torch
     if not torch.cuda.is_available():
         print("train_peak_memory: needs a CUDA card", file=sys.stderr)
@@ -47,15 +64,26 @@ def main() -> int:
                          text=True, check=True)
     print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
     dev = torch.device("cuda", 0)
-    k = 4
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = args.replicas
+    model_cfg = get_arch(args.arch)
+    if args.layers:
+        model_cfg = dataclasses.replace(model_cfg, n_layers=args.layers)
+    sync = (SyncConfig(strategy="periodic", period=args.period,
+                       compression="int8") if k > 1 or args.period > 1
+            else SyncConfig())
     cfg = TrainConfig(
-        model=get_arch("smollm-360m"),
+        model=model_cfg,
         mesh=MeshConfig(shape=(k,), axis_names=("pod",), replica_axis="pod"),
-        sync=SyncConfig(strategy="periodic", period=4, compression="int8"),
+        sync=sync,
         optimizer=OptimizerConfig(name="adamw", learning_rate=1e-3,
                                   schedule="cosine", total_steps=1000),
-        data=DataConfig(seq_len=2048, global_batch=8))
-    for variant in ("in place", "moments copied"):
+        data=DataConfig(seq_len=args.seq, global_batch=args.batch),
+        remat=args.remat)
+    print(f"{model_cfg.name}: {model_cfg.n_layers} layers, K={k}, "
+          f"{sync.msf_label}, {args.batch} x {args.seq} tokens a microbatch, "
+          f"remat={args.remat}", flush=True)
+    for variant in args.variants.split(","):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         step, state, make_pipeline, model, _, _ = build_trainer(cfg, dev)

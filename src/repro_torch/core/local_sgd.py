@@ -27,8 +27,9 @@ State layout (plain dict), the reference's:
 
     {"params": …, "opt": …, "sync": …, "step": int}
 
-Params are the reference's tree, one tensor per reference leaf with the
-layer stack as ``(n_layers, …)`` leaves, in sorted-key leaf order (so a sync
+Params are the reference's tree, one tensor per reference leaf with each
+layer stack (``layers``; the enc-dec's ``enc_layers`` and ``dec_layers``)
+as ``(depth, …)`` leaves, in sorted-key leaf order (so a sync
 quantizes and shards each leaf as the reference does, about a dozen kernel
 calls a sync). Under local SGD every leaf of params/opt/sync gains a leading
 replica dim K; the model reads per-layer views of one replica's leaves.
@@ -77,15 +78,22 @@ from repro_torch.optim import apply_updates_, init_opt_state
 # state construction
 # ---------------------------------------------------------------------------
 
+def _stack(layers):
+    """Per-layer trees → one tree of ``(depth, …)`` leaves."""
+    return T.map(lambda *xs: torch.stack(xs), *layers)
+
+
 def init_state(model, cfg: TrainConfig, gen: torch.Generator,
                replicas: int = 0):
-    """Fresh state on ``gen``'s device (the draws of ``model.init``, its
-    layers stacked into the reference's layout); ``replicas > 0`` adds the
-    leading replica dim (local-SGD layout), every replica a copy of one
+    """Fresh state on ``gen``'s device (the draws of ``model.init``, each
+    layer stack stacked into the reference's layout); ``replicas > 0`` adds
+    the leading replica dim (local-SGD layout), every replica a copy of one
     draw."""
     params = L.init_params(model.param_defs(), gen,
                            getattr(torch, cfg.model.param_dtype))
-    params["layers"] = T.map(lambda *xs: torch.stack(xs), *params["layers"])
+    for key in L.STACKS:
+        if key in params:
+            params[key] = _stack(params[key])
     state = {
         "params": params,
         "opt": init_opt_state(cfg.optimizer, params),
@@ -108,20 +116,22 @@ def value_and_grad(model, params, batch) -> Tuple[torch.Tensor, Dict, Dict]:
     """``model.loss`` at ``params`` (one replica, the reference's layout) and
     its gradient in the same layout: (loss, metrics, grads), all detached.
 
-    The layer stack is handed to the model as per-layer leaves that require
+    Each layer stack is handed to the model as per-layer leaves that require
     grad, and their gradients are stacked once at the end (differentiating
     through per-layer views of the stacked leaves would add a full-size
     gradient buffer for every layer)."""
-    layers = L.layer_list(params["layers"])
-    view = {k: v for k, v in params.items() if k != "layers"}
-    view = T.map(lambda p: p.detach().requires_grad_(), view)
-    view["layers"] = [T.map(lambda p: p.detach().requires_grad_(), lp)
-                      for lp in layers]
+    def leaf(p):
+        return p.detach().requires_grad_()
+    stacks = [k for k in L.STACKS if k in params]
+    view = T.map(leaf, {k: v for k, v in params.items() if k not in stacks})
+    for key in stacks:
+        view[key] = [T.map(leaf, lp) for lp in L.layer_list(params[key])]
     with torch.enable_grad():
         loss, metrics = model.loss(view, batch)
         flat, unflatten = T.flatten(view)
         grads = unflatten(list(torch.autograd.grad(loss, flat)))
-    grads["layers"] = T.map(lambda *xs: torch.stack(xs), *grads["layers"])
+    for key in stacks:
+        grads[key] = _stack(grads[key])
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, grads
 

@@ -8,6 +8,13 @@ byte-identical to the reference's, and places them on the pipeline's device
 its slice of the global batch (:meth:`DataPipeline.process_slice`, the
 mesh's rank and size in place of ``jax.process_index()`` /
 ``process_count()``); without one the slice is the whole batch.
+
+The VLM and audio families take their stub frontends' inputs beside the
+tokens, the reference's ``input_layout("train")``: ``patches`` (B, P, D)
+and ``frames`` (B, n_audio_frames, D), zeros (as the reference's serving
+CLI makes its stubs), sliced by rows with the tokens and placed in the
+model's dtype. The reference's own pipeline yields tokens and targets
+alone, so its trainer's CLI cannot train these families (ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -18,6 +25,22 @@ import torch
 
 from repro_torch.config.base import DataConfig, ModelConfig
 from repro_torch.data.synthetic import synthetic_lm_batch
+
+
+def stub_inputs(model_cfg: ModelConfig, rows: int
+                ) -> Dict[str, np.ndarray]:
+    """The stub frontends' inputs of ``rows`` sequences, zeros: the VLM's
+    ``patches`` (rows, P, D), the audio family's ``frames`` (rows, T, D);
+    none for the other families. Float32 on the host (zeros in any float
+    dtype); :meth:`DataPipeline.place` casts them to the model's."""
+    d = model_cfg.d_model
+    if model_cfg.family == "vlm":
+        return {"patches": np.zeros((rows, model_cfg.num_image_tokens, d),
+                                    np.float32)}
+    if model_cfg.family == "audio":
+        return {"frames": np.zeros((rows, model_cfg.n_audio_frames, d),
+                                   np.float32)}
+    return {}
 
 
 class DataPipeline:
@@ -39,13 +62,15 @@ class DataPipeline:
 
     # -- batch production -----------------------------------------------------
     def _host_batch(self, step: int) -> Dict[str, np.ndarray]:
-        return synthetic_lm_batch(
+        batch = synthetic_lm_batch(
             step,
             global_batch=self.cfg.global_batch,
             seq_len=self.cfg.seq_len,
             vocab_size=self.model_cfg.vocab_size,
             seed=self.cfg.seed,
         )
+        batch.update(stub_inputs(self.model_cfg, self.cfg.global_batch))
+        return batch
 
     def process_slice(self, batch: Dict[str, np.ndarray]
                       ) -> Dict[str, np.ndarray]:
@@ -70,9 +95,17 @@ class DataPipeline:
         self._step += 1
         return batch
 
+    def place(self, batch: Dict[str, np.ndarray]
+              ) -> Dict[str, torch.Tensor]:
+        """A host batch on the pipeline's device: integer leaves as they
+        are, float leaves (the stub inputs) in the model's dtype."""
+        dtype = getattr(torch, self.model_cfg.dtype)
+        return {k: torch.from_numpy(v).to(
+                    self.device, dtype=dtype if v.dtype.kind == "f" else None)
+                for k, v in batch.items()}
+
     def __next__(self) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in self.next_host().items()}
+        return self.place(self.next_host())
 
     def __iter__(self):
         return self

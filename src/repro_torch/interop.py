@@ -48,6 +48,12 @@ def _tensor(value, device=None) -> torch.Tensor:
                         device=device)
 
 
+def _stack_depths(cfg: ModelConfig) -> Dict[str, int]:
+    """The depth of each layer stack a model's params may hold."""
+    return {"layers": cfg.n_layers, "dec_layers": cfg.n_layers,
+            "enc_layers": cfg.n_encoder_layers}
+
+
 def lm_params_from_jax(params: Mapping[str, Any], cfg: ModelConfig
                        ) -> Dict[str, torch.Tensor]:
     """The reference's LM param pytree (a model's ``init``, a nested dict,
@@ -58,8 +64,7 @@ def lm_params_from_jax(params: Mapping[str, Any], cfg: ModelConfig
     split into one entry per layer, ``<stack>.<i>.<key>``. Load it with the
     port's model's ``load``."""
     out: Dict[str, torch.Tensor] = {}
-    stacks = {"layers": cfg.n_layers, "dec_layers": cfg.n_layers,
-              "enc_layers": cfg.n_encoder_layers}
+    stacks = _stack_depths(cfg)
 
     def walk(prefix: str, node, layer=None, depth=None):
         for key, value in node.items():
@@ -97,9 +102,11 @@ def lm_train_state_from_jax(state: Mapping[str, Any], cfg: TrainConfig,
 
     Under a replica strategy (``periodic``/``hierarchical``) every params,
     opt and sync leaf must carry the leading replica dim of
-    ``cfg.mesh``'s replica axis; a params leaf of the layer stack then
-    carries ``n_layers`` next. Raises ``ValueError`` where a leaf does not,
-    and ``KeyError`` on a missing or unknown top-level key."""
+    ``cfg.mesh``'s replica axis; a params leaf of a layer stack then
+    carries the stack's depth next (``n_layers`` for ``layers`` and
+    ``dec_layers``, ``n_encoder_layers`` for ``enc_layers``). Raises
+    ``ValueError`` where a leaf does not, and ``KeyError`` on a missing or
+    unknown top-level key."""
     keys = {"params", "opt", "sync", "step"}
     if set(state) != keys:
         raise KeyError(f"train state keys {sorted(state)}, expected "
@@ -107,6 +114,7 @@ def lm_train_state_from_jax(state: Mapping[str, Any], cfg: TrainConfig,
     replicated = cfg.sync.strategy in ("periodic", "hierarchical")
     k = cfg.mesh.axis_size(cfg.mesh.replica_axis or "pod")
     lead = (k,) if replicated else ()
+    depths = _stack_depths(cfg.model)
 
     def convert(node, path):
         if isinstance(node, Mapping):
@@ -115,10 +123,11 @@ def lm_train_state_from_jax(state: Mapping[str, Any], cfg: TrainConfig,
         if arr.shape[:len(lead)] != lead:
             raise ValueError(f"{path}: shape {arr.shape} lacks the replica "
                              f"dim {k}")
-        if (path.startswith("params.layers.")
-                and arr.shape[len(lead):len(lead) + 1] != (cfg.model.n_layers,)):
+        parts = path.split(".")
+        if (parts[0] == "params" and len(parts) > 2 and parts[1] in depths
+                and arr.shape[len(lead):len(lead) + 1] != (depths[parts[1]],)):
             raise ValueError(f"{path}: shape {arr.shape} lacks the layer "
-                             f"dim {cfg.model.n_layers}")
+                             f"dim {depths[parts[1]]} of {parts[1]!r}")
         return _tensor(arr, device)
 
     out = {key: convert(state[key], key) for key in ("params", "opt", "sync")}

@@ -32,21 +32,32 @@ LAUNCHES = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 
+# rows a call takes: the kernels' grids put the rows on gridDim.y, whose
+# limit this is. Sizes, strides and indices within a row are 64-bit on both
+# sides of the C interface (``long long``), so a row or a leaf of 2³¹ values
+# or more is indexed whole.
+MAX_ROWS = 65535
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# the C entry points' arguments (csrc/quant.cu's extern "C" signatures)
+ARGTYPES = {
+    "quant_amax_blocks": [_I64, _I32],                 # n, rows
+    # x, x_rs, q, q_rs, res, res_rs, scale, partial, rows, n, stream
+    "quant_int8_f32": [_PTR, _I64, _PTR, _I64, _PTR, _I64, _PTR, _PTR, _I32,
+                       _I64, _PTR],
+    # q, q_rs, scale, out, out_rs, rows, n, stream
+    "dequant_int8_f32": [_PTR, _I64, _PTR, _PTR, _I64, _I32, _I64, _PTR],
+}
+
 
 def load_library() -> ctypes.CDLL:
     """Build (at the first call) and load the kernels' library."""
     global _LIB
     if _LIB is None:
         lib = nvcc.load("quant", [SOURCE])
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.quant_amax_blocks.argtypes = [i64, i32]
-        lib.quant_amax_blocks.restype = ctypes.c_int
-        lib.quant_int8_f32.argtypes = [ptr, i64, ptr, i64, ptr, i64, ptr,
-                                       ptr, i32, i64, ptr]
-        lib.quant_int8_f32.restype = ctypes.c_int
-        lib.dequant_int8_f32.argtypes = [ptr, i64, ptr, ptr, i64, i32, i64,
-                                         ptr]
-        lib.dequant_int8_f32.restype = ctypes.c_int
+        for name, argtypes in ARGTYPES.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -67,6 +78,12 @@ def _rows_of(t: torch.Tensor, rows: bool) -> Tuple[int, int, int]:
     if not t.is_contiguous():
         raise ValueError(f"x must be contiguous; strides {t.stride()}")
     return 1, t.numel(), t.numel()
+
+
+def _check_rows(r: int) -> None:
+    if r > MAX_ROWS:
+        raise ValueError(f"{r} rows: the CUDA quant kernels take at most "
+                         f"{MAX_ROWS} (the grid's y dim)")
 
 
 def _check_cuda(name: str, t: torch.Tensor) -> None:
@@ -101,6 +118,7 @@ def quantize(x: torch.Tensor, *, rows: bool = False, residual: bool = False
             return q, scale, x.float() - ref.dequantize(q, scale)
         return q, scale
     _check_cuda("x", x)
+    _check_rows(r)
     if x.dtype != torch.float32:
         raise TypeError(f"the CUDA quant kernel takes float32; x is "
                         f"{x.dtype}")
@@ -144,6 +162,7 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"the CUDA dequant kernel takes int8 q and a float32 "
                         f"scale; got {q.dtype}, {scale.dtype}")
     _check_cuda("scale", scale)
+    _check_rows(r)
     lib = load_library()
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     scale = scale.reshape(r).contiguous()

@@ -1,21 +1,22 @@
 """End-to-end trainer, the port of ``repro.launch.train``: arch config →
-model (the dense, ssm or hybrid family, with the plain
-attention and chunked SSD scan the reference trains with, and
-``cfg.remat``'s activation checkpointing) → MSF sync engine →
-optimizer → data pipeline → checkpoint manager → fault-tolerant step
-runner, with the adaptive MSF controller and its H ladder, on one process
-or across the ranks of a mesh.
+model (any family, with the plain attention and chunked SSD scan the
+reference trains with, and ``cfg.remat``'s activation checkpointing) →
+MSF sync engine → optimizer → data pipeline → checkpoint manager →
+fault-tolerant step runner, with the adaptive MSF controller and its H
+ladder, on one process or across the ranks of a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --smoke --device cpu --replicas 4 --steps 3 \\
         --set sync.strategy=periodic --set sync.period=2
 
 ``--arch mamba2-2.7b`` or ``--arch zamba2-1.2b`` trains the SSM or hybrid
-family the same way, and the other dense archs (internlm2-1.8b, llama3.2-3b,
-qwen2.5-3b) as smollm-360m; ``--set remat=full`` checkpoints each layer
-(``dots`` too for the dense family), as a full-width model on one card
-needs. The moe, vlm and audio archs serve only: training them waits for
-ROADMAP §1 item 20.
+family the same way, the other dense archs (internlm2-1.8b, llama3.2-3b,
+qwen2.5-3b) as smollm-360m, and the MoE (phi3.5-moe-42b-a6.6b,
+qwen3-moe-235b-a22b: its loss adds the load-balance term), the VLM
+(paligemma-3b) and the encoder-decoder (whisper-base), whose stub
+frontends' inputs the pipeline feeds as zeros (``patches``, ``frames``);
+``--set remat=full`` checkpoints each layer (``dots`` too for the dense,
+MoE and VLM families), as a full-width model on one card needs.
 
 Across processes it runs under ``torchrun``, which starts the ranks, with
 ``--backend gloo|nccl`` (one replica a rank; ``--replicas`` is then the
@@ -67,17 +68,13 @@ from repro_torch.data.pipeline import DataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import mesh_config
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import TRAINING_WAITS
 from repro_torch.runtime import StepRunner
-
-# the families the trainer takes; the others serve only (ROADMAP §1 item 20)
-TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class _Blocked:
     """Groups H microbatches into one (H, B, …) train block: stacked on the
     host with numpy (``DataPipeline.next_host``), then placed on the
-    pipeline's device."""
+    pipeline's device (``DataPipeline.place``)."""
 
     def __init__(self, inner: DataPipeline, h: int):
         self.inner = inner
@@ -91,8 +88,8 @@ class _Blocked:
 
     def __next__(self):
         mbs = [self.inner.next_host() for _ in range(self.h)]
-        return {k: torch.from_numpy(np.stack([m[k] for m in mbs]))
-                .to(self.inner.device) for k in mbs[0]}
+        return self.inner.place({k: np.stack([m[k] for m in mbs])
+                                 for k in mbs[0]})
 
 
 def _param_bytes_per_chip(cfg: TrainConfig) -> int:
@@ -147,10 +144,8 @@ def build_trainer(cfg: TrainConfig,
     """Returns (step_fn, initial state, make_pipeline, model, telemetry,
     ladder), the reference's six.
 
-    The model is ``cfg.model``'s family (dense, ssm or hybrid; the moe,
-    vlm and audio families raise NotImplementedError: their training waits
-    for ROADMAP §1 item 20) with the
-    plain attention and chunked SSD scan (``attn_impl="torch"``,
+    The model is ``cfg.model``'s family, any of the six, with the plain
+    attention and chunked SSD scan (``attn_impl="torch"``,
     ``ssd_impl="torch"``) and ``cfg.remat``. The state is drawn on
     ``device`` from a generator seeded ``cfg.seed`` (K copies of one draw
     under a replica strategy). The step updates the optimizer moments of
@@ -160,8 +155,10 @@ def build_trainer(cfg: TrainConfig,
     ``make_pipeline(start)`` yields the step's batches from data step
     ``start``: (H, B, S) blocks of the
     current H microbatches under a replica strategy, (B, S) batches
-    otherwise. ``quant_impl`` is the int8 wire's quantize/dequantize (the
-    quant kernel, or its plain version with ``"torch"``).
+    otherwise (the VLM's ``patches`` and the audio ``frames`` beside the
+    tokens, zeros, with the same leading dims). ``quant_impl`` is the int8
+    wire's quantize/dequantize (the quant kernel, or its plain version with
+    ``"torch"``).
 
     With ``sync.adaptive`` on a replica strategy, ``ladder`` is a live
     :class:`repro_torch.runtime.ladder.LadderRuntime`: a rung per H of
@@ -184,8 +181,6 @@ def build_trainer(cfg: TrainConfig,
     agree on each move of H, which is the mesh's replica-axis size's own
     (the ``pod`` replicas under ``hierarchical``).
     """
-    if cfg.model.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(TRAINING_WAITS.format(cfg.model.family))
     dev = resolve_device(device if device is not None else
                          mesh.device if mesh is not None else "cuda")
     model = build_model(cfg.model, attn_impl="torch", ssd_impl="torch",

@@ -1,12 +1,11 @@
 """Whisper-style encoder-decoder backbone (audio frontend stubbed).
 
-The port of ``repro.models.encdec.EncDecModel``, serving only (its training
-waits for ROADMAP §1 item 20). As in the reference, the conv frontend is a
-stub: the encoder takes precomputed frame embeddings (B, n_audio_frames,
-d_model). The encoder stack runs full (non-causal) self-attention with RoPE;
-each decoder layer runs causal self-attention, cross-attention over the
-encoder output (k, v projected from it, no RoPE), then the MLP; the
-unembedding is the token embedding.
+The port of ``repro.models.encdec.EncDecModel``. As in the reference, the
+conv frontend is a stub: the encoder takes precomputed frame embeddings (B,
+n_audio_frames, d_model). The encoder stack runs full (non-causal)
+self-attention with RoPE; each decoder layer runs causal self-attention,
+cross-attention over the encoder output (k, v projected from it, no
+RoPE), then the MLP; the unembedding is the token embedding.
 
 The decode cache is ``{"self_k", "self_v"}`` (n_layers, B, max_len, KV, hd),
 which grows with the generated tokens, and ``{"cross_k", "cross_v"}``
@@ -14,6 +13,13 @@ which grows with the generated tokens, and ``{"cross_k", "cross_v"}``
 encoder output and only read after. ``attn_impl="kernel"`` takes the flash
 kernel for all three attentions of a prefill (the encoder's, the decoder's
 causal one, its cross-attention over T ≠ S keys).
+
+``loss`` encodes the frames, runs the decoder over the tokens without a
+cache and takes the CE on the tied embedding (plain attention only, as the
+reference trains). ``remat`` other than ``"none"`` checkpoints each layer of
+both stacks whole where a gradient is taken, as the reference's
+``jax.checkpoint`` of its scan bodies does for any such value: ``"dots"``
+is a full checkpoint here.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import LM, TRAINING_WAITS
+from repro_torch.models.losses import ce_loss
+from repro_torch.models.transformer import LM, remat_layer
 
 
 def _enc_layer_defs(cfg: ModelConfig) -> L.ParamDefs:
@@ -48,11 +55,13 @@ def _dec_layer_defs(cfg: ModelConfig) -> L.ParamDefs:
 
 
 class EncDecModel(LM):
-    """``param_defs``/``init``/``load``, ``prefill`` (batch ``{"tokens",
-    "frames"}``), ``init_cache``, ``decode_step``, with the contract of
+    """``param_defs``/``init``/``load``, ``loss`` and ``prefill`` (batch
+    ``{"tokens", "frames"}``, and ``"targets"`` for the loss),
+    ``init_cache``, ``decode_step``, with the contract of
     :class:`repro_torch.models.transformer.LM`."""
 
-    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "kernel"):
+    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "kernel",
+                 remat: str = "none"):
         if (cfg.family != "audio" or cfg.n_encoder_layers <= 0
                 or cfg.n_audio_frames <= 0):
             raise ValueError(f"EncDecModel builds family 'audio' with "
@@ -64,6 +73,7 @@ class EncDecModel(LM):
                              f"({' | '.join(A.IMPLS)})")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.remat = remat
         self.dtype = getattr(torch, cfg.dtype)
 
     # ----------------------------------------------------------- parameters
@@ -84,43 +94,81 @@ class EncDecModel(LM):
                      ) -> torch.Tensor:
         return x_last @ params["embed"]["embedding"].to(x_last.dtype).T
 
+    def _remat(self, fn):
+        """``fn`` (a layer) checkpointed whole where a gradient is taken
+        and ``remat`` is not ``"none"``, else as it is."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return fn
+        return remat_layer(fn, "full")
+
     # -------------------------------------------------------------- encoder
+    def _enc_layer(self, lp: L.Params, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        x = x + A.full_attention(lp["attn"], self._norm(lp["ln1"], x),
+                                 positions, self.cfg, mask_mode="full",
+                                 impl=self.attn_impl)
+        return x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x))
+
     def encode(self, params: L.Params, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, T, D) → the encoder output (B, T, D), in the
         activations' dtype."""
-        cfg = self.cfg
         x = frames.to(dtype=self.dtype)
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        layer = self._remat(self._enc_layer)
         for lp in L.layer_list(params["enc_layers"]):
-            x = x + A.full_attention(lp["attn"], self._norm(lp["ln1"], x),
-                                     positions, cfg, mask_mode="full",
-                                     impl=self.attn_impl)
-            x = x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x))
+            x = layer(lp, x, positions)
         return self._norm(params["enc_norm"], x)
 
     # -------------------------------------------------------------- decoder
     def _dec_layer(self, lp: L.Params, x: torch.Tensor,
-                   positions: torch.Tensor, enc_out: torch.Tensor
-                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        """One decoder layer over a full sequence: (x, (self k, self v,
-        cross k, cross v))."""
+                   positions: torch.Tensor, enc_out: torch.Tensor,
+                   return_kv: bool = False):
+        """One decoder layer over a full sequence: x, or with ``return_kv``
+        (x, (self k, self v, cross k, cross v))."""
         cfg = self.cfg
-        out, sk, sv = A.full_attention(
+        out = A.full_attention(
             lp["self_attn"], self._norm(lp["ln1"], x), positions, cfg,
-            mask_mode="causal", impl=self.attn_impl, return_kv=True)
+            mask_mode="causal", impl=self.attn_impl, return_kv=return_kv)
+        if return_kv:
+            out, sk, sv = out
         x = x + out
-        out, ck, cv = A.full_attention(
+        out = A.full_attention(
             lp["cross_attn"], self._norm(lp["ln_x"], x), positions, cfg,
             mask_mode="full", kv_x=enc_out, impl=self.attn_impl,
-            return_kv=True)
+            return_kv=return_kv)
+        if return_kv:
+            out, ck, cv = out
         x = x + out
         x = x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x))
-        return x, (sk, sv, ck, cv)
+        return (x, (sk, sv, ck, cv)) if return_kv else x
+
+    def decode_fwd(self, params: L.Params, tokens: torch.Tensor,
+                   enc_out: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) over the encoder output → the decoder's final
+        hidden (B, S, D), with no cache (the loss's path)."""
+        x = L.embed(params["embed"], tokens, self.dtype)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        layer = self._remat(self._dec_layer)
+        for lp in L.layer_list(params["dec_layers"]):
+            x = layer(lp, x, positions, enc_out)
+        return self._norm(params["final_norm"], x)
+
+    # --------------------------------------------------------------- train
+    def loss(self, params: L.Params, batch
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"frames": (B, T, D), "tokens": (B, S) int, "targets":
+        (B, S) int} → (mean next-token NLL, {"ce": it}), differentiable in
+        the params (no ``loss_mask``, as in the reference)."""
+        self._check_trainable()
+        enc_out = self.encode(params, batch["frames"])
+        x = self.decode_fwd(params, batch["tokens"], enc_out)
+        loss = ce_loss(x, params["embed"]["embedding"], batch["targets"],
+                       chunk=self.cfg.ce_chunk)
+        return loss, {"ce": loss}
 
     # ------------------------------------------------------------- serving
-    def loss(self, params: L.Params, batch):
-        raise NotImplementedError(TRAINING_WAITS.format(self.cfg.family))
 
     def prefill(self, params: L.Params, batch,
                 cache: Optional[Dict[str, torch.Tensor]] = None
@@ -136,7 +184,8 @@ class EncDecModel(LM):
         if cache is None:
             cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
         for i, lp in enumerate(L.layer_list(params["dec_layers"])):
-            x, (sk, sv, ck, cv) = self._dec_layer(lp, x, positions, enc_out)
+            x, (sk, sv, ck, cv) = self._dec_layer(lp, x, positions, enc_out,
+                                                  return_kv=True)
             cache["self_k"][i, :, :s] = sk
             cache["self_v"][i, :, :s] = sv
             cache["cross_k"][i] = ck

@@ -110,6 +110,11 @@ class ParamTree(nn.Module):
 Params = Union[ParamTree, Mapping[str, Any]]
 
 
+# the layer stacks of the families' params: a list of per-layer params in
+# the port's models, ``(depth, …)`` leaves in the reference's layout
+STACKS = ("layers", "enc_layers", "dec_layers")
+
+
 def layer_list(layers) -> list:
     """The per-layer params of a layer stack: a list (or ``nn.ModuleList``)
     as it is, or the reference's stacked layout (a dict whose leaves carry a

@@ -17,6 +17,14 @@ drop writes into a spare row C of the buffer that is cut off, never a
 boolean index, so a decode step with MoE layers captures as a CUDA graph.
 Ties among the gates go to the lower expert index, as ``jax.lax.top_k``
 gives them (a stable descending sort, not ``torch.topk``).
+
+Training takes ``moe_ffn(…, return_aux=True)``: the Switch load-balance
+term of the same router logits and routed experts the dispatch used. Its
+gradient reaches the router through the softmax's mean gate mass; the
+routed share is counted from the indices and carries none, as in the
+reference. The backward of the dispatch is deterministic: a kept (expert,
+rank) has one writer, and the gather's duplicate rows (a dropped slot reads
+row C − 1 of its expert) carry a weight of 0, so their gradient adds zeros.
 """
 from __future__ import annotations
 
@@ -102,16 +110,19 @@ def load_balance(logits: torch.Tensor, indices: torch.Tensor,
 
 
 def moe_ffn(params: L.Params, x: torch.Tensor, cfg: ModelConfig,
-            capacity_factor: float = CAPACITY_FACTOR) -> torch.Tensor:
-    """x (B, S, D) → out (B, S, D); the aux term is :func:`load_balance`'s
-    of :func:`router_logits` and the routed indices."""
+            capacity_factor: float = CAPACITY_FACTOR,
+            return_aux: bool = False):
+    """x (B, S, D) → out (B, S, D), or with ``return_aux`` (out, aux): the
+    f32 :func:`load_balance` term of the router logits and routed experts
+    this dispatch used (the reference's pair). Serving takes out alone and
+    computes no aux."""
     b, s, d = x.shape
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     t = b * s
     dtype = x.dtype
     xt = x.reshape(t, d)
-    weights, indices, pos, cap = routing(router_logits(params, x), cfg,
-                                         capacity_factor)
+    logits = router_logits(params, x)
+    weights, indices, pos, cap = routing(logits, cfg, capacity_factor)
 
     # scatter per slot into (E, C + 1, D): a slot over capacity lands in
     # the spare row C, cut off below (the reference's mode="drop"). A kept
@@ -134,4 +145,7 @@ def moe_ffn(params: L.Params, x: torch.Tensor, cfg: ModelConfig,
         yt = ye.index_select(
             0, indices[:, j] * cap + torch.clamp(pos[:, j], max=cap - 1))
         out = out + yt * (weights[:, j] * kept)[:, None].to(dtype)
-    return out.reshape(b, s, d)
+    out = out.reshape(b, s, d)
+    if return_aux:
+        return out, load_balance(logits, indices, cfg)
+    return out

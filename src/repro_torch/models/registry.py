@@ -31,10 +31,9 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "kernel",
     full sequence (every family but ssm) and ``ssd_impl`` the prefill's SSD
     scan (ssm, hybrid): ``"kernel"`` or ``"torch"``. ``remat`` is the
     reference's activation checkpointing of each layer where a gradient is
-    taken: ``"full"`` or ``"dots"`` for dense (another value checkpoints
-    nothing), any value but ``"none"`` for ssm and hybrid; the moe, vlm and
-    audio families serve only (their training waits for ROADMAP §1 item
-    20)."""
+    taken: ``"full"`` or ``"dots"`` for dense, moe and vlm (another value
+    checkpoints nothing), any value but ``"none"`` for ssm, hybrid and
+    audio (a whole layer)."""
     if cfg.family not in FAMILIES:
         raise KeyError(f"unknown family {cfg.family!r}; known "
                        f"{sorted(FAMILIES)}")
@@ -47,7 +46,7 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "kernel",
         return HybridModel(cfg, attn_impl=attn_impl, ssd_impl=ssd_impl,
                            remat=remat)
     if cfg.family == "audio":
-        return EncDecModel(cfg, attn_impl=attn_impl)
+        return EncDecModel(cfg, attn_impl=attn_impl, remat=remat)
     cls = PrefixVLM if cfg.family == "vlm" else DecoderLM
     return cls(cfg, attn_impl=attn_impl, remat=remat)
 

@@ -17,10 +17,10 @@ The layer stack is a Python loop over ``params["layers"]``: an
 layout (a dict of ``(n_layers, …)`` leaves, read as per-layer views; the
 reference scans it), and ``remat`` checkpoints each layer as the
 reference's ``_maybe_remat`` does (:func:`remat_layer`). The MoE family's
-layers take :func:`repro_torch.models.moe.moe_ffn` in place of the MLP;
+layers take :func:`repro_torch.models.moe.moe_ffn` in place of the MLP, and
+its loss adds the mean over the layers of their load-balance terms;
 :class:`PrefixVLM` puts stub patch embeddings before the text under a
-prefix-LM mask. Both serve; their training (the MoE's load-balance term)
-waits for ROADMAP §1 item 20.
+prefix-LM mask and takes its loss over the text positions.
 """
 from __future__ import annotations
 
@@ -39,8 +39,6 @@ from repro_torch.models.losses import ce_loss
 
 
 REMAT_POLICIES = ("none", "full", "dots")
-TRAINING_WAITS = ("training the {} family waits for ROADMAP §1 item 20 (its "
-                  "loss, the MoE's load-balance term, build_trainer)")
 # what "dots" keeps: the 2-D matrix products, the products with no batch
 # dims of JAX's dots_with_no_batch_dims_saveable (the batched ones are bmm)
 _SAVED_PRODUCTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
@@ -76,18 +74,25 @@ def layer_defs(cfg: ModelConfig) -> L.ParamDefs:
     return defs
 
 
-def ffn(lp: L.Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The block's feed-forward: the MoE layer (without its aux term, which
-    training adds: ROADMAP §1 item 20) or the dense MLP."""
+def ffn(lp: L.Params, h: torch.Tensor, cfg: ModelConfig,
+        return_aux: bool = False):
+    """The block's feed-forward: the MoE layer or the dense MLP. With
+    ``return_aux``, (out, the layer's f32 load-balance term: 0 for the
+    MLP)."""
     if cfg.is_moe:
-        return M.moe_ffn(lp["moe"], h, cfg)
-    return L.mlp(lp["mlp"], h)
+        return M.moe_ffn(lp["moe"], h, cfg, return_aux=return_aux)
+    out = L.mlp(lp["mlp"], h)
+    if return_aux:
+        return out, torch.zeros((), dtype=torch.float32, device=h.device)
+    return out
 
 
 def layer_fwd(lp: L.Params, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, mask_mode: str, prefix_len: int,
-              attn_impl: str, return_kv: bool = False):
-    """One transformer block. Returns x, or (x, k, v) if return_kv."""
+              attn_impl: str, return_kv: bool = False,
+              return_aux: bool = False):
+    """One transformer block. Returns x, or the tuple of x, the aux term if
+    ``return_aux`` and k, v if ``return_kv`` (the reference's order)."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm_type, cfg.norm_eps)
     attn_out = A.full_attention(lp["attn"], h, positions, cfg,
                                 mask_mode=mask_mode, prefix_len=prefix_len,
@@ -96,10 +101,13 @@ def layer_fwd(lp: L.Params, x: torch.Tensor, positions: torch.Tensor,
         attn_out, k, v = attn_out
     x = x + attn_out
     h = L.apply_norm(lp["ln2"], x, cfg.norm_type, cfg.norm_eps)
-    x = x + ffn(lp, h, cfg)
-    if return_kv:
-        return x, k, v
-    return x
+    out = ffn(lp, h, cfg, return_aux)
+    if return_aux:
+        out, aux = out
+    x = x + out
+    outs = (x,) + ((aux,) if return_aux else ()) + ((k, v) if return_kv
+                                                     else ())
+    return outs if len(outs) > 1 else x
 
 
 def layer_decode(lp: L.Params, x: torch.Tensor, cache_k: torch.Tensor,
@@ -160,13 +168,24 @@ class LM:
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(mean next-token NLL of ``batch``'s targets, {"ce": it}) through
         ``backbone``, over the positions of ``mask`` (all without one)."""
-        cfg = self.cfg
         x = self.backbone(params, self._embed_inputs(params, batch))
-        table = params["embed"]["embedding"] if cfg.tie_embeddings \
-            else params["out_embedding"]
-        loss = ce_loss(x, table, batch["targets"], mask=mask,
-                       chunk=cfg.ce_chunk)
+        loss = self._nll(params, x, batch["targets"], mask)
         return loss, {"ce": loss}
+
+    def _check_trainable(self) -> None:
+        if self.attn_impl == "kernel":
+            raise ValueError(f"{type(self).__name__}.loss needs "
+                             f"attn_impl='torch': the flash-attention kernel "
+                             f"is forward only, and the reference trains "
+                             f"with its plain attention (attn_impl='jnp')")
+
+    def _nll(self, params: L.Params, x: torch.Tensor, targets: torch.Tensor,
+             mask=None) -> torch.Tensor:
+        """The mean NLL of ``targets`` under final hidden ``x`` (chunked
+        by ``ce_chunk``)."""
+        table = params["embed"]["embedding"] if self.cfg.tie_embeddings \
+            else params["out_embedding"]
+        return ce_loss(x, table, targets, mask=mask, chunk=self.cfg.ce_chunk)
 
     def _logits_last(self, params: L.Params, x_last: torch.Tensor
                      ) -> torch.Tensor:
@@ -223,12 +242,16 @@ class DecoderLM(LM):
     # ------------------------------------------------------------- forward
     def backbone(self, params: L.Params, x: torch.Tensor,
                  return_cache: bool = False,
-                 cache: Optional[Dict[str, torch.Tensor]] = None):
+                 cache: Optional[Dict[str, torch.Tensor]] = None,
+                 return_aux: bool = False):
         """x: (B, S, D) embedded inputs → final hidden (+ cache), causal, or
         causal ∪ the first :meth:`positions_before` positions (the VLM's
         prefix-LM mask). With ``return_cache`` each layer's k, v is written into
         ``cache[name][i, :, :S]``: the given cache (e.g. of ``max_len``), or
-        one of length S in the activations' dtype.
+        one of length S in the activations' dtype. With ``return_aux``
+        (training) it returns (final hidden, the mean over the layers of
+        their load-balance terms), each layer's term going through its
+        checkpoint beside x.
         """
         cfg = self.cfg
         b, s, _ = x.shape
@@ -239,38 +262,46 @@ class DecoderLM(LM):
             cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
         fwd = (remat_layer(layer_fwd, self.remat)
                if torch.is_grad_enabled() and not return_cache else layer_fwd)
+        auxes = []
         for i, lp in enumerate(L.layer_list(params["layers"])):
             out = fwd(lp, x, positions, cfg, mask_mode, prefix_len,
-                      self.attn_impl, return_cache)
+                      self.attn_impl, return_cache, return_aux)
             if return_cache:
                 x, k, v = out
                 cache["k"][i, :, :s] = k
                 cache["v"][i, :, :s] = v
+            elif return_aux:
+                x, aux = out
+                auxes.append(aux)
             else:
                 x = out
         x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
         if return_cache:
             return x, cache
+        if return_aux:
+            return x, torch.stack(auxes).mean()
         return x
 
     # --------------------------------------------------------------- train
     def loss(self, params: L.Params, batch
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"tokens": (B,S) int, "targets": (B,S) int[, "loss_mask"]}
-        → (mean next-token NLL, {"ce": it}), differentiable in the params.
+        → (mean next-token NLL, {"ce": it}), differentiable in the params;
+        for the MoE family (ce + ``load_balance_coef`` · aux, {"ce", "aux"}),
+        aux the mean over the layers of their load-balance terms.
 
         Raises under ``attn_impl="kernel"``: the flash kernel has no backward
         (nor has the reference's, which trains with ``attn_impl="jnp"``), so
-        its attention would get no gradient. Raises NotImplementedError for
-        the MoE family, whose loss carries the load-balance term."""
-        if self.cfg.is_moe:
-            raise NotImplementedError(TRAINING_WAITS.format(self.cfg.family))
-        if self.attn_impl == "kernel":
-            raise ValueError("DecoderLM.loss needs attn_impl='torch': the "
-                             "flash-attention kernel is forward only, and the "
-                             "reference trains with its plain attention "
-                             "(attn_impl='jnp')")
-        return self._ce(params, batch, batch.get("loss_mask"))
+        its attention would get no gradient."""
+        self._check_trainable()
+        if not self.cfg.is_moe:
+            return self._ce(params, batch, batch.get("loss_mask"))
+        x, aux = self.backbone(params, self._embed_inputs(params, batch),
+                               return_aux=True)
+        ce = self._nll(params, x, batch["targets"], batch.get("loss_mask"))
+        return (ce + self.cfg.moe.load_balance_coef * aux,
+                {"ce": ce, "aux": aux})
+
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, max_len: int,
@@ -313,5 +344,13 @@ class PrefixVLM(DecoderLM):
         patches = batch["patches"].to(device=text.device, dtype=self.dtype)
         return torch.cat([patches, text], dim=1)
 
-    def loss(self, params: L.Params, batch):
-        raise NotImplementedError(TRAINING_WAITS.format(self.cfg.family))
+    def loss(self, params: L.Params, batch
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"tokens": (B, S_text) int, "targets": (B, S_text) int,
+        "patches": (B, P, D)} → (mean NLL over the text positions, {"ce":
+        it}); no ``loss_mask``, as in the reference."""
+        self._check_trainable()
+        x = self.backbone(params, self._embed_inputs(params, batch))
+        loss = self._nll(params, x[:, self.positions_before():],
+                         batch["targets"])
+        return loss, {"ce": loss}

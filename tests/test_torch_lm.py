@@ -341,10 +341,12 @@ def test_serve_cli_on_cpu(capsys):
 
 
 def test_other_families_not_ported():
-    """Every family builds; an unknown family or attention impl raises;
-    training the moe, vlm and audio families (their loss, build_trainer)
-    waits for ROADMAP §1 item 20 and raises naming it."""
+    """Every family builds; an unknown family or attention impl raises.
+    The moe, vlm and audio families train: their loss is finite under the
+    plain attention and refused under the forward-only flash kernel, and
+    ``build_trainer`` builds them with the plain attention."""
     from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import stub_inputs
     from repro_torch.launch.train import build_trainer
     with pytest.raises(KeyError):
         tbuild(dataclasses.replace(tconfigs.smoke(), family="rnn"))
@@ -352,11 +354,21 @@ def test_other_families_not_ported():
         tbuild(tconfigs.smoke(), attn_impl="pallas")
     for arch in ("phi3.5-moe-42b-a6.6b", "paligemma-3b", "whisper-base"):
         cfg = get_smoke(arch)
-        model = tbuild(cfg, attn_impl="torch")
-        params = model.init(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="item 20"):
-            model.loss(params, {"tokens": torch.ones(1, 4, dtype=torch.long),
-                                "targets": torch.ones(1, 4,
-                                                      dtype=torch.long)})
-        with pytest.raises(NotImplementedError, match="item 20"):
-            build_trainer(TrainConfig(model=cfg), device="cpu")
+        batch = {"tokens": torch.ones(1, 4, dtype=torch.long),
+                 "targets": torch.ones(1, 4, dtype=torch.long),
+                 **{k: torch.from_numpy(v)
+                    for k, v in stub_inputs(cfg, 1).items()}}
+        for impl in ("torch", "kernel"):
+            model = tbuild(cfg, attn_impl=impl)
+            params = model.init(torch.Generator().manual_seed(0))
+            if impl == "kernel":
+                with pytest.raises(ValueError, match="attn_impl='torch'"):
+                    model.loss(params, batch)
+                continue
+            loss, metrics = model.loss(params, batch)
+            assert torch.isfinite(loss)
+            assert sorted(metrics) == (["aux", "ce"] if cfg.is_moe
+                                       else ["ce"])
+        _, _, _, model, _, _ = build_trainer(TrainConfig(model=cfg),
+                                             device="cpu")
+        assert model.attn_impl == "torch"

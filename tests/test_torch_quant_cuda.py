@@ -177,3 +177,58 @@ def test_cuda_nonfinite_matches_plain(cuda, shape, rows, bad):
         good = [r for r in range(shape[0]) if r != 1]
         assert bool(torch.isfinite(s[good]).all())
         assert bool(torch.isfinite(deq[good]).all())
+
+
+def test_sizes_are_64_bit_across_the_c_interface():
+    """Leaves past 2³¹ values (qwen3-moe's expert leaf is 805 M a replica,
+    2.4 G at K = 3) are not wrapped on the way to the kernels: the wrapper
+    reads sizes and row strides as Python ints (a meta tensor of 2³¹ + 3
+    values a row, no memory), every ``long long`` of ``quant.cu``'s C entry
+    points is a ``c_longlong`` in the ctypes signature, and a call with more
+    rows than the grid's y dim holds is refused."""
+    import ctypes
+    import re
+    n = 2 ** 31 + 3
+    assert ops._rows_of(torch.empty((3, n), device="meta"), True) == (3, n, n)
+    assert ops._rows_of(torch.empty((n,), device="meta"), False) == (1, n, n)
+    ctype = {"long long": ctypes.c_longlong, "int": ctypes.c_int}
+    source = ops.SOURCE.read_text()
+    for name, argtypes in ops.ARGTYPES.items():
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)',
+                           source).group(1)
+        want = [ctype.get(" ".join(p.split()[:-1]), ctypes.c_void_p)
+                if "*" not in p else ctypes.c_void_p
+                for p in params.split(",")]
+        assert argtypes == want, name
+    with pytest.raises(ValueError, match="65535"):
+        ops._check_rows(ops.MAX_ROWS + 1)
+    ops._check_rows(ops.MAX_ROWS)
+
+
+@pytest.mark.parametrize("shape", [(1, 2 ** 31 + 4100), (3, 805_306_368)],
+                         ids=["row-past-2^31", "rows-past-2^31"])
+def test_cuda_leaf_past_2_31_values(cuda, shape):
+    """On the card: one row of more than 2³¹ values, and three rows of
+    qwen3-moe's expert leaf (805 M each, 2.4 G in all, the last row's start
+    past 2³¹). The largest |x| of each row sits at its end, past 2³¹ in the
+    leaf; the scale finds it, and q, the residual and the dequantized
+    values are the plain version's at the head, across 2³¹ and at the tail
+    (the plain version on those slices, at the kernel's scale)."""
+    r, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(shape, generator=gen, device=cuda)
+    x[:, -1] = 1000.0 + torch.arange(r, device=cuda)
+    q, s, res = ops.quantize(x, rows=True, residual=True)
+    deq = ops.dequantize(q, s)
+    torch.cuda.synchronize()
+    want_s = (x[:, -1] / torch.full((r,), 127.0, device=cuda))
+    assert torch.equal(s, want_s)
+    flat = (x.view(-1), q.view(-1), res.view(-1), deq.view(-1))
+    for lo in (0, 2 ** 31 - 2048, r * n - 4096):
+        idx = torch.arange(lo, lo + 4096, device=cuda)
+        xs, qs, rs, ds = (t[idx] for t in flat)
+        sc = s[idx // n]
+        qr = torch.clamp(torch.round(xs / sc), -127, 127).to(torch.int8)
+        assert torch.equal(qs, qr), lo
+        assert torch.equal(ds, qr.float() * sc), lo
+        assert torch.equal(rs, xs - qr.float() * sc), lo
