@@ -210,7 +210,26 @@ entry points and holds every run to its plain-version twin:
     routing agreement by layer printed); each MoE also in f32 at depth 4,
     the split-TF32 kernel path against the plain path at relative L2 1e-2.
     Before them, equal gates over 16 and 128 experts route on the card to
-    experts 0..k-1, as the reference's top-k picks them.
+    experts 0..k-1, as the reference's top-k picks them;
+14. phase tooling: (t1) the roofline of three whole calls, each counted by
+    ``repro_torch.launch.roofline.WorkCounter`` in a run apart from its
+    phase's timed ones: the epsilon ``dms`` call of phase 3 with
+    ``graphs=False`` (a replay hides its ops; against the median of 3
+    timed eager calls), the bf16 smollm-360m prefill of phase 6 (against
+    its median of 3) and one train block of phase 8 (against block 2's
+    wall): products by dtype, bytes, the eager ops' bound and what sets
+    it, mfu and the share of that bound (the prefill also counted on the
+    meta device, as the dry run counts it), the kernels' records held equal
+    to the launches
+    the phase counted (312 hinge, 32 flash, 11 quantize and 11 dequantize);
+    (t2) ``repro_torch.simsync`` on uniform profiles of phase (b)'s and
+    (d3)'s measured T_step and T_sync (latencies: no bytes term), each
+    with ``oracle_h``, ``choose_period``'s pick and the controller's
+    trajectory, and the four built-in profiles' replay digests held to the
+    CPU's; (t3) the dry run of every arch × cell on one card and the two
+    reference meshes, on the meta device in a worker process a CPU core,
+    started as the phase starts: the count of ok / skip / error (an error
+    fails), each cell's fits_80g and bound.
 
 The line before the last is the kernels' JSON record (five kernels: the
 flash route twice, bf16 and f32); the last line is
@@ -224,6 +243,7 @@ import dataclasses
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -235,10 +255,10 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_FLOPS_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
-BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
-TF32_FLOPS_PER_S = 494.7e12   # H100 SXM TF32 tensor cores, dense (data sheet)
+# the H100 terms, named once in the port (NVIDIA's H100 SXM data sheet)
+from repro_torch.launch.roofline import BF16_FLOPS as BF16_FLOPS_PER_S  # noqa: E402,E501
+from repro_torch.launch.roofline import F32_FLOPS as FP32_FLOPS_PER_S  # noqa: E402,E501
+from repro_torch.launch.roofline import compute_s  # noqa: E402
 L2_BYTES = 50 * 2 ** 20
 RTOL, ATOL = 1e-4, 1e-5       # tests/test_kernels.py::TestHinge
 # tests/test_kernels.py::TestQuant's shapes (one scale each), then stacked
@@ -392,6 +412,20 @@ D8_K, D8_STRAGGLE_S = 4, 2.0
 D9_SIZES = (64, 128)
 # host arrays of the SVM data sets, kept by phases 3 and 4 for phase dist
 _HOST = {}
+# what the earlier phases hand phase tooling: the three calls' work counters
+# with their measured walls, and the timed T_step / T_sync of (b) and (d3)
+_TOOLING = {}
+# phase tooling (t2): digests of the four built-in simsync profiles' replay
+# (simsync_digest), as the CPU gives them (tests/test_torch_roofline.py
+# holds these to the CPU's)
+SIMSYNC_DIGESTS = {"dcn_default": "3b1eaf215aa3d3c8",
+                   "dcn_straggler": "2010d88b9e644afa",
+                   "dcn_transient": "f71da57b490fb28d",
+                   "ici_pod": "bdf9e5a3ca19c264"}
+# phase tooling (t3): the script's own clock (from main's start) by which
+# the dry run must have ended, so that the script ends inside its 1,200 s
+# limit with room for the start before that clock and the lines after
+DRYRUN_DEADLINE_S = 1100
 # device_ms's side stream, made at its first call
 _SIDE = {}
 DMS_MODES = [("none", "all", False), ("delayed", "all", False),
@@ -523,18 +557,25 @@ def hinge_inputs(torch, dev, seed, x_shape, w_shape, copies=1):
     return out
 
 
+def work_bound(work):
+    """(bound_ms, bound_by) of a kernel call's work
+    (:mod:`repro_torch.kernels.work`), priced by
+    :func:`repro_torch.launch.roofline.work_bound`: its bytes over the HBM
+    rate or its operations over their unit's peak, whichever is larger."""
+    from repro_torch.launch.roofline import work_bound as priced
+    seconds, by = priced(work)
+    return 1e3 * seconds, by
+
+
 def hinge_bound(x_shape, w_shape):
     """(bound_ms, bound_by): bytes read once and written once over HBM rate,
     or the flops (two GEMVs) over the float32 rate, whichever is larger. A
     stride-0 w (``w_shape`` (K, 0)) is one row read once."""
+    from repro_torch.kernels.hinge.ops import hinge_work
     k = x_shape[0] if len(x_shape) == 3 else 1
     n, d = x_shape[-2:]
-    w_elems = d if w_shape[-1] == 0 else int(np.prod(w_shape))
-    nbytes = 4 * (k * n * d + k * n + w_elems + k * d)
-    flops = 4 * k * n * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    w_rows = 1 if w_shape[-1] == 0 or len(w_shape) == 1 else w_shape[0]
+    return work_bound(hinge_work(k, n, d, w_rows))
 
 
 # ---------------------------------------------------------------------------
@@ -881,7 +922,55 @@ def phase_main(torch, dev, n_override=None):
         f"wall {wall:.4f} s ({1e6 * wall / (epochs * blocks):.1f} us a block; "
         f"the call that captures) launches {launches} ({epochs} epochs x "
         f"{blocks} blocks, by the profiler)")
+    # phase tooling (t1): the eager twin of the call (graphs=False: a
+    # replay hides its ops) under the work counter, apart from 3 timed runs
+    def eager():
+        return svm.dms(w0, ds[0], ds[1], workers=k, epochs=epochs,
+                       block_size=bs, device=dev, graphs=False)
+    counter = count_call(torch, eager)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    hinge = ops.hinge_work(k, bs, d, 1)
+    _TOOLING["dms"] = dict(
+        what=f"dms epsilon K={k} block {bs} {epochs} epochs, graphs=False",
+        counter=counter, wall=float(np.median(walls)), walls=walls,
+        records={"hinge_block_grad": launches},
+        model_flops=epochs * blocks * hinge.flops["float32"],
+        peak=("float32", FP32_FLOPS_PER_S))
     return launches, ds
+
+
+def count_call(torch, fn):
+    """The :class:`repro_torch.launch.roofline.WorkCounter` of one call of
+    ``fn`` on the card (its ops run as they do uncounted)."""
+    from repro_torch.launch.roofline import WorkCounter
+    counter = WorkCounter()
+    with counter:
+        fn()
+    torch.cuda.synchronize()
+    return counter
+
+
+def count_meta_prefill(cfg, batch, prompt_len):
+    """The :class:`repro_torch.launch.roofline.WorkCounter` of the same bf16
+    prefill on the meta device, built as the dry run builds it:
+    ``model.prefill`` with no engine, so no decode cache is zeroed or
+    written."""
+    import torch
+    from repro_torch.launch.roofline import count
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg, attn_impl="kernel", ssd_impl="kernel")
+    params = L.empty_params(model.param_defs(), torch.bfloat16, "meta")
+    tokens = torch.zeros((batch, prompt_len), dtype=torch.long,
+                         device="meta")
+    with torch.no_grad():
+        return count(model.prefill, params, {"tokens": tokens})[1]
 
 
 def hinge_cu_time(torch, ops, sets, x_shape, w_shape, label):
@@ -974,17 +1063,18 @@ def flash_inputs(torch, dev, seed, shape, dtype, copies=1):
             for _ in range(copies)]
 
 
+def _flash_work(shape, dtype, tf32=False):
+    from repro_torch.kernels.flash_attention.ops import flash_work
+    return flash_work(*shape, dtype=dtype, tf32=tf32)
+
+
 def flash_bound(shape, itemsize):
     """(bound_ms, bound_by): q, k, v read once and o written once over the
     HBM rate, or 4·dh flops for every visible (row, key) pair over the
     tensor-core rate of the inputs' type (float32 on the CUDA cores)."""
-    b, sq, sk, h, kv, dh = shape[:6]
-    flops = flash_flops(shape)
-    nbytes = itemsize * dh * (2 * b * sq * h + 2 * b * sk * kv)
-    rate = BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    import torch
+    return work_bound(_flash_work(
+        shape, torch.bfloat16 if itemsize == 2 else torch.float32))
 
 
 def flash_bound_tc32(shape):
@@ -993,24 +1083,15 @@ def flash_bound_tc32(shape):
     flops, counted once as :func:`flash_bound` counts them, over the TF32
     tensor-core rate. The split-TF32 route takes each product three times,
     so its own floor is 3× the operations' time (:func:`flash_flops`)."""
-    b, sq, sk, h, kv, dh = shape[:6]
-    nbytes = 4 * dh * (2 * b * sq * h + 2 * b * sk * kv)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flash_flops(shape) / TF32_FLOPS_PER_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    import torch
+    return work_bound(_flash_work(shape, torch.float32, tf32=True))
 
 
 def flash_flops(shape):
     """4·dh flops for every visible (row, key) pair: the function's
     products, Q·Kᵀ and P·V."""
-    b, sq, sk, h, kv, dh, causal, prefix = shape
-    rows = np.arange(sq)
-    if causal:
-        seen = np.minimum(sk, np.maximum(rows + 1, prefix))
-    else:
-        seen = np.full(sq, min(sk, prefix) if prefix else sk)
-    return 4 * dh * b * h * int(seen.sum())
+    import torch
+    return sum(_flash_work(shape, torch.float32).flops.values())
 
 
 def flash_counts(ops):
@@ -1115,7 +1196,7 @@ def phase_flash(torch, dev):
             library_ms = device_ms(torch, library, sets)
             cc_ms, cc_by = flash_bound(shape, itemsize)
             flops = flash_flops(shape)
-            split_ms = 3e3 * flops / TF32_FLOPS_PER_S
+            split_ms = 3e3 * compute_s({"tf32": flops})
             log(f"flash {label}: tc32 {ms * 1e3:.4f} us, flash_attention.cu "
                 f"{simt_ms * 1e3:.4f} us (max_abs_err {simt_err:.3e}), SDPA "
                 f"f32 {library_ms * 1e3:.4f} us (max abs diff vs plain "
@@ -1349,7 +1430,8 @@ def _hold_paths(torch, cfg, kr, tr, label, rel_bound):
 
 
 def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
-                f32_rel_l2=None, f32_steps=16, bf16_factor=None):
+                f32_rel_l2=None, f32_steps=16, bf16_factor=None,
+                count_prefill=False):
     """``ServeEngine.generate`` through the kernel path (flash and SSD
     launches counted; the decode loop as CUDA graph replays), that against
     ``graphs=False`` (:func:`_graph_against_eager`, and the replayed step
@@ -1364,8 +1446,10 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
     against the f32 plain path's: the kernel path's relative L2 within
     ``bf16_factor`` times the plain path's. Returns the launches of the
     generate run, and of the f32 kernel path's prefill (None without
-    ``f32_rel_l2``)."""
+    ``f32_rel_l2``). With ``count_prefill``, one kernel-path prefill under
+    the work counter for phase tooling, apart from the timed ones."""
     from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models.registry import analytic_param_count
     from repro_torch.runtime import graphs as G
     counters = serve_counters()
     expect = serve_launches(cfg)
@@ -1426,6 +1510,15 @@ def phase_serve(torch, dev, cfg, batch, prompt_len, gen, bf16_rel_l2,
     kr, tr = _serve_paths(torch, engines, prompts, forced, counters, True)
     check(kr["launches"] == expect and tr["launches"] == none,
           f"prefill launches {kr['launches']} / {tr['launches']}")
+    if count_prefill:
+        _TOOLING["prefill"] = dict(
+            what=f"{cfg.name} bf16 prefill {batch} x {prompt_len}",
+            counter=count_call(torch, lambda: engine.prefill(prompts)),
+            wall=kr["prefill_s"],
+            records={"flash_attention": launches["flash_attention"]},
+            model_flops=2.0 * analytic_param_count(cfg, True) * batch
+            * prompt_len, peak=("bfloat16", BF16_FLOPS_PER_S),
+            meta=lambda: count_meta_prefill(cfg, batch, prompt_len))
     greedy = torch.stack([torch.argmax(s, dim=-1) for s in
                           [kr["logits"]] + kr["steps"][:-1]], dim=1)
     check(torch.equal(greedy, forced),
@@ -1985,18 +2078,10 @@ def ssd_bound(shape, itemsize):
     (float32 on the CUDA cores): per chunk of q rows the causal triangle of
     the scores (C Bᵀ, once per batch and chunk: no head in it) and of their
     product with x, the inter-chunk C·S and the state's Bᵀ·x."""
-    b, l, h, p, n, chunk = shape
-    nbytes = (itemsize * (2 * b * l * h * p + 2 * b * l * n)
-              + 4 * (b * l * h + h + b * h * n * p))
-    flops = 0
-    for c0 in range(0, l, chunk):
-        q = min(chunk, l - c0)
-        tri = q * (q + 1) // 2
-        flops += b * 2 * tri * n + b * h * (2 * tri * p + 4 * q * n * p)
-    rate = BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    import torch
+    from repro_torch.kernels.ssd.ops import ssd_work
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    return work_bound(ssd_work(*shape, dtype=dtype))
 
 
 def phase_ssd(torch, dev):
@@ -2110,8 +2195,9 @@ def quant_bound(numel: int, residual: bool):
     """(bound_ms, bound_by) of one quantize call (4 bytes read, 1 written an
     element, 4 more written with the residual) and of one dequantize call
     (1 read, 4 written): bytes over the HBM rate."""
-    q_bytes = numel * (4 + 1 + (4 if residual else 0))
-    return 1e3 * q_bytes / HBM_BYTES_PER_S, 1e3 * 5 * numel / HBM_BYTES_PER_S
+    from repro_torch.kernels.quant.ops import dequantize_work, quantize_work
+    return (work_bound(quantize_work(numel, residual))[0],
+            work_bound(dequantize_work(numel))[0])
 
 
 def phase_quant(torch, dev):
@@ -2394,6 +2480,16 @@ def phase_train(torch, dev, model_cfg, seq_len, global_batch, replicas, h):
     busy = device_busy(torch, lambda: step(state, batches[-1]))
     log_busy(f"train block (kernel path, {h} x {replicas} replica steps)",
              *busy)
+    # phase tooling (t1): one more block under the work counter
+    from repro_torch.models.registry import analytic_param_count
+    _TOOLING["train"] = dict(
+        what=f"{model_cfg.name} train block K={replicas} H={h} int8, "
+             f"{global_batch} x {seq_len} a microbatch (block 2's wall)",
+        counter=count_call(torch, lambda: step(state, batches[-1])),
+        wall=walls_k[-1], records={"quantize": launches // (2 * blocks),
+                                   "dequantize": launches // (2 * blocks)},
+        model_flops=6.0 * analytic_param_count(model_cfg, True) * tokens,
+        peak=("bfloat16", BF16_FLOPS_PER_S))
     del state, params, step
     torch.cuda.empty_cache()
 
@@ -2563,6 +2659,8 @@ def phase_svm_ladder(torch, dev, ds, k=32):
         w = sync(compute(w, xb[:, i], yb[:, i], svm._alpha(0, w0.dtype)))
         ctrl.observe_block()
     t_step, t_sync = tel.estimates()
+    _TOOLING["svm_timed"] = dict(t_step=t_step, t_sync=t_sync, k=k, d=d,
+                                 block=64)
     log(f"svm timed steps at 64 ({nb} blocks, {ops.LAUNCHES} hinge "
         f"launches): T_step {1e6 * t_step:.4f} us a point, T_sync "
         f"{1e6 * t_sync:.4f} us a block (host clock, each call waited for); "
@@ -4117,6 +4215,9 @@ def phase_dist(torch, dev, tmp):
     check(all(o["coll"] == colls for o in ranks),
           "(d3): the ranks' reduced collective times differ")
     t_step = ranks[0]["d3"][DIST_BS][0]
+    _TOOLING["dist_timed"] = dict(t_step=t_step,
+                                  t_sync=ranks[0]["d3"][DIST_BS][1],
+                                  k=DIST_K, d=d, block=DIST_BS)
     picks = {name: autotune.choose_period(
         autotune.TuneInputs(param_bytes_per_chip=4 * d, replicas=DIST_K,
                             step_time_s=t_step),
@@ -4385,6 +4486,198 @@ def phase_dist(torch, dev, tmp):
     log(f"dist: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase tooling: the roofline of whole calls, simsync on the card's times,
+# the dry run
+# ---------------------------------------------------------------------------
+
+def simsync_digest(profile) -> str:
+    """A digest of one profile's replay: the summary and Chrome trace of
+    ``simulate`` at H = 8 over 512 steps, and its ``oracle_h``."""
+    import hashlib
+    from repro_torch import simsync
+    res = simsync.simulate(profile, h=8, steps=512, seed=0,
+                           record_timeline=True)
+    doc = json.dumps([res.summary(), simsync.chrome_trace(res),
+                      simsync.oracle_h(profile, steps=512)], sort_keys=True)
+    return hashlib.sha256(doc.encode()).hexdigest()[:16]
+
+
+def start_dryrun(out_dir):
+    """``python -m repro_torch.launch.dryrun --all`` in the background, one
+    worker a CPU core (on the meta device: no card), its output into
+    ``out_dir``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    log_file = open(os.path.join(out_dir, "dryrun.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--workers", str(os.cpu_count() or 1), "--out", out_dir],
+        cwd=REPO, env=env, stdout=log_file, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    proc.log_file = log_file
+    return proc
+
+
+def stop_dryrun(proc) -> None:
+    """Kill the dry run's process group (its pool's workers too) if it has
+    not ended."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    proc.log_file.close()
+
+
+def _tooling_roofline(card):
+    """(t1): each counted call's work against its phase's measured wall."""
+    from repro_torch.launch import roofline as R
+    for name in ("dms", "prefill", "train"):
+        got = _TOOLING[name]
+        c = got["counter"]
+        terms = R.compute_terms(c.cost(), total_devices=1,
+                                model_flops=got["model_flops"])
+        bound, wall = terms.bound_s(), got["wall"]
+        peak_name, peak = got["peak"]
+        mfu = R.mfu(got["model_flops"], wall, peak)
+        records = {n: c.kernels.get(n, 0) for n in got["records"]}
+        flops = ", ".join(f"{d} {n / 1e12:.4f} TFLOP"
+                          for d, n in sorted(c.flops.items()))
+        log(f"tooling (t1) {got['what']} [{card}]: products {flops} "
+            f"(kernel records {c.kernel_flops / 1e12:.4f} of them), "
+            f"{c.bytes / 1e9:.3f} GB moved ({c.kernel_bytes / 1e9:.3f} by "
+            f"kernel records), {c.ops} aten ops counted, peak "
+            f"{c.peak_bytes / 1e9:.3f} GB made inside; bound "
+            f"{1e3 * bound:.4f} ms ({terms.dominant}: compute "
+            f"{1e3 * terms.compute_s:.4f} ms, memory "
+            f"{1e3 * terms.memory_s:.4f} ms) against the measured wall "
+            f"{1e3 * wall:.4f} ms: share of the eager ops' bound "
+            f"{bound / wall:.4f}; model "
+            f"FLOPs {got['model_flops'] / 1e12:.4f} T, mfu {mfu:.5f} (at the "
+            f"{peak_name} peak {peak / 1e12:.1f} TFLOP/s); kernel records "
+            f"{records}, launches counted in its phase {got['records']}")
+        if "meta" in got:
+            m = got["meta"]()
+            log(f"tooling (t1) {got['what']} on the meta device, as the dry "
+                f"run counts it (model.prefill, no engine cache): products "
+                f"{m.product_flops / 1e12:.4f} TFLOP, {m.bytes / 1e9:.3f} GB "
+                f"moved; the card's count less it: "
+                f"{(c.product_flops - m.product_flops) / 1e12:.4f} TFLOP, "
+                f"{(c.bytes - m.bytes) / 1e9:.3f} GB (the engine zeroes and "
+                f"writes its decode cache)")
+        check(records == got["records"],
+              f"tooling (t1) {name}: kernel records {records}, launches "
+              f"{got['records']}")
+        check(0 < bound < wall, f"tooling (t1) {name}: bound {bound} s "
+              f"against wall {wall} s")
+
+
+def _tooling_simsync(card):
+    """(t2): uniform profiles of the card's measured T_step and T_sync (a
+    one-card T_sync, and the 8 ranks' on the card, are latencies: no
+    bytes term), each replayed: ``oracle_h``, ``choose_period``'s pick on
+    the same inputs, the port's controller's trajectory; then the built-in
+    profiles' digests against the CPU's."""
+    from repro_torch import simsync
+    from repro_torch.config import SyncConfig
+    from repro_torch.core import autotune
+    cfg = SyncConfig(strategy="periodic")
+    for key, label in (("svm_timed", "one card, (b)"),
+                       ("dist_timed", "8 ranks on the card, (d3)")):
+        t = _TOOLING[key]
+        hops = simsync.engine._latency_hops(cfg, t["k"])
+        prof = simsync.uniform_profile(
+            f"h100 {label}", t["k"], step_time=t["t_step"], jitter=0.0,
+            bandwidth=float("inf"), latency=t["t_sync"] / hops,
+            param_bytes=4 * t["d"])
+        oracle = simsync.oracle_h(prof, cfg)
+        pick = autotune.choose_period(
+            autotune.TuneInputs(param_bytes_per_chip=4 * t["d"],
+                                replicas=t["k"], step_time_s=t["t_step"]),
+            dataclasses.replace(cfg, period=t["block"]),
+            sync_time_override=t["t_sync"])
+        ctrl = autotune.AdaptiveController(
+            cfg, param_bytes_per_chip=4 * t["d"], replicas=t["k"],
+            h0=t["block"], adapt_every=4)
+        res, hist = simsync.simulate_adaptive(prof, cfg, ctrl, blocks=64)
+        log(f"tooling (t2) simsync on {label} [{card}]: K={t['k']}, T_step "
+            f"{1e6 * t['t_step']:.4f} us a point, T_sync "
+            f"{1e6 * t['t_sync']:.4f} us a block (measured at block "
+            f"{t['block']}); oracle_h {oracle}, choose_period picks {pick}, "
+            f"the controller's trajectory from {t['block']}: {hist} "
+            f"(simulated {res.per_step_s * 1e6:.4f} us a point, comm "
+            f"{res.comm_fraction:.4f} of it)")
+        check(oracle >= 1 and pick >= 1 and hist,
+              f"tooling (t2) {label}: oracle {oracle}, pick {pick}")
+    digests = {name: simsync_digest(p)
+               for name, p in sorted(simsync.PROFILES.items())}
+    log(f"tooling (t2) built-in profiles' digests (the reference's TPU-fabric "
+        f"profiles, replayed here): {digests}")
+    check(digests == SIMSYNC_DIGESTS,
+          f"tooling (t2): digests {digests} differ from the CPU's "
+          f"{SIMSYNC_DIGESTS}")
+
+
+def _tooling_dryrun(proc, out_dir, t_start):
+    """(t3): the background dry run's records: the count of ok / skip /
+    error and each cell's fits_80g and bound; an error fails, and so does a
+    dry run not ended by :data:`DRYRUN_DEADLINE_S` on the script's clock
+    (``t_start``, main's start)."""
+    t0 = time.perf_counter()
+    budget = DRYRUN_DEADLINE_S - (t0 - t_start)
+    try:
+        proc.wait(timeout=max(1.0, budget))
+    except subprocess.TimeoutExpired:
+        stop_dryrun(proc)
+        raise AssertionError(f"tooling (t3): the dry run had not ended at "
+                             f"{DRYRUN_DEADLINE_S} s of the script "
+                             f"({budget:.1f} s of waiting)")
+    waited = time.perf_counter() - t0
+    if proc.returncode != 0:
+        with open(os.path.join(out_dir, "dryrun.log")) as f:
+            log("tooling (t3) the dry run's log ends:\n"
+                + "".join(f.readlines()[-40:]))
+    records = []
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(out_dir, name)) as f:
+                records.append(json.load(f))
+    counts = {st: sum(r["status"] == st for r in records)
+              for st in ("ok", "skip", "error")}
+    for r in records:
+        if r["status"] == "ok":
+            log(f"tooling (t3) [{r['mesh']}] {r['arch']} x {r['shape']}: "
+                f"fits_80g {r['fits_80g']} "
+                f"({r['resident_bytes_per_card'] / 1e9:.2f} GB a card), "
+                f"{r['roofline']['dominant']}-bound, counted in "
+                f"{r['count_s']} s")
+        elif r["status"] == "error":
+            log(f"tooling (t3) [{r['mesh']}] {r['arch']} x {r['shape']}: "
+                f"ERROR {r['error'][:300]}")
+    log(f"tooling (t3) dry run --all on the meta device: {counts['ok']} ok / "
+        f"{counts['skip']} skip / {counts['error']} error over "
+        f"{len(records)} cells; exit code {proc.returncode}; waited "
+        f"{waited:.1f} s for it here")
+    check(counts["error"] == 0 and proc.returncode == 0 and len(records) ==
+          40 * 3, f"tooling (t3): {counts}, exit {proc.returncode}")
+
+
+def phase_tooling(card, t_start):
+    """(t1) the roofline of three measured calls, (t2) simsync calibrated
+    on the card, (t3) the dry run of every cell: started first, in its own
+    processes, and waited for last (nothing is timed meanwhile) until
+    :data:`DRYRUN_DEADLINE_S` on the script's clock (from ``t_start``)."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        dryrun = start_dryrun(out_dir)
+        try:
+            _tooling_roofline(card)
+            _tooling_simsync(card)
+            _tooling_dryrun(dryrun, out_dir, t_start)
+        finally:
+            stop_dryrun(dryrun)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4427,7 +4720,7 @@ def main() -> int:
     from repro_torch.config import get_arch
     flash_launches = phase_serve(
         torch, dev, get_arch("smollm-360m"), SERVE_BATCH, SERVE_PROMPT,
-        SERVE_GEN, LOGITS_REL_L2)[0]["flash_attention_tc"]
+        SERVE_GEN, LOGITS_REL_L2, count_prefill=True)[0]["flash_attention_tc"]
     phase_prefill_f32(torch, dev, get_arch("smollm-360m"), SERVE_BATCH,
                       SERVE_PROMPT, SSM_F32_LOGITS_REL_L2)
     done("smollm serving")
@@ -4464,6 +4757,10 @@ def main() -> int:
     log(f"families: flash launches a generate {family_launches}; phase "
         f"{time.perf_counter() - t_families:.1f} s")
     done("families")
+    t_tooling = time.perf_counter()
+    phase_tooling(card, t_start)
+    log(f"tooling: phase {time.perf_counter() - t_tooling:.1f} s")
+    done("tooling")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hinge_block_grad", "route": "cuda",

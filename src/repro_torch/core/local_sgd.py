@@ -91,6 +91,15 @@ def init_state(model, cfg: TrainConfig, gen: torch.Generator,
     draw."""
     params = L.init_params(model.param_defs(), gen,
                            getattr(torch, cfg.model.param_dtype))
+    return state_of(params, cfg, replicas)
+
+
+def state_of(params, cfg: TrainConfig, replicas: int = 0):
+    """The fresh state around one draw of per-layer ``params`` (each layer
+    stack stacked here), with zero moments and sync state on the params'
+    device; ``replicas > 0`` as :func:`init_state`. On the meta device
+    (``layers.empty_params(..., "meta")``) it sizes a state without
+    drawing it."""
     for key in L.STACKS:
         if key in params:
             params[key] = _stack(params[key])

@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, work
 from repro_torch.kernels.flash_attention import ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -160,6 +160,51 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{t.stride()}")
 
 
+def _sum_min(lo: int, hi: int, cap: int) -> int:
+    """Σ min(cap, v) for v in [lo, hi]."""
+    if hi < lo:
+        return 0
+    top = min(hi, cap)
+    below = (lo + top) * (top - lo + 1) // 2 if top >= lo else 0
+    return below + cap * (hi - max(lo - 1, top))
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, prefix: int) -> int:
+    """(row, key) pairs the masks leave visible a (batch, head): row r sees
+    keys below ``max(r + 1, prefix)`` causally (all ``sk`` otherwise, or the
+    first ``prefix`` under a non-causal prefix), never past ``sk``."""
+    if not causal:
+        return sq * (min(sk, prefix) if prefix else sk)
+    rows_in_prefix = min(sq, prefix)
+    return (rows_in_prefix * min(sk, prefix)
+            + _sum_min(prefix + 1, sq, sk))
+
+
+def flash_work(b: int, sq: int, sk: int, h: int, kv: int, dh: int,
+               causal: bool, prefix: int,
+               dtype: torch.dtype = torch.bfloat16,
+               tf32: bool = False) -> work.Work:
+    """The work of one call: q, k, v read once and o written once; 4·dh
+    operations for every visible (row, key) pair (the two products, Q·Kᵀ
+    and P·V), in the inputs' dtype, or on the TF32 tensor cores (``tf32``:
+    the ``"tc32"`` route's float32, counted once)."""
+    size = dtype.itemsize
+    return work.Work(
+        "flash_attention",
+        {"tf32" if tf32 else work.dtype_name(dtype):
+         4 * dh * b * h * visible_pairs(sq, sk, causal, prefix)},
+        size * dh * (2 * b * sq * h + 2 * b * sk * kv))
+
+
+def _work_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, prefix: int) -> work.Work:
+    """:func:`flash_work` of a call, on the route :func:`kernel_for` gives
+    the inputs on a card."""
+    b, s, h, dh = q.shape
+    return flash_work(b, s, k.shape[1], h, k.shape[2], dh, causal, prefix,
+                      q.dtype, tf32=kernel_for(q, k, v) == "tc32")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
     """q: (B, S, H, dh) · k/v: (B, T, KV, dh) → (B, S, H, dh), in q's dtype.
@@ -169,24 +214,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys at or beyond T are never attended. On CUDA tensors it launches the
     kernel that :func:`kernel_for` names: float32 or bfloat16 (all three
     alike), unit last stride, any other strides (q, k and v are read in
-    place).
+    place). Under a work counter the call is recorded as :func:`flash_work`
+    (:mod:`repro_torch.kernels.work`).
     """
     _check(q, k, v, prefix_len)
     devices = {q.device, k.device, v.device}
-    if devices == {torch.device("cpu")}:
-        return ref.flash_attention(q, k, v, causal=causal,
-                                   prefix_len=prefix_len)
-    if len(devices) != 1 or not q.is_cuda:
-        raise ValueError(f"q, k and v must lie on one CUDA device or all on "
-                         f"the CPU; got {sorted(map(str, devices))}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("the CUDA flash-attention kernel is forward only: "
-                           "its output would have no gradient. Train with "
-                           "attn_impl='torch' (the reference trains with "
-                           "its plain attention), or run under "
-                           "torch.no_grad()")
-    return run_kernel(kernel_for(q, k, v), q, k, v, causal=causal,
-                      prefix_len=prefix_len)
+    with work.call(_work_of, q, k, v, causal, prefix_len) as counted:
+        if devices == {work.META}:
+            work.on_meta(counted, "flash_attention")
+            return torch.empty(q.shape, dtype=q.dtype, device=work.META)
+        if devices == {torch.device("cpu")}:
+            return ref.flash_attention(q, k, v, causal=causal,
+                                       prefix_len=prefix_len)
+        if len(devices) != 1 or not q.is_cuda:
+            raise ValueError(f"q, k and v must lie on one CUDA device or all "
+                             f"on the CPU; got {sorted(map(str, devices))}")
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise RuntimeError("the CUDA flash-attention kernel is forward "
+                               "only: its output would have no gradient. "
+                               "Train with attn_impl='torch' (the reference "
+                               "trains with its plain attention), or run "
+                               "under torch.no_grad()")
+        return run_kernel(kernel_for(q, k, v), q, k, v, causal=causal,
+                          prefix_len=prefix_len)
 
 
 def run_kernel(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, work
 from repro_torch.kernels.hinge import ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -143,6 +143,23 @@ def _check_shapes(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> None:
         raise ValueError("empty block: x has no rows")
 
 
+def hinge_work(k: int, n: int, d: int, w_rows: int,
+               dtype: torch.dtype = torch.float32) -> work.Work:
+    """The work of one call on K workers' blocks of n rows of d columns:
+    X, y and the ``w_rows`` distinct rows of w (1 for a shared or stride-0
+    w, K for one a worker) read once and the (K, d) result written once;
+    4·K·n·d operations (the margins' GEMV and the masked row sum's)."""
+    size = dtype.itemsize
+    return work.Work("hinge_block_grad", {work.dtype_name(dtype): 4 * k * n * d},
+                     size * (k * n * d + k * n + w_rows * d + k * d))
+
+
+def _work_of(w: torch.Tensor, x: torch.Tensor) -> work.Work:
+    k = x.shape[0] if x.dim() == 3 else 1
+    w_rows = k if w.dim() == 2 and w.stride(0) != 0 else 1
+    return hinge_work(k, x.shape[-2], x.shape[-1], w_rows, x.dtype)
+
+
 def hinge_block_grad(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                      c: float = 1.0) -> torch.Tensor:
     """Drop-in for :func:`repro_torch.kernels.hinge.ref.hinge_block_grad`.
@@ -152,26 +169,33 @@ def hinge_block_grad(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     and w with unit last stride. The worker strides are free (0 for w shares
     one w), so a worker-major view such as ``xb[:, i]`` of ``(K, nb, bs, d)``
     data needs no copy, nor does a ``w[:, :d]`` slice of a wider carry.
+    Under a work counter the call is recorded as :func:`hinge_work`
+    (:mod:`repro_torch.kernels.work`).
     """
     _check_shapes(w, x, y)
     devices = {w.device, x.device, y.device}
-    if devices == {torch.device("cpu")}:
-        return ref.hinge_block_grad(w, x, y, c)
-    if len(devices) != 1 or not x.is_cuda:
-        raise ValueError(f"w, x and y must lie on one CUDA device or all on "
-                         f"the CPU; got {sorted(map(str, devices))}")
-    for name, t in (("w", w), ("x", x), ("y", y)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA hinge kernel takes float32; {name} is "
-                            f"{t.dtype}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} needs a unit last stride, got "
-                             f"{t.stride()}")
-    n, d = x.shape[-2], x.shape[-1]
-    if n > 1 and x.stride(-2) != d:
-        raise ValueError(f"rows of x must be contiguous (row stride {d}), "
-                         f"got strides {x.stride()}")
-    return run_kernel(kernel_for(w, x, y), w, x, y, c)
+    with work.call(_work_of, w, x) as counted:
+        if devices == {work.META}:
+            work.on_meta(counted, "hinge_block_grad")
+            return torch.empty(x.shape[:-2] + x.shape[-1:], dtype=x.dtype,
+                               device=work.META)
+        if devices == {torch.device("cpu")}:
+            return ref.hinge_block_grad(w, x, y, c)
+        if len(devices) != 1 or not x.is_cuda:
+            raise ValueError(f"w, x and y must lie on one CUDA device or all "
+                             f"on the CPU; got {sorted(map(str, devices))}")
+        for name, t in (("w", w), ("x", x), ("y", y)):
+            if t.dtype != torch.float32:
+                raise TypeError(f"the CUDA hinge kernel takes float32; {name} "
+                                f"is {t.dtype}")
+            if t.stride(-1) != 1:
+                raise ValueError(f"{name} needs a unit last stride, got "
+                                 f"{t.stride()}")
+        n, d = x.shape[-2], x.shape[-1]
+        if n > 1 and x.stride(-2) != d:
+            raise ValueError(f"rows of x must be contiguous (row stride {d}), "
+                             f"got strides {x.stride()}")
+        return run_kernel(kernel_for(w, x, y), w, x, y, c)
 
 
 def run_kernel(kind: str, w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

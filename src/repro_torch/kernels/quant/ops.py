@@ -20,7 +20,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, work
 from repro_torch.kernels.quant import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quant.cu"
@@ -99,6 +99,24 @@ def _stream(t: torch.Tensor) -> int:
         return torch.cuda.current_stream().cuda_stream
 
 
+def quantize_work(numel: int, residual: bool, size: int = 4) -> work.Work:
+    """The work of one quantize call on ``numel`` values of ``size`` bytes:
+    x read once, the int8 payload (and the f32 residual) written once; no
+    products."""
+    return work.Work("quantize", {},
+                     numel * (size + 1 + (4 if residual else 0)))
+
+
+def _quantize_work_of(x: torch.Tensor, residual: bool) -> work.Work:
+    return quantize_work(x.numel(), residual, x.element_size())
+
+
+def dequantize_work(numel: int) -> work.Work:
+    """The work of one dequantize call: the int8 payload read once, the f32
+    values written once."""
+    return work.Work("dequantize", {}, 5 * numel)
+
+
 def quantize(x: torch.Tensor, *, rows: bool = False, residual: bool = False
              ) -> Union[Tuple[torch.Tensor, torch.Tensor],
                         Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
@@ -112,6 +130,18 @@ def quantize(x: torch.Tensor, *, rows: bool = False, residual: bool = False
     stride free (a row slice of a stacked leaf is read in place).
     """
     r, n, stride = _rows_of(x, rows)
+    with work.call(_quantize_work_of, x, residual) as counted:
+        return _quantize(x, rows, residual, r, n, stride, counted)
+
+
+def _quantize(x, rows, residual, r, n, stride, counted):
+    if x.device == work.META:
+        work.on_meta(counted, "quantize")
+        outs = (torch.empty(x.shape, dtype=torch.int8, device=work.META),
+                torch.empty((r,) if rows else (), dtype=torch.float32,
+                            device=work.META))
+        return outs + ((torch.empty(x.shape, dtype=torch.float32,
+                                    device=work.META),) if residual else ())
     if not x.is_cuda:
         q, scale = ref.quantize(x, rows=rows)
         if residual:
@@ -152,7 +182,15 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"scale {tuple(scale.shape)} must be 0-dim or one "
                          f"per row of q {tuple(q.shape)}")
     r, n, stride = _rows_of(q, rows)
+    with work.call(dequantize_work, q.numel()) as counted:
+        return _dequantize(q, scale, r, n, stride, counted)
+
+
+def _dequantize(q, scale, r, n, stride, counted):
     devices = {q.device, scale.device}
+    if devices == {work.META}:
+        work.on_meta(counted, "dequantize")
+        return torch.empty(q.shape, dtype=torch.float32, device=work.META)
     if devices == {torch.device("cpu")}:
         return ref.dequantize(q, scale)
     if len(devices) != 1 or not q.is_cuda:

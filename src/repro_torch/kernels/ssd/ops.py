@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, work
 from repro_torch.kernels.ssd import ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -135,6 +135,24 @@ def _check(x, dt, a, bm, cm, chunk: int) -> None:
                              f"{t.stride()}")
 
 
+def ssd_work(b: int, l: int, h: int, p: int, n: int, chunk: int,
+             dtype: torch.dtype = torch.bfloat16) -> work.Work:
+    """The work of one call: x, B, C (in ``dtype``), Δ and A (f32) read
+    once, y and the f32 state written once; the chunked algorithm's
+    products in ``dtype``: per chunk of q rows the causal triangle of the
+    scores (C Bᵀ, once per batch and chunk: no head in it) and of their
+    product with x, the inter-chunk C·S and the state's Bᵀ·x."""
+    size = dtype.itemsize
+    flops = 0
+    for c0 in range(0, l, chunk):
+        q = min(chunk, l - c0)
+        tri = q * (q + 1) // 2
+        flops += b * 2 * tri * n + b * h * (2 * tri * p + 4 * q * n * p)
+    return work.Work("ssd_scan", {work.dtype_name(dtype): flops},
+                     size * (2 * b * l * h * p + 2 * b * l * n)
+                     + 4 * (b * l * h + h + b * h * n * p))
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              bm: torch.Tensor, cm: torch.Tensor, *, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,23 +165,34 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ``chunk`` steps (L need not be a multiple: the rows past L are masked as
     Δ = 0 steps): x, bm, cm float32 or bfloat16 alike with a unit last
     stride, any other strides (read in place); dt and a float32. On CPU
-    tensors it runs the plain recurrence, whatever ``chunk``.
+    tensors it runs the plain recurrence, whatever ``chunk``. Under a work
+    counter the call is recorded as :func:`ssd_work`
+    (:mod:`repro_torch.kernels.work`).
     """
     _check(x, dt, a, bm, cm, chunk)
     devices = {t.device for t in (x, dt, a, bm, cm)}
-    if devices == {torch.device("cpu")}:
-        return ref.ssd_scan(x, dt, a, bm, cm)
-    if len(devices) != 1 or not x.is_cuda:
-        raise ValueError(f"x, dt, a, bm and cm must lie on one CUDA device or "
-                         f"all on the CPU; got {sorted(map(str, devices))}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, a, bm, cm)):
-        raise RuntimeError("the CUDA SSD kernel is forward only: its outputs "
-                           "would have no gradient. Train with "
-                           "ssd_impl='torch' (the reference trains through "
-                           "its plain chunked scan), or run under "
-                           "torch.no_grad()")
-    return run_kernel(kernel_for(x, bm, cm), x, dt, a, bm, cm, chunk)
+    b, l, h, p = x.shape
+    n = bm.shape[-1]
+    with work.call(ssd_work, b, l, h, p, n, chunk, x.dtype) as counted:
+        if devices == {work.META}:
+            work.on_meta(counted, "ssd_scan")
+            return (torch.empty(x.shape, dtype=x.dtype, device=work.META),
+                    torch.empty((b, h, n, p), dtype=torch.float32,
+                                device=work.META))
+        if devices == {torch.device("cpu")}:
+            return ref.ssd_scan(x, dt, a, bm, cm)
+        if len(devices) != 1 or not x.is_cuda:
+            raise ValueError(f"x, dt, a, bm and cm must lie on one CUDA "
+                             f"device or all on the CPU; got "
+                             f"{sorted(map(str, devices))}")
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, a, bm, cm)):
+            raise RuntimeError("the CUDA SSD kernel is forward only: its "
+                               "outputs would have no gradient. Train with "
+                               "ssd_impl='torch' (the reference trains "
+                               "through its plain chunked scan), or run "
+                               "under torch.no_grad()")
+        return run_kernel(kernel_for(x, bm, cm), x, dt, a, bm, cm, chunk)
 
 
 def run_kernel(kind: str, x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -67,8 +67,15 @@ from repro_torch.core import sync as SY
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import mesh_config
+from repro_torch.launch.roofline import NVLINK_BW
 from repro_torch.models.registry import build_model
 from repro_torch.runtime import StepRunner
+
+
+# the sync link a replica's analytic T_sync is priced on where no measured
+# one is at hand: the launcher's ranks share one node (one card, or the cards
+# of one host under torchrun), so NVLink's H100 rate
+SYNC_LINK_BW = NVLINK_BW
 
 
 class _Blocked:
@@ -119,7 +126,7 @@ def _build_ladder(cfg: TrainConfig, model, dev: torch.device, telemetry,
     ``mesh`` a rung takes this rank's rows and syncs over the mesh, the
     switch's means are over its replica axis, and the ranks agree on every
     move."""
-    from repro_torch.core.autotune import DCN_BW, AdaptiveController
+    from repro_torch.core.autotune import AdaptiveController
     from repro_torch.runtime.ladder import LadderRuntime, compile_rungs
 
     rungs = cfg.sync.ladder_rungs()
@@ -130,7 +137,7 @@ def _build_ladder(cfg: TrainConfig, model, dev: torch.device, telemetry,
                            kernels=_block_kernels(cfg, dev, quant_impl))
     ctrl = AdaptiveController(
         cfg.sync, param_bytes_per_chip=_param_bytes_per_chip(cfg),
-        replicas=max(2, replicas), link_bw=DCN_BW,
+        replicas=max(2, replicas), link_bw=SYNC_LINK_BW,
         lr=cfg.optimizer.learning_rate, telemetry=telemetry, ladder=rungs)
     counter.mark()
     return LadderRuntime(
@@ -232,7 +239,7 @@ def adaptive_report(cfg: TrainConfig, telemetry, mesh=None) -> dict:
     prices them. With a ``mesh`` (a collective: every rank calls it) the
     controller gets the ranks' measured T_step and T_sync, each the max over
     the ranks."""
-    from repro_torch.core.autotune import DCN_BW, TuneInputs, choose_period
+    from repro_torch.core.autotune import TuneInputs, choose_period
     est = telemetry.estimates()
     t_step = est[0] if est else telemetry.per_step_s()
     if mesh is not None:
@@ -246,7 +253,7 @@ def adaptive_report(cfg: TrainConfig, telemetry, mesh=None) -> dict:
             param_bytes_per_chip=_param_bytes_per_chip(cfg),
             replicas=max(2, cfg.mesh.axis_size(
                 cfg.mesh.replica_axis or "pod")),
-            step_time_s=t_step, link_bw=DCN_BW,
+            step_time_s=t_step, link_bw=SYNC_LINK_BW,
             lr=cfg.optimizer.learning_rate)
         rec = choose_period(
             inp, cfg.sync,

@@ -35,15 +35,15 @@ def attn_defs(cfg: ModelConfig) -> L.ParamDefs:
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     defs: L.ParamDefs = {
-        "wq": L.Param((d, cfg.n_heads, hd), init="fan_in"),
-        "wk": L.Param((d, cfg.n_kv_heads, hd), init="fan_in"),
-        "wv": L.Param((d, cfg.n_kv_heads, hd), init="fan_in"),
-        "wo": L.Param((cfg.n_heads, hd, d), init="fan_in"),
+        "wq": L.Param((d, cfg.n_heads, hd), ("embed", "heads", "head_dim"), init="fan_in"),
+        "wk": L.Param((d, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim"), init="fan_in"),
+        "wv": L.Param((d, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim"), init="fan_in"),
+        "wo": L.Param((cfg.n_heads, hd, d), ("heads", "head_dim", "embed"), init="fan_in"),
     }
     if cfg.qkv_bias:
-        defs["bq"] = L.Param((cfg.n_heads, hd), init="zeros")
-        defs["bk"] = L.Param((cfg.n_kv_heads, hd), init="zeros")
-        defs["bv"] = L.Param((cfg.n_kv_heads, hd), init="zeros")
+        defs["bq"] = L.Param((cfg.n_heads, hd), ("heads", "head_dim"), init="zeros")
+        defs["bk"] = L.Param((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"), init="zeros")
+        defs["bv"] = L.Param((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"), init="zeros")
     return defs
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -24,12 +24,20 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class Param:
-    """Declaration of one parameter leaf (the reference's, without the
-    logical sharding axes)."""
+    """Declaration of one parameter leaf, the reference's: its shape, its
+    logical sharding axes (one name a dim, read by
+    :mod:`repro_torch.sharding`; empty where none is declared) and its
+    draw."""
 
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...] = ()
     init: str = "normal"       # normal | zeros | ones | fan_in | ssm_a
     scale: float = 0.02
+
+    def __post_init__(self):
+        if self.logical and len(self.logical) != len(self.shape):
+            raise ValueError(f"logical axes {self.logical} do not match "
+                             f"shape {self.shape}")
 
 
 ParamDefs = Dict[str, Any]  # nested dict of Param, a list for a layer stack
@@ -64,6 +72,15 @@ def _map_defs(defs: ParamDefs, leaf) -> Dict[str, Any]:
     if isinstance(defs, list):
         return [_map_defs(d, leaf) for d in defs]
     return {k: _map_defs(d, leaf) for k, d in defs.items()}
+
+
+def axes_of(defs: ParamDefs) -> Dict[str, Any]:
+    """The tree of logical-axis tuples matching ``init_params``' output."""
+    return _map_defs(defs, lambda p: p.logical)
+
+
+def shapes_of(defs: ParamDefs) -> Dict[str, Any]:
+    return _map_defs(defs, lambda p: p.shape)
 
 
 def init_params(defs: ParamDefs, gen: torch.Generator,
@@ -158,9 +175,9 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def norm_defs(d: int, norm_type: str = "rms") -> ParamDefs:
     if norm_type == "layer":
-        return {"scale": Param((d,), init="ones"),
-                "bias": Param((d,), init="zeros")}
-    return {"scale": Param((d,), init="ones")}
+        return {"scale": Param((d,), ("embed",), init="ones"),
+                "bias": Param((d,), ("embed",), init="zeros")}
+    return {"scale": Param((d,), ("embed",), init="ones")}
 
 
 def apply_norm(params: Params, x: torch.Tensor, norm_type: str,
@@ -200,7 +217,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def embed_defs(vocab: int, d_model: int) -> ParamDefs:
-    return {"embedding": Param((vocab, d_model))}
+    return {"embedding": Param((vocab, d_model), ("vocab", "embed"))}
 
 
 def embed(params: Params, tokens: torch.Tensor, dtype: torch.dtype
@@ -217,7 +234,7 @@ def unembed(params: Params, x: torch.Tensor, tied: bool) -> torch.Tensor:
 def unembed_defs(vocab: int, d_model: int, tied: bool) -> ParamDefs:
     if tied:
         return {}
-    return {"out_embedding": Param((vocab, d_model))}
+    return {"out_embedding": Param((vocab, d_model), ("vocab", "embed"))}
 
 
 # ---------------------------------------------------------------------------
@@ -226,9 +243,9 @@ def unembed_defs(vocab: int, d_model: int, tied: bool) -> ParamDefs:
 
 def mlp_defs(d_model: int, d_ff: int) -> ParamDefs:
     return {
-        "w_gate": Param((d_model, d_ff), init="fan_in"),
-        "w_up": Param((d_model, d_ff), init="fan_in"),
-        "w_down": Param((d_ff, d_model), init="fan_in"),
+        "w_gate": Param((d_model, d_ff), ("embed", "mlp"), init="fan_in"),
+        "w_up": Param((d_model, d_ff), ("embed", "mlp"), init="fan_in"),
+        "w_down": Param((d_ff, d_model), ("mlp", "embed"), init="fan_in"),
     }
 
 

@@ -42,10 +42,10 @@ CAPACITY_FACTOR = 1.25
 def moe_defs(cfg: ModelConfig) -> L.ParamDefs:
     e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
     return {
-        "router": L.Param((d, e), init="fan_in"),
-        "w_gate": L.Param((e, d, f), init="fan_in"),
-        "w_up": L.Param((e, d, f), init="fan_in"),
-        "w_down": L.Param((e, f, d), init="fan_in"),
+        "router": L.Param((d, e), ("embed", "experts"), init="fan_in"),
+        "w_gate": L.Param((e, d, f), ("experts", "expert_embed", "expert_mlp"), init="fan_in"),
+        "w_up": L.Param((e, d, f), ("experts", "expert_embed", "expert_mlp"), init="fan_in"),
+        "w_down": L.Param((e, f, d), ("experts", "expert_mlp", "expert_embed"), init="fan_in"),
     }
 
 

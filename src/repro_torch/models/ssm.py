@@ -170,22 +170,22 @@ def mamba_defs(cfg: ModelConfig, d_model: Optional[int] = None
     h = d_inner // s.head_dim
     n, w = s.state_dim, s.conv_width
     return {
-        "in_x": L.Param((d, d_inner), init="fan_in"),
-        "in_z": L.Param((d, d_inner), init="fan_in"),
-        "in_b": L.Param((d, n), init="fan_in"),
-        "in_c": L.Param((d, n), init="fan_in"),
-        "in_dt": L.Param((d, h), init="fan_in"),
-        "dt_bias": L.Param((h,), init="zeros"),
-        "a_log": L.Param((h,), init="ssm_a"),
-        "d_skip": L.Param((h,), init="ones"),
-        "conv_x_w": L.Param((w, d_inner), init="fan_in"),
-        "conv_x_b": L.Param((d_inner,), init="zeros"),
-        "conv_b_w": L.Param((w, n), init="fan_in"),
-        "conv_b_b": L.Param((n,), init="zeros"),
-        "conv_c_w": L.Param((w, n), init="fan_in"),
-        "conv_c_b": L.Param((n,), init="zeros"),
-        "gate_norm": L.Param((d_inner,), init="ones"),
-        "out": L.Param((d_inner, d), init="fan_in"),
+        "in_x": L.Param((d, d_inner), ("embed", "mlp"), init="fan_in"),
+        "in_z": L.Param((d, d_inner), ("embed", "mlp"), init="fan_in"),
+        "in_b": L.Param((d, n), ("embed", "ssm_state"), init="fan_in"),
+        "in_c": L.Param((d, n), ("embed", "ssm_state"), init="fan_in"),
+        "in_dt": L.Param((d, h), ("embed", "ssm_heads"), init="fan_in"),
+        "dt_bias": L.Param((h,), ("ssm_heads",), init="zeros"),
+        "a_log": L.Param((h,), ("ssm_heads",), init="ssm_a"),
+        "d_skip": L.Param((h,), ("ssm_heads",), init="ones"),
+        "conv_x_w": L.Param((w, d_inner), ("conv", "mlp"), init="fan_in"),
+        "conv_x_b": L.Param((d_inner,), ("mlp",), init="zeros"),
+        "conv_b_w": L.Param((w, n), ("conv", "ssm_state"), init="fan_in"),
+        "conv_b_b": L.Param((n,), ("ssm_state",), init="zeros"),
+        "conv_c_w": L.Param((w, n), ("conv", "ssm_state"), init="fan_in"),
+        "conv_c_b": L.Param((n,), ("ssm_state",), init="zeros"),
+        "gate_norm": L.Param((d_inner,), ("mlp",), init="ones"),
+        "out": L.Param((d_inner, d), ("mlp", "embed"), init="fan_in"),
     }
 
 
