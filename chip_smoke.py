@@ -45,7 +45,7 @@ entry points and holds every run to its plain-version twin:
    then phase dist, model synchronization across processes that share
    the one card (``repro_torch.launch.mesh.spawn``, gloo; each rank's
    device, backend, host-staged ops and peak memory printed): (d1)
-   ``dms(backend="dist")`` on epsilon across 8 ranks (block 64, 2 epochs),
+   ``dms(backend="dist")`` on epsilon across 8 ranks (block 64, one epoch),
    the model bitwise equal on every rank and held to the one-process
    ``dms(backend="vmap", workers=8)`` (relative L2 1e-3, accuracy 0.005),
    every hinge launch counted on each rank, all on the cluster kernel;
@@ -147,8 +147,9 @@ entry points and holds every run to its plain-version twin:
 9. every other sync mode (delayed, chunked, ring, pairwise, async ring,
    int16) at smoke width, kernel path against plain path; then phase
    train_ssm, training the SSM and hybrid families through
-   ``build_trainer``: (t1) zamba2-1.2b at full width (38 layers, the shared
-   block after every 6), local SGD with K = 2, H = 4, the int8 sync on the
+   ``build_trainer``: (t1) zamba2-1.2b at full width, its depth cut to 6
+   of 38 layers for the time limit (the shared block after the sixth),
+   local SGD with K = 2, H = 4, the int8 sync on the
    quant kernel and ``remat="full"``, 4 × 2,048 tokens a microbatch (2
    sequences a replica step), 2 blocks, then the plain path from the same
    state and batches: held as phase 8 holds smollm (losses relative 1e-3,
@@ -211,7 +212,24 @@ entry points and holds every run to its plain-version twin:
     the split-TF32 kernel path against the plain path at relative L2 1e-2.
     Before them, equal gates over 16 and 128 experts route on the card to
     experts 0..k-1, as the reference's top-k picks them;
-14. phase tooling: (t1) the roofline of three whole calls, each counted by
+14. phase mesh_serve, serving on a (data 2, model 2) process mesh of 4
+    gloo ranks that share the card: ``ServeEngine(mesh=)`` on phi3.5-moe
+    at its published widths, its depth cut to 2 of 32 layers for the time
+    limit, each rank drawing every leaf from the seed and keeping its
+    shards (the expert and embedding tables, the cache's sequence); the
+    main path's counted run, a bf16 ``generate`` of 16 prompts of 2,048
+    tokens (T = 32,768: the vocab-parallel embedding and the all-to-all
+    MoE once a layer) and 8 new tokens (the one-hot MoE once a layer a
+    step, the seq-sharded decode attention), 2 flash launches a rank on
+    the bf16 tensor-core kernel; then in bf16 and in f32 the prefill and 8
+    steps teacher-forced on the one-process f32 engine's tokens, held to
+    the one-process engine at the same depth, seed and prompts (f32
+    logits within relative L2 1e-3 and the same argmax at every position,
+    against a one-process run of the sharded capacity rule where slots
+    drop; bf16 within 0.1), the slots dropped on both paths, the paths
+    taken, the walls beside the one-process engine's, each collective's
+    ms and bytes, the host-staged ops and the peaks a rank;
+15. phase tooling: (t1) the roofline of three whole calls, each counted by
     ``repro_torch.launch.roofline.WorkCounter`` in a run apart from its
     phase's timed ones: the epsilon ``dms`` call of phase 3 with
     ``graphs=False`` (a replay hides its ops; against the median of 3
@@ -276,6 +294,9 @@ TRAIN_K, TRAIN_H, TRAIN_SEQ, TRAIN_BATCH = 4, 4, 2048, 8
 # phase train_ssm: (t1) zamba2-1.2b, K = 2, H = 4, 2 sequences a replica
 # step; (t3) remat at full width, the depth cut to this many layers
 TRAIN_SSM_K, TRAIN_SSM_H, TRAIN_SSM_BATCH = 2, 4, 4
+# (t1)'s zamba2-1.2b cut from 38 to 6 of its layers (one shared block)
+# for the script's time limit
+TRAIN_SSM_T1_DEPTH = 6
 REMAT_DEPTH = 4
 TRAIN_SSM_PEAK_GB = 75.0
 # phase train_families, at published widths: (f1) whisper-base, K = 4,
@@ -393,7 +414,7 @@ FAMILY_RUNS = [("llama3.2-3b", None, 1920, 128),
 FAMILY_PEAK_GB = 75.0
 MOE_F32_DEPTH, MOE_F32_STEPS = 4, 16
 # phase dist: K ranks on the one card, gloo between them
-DIST_K, DIST_BS, DIST_EPOCHS = 8, 64, 2
+DIST_K, DIST_BS, DIST_EPOCHS = 8, 64, 1
 DIST_MODES = [("delayed", "all", False), ("chunked", "all", False),
               ("none", "ring", False), ("none", "pairwise", False),
               ("none", "pairwise", True), ("none", "ring", True)]
@@ -402,6 +423,13 @@ DIST_TIMED_BS, DIST_TIMED_BLOCKS = (16, 64, 256, 1024), 24
 DIST_COLL_CALLS = 50
 DIST_TRAIN_K, DIST_TRAIN_H, DIST_TRAIN_BLOCKS = 2, 4, 2
 DIST_PEAK_GB = 75.0
+# phase mesh_serve: phi3.5-moe cut to 2 of its 32 layers for the time
+# limit, 16 prompts of 2,048 tokens (T = 32,768, the all-to-all path's
+# threshold) and 8 new tokens on a (data 2, model 2) mesh of gloo ranks
+MESH_SHAPE = (2, 2)
+MESH_ARCH, MESH_DEPTH = "phi3.5-moe-42b-a6.6b", 2
+MESH_BATCH, MESH_PROMPT, MESH_GEN, MESH_SEED = 16, 2048, 8, 7
+MESH_F32_REL_L2 = 1e-3
 # (d7): the adaptive trainer across the two ranks: a scripted move 4 -> 2
 # after block 2 over 3 blocks, then blocks under the live controller
 D7_SCRIPT, D7_SCRIPTED_BLOCKS, D7_LIVE_BLOCKS = {2: 2}, 3, 6
@@ -3335,10 +3363,12 @@ def phase_train_ssm(torch, dev):
     step, (t3) remat on the card. Returns (t1)'s quant launches."""
     from repro_torch.config import get_arch
     t0 = time.perf_counter()
-    cfg = get_arch("zamba2-1.2b")
+    cfg = dataclasses.replace(get_arch("zamba2-1.2b"),
+                              n_layers=TRAIN_SSM_T1_DEPTH)
     launches = _train_local(
         torch, dev, "train_ssm (t1)", cfg,
-        f"{cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, "
+        f"{cfg.n_layers} of {get_arch('zamba2-1.2b').n_layers} Mamba2 "
+        f"layers (depth cut for the time limit), d_model {cfg.d_model}, "
         f"{_ssd_heads(cfg)} SSD heads, the shared attention block after "
         f"every {cfg.shared_block_every}", TRAIN_SSM_K, TRAIN_SSM_H,
         TRAIN_SEQ, TRAIN_SSM_BATCH, 2,
@@ -4487,6 +4517,366 @@ def phase_dist(torch, dev, tmp):
 
 
 # ---------------------------------------------------------------------------
+# phase mesh_serve: serving on a (data, model) process mesh
+# ---------------------------------------------------------------------------
+
+class DropCounter:
+    """Within ``with``: the slots every MoE routing of this process dropped
+    (``repro_torch.models.moe.routing`` wrapped, restored on exit); each
+    call's count stays on the device until :attr:`dropped` reads them."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.counts = moe, moe.routing, []
+
+        def routing(logits, cfg, capacity_factor=moe.CAPACITY_FACTOR):
+            out = self.orig(logits, cfg, capacity_factor)
+            self.counts.append((out[2] >= out[3]).sum())
+            return out
+        moe.routing = routing
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.routing = self.orig
+
+    @property
+    def dropped(self) -> int:
+        return sum(int(c) for c in self.counts)
+
+
+class ShardedCapacity:
+    """Within ``with``: ``moe_ffn`` on T ≥ 32,768 tokens runs on each (data,
+    model) block of MESH_SHAPE apart (rows over data, the sequence over
+    model), so each block routes with the mesh path's capacity C_s: a
+    one-process run of the sharded capacity rule."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.moe_ffn
+        n_data, n_model = MESH_SHAPE
+
+        def blocks(params, x, cfg, capacity_factor=moe.CAPACITY_FACTOR,
+                   return_aux=False):
+            b, s, _ = x.shape
+            if return_aux or b * s < moe.SHARDED_MIN_TOKENS:
+                return self.orig(params, x, cfg, capacity_factor,
+                                 return_aux)
+            return torch.cat([torch.cat(
+                [self.orig(params, blk, cfg, capacity_factor)
+                 for blk in row.chunk(n_model, 1)], 1)
+                for row in x.chunk(n_data, 0)], 0)
+        moe.moe_ffn = blocks
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_ffn = self.orig
+
+
+class CollectiveTimer:
+    """Every mesh collective of this process (``Group``'s ``all_to_all``,
+    ``gather_dim``, ``sum_scatter_dim``, ``sum``, ``maximum``) waited for on
+    both sides and timed on the host clock: ``records`` holds (op, input
+    shape, input bytes, seconds). Installed for the life of a rank."""
+
+    OPS = ("all_to_all", "gather_dim", "sum_scatter_dim", "sum", "maximum")
+
+    def __init__(self, torch):
+        from repro_torch.core import collectives as CL
+        self.records = []
+        for name in self.OPS:
+            setattr(CL.Group, name, self._timed(torch, name,
+                                                getattr(CL.Group, name)))
+
+    def _timed(self, torch, name, fn):
+        def timed(group, x, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(group, x, *args)
+            torch.cuda.synchronize()
+            self.records.append((name, tuple(x.shape),
+                                 x.numel() * x.element_size(),
+                                 time.perf_counter() - t0))
+            return y
+        return timed
+
+    def take(self, fsdp_shapes):
+        """The records so far, summed: ms and bytes by op, the FSDP gathers
+        (``gather_dim`` of an expert-table shard) apart; then cleared."""
+        out = {}
+        for name, shape, nbytes, sec in self.records:
+            if name == "gather_dim" and shape in fsdp_shapes:
+                name = "fsdp_gather"
+            ms, b, n = out.get(name, (0.0, 0, 0))
+            out[name] = (ms + 1e3 * sec, b + nbytes, n + 1)
+        self.records.clear()
+        return out
+
+
+def _mesh_cfg(dtype: str):
+    from repro_torch.config import get_arch
+    return dataclasses.replace(get_arch(MESH_ARCH), n_layers=MESH_DEPTH,
+                               dtype=dtype)
+
+
+def _mesh_one_process(torch, dev, dtype, prompts, forced, sharded=False):
+    """The one-process engine at the mesh phase's depth: the prefill's
+    logits and wall, then decode steps (eager) greedy (``forced`` None) or
+    teacher-forced on ``forced``; the slots its routings dropped. With
+    ``sharded`` the MoE takes the mesh path's capacity rule
+    (:class:`ShardedCapacity`)."""
+    import contextlib
+    from repro_torch.launch.serve import ServeEngine
+    eng = ServeEngine(_mesh_cfg(dtype), dev, max_len=MESH_PROMPT + MESH_GEN,
+                      dtype=getattr(torch, dtype), graphs=False)
+    with DropCounter() as drops, (ShardedCapacity() if sharded
+                                  else contextlib.nullcontext()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = eng.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if forced is None:
+            loop = eng.decode_loop(prompts.shape[0])
+            loop.start(logits, MESH_PROMPT)
+            steps = [loop.step().clone() for _ in range(MESH_GEN)]
+        else:
+            steps = _forced_steps(eng, logits, MESH_PROMPT, forced)
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / MESH_GEN
+    logits = [x.float().cpu() for x in [logits] + steps]
+    out = dict(logits=logits, prefill_s=prefill_s, decode_ms=decode_ms,
+               drops=drops.dropped,
+               argmax=torch.stack([x.argmax(-1) for x in logits], 1))
+    del eng, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_serve_rank(prompts, forced):
+    """One rank of phase mesh_serve's (data, model) mesh: per dtype a
+    ``ServeEngine(mesh=)`` drawn from the seed (its shards kept), the
+    prefill and the steps teacher-forced on ``forced`` (this rank's rows)
+    with every collective timed; in bf16 first the main path's counted run,
+    ``generate``."""
+    import torch
+    from repro_torch.core import collectives as CL
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import moe
+    _rank_setup(torch)
+    mesh = M.make_mesh(MESH_SHAPE, ("data", "model"))
+    dev = mesh.device
+    timer = CollectiveTimer(torch)
+    counters = serve_counters()
+    prompts = torch.from_numpy(prompts).to(dev)
+    rows = MESH_BATCH // MESH_SHAPE[0]
+    forced = torch.from_numpy(forced).to(dev).narrow(
+        0, mesh.rank("data") * rows, rows)
+    cfg = _mesh_cfg("float32")
+    e_loc = cfg.moe.num_experts // MESH_SHAPE[1]
+    d_loc = cfg.d_model // MESH_SHAPE[0]
+    fsdp = {(e_loc, d_loc, cfg.d_ff), (e_loc, cfg.d_ff, d_loc)}
+    out = dict(rank=mesh.rank(), data=mesh.rank("data"),
+               model=mesh.rank("model"), device=str(dev))
+    for dtype in ("bfloat16", "float32"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = ServeEngine(_mesh_cfg(dtype), dev,
+                          max_len=MESH_PROMPT + MESH_GEN,
+                          dtype=getattr(torch, dtype), mesh=mesh)
+        _wait(torch, dev)
+        run = dict(draw_s=time.perf_counter() - t0)
+        if dtype == "bfloat16":
+            # the main path's counted run: the counts set to 0 just before
+            # and read just after
+            reset(counters)
+            moe.PATHS.clear()
+            t0 = time.perf_counter()
+            tokens = eng.generate(prompts, MESH_GEN)
+            _wait(torch, dev)
+            run["generate"] = dict(tokens=tokens,
+                                   wall=time.perf_counter() - t0,
+                                   launches=read(counters),
+                                   paths=dict(moe.PATHS))
+        timer.take(fsdp)
+        with DropCounter() as drops:
+            reset(counters)
+            moe.PATHS.clear()
+            t0 = time.perf_counter()
+            logits, _ = eng.prefill(prompts)
+            _wait(torch, dev)
+            run["prefill_s"] = time.perf_counter() - t0
+            run["prefill"] = dict(launches=read(counters),
+                                  paths=dict(moe.PATHS),
+                                  coll=timer.take(fsdp))
+            moe.PATHS.clear()
+            t0 = time.perf_counter()
+            loop = eng.decode_loop(MESH_BATCH)
+            loop.start(logits, MESH_PROMPT)
+            steps = []
+            for i in range(MESH_GEN):
+                loop.token.copy_(forced[:, i:i + 1])
+                steps.append(loop.step().clone())
+            _wait(torch, dev)
+            run["decode_ms"] = 1e3 * (time.perf_counter() - t0) / MESH_GEN
+            run["decode"] = dict(paths=dict(moe.PATHS),
+                                 coll=timer.take(fsdp))
+        run["drops"] = drops.dropped
+        run["logits"] = np.stack([x.float().cpu().numpy()
+                                  for x in [logits] + steps])
+        run["peak"] = _peak(torch, dev)
+        out[dtype] = run
+        del eng, logits, steps, loop
+        torch.cuda.empty_cache()
+    out["staged"] = dict(CL.STAGED)
+    out["staged_bytes"] = dict(CL.STAGED_BYTES)
+    return out
+
+
+def _coll_line(coll, per=1):
+    return ", ".join(f"{name} {ms / per:.3f} ms ({n / per:g} calls, "
+                     f"{b / per / 1e6:.2f} MB in)"
+                     for name, (ms, b, n) in sorted(coll.items()))
+
+
+def phase_mesh_serve(torch, dev):
+    """Phase mesh_serve: ``ServeEngine(mesh=)`` on phi3.5-moe at its
+    published widths, MESH_DEPTH layers, 4 gloo ranks sharing the card on a
+    (data 2, model 2) mesh: the prefill of MESH_BATCH prompts of MESH_PROMPT
+    tokens (T = 32,768: the vocab-parallel embedding and the all-to-all MoE
+    once a layer), MESH_GEN steps (the one-hot MoE once a layer a step, the
+    seq-sharded decode attention); held to the one-process engine at the
+    same depth, seed and prompts: f32 logits within MESH_F32_REL_L2 and the
+    same tokens, bf16 within LOGITS_REL_L2; every staged op counted."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch import mesh as M
+    t_phase = time.perf_counter()
+    cfg = _mesh_cfg("float32")
+    prompts = np.random.default_rng(MESH_SEED).integers(
+        1, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT)).astype(np.int64)
+    on_card = torch.from_numpy(prompts).to(dev)
+    log(f"mesh_serve: {cfg.name} at its published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"{MESH_DEPTH} of {get_arch(MESH_ARCH).n_layers} layers; "
+        f"{MESH_BATCH} x "
+        f"{MESH_PROMPT} prompt tokens (T = {MESH_BATCH * MESH_PROMPT}), "
+        f"{MESH_GEN} new; mesh (data {MESH_SHAPE[0]}, model "
+        f"{MESH_SHAPE[1]}), {MESH_SHAPE[0] * MESH_SHAPE[1]} gloo ranks on "
+        f"the one card")
+    # the one-process engine: f32 greedy gives the tokens every other run
+    # is teacher-forced on
+    one = {"float32": _mesh_one_process(torch, dev, "float32", on_card,
+                                        None)}
+    forced = one["float32"]["argmax"][:, :MESH_GEN]
+    one["bfloat16"] = _mesh_one_process(torch, dev, "bfloat16", on_card,
+                                        forced.to(dev))
+    del on_card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = M.spawn(_mesh_serve_rank, MESH_SHAPE[0] * MESH_SHAPE[1],
+                    backend="gloo", args=(prompts, forced.numpy()),
+                    timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    n_layers, n_steps = MESH_DEPTH, MESH_GEN
+    for dtype in ("bfloat16", "float32"):
+        runs = [r[dtype] for r in ranks]
+        # the two model ranks of a data row hold its rows bitwise alike
+        same = all(np.array_equal(runs[i]["logits"], runs[i + 1]["logits"])
+                   for i in range(0, len(runs), MESH_SHAPE[1]))
+        check(same, f"mesh_serve {dtype}: the model ranks of a data row "
+                    f"differ")
+        got = torch.from_numpy(np.concatenate(
+            [runs[i]["logits"] for i in range(0, len(runs), MESH_SHAPE[1])],
+            axis=1))
+        for r in runs:
+            check(r["prefill"]["paths"] == {"sharded": n_layers},
+                  f"mesh_serve {dtype}: prefill paths {r['prefill']['paths']}"
+                  f", expected the all-to-all path {n_layers} times")
+            check(r["decode"]["paths"] == {"onehot": n_layers * n_steps},
+                  f"mesh_serve {dtype}: decode paths {r['decode']['paths']}, "
+                  f"expected the one-hot path {n_layers * n_steps} times")
+            kind = ("flash_attention_tc" if dtype == "bfloat16"
+                    else "flash_attention_tc32")
+            check(r["prefill"]["launches"][kind] == n_layers
+                  and r["prefill"]["launches"]["flash_attention"] == n_layers,
+                  f"mesh_serve {dtype}: flash launches a prefill "
+                  f"{r['prefill']['launches']}, expected {n_layers} on "
+                  f"{kind}")
+        ref = one[dtype]
+        mesh_drops = sum(r["drops"] for r in runs)
+        label = "the one-process engine"
+        if dtype == "float32" and (mesh_drops or ref["drops"]):
+            ref = _mesh_one_process(torch, dev, "float32",
+                                    torch.from_numpy(prompts).to(dev),
+                                    forced.to(dev), sharded=True)
+            label = ("a one-process run of the sharded capacity rule (slots "
+                     "dropped)")
+        want = torch.stack(ref["logits"])
+        rels = [rel_l2(torch, a, b) for a, b in zip(got, want)]
+        bound = MESH_F32_REL_L2 if dtype == "float32" else LOGITS_REL_L2
+        argmax = got.argmax(-1).T
+        same_tokens = bool((argmax == ref["argmax"]).all())
+        also = (f", the sharded capacity rule's run {ref['drops']}"
+                if ref is not one[dtype] else "")
+        log(f"mesh_serve {dtype} against {label}: prefill logits rel L2 "
+            f"{rels[0]:.4e}, {n_steps} steps max {max(rels[1:]):.4e} (bound "
+            f"{bound}); tokens identical {same_tokens}; slots dropped: mesh "
+            f"{mesh_drops} over the ranks' prefills and steps (C_s per "
+            f"source shard), the one-process engine {one[dtype]['drops']} "
+            f"(global C){also}; model ranks bitwise alike {same}")
+        check(max(rels) <= bound, f"mesh_serve {dtype}: logits rel L2 "
+                                  f"{max(rels)} > {bound}")
+        if dtype == "float32":
+            check(same_tokens, "mesh_serve float32: tokens differ from the "
+                               "one-process engine's")
+        pre = [r["prefill_s"] for r in runs]
+        dec = [r["decode_ms"] for r in runs]
+        draw = max(r["draw_s"] for r in runs)
+        r0 = runs[0]
+        log(f"mesh_serve {dtype} walls: prefill {max(pre):.4f} s (max over "
+            f"the ranks; min {min(pre):.4f}) against one process "
+            f"{one[dtype]['prefill_s']:.4f} s; decode {max(dec):.3f} ms a "
+            f"step against {one[dtype]['decode_ms']:.3f} ms (both eager); "
+            f"the draw of each rank's shards {draw:.1f} s")
+        log(f"mesh_serve {dtype} rank 0's collectives, prefill: "
+            f"{_coll_line(r0['prefill']['coll'])}; a decode step: "
+            f"{_coll_line(r0['decode']['coll'], n_steps)} (each waited for "
+            f"on both sides, host clock)")
+        peaks = [r["peak"] for r in runs]
+        log(f"mesh_serve {dtype} peak memory a rank "
+            f"{[round(p / 2**30, 2) for p in peaks]} GiB, "
+            f"{sum(peaks) / 1e9:.2f} GB in all")
+    gen = [r["bfloat16"]["generate"] for r in ranks]
+    toks = gen[0]["tokens"]
+    check(toks.shape == (MESH_BATCH, MESH_GEN)
+          and all(np.array_equal(g["tokens"], toks) for g in gen),
+          "mesh_serve: generate's tokens differ across the ranks")
+    check(all(g["launches"]["flash_attention_tc"] == n_layers
+              and g["paths"] == {"sharded": n_layers,
+                                 "onehot": n_layers * n_steps} for g in gen),
+          f"mesh_serve: the counted generate's launches and paths "
+          f"{[(g['launches'], g['paths']) for g in gen]}")
+    log(f"mesh_serve the main path's counted run (bf16 generate, counts 0 "
+        f"just before, read just after): flash launches a rank "
+        f"{[g['launches']['flash_attention_tc'] for g in gen]} on the bf16 "
+        f"tensor-core kernel; paths a rank {gen[0]['paths']}; wall "
+        f"{max(g['wall'] for g in gen):.4f} s (max over the ranks), "
+        f"{MESH_BATCH * MESH_GEN / max(g['wall'] for g in gen):.1f} new "
+        f"tokens/s; tokens identical on every rank")
+    for r in ranks:
+        log(f"mesh_serve rank {r['rank']} (data {r['data']}, model "
+            f"{r['model']}) on {r['device']}: host-staged ops "
+            f"{r['staged'] or 'none'}, staged bytes "
+            f"{r['staged_bytes'] or 'none'}")
+    log(f"mesh_serve: the ranks' spawn and run {spawn_s:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase tooling: the roofline of whole calls, simsync on the card's times,
 # the dry run
 # ---------------------------------------------------------------------------
@@ -4757,6 +5147,8 @@ def main() -> int:
     log(f"families: flash launches a generate {family_launches}; phase "
         f"{time.perf_counter() - t_families:.1f} s")
     done("families")
+    phase_mesh_serve(torch, dev)
+    done("mesh_serve")
     t_tooling = time.perf_counter()
     phase_tooling(card, t_start)
     log(f"tooling: phase {time.perf_counter() - t_tooling:.1f} s")

@@ -1,5 +1,7 @@
 """The replica axis's collectives: the port's ``lax.pmean``, ``psum``,
-``pmax``, ``ppermute`` and ``all_gather``.
+``pmax``, ``ppermute`` and ``all_gather``; and, for the mesh paths of the
+models, ``all_to_all``, the tiled ``all_gather`` and ``psum_scatter`` along a
+dim.
 
 One interface, two kinds of replica axis:
 
@@ -21,8 +23,24 @@ The transport. NCCL runs every op here on CUDA tensors. Gloo runs
 (the backend table of the ``torch.distributed`` docs). So on a CUDA tensor
 under gloo those two are staged through the host: the tensor is copied to
 a host buffer, the op runs there, and the result is copied back.
-Every staged call is counted in :data:`STAGED` under its op's name; nothing
-retries an op elsewhere after a failure.
+Every staged call is counted in :data:`STAGED` under its op's name, its
+bytes in :data:`STAGED_BYTES`; nothing retries an op elsewhere after a
+failure. The mesh paths' ops, ``all_to_all_single``,
+``all_gather_into_tensor`` and ``reduce_scatter_tensor``, are marked
+unsupported on CUDA under gloo in that table, but gloo runs all three on
+CUDA tensors in the card's PyTorch (2.11, a probe of each on two ranks
+against its CPU result), copying through the host itself; so the port
+hands them the CUDA tensors and stages none of them. Their bf16 payloads
+travel as their bytes (no arithmetic on the way; gloo has no bf16 or
+int16 collectives); the sums take f32.
+
+The mesh ops are differentiable, each backward its transpose: the
+all-to-all's is the reverse all-to-all (the same op), the tiled gather's
+the sum-scatter and the sum-scatter's the gather, ``sum``'s (where x needs a
+gradient) the sum. Under these, the gradients of a sum over the ranks of
+per-rank losses reach every rank's shard, so each rank's loss is its share:
+the loss of what it holds, divided by the number of ranks that hold the
+same.
 
 Decisions that every rank must take alike (the ladder's next H, a restart
 after a fault on one rank) go through :func:`agree`, one small all-reduce
@@ -41,8 +59,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-# staged calls on this process so far, by op ("all_gather", "send/recv")
+# staged calls on this process so far, by op ("all_gather", "send/recv"),
+# and the bytes they copied to the host
 STAGED: Counter = Counter()
+STAGED_BYTES: Counter = Counter()
 
 
 class Deferred:
@@ -153,17 +173,24 @@ class Group:
         return out if async_op else out.wait()
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``lax.psum``."""
+        """``lax.psum``; differentiable where x needs a gradient."""
+        if x.requires_grad:
+            return _Sum.apply(self, x)
         return self._all_reduce(x, dist.ReduceOp.SUM)
 
     def amax(self, x: torch.Tensor) -> torch.Tensor:
         """``lax.pmax`` of this rank's largest element."""
         return self._all_reduce(x.amax(), dist.ReduceOp.MAX)
 
+    def maximum(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.pmax`` elementwise."""
+        return self._all_reduce(x, dist.ReduceOp.MAX)
+
     def _host(self, x: torch.Tensor, op: str) -> torch.Tensor:
         if not self.staged:
             return x.contiguous()
         STAGED[op] += 1
+        STAGED_BYTES[op] += x.numel() * x.element_size()
         return x.to("cpu", copy=True)
 
     def permute(self, x: torch.Tensor, perm, tag: int = 0,
@@ -207,6 +234,112 @@ class Group:
         return pending if async_op else pending.wait()
 
 
+    # ------------------------------------------------- the mesh paths' ops
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.all_to_all(x, axis, 0, 0, tiled=True)``: dim 0 split into
+        ``k`` chunks, chunk j sent to group rank j, the chunks received
+        concatenated in source order (``all_to_all_single``).
+        Differentiable: the backward is the same all-to-all."""
+        return _AllToAll.apply(self, x)
+
+    def gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``lax.all_gather(x, axis, axis=dim, tiled=True)``: every rank's
+        x concatenated along ``dim`` in rank order. Differentiable: the
+        backward is :meth:`sum_scatter_dim`."""
+        return _GatherDim.apply(self, x, dim)
+
+    def sum_scatter_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
+        the sum of every rank's x, of which this rank keeps block ``index``
+        of ``k`` along ``dim``. Differentiable: the backward is
+        :meth:`gather_dim`."""
+        return _SumScatterDim.apply(self, x, dim)
+
+    def _all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] % self.k:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} does "
+                             f"not split into {self.k} chunks")
+        src = _bits(x.contiguous())
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.group)
+        return _unbits(out, x.dtype)
+
+    def _gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        src = _bits(x.movedim(dim, 0).contiguous())
+        out = src.new_empty((self.k * src.shape[0],) + src.shape[1:])
+        dist.all_gather_into_tensor(out, src, group=self.group)
+        return _unbits(out, x.dtype).movedim(0, dim)
+
+    def _sum_scatter_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        src = x.movedim(dim, 0).contiguous()
+        if src.shape[0] % self.k:
+            raise ValueError(f"sum_scatter_dim: dim {dim} of "
+                             f"{tuple(x.shape)} does not split into "
+                             f"{self.k} blocks")
+        out = src.new_empty((src.shape[0] // self.k,) + src.shape[1:])
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
+                                   group=self.group)
+        return out.movedim(0, dim)
+
+
+# payloads that ops which only move data carry as their bytes (gloo has no
+# bfloat16 or int16 collectives)
+_AS_BYTES = (torch.bfloat16, torch.float16, torch.int16)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """A 16-bit payload (contiguous) as its bytes, the last dim doubled."""
+    return x.view(torch.uint8) if x.dtype in _AS_BYTES else x
+
+
+def _unbits(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.view(dtype) if dtype in _AS_BYTES else x
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return group._all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group._all_to_all(g)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x, dim):
+        ctx.group, ctx.dim = group, dim
+        return group._gather_dim(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group._sum_scatter_dim(g, ctx.dim), None
+
+
+class _SumScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x, dim):
+        ctx.group, ctx.dim = group, dim
+        return group._sum_scatter_dim(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group._gather_dim(g, ctx.dim), None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return group._all_reduce(x, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group._all_reduce(g, dist.ReduceOp.SUM)
+
+
 STACKED = Stacked()
 
 
@@ -218,6 +351,20 @@ def replicas(mesh=None, axis: Optional[str] = None):
     if axis is None:
         raise ValueError("a mesh needs the name of its replica axis")
     return Group(mesh.group(axis), mesh.device, mesh.backend)
+
+
+def mesh_groups(rules) -> Tuple[Group, Group]:
+    """The (data, model) groups of ``rules``' mesh: the mesh axes of the
+    logical ``batch`` and ``act_seq`` dims, one each (the layout the models'
+    mesh paths take)."""
+    mesh = rules.mesh
+    data, model = (rules.mesh_axes_for(n) for n in ("batch", "act_seq"))
+    if len(data) != 1 or len(model) != 1:
+        raise ValueError(f"the mesh paths take one data and one model axis; "
+                         f"these rules map batch to {data} and act_seq to "
+                         f"{model} on {mesh!r}")
+    return (Group(mesh.group(data[0]), mesh.device, mesh.backend),
+            Group(mesh.group(model[0]), mesh.device, mesh.backend))
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], group, k: int

@@ -4,7 +4,8 @@
 numpy. :func:`svm_state_to_torch` turns an SVM model ``w`` or a DMS carry
 dict (``repro.core.svm.dms_stepper_init``'s keys) into the port's tensors on
 a given device; :func:`lm_params_from_jax` turns an LM param pytree into the
-port's state dict; :func:`lm_train_state_from_jax` turns a local-SGD train
+port's state dict, and :func:`rank_params_from_jax` into a serving rank's
+shards of it; :func:`lm_train_state_from_jax` turns a local-SGD train
 state into the port's trainer state. All keep each dtype. This module imports no JAX: the
 caller converts to numpy (``jax.tree.map(np.asarray, params)``).
 """
@@ -89,6 +90,20 @@ def lm_params_from_jax(params: Mapping[str, Any], cfg: ModelConfig
         else:
             out[key] = _tensor(value)
     return out
+
+
+def rank_params_from_jax(params: Mapping[str, Any], cfg: ModelConfig,
+                         rules, mesh) -> Dict[str, torch.Tensor]:
+    """:func:`lm_params_from_jax` followed by this rank's shard of each
+    entry: the state dict a serving rank on ``mesh`` loads
+    (``ServeEngine(…, params=…, mesh=mesh)``), under ``rules`` (the
+    engine's, :func:`repro_torch.launch.serve.serving_rules`) and
+    :func:`repro_torch.sharding.serve_specs`."""
+    from repro_torch import sharding as S
+    from repro_torch.models.registry import build_model
+    specs = S.flat_keys(S.serve_specs(build_model(cfg).param_defs(), rules))
+    return {key: S.shard_of(t, specs[key], mesh).clone()
+            for key, t in lm_params_from_jax(params, cfg).items()}
 
 
 def lm_train_state_from_jax(state: Mapping[str, Any], cfg: TrainConfig,

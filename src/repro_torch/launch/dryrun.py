@@ -18,8 +18,11 @@ reference's fields, with these changes: ``status`` is ``ok``, ``skip``
 at once, counted on the meta device) in place of XLA's memory analysis, and
 ``fits_80g`` in place of ``fits_16g``; ``flops`` (products by dtype) and
 ``hbm_bytes`` counted, and ``roofline`` from
-:func:`repro_torch.launch.roofline.compute_terms` at H100 rates. The port
-shards no weights yet, so a card holds them whole (item 21).
+:func:`repro_torch.launch.roofline.compute_terms` at H100 rates. A cell's
+card holds the weights whole: serving on a mesh may now shard the expert
+tables, the embedding and the cache (``ServeEngine(mesh=)``), but the dry
+run counts the one-card call; training still shards no weights (ROADMAP
+item 21 (a)).
 """
 from __future__ import annotations
 

@@ -17,8 +17,22 @@ captured at the first ``generate`` of a batch size on that batch size's
 static cache and reused by every later call; ``graphs=False`` runs the same
 step eagerly, the comparison path on the card and the path on the CPU.
 
+On a ``(data, model)`` process mesh (``mesh=``, a
+:class:`repro_torch.launch.mesh.Mesh` of that rank) the engine serves the
+decoder-only families as the reference's engine does on its mesh: every
+call runs under the mesh's rules (:func:`serving_rules`); the rank holds its
+shards of the expert tables (experts→model, d_model→data), of the
+embedding table (vocab→model, d_model→data) and of the decode cache (its
+sequence over model), every other weight whole
+(:func:`repro_torch.sharding.serve_specs`), and its data shard of the
+batch; ``generate`` returns the whole batch's
+tokens on every rank. Decode runs eagerly there.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --smoke --device cpu --requests 4 --gen-tokens 8
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch phi3.5-moe-42b-a6.6b --smoke --device cpu --mesh 2,2 \\
+        --backend gloo
 """
 from __future__ import annotations
 
@@ -30,26 +44,63 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import sharding as S
 from repro_torch import tree as T
 from repro_torch.config import get_arch, get_smoke
 from repro_torch.config.base import ModelConfig
+from repro_torch.core.collectives import mesh_groups
 from repro_torch.device import resolve_device, same_device
+from repro_torch.launch.mesh import mesh_config
+from repro_torch.models import layers as L
 from repro_torch.models.registry import build_model
 from repro_torch.runtime import graphs as G
 
+# the families that serve on a mesh; the others are ROADMAP §1 item 22
+MESH_FAMILIES = ("dense", "moe")
+
+
+def serving_rules(cfg: ModelConfig, mesh, max_len: int) -> S.ShardingRules:
+    """The rules a serving engine runs under on ``mesh`` (axes ``data`` and
+    ``model``): the default rules, with each logical dim the engine shards
+    held whole where its size does not divide its mesh axes (the vocab,
+    d_model, the experts, the cache's ``max_len``), so the model code reads
+    from the rules how a rank holds each of them."""
+    if tuple(mesh.axes) != ("data", "model"):
+        raise ValueError(f"serving takes a (data, model) mesh, not "
+                         f"{mesh.axes}")
+    mesh_cfg = mesh_config(mesh.shape, mesh.axes)
+    rules = S.rules_for(mesh_cfg, mesh)
+    dims = {"vocab": cfg.vocab_size, "embed": cfg.d_model,
+            "cache_seq": max_len}
+    if cfg.is_moe:
+        dims.update(experts=cfg.moe.num_experts, expert_embed=cfg.d_model)
+    whole = {name: () for name, n in dims.items()
+             if not rules.would_shard(name, n)}
+    return S.rules_for(mesh_cfg, mesh, whole)
+
 
 class ServeEngine:
-    """Greedy batched generation on one device. ``params`` is a state dict
-    (e.g. from :func:`repro_torch.interop.lm_params_from_jax`), loaded in
+    """Greedy batched generation on one device, or on this rank of a mesh.
+    ``params`` is a state dict (e.g. from
+    :func:`repro_torch.interop.lm_params_from_jax`; on a mesh this rank's
+    shards, :func:`repro_torch.interop.rank_params_from_jax`), loaded in
     ``dtype``; or another engine's ``params`` (a ParamTree of ``dtype`` on
     the device), served as it is, without a copy; without it the weights are
     drawn on the device from a generator seeded 0, leaf by leaf in f32, each
     cast to ``dtype`` before the next is drawn (the values of a draw in f32
-    cast afterwards, without an f32 copy of the whole model).
+    cast afterwards, without an f32 copy of the whole model); on a mesh each
+    rank draws every leaf and keeps its shard, so it holds the one-device
+    engine's values.
     ``attn_impl`` and ``ssd_impl`` select the prefill's attention and SSD
     scan: ``"kernel"`` (the CUDA kernels on the card) or ``"torch"``.
-    ``graphs``: the decode loop as CUDA graph replays (None: on a card),
-    or eagerly (False); True on the CPU raises.
+    ``graphs``: the decode loop as CUDA graph replays (None: on a card,
+    without a mesh), or eagerly (False); True on the CPU or on a mesh
+    raises.
+
+    ``mesh``: this rank's :class:`repro_torch.launch.mesh.Mesh` of axes
+    ``(data, model)``, on whose device the engine runs (module docstring);
+    the dense and MoE families only (the others raise
+    ``NotImplementedError``). A batch must split over the data axis.
 
     The engine owns one decode cache per batch size, of its ``max_len``:
     each prefill of that batch size zeroes it and writes into it, so a
@@ -62,16 +113,40 @@ class ServeEngine:
                  max_len: int = 128, dtype: torch.dtype = torch.bfloat16,
                  attn_impl: str = "kernel", ssd_impl: str = "kernel",
                  params: Optional[Mapping[str, torch.Tensor]] = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = None
+        if mesh is not None:
+            if cfg.family not in MESH_FAMILIES:
+                raise NotImplementedError(
+                    f"serving the {cfg.family} family on a mesh is ROADMAP "
+                    f"§1 item 22; the mesh serves {MESH_FAMILIES}")
+            if not same_device(self.device, mesh.device):
+                raise ValueError(f"the engine runs on {self.device}, its "
+                                 f"mesh rank on {mesh.device}")
+            if graphs:
+                raise ValueError(
+                    "a mesh runs its decode eagerly (graphs=False): a gloo "
+                    "mesh's collectives cannot be captured in a CUDA graph, "
+                    "and an NCCL capture is ROADMAP §1 item 19 (g)")
+            graphs = False
+            self.rules = serving_rules(cfg, mesh, max_len)
+            self.data, self.seq_axis = mesh_groups(self.rules)
         self.graphs = G.use_graphs(graphs, self.device)
         self.cfg = cfg
         self.model = build_model(cfg, attn_impl=attn_impl, ssd_impl=ssd_impl)
         self.max_len = max_len
         self.dtype = dtype
         if params is None:
-            self.params = self.model.init(
-                torch.Generator(self.device).manual_seed(0), dtype)
+            gen = torch.Generator(self.device).manual_seed(0)
+            if mesh is None:
+                self.params = self.model.init(gen, dtype)
+            else:
+                self.params = L.ParamTree(S.map_with_specs(
+                    lambda p, spec: self._shard(L.init_leaf(p, gen, dtype),
+                                                spec),
+                    self.model.param_defs(), self.specs()))
         elif isinstance(params, torch.nn.Module):
             held = {(p.dtype, p.device) for p in params.parameters()}
             if not all(t == dtype and same_device(d, self.device)
@@ -80,16 +155,57 @@ class ServeEngine:
                                  f"the engine serves {dtype} on "
                                  f"{self.device}")
             self.params = params
-        else:
+        elif mesh is None:
             self.params = self.model.load(params, self.device, dtype)
+        else:
+            self.params = L.ParamTree(S.map_with_specs(
+                lambda p, spec: torch.empty(
+                    self.rules.shard_shape(spec, p.shape), dtype=dtype,
+                    device=self.device),
+                self.model.param_defs(), self.specs()))
+            self.params.load_state_dict(params, strict=True)
         self._caches: Dict[int, Dict[str, torch.Tensor]] = {}
         self._loops: Dict[int, "DecodeLoop"] = {}
 
+    def specs(self):
+        """The specs this rank holds the params under (a mesh only):
+        :func:`repro_torch.sharding.serve_specs` under its rules."""
+        return S.serve_specs(self.model.param_defs(), self.rules)
+
+    def _shard(self, leaf: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's shard of a drawn leaf (its own memory), or the leaf."""
+        if not any(spec):
+            return leaf
+        return S.shard_of(leaf, spec, self.mesh).clone()
+
+    def rows(self, batch: int) -> int:
+        """The rows of a batch of ``batch`` that this engine holds: all of
+        them, or on a mesh its data shard."""
+        if self.mesh is None:
+            return batch
+        if batch % self.data.k:
+            raise ValueError(f"a batch of {batch} does not split over the "
+                             f"data axis's {self.data.k} ranks")
+        return batch // self.data.k
+
+    def local(self, batch: torch.Tensor) -> torch.Tensor:
+        """This engine's rows of a whole batch (dim 0)."""
+        rows = self.rows(batch.shape[0])
+        if self.mesh is None:
+            return batch
+        return batch.narrow(0, self.data.index * rows, rows)
+
     def cache(self, batch: int) -> Dict[str, torch.Tensor]:
-        """The decode cache of ``batch`` rows, made (zeros) at first use."""
+        """The decode cache of a batch of ``batch`` rows (this rank's rows
+        and chunk of the sequence on a mesh), made (zeros) at first use."""
         if batch not in self._caches:
+            length = self.max_len
+            if self.rules is not None and \
+                    self.rules.mesh_axes_for("cache_seq"):
+                length //= self.seq_axis.k
             self._caches[batch] = self.model.init_cache(
-                batch, self.max_len, dtype=self.dtype, device=self.device)
+                self.rows(batch), length, dtype=self.dtype,
+                device=self.device)
         return self._caches[batch]
 
     @torch.no_grad()
@@ -103,14 +219,16 @@ class ServeEngine:
         cross-attention). ``extras``: the VLM's ``patches`` (B, P, D), the
         audio family's ``frames`` (B, T, D), moved to the device. The cache
         is the engine's own: the next prefill of B rows zeroes and
-        overwrites it, so it is valid until then."""
+        overwrites it, so it is valid until then. On a mesh ``prompts`` is
+        the whole batch, and the logits and cache are this rank's rows."""
         cache = self.cache(prompts.shape[0])
         for leaf in T.leaves(cache):
             leaf.zero_()
-        batch = {"tokens": prompts}
+        batch = {"tokens": self.local(prompts)}
         for name, value in (extras or {}).items():
             batch[name] = torch.as_tensor(value, device=self.device)
-        return self.model.prefill(self.params, batch, cache)
+        with S.use_rules(self.rules):
+            return self.model.prefill(self.params, batch, cache)
 
     def start(self, prompt_len: int) -> int:
         """The position a prompt of ``prompt_len`` tokens decodes from: its
@@ -122,9 +240,11 @@ class ServeEngine:
                index) -> torch.Tensor:
         """One eager step: token (B, 1) at position ``index`` (an int or an
         integer device tensor) → logits (B, V); the cache is updated in
-        place."""
-        logits, _ = self.model.decode_step(
-            self.params, {"token": token, "cache": cache, "index": index})
+        place. On a mesh, B is this rank's rows."""
+        with S.use_rules(self.rules):
+            logits, _ = self.model.decode_step(
+                self.params, {"token": token, "cache": cache,
+                              "index": index})
         return logits
 
     def release(self, batch: int) -> None:
@@ -145,7 +265,8 @@ class ServeEngine:
                  extras: Optional[Mapping[str, torch.Tensor]] = None
                  ) -> np.ndarray:
         """prompts: (B, S_prompt) int → (B, gen_tokens) int32, greedy.
-        ``extras`` as :meth:`prefill` takes them."""
+        ``extras`` as :meth:`prefill` takes them. On a mesh every rank
+        passes the whole batch and gets the whole batch's tokens."""
         prompts = torch.as_tensor(prompts, device=self.device).long()
         b, s_prompt = prompts.shape
         start = self.start(s_prompt)
@@ -157,7 +278,11 @@ class ServeEngine:
         loop.start(logits, start)
         for _ in range(gen_tokens):
             loop.step()
-        return loop.tokens(start, gen_tokens)
+        if self.mesh is None:
+            return loop.tokens(start, gen_tokens)
+        tokens = self.data.gather_dim(loop.seq[:, start:start + gen_tokens],
+                                      0)
+        return tokens.to(torch.int32).cpu().numpy()
 
 
 class DecodeLoop:
@@ -170,13 +295,15 @@ class DecodeLoop:
     Every buffer stays on the device, so the host reads nothing between
     steps and the tokens once, at the end. The capture runs no step (no
     warm-up), so it neither advances the SSM state nor writes k, v into
-    the live cache; ``compiled`` holds the capture's host times."""
+    the live cache; ``compiled`` holds the capture's host times. On a mesh
+    B is this rank's rows of the batch."""
 
     def __init__(self, engine: ServeEngine, batch: int):
         dev = engine.device
-        self.token = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        rows = engine.rows(batch)
+        self.token = torch.zeros((rows, 1), dtype=torch.long, device=dev)
         self.index = torch.zeros((1,), dtype=torch.long, device=dev)
-        self.seq = torch.zeros((batch, engine.max_len), dtype=torch.long,
+        self.seq = torch.zeros((rows, engine.max_len), dtype=torch.long,
                                device=dev)
         model, params = engine.model, engine.params
 
@@ -191,6 +318,7 @@ class DecodeLoop:
 
         self.compiled = G.Compiled(step, self.token, self.index, self.seq,
                                    engine.cache(batch), graph=engine.graphs)
+        self.rules = engine.rules
 
     def start(self, logits: torch.Tensor, index: int) -> None:
         """Begin after a prefill: its logits' argmax is the token at
@@ -199,9 +327,10 @@ class DecodeLoop:
         self.index.fill_(index)
 
     def step(self) -> torch.Tensor:
-        """One step; its logits (B, V), overwritten by the next step under
-        graphs."""
-        return self.compiled()
+        """One step (under the engine's mesh rules, if any); its logits (B,
+        V), overwritten by the next step under graphs."""
+        with S.use_rules(self.rules):
+            return self.compiled()
 
     def tokens(self, start: int, n: int) -> np.ndarray:
         """Tokens at positions ``start`` to ``start + n`` on the host, as
@@ -218,6 +347,12 @@ def main(argv=None) -> None:
     p.add_argument("--gen-tokens", type=int, default=8)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--mesh", default=None, metavar="D,M",
+                   help="serve on a (data D, model M) mesh of the ranks "
+                        "torchrun started (D·M of them)")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
+                   help="the mesh's collectives: nccl (a card a rank) or "
+                        "gloo (ranks that share a card, or the CPU)")
     args = p.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
@@ -236,20 +371,36 @@ def main(argv=None) -> None:
     max_len = args.prompt_len + args.gen_tokens + 1
     if cfg.family == "vlm":
         max_len += cfg.num_image_tokens     # the image prefix's positions
-    engine = ServeEngine(cfg, args.device, max_len=max_len)
-    t0 = time.perf_counter()
-    tokens = engine.generate(prompts, args.gen_tokens, extras)
-    dt = time.perf_counter() - t0
-    dev = engine.device
-    print(json.dumps({
-        "arch": cfg.name,
-        "requests": args.requests,
-        "generated": tokens.shape[1],
-        "tokens_per_s": round(tokens.size / dt, 1),
-        "sample": tokens[0].tolist(),
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
-    }))
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch import mesh as M
+        M.init_from_env(args.backend, args.device)
+        mesh = M.make_mesh(tuple(int(n) for n in args.mesh.split(",")),
+                           ("data", "model"))
+    try:
+        engine = ServeEngine(cfg, mesh.device if mesh else args.device,
+                             max_len=max_len, mesh=mesh)
+        t0 = time.perf_counter()
+        tokens = engine.generate(prompts, args.gen_tokens, extras)
+        dt = time.perf_counter() - t0
+        dev = engine.device
+        line = {
+            "arch": cfg.name,
+            "requests": args.requests,
+            "generated": tokens.shape[1],
+            "tokens_per_s": round(tokens.size / dt, 1),
+            "sample": tokens[0].tolist(),
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+        }
+        if mesh is None:
+            print(json.dumps(line))
+        elif mesh.rank() == 0:
+            line.update(mesh=list(mesh.shape), backend=mesh.backend)
+            print(json.dumps(line))
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

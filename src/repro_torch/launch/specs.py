@@ -14,10 +14,13 @@ or computed: :class:`repro_torch.launch.roofline.WorkCounter` counts it):
 * decode: one ``model.decode_step`` against a cache of the cell's length.
 
 The per-card batch is the share of the batch axes that the sharding rules
-give (:mod:`repro_torch.sharding`). The port shards no weights yet (ROADMAP
-item 21), so a card holds the weights, the optimizer moments and the sync
-state whole, and runs the whole model on its rows: along the model axis the
-cards repeat each other's work, which the record's ``useful_ratio`` shows.
+give (:mod:`repro_torch.sharding`). A cell's card holds the weights, the
+optimizer moments and the sync state whole and runs the whole model on its
+rows: along the model axis the cards repeat each other's work, which the
+record's ``useful_ratio`` shows. Serving cells may now shard (a
+``ServeEngine(mesh=)`` rank holds its shards of the expert tables, the
+embedding and the cache), but a cell counts the one-card call; training
+cells still may not (the trainer shards no weights, ROADMAP item 21 (a)).
 The collectives a card's call would make across the mesh (the gradients'
 all-reduce over the batch axes, the replicas' sync) are priced from
 :func:`repro_torch.core.costmodel.wire_bytes_per_sync` on the link of the
@@ -234,8 +237,8 @@ def build_cell(arch: str, shape_name: str, mesh_cfg: MeshConfig, *,
         batch = _inputs(cfg, "train", b, cell.seq,
                         getattr(torch, cfg.dtype))
         n_data = sizes.get(mesh_cfg.data_axis, 1)
-        notes = ("weights, moments and sync state whole on each card (no "
-                 "weight sharding: item 21)")
+        notes = ("weights, moments and sync state whole on each card (the "
+                 "trainer shards no weights: item 21 (a))")
         if not local:
             state = LS.state_of(params, tcfg)
             step = LS.make_ddp_step(model, tcfg)
@@ -301,5 +304,6 @@ def build_cell(arch: str, shape_name: str, mesh_cfg: MeshConfig, *,
     return BuiltCell(run=run, batch_per_card=b, opt_steps=1,
                      state_bytes=_bytes(params) + _bytes(batch), wire=wire,
                      collectives=colls,
-                     notes="weights whole on each card (no weight "
-                           "sharding: item 21)", **common)
+                     notes="weights whole on each card (the one-card "
+                           "call; ServeEngine(mesh=) shards the expert "
+                           "and embedding tables and the cache)", **common)

@@ -2,9 +2,15 @@
 the enc-dec cross-attention (``kv_x`` / ``cross=True``: no RoPE, a fixed
 cache of the encoder's k, v).
 
-The port of ``repro.models.attention`` on one device (no mesh, so decode is
-the reference's single-shard math). Layouts are the reference's: activations
-(B, S, H, hd), caches (B, S, KV, hd).
+The port of ``repro.models.attention``. Layouts are the reference's:
+activations (B, S, H, hd), caches (B, S, KV, hd). Under mesh rules whose
+``cache_seq`` maps to a mesh axis (:func:`repro_torch.sharding.use_rules`),
+a rank holds its chunk of every cache's sequence (chunk r the positions
+[r·Sc, (r + 1)·Sc)): the prefill writes the positions its chunk holds
+(:func:`write_cache`), a decode step writes the new k, v on the rank whose
+chunk holds the index, and :func:`decode_attention` merges the ranks'
+flash-decode partials by log-sum-exp, as the reference's seq-sharded
+decode does. The full-sequence attention is the same on every rank.
 
 ``full_attention(impl=…)`` selects the attention of a full sequence:
 ``"kernel"`` (the default) goes through
@@ -22,6 +28,7 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import current_rules
 
 NEG_INF = -1e30
 # seq length at/beyond which the q-chunked path replaces full-score SDPA,
@@ -193,10 +200,10 @@ def decode_index(index, device) -> torch.Tensor:
 
 def _decode_attn_chunk(q, k_chunk, v_chunk, index: torch.Tensor,
                        chunk_offset: int):
-    """Flash-decode partial of one cache chunk: returns (o, l), the
-    unnormalised output and the softmax denominator. (The reference also
-    returns the running max for its lse merge across cache shards; one
-    device has one shard.)
+    """Flash-decode partial of one cache chunk: returns (o, l, m_safe,
+    has), the unnormalised output, the softmax denominator, the running max
+    (0 where the chunk holds no valid position) and whether it holds one,
+    for the lse merge across cache shards.
 
     q: (B,1,KV,G,hd) · k/v_chunk: (B,Sc,KV,hd); positions chunk_offset+i
     valid iff <= index, a (1,) device tensor. A masked position's p is 0,
@@ -210,26 +217,70 @@ def _decode_attn_chunk(q, k_chunk, v_chunk, index: torch.Tensor,
     pos = chunk_offset + torch.arange(sc, device=q.device)
     scores = torch.where(pos <= index, scores, -torch.inf)
     m = torch.amax(scores, dim=-1, keepdim=True)
-    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    has = torch.isfinite(m)
+    m_safe = torch.where(has, m, 0.0)
     p = torch.exp(scores - m_safe)
     p = torch.where(torch.isfinite(scores), p, 0.0)
     l = torch.sum(p, dim=-1, keepdim=True)
     o = torch.einsum("bkgqt,btkd->bkgqd", p.to(v_chunk.dtype), v_chunk)
-    return o, l
+    return o, l, m_safe, has
+
+
+def seq_shards():
+    """The model group over which the current rules shard the cache's
+    sequence, or None (no rules, no mesh, or ``cache_seq`` held whole)."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None \
+            or not rules.mesh_axes_for("cache_seq"):
+        return None
+    from repro_torch.core.collectives import mesh_groups
+    return mesh_groups(rules)[1]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, index: torch.Tensor
-                     ) -> torch.Tensor:
-    """One-token attention against the cache, the reference's single-shard
-    math: q (B,1,H,hd) · k/v_cache (B,S,KV,hd), positions ≤ index (a (1,)
-    device tensor) valid."""
+                     v_cache: torch.Tensor, index: torch.Tensor,
+                     mesh=None) -> torch.Tensor:
+    """One-token attention against the cache: q (B,1,H,hd) · k/v_cache
+    (B,S,KV,hd), positions ≤ index (a (1,) device tensor) valid.
+
+    Without ``mesh`` (the model group of a mesh,
+    :class:`repro_torch.core.collectives.Group`) the reference's
+    single-shard math. With it, k/v_cache are this rank's chunk of a cache
+    sharded on seq over that group: each rank's flash-decode partial,
+    merged as the reference's ``shard_fn``: the max m over the ranks, each
+    partial scaled by exp(m − m_max), l and o summed over the ranks, every
+    payload f32."""
     b, _, h, hd = q.shape
     kv = k_cache.shape[2]
     qg = q.reshape(b, 1, kv, h // kv, hd)
-    o, l = _decode_attn_chunk(qg, k_cache, v_cache, index, 0)
-    out = (o / torch.clamp(l, min=1e-30)).to(q.dtype)    # (B,KV,G,1,hd)
+    if mesh is None:
+        o, l, _, _ = _decode_attn_chunk(qg, k_cache, v_cache, index, 0)
+        out = (o / torch.clamp(l, min=1e-30)).to(q.dtype)  # (B,KV,G,1,hd)
+        return out.reshape(b, 1, h, hd)
+    sc = k_cache.shape[1]
+    o, l, m, _ = _decode_attn_chunk(qg, k_cache, v_cache, index,
+                                    mesh.index * sc)
+    m_glob = mesh.maximum(m)
+    scale = torch.exp(m - m_glob)
+    l_glob = mesh.sum(l * scale)
+    o_glob = mesh.sum(o.float() * scale)
+    out = (o_glob / torch.clamp(l_glob, min=1e-30)).to(q.dtype)
     return out.reshape(b, 1, h, hd)
+
+
+def write_cache(cache: torch.Tensor, k: torch.Tensor, shards=None) -> None:
+    """The prefill's k (B, s, KV, hd) into ``cache`` (B, S, KV, hd): its
+    first s positions, or, on the rank of ``shards`` (the model group of a
+    seq-sharded cache), the positions of its chunk."""
+    s = k.shape[1]
+    if shards is None:
+        cache[:, :s] = k
+        return
+    sc = cache.shape[1]
+    lo = shards.index * sc
+    n = min(max(s - lo, 0), sc)
+    if n:
+        cache[:, :n] = k[:, lo:lo + n]
 
 
 def decode_step_attention(params: L.Params, x: torch.Tensor,
@@ -247,6 +298,9 @@ def decode_step_attention(params: L.Params, x: torch.Tensor,
     cross-attention against the fixed encoder states: no RoPE, no cache
     write, every one of the cache's S positions attended (the reference's
     ``eff_index = S − 1``, here a device tensor too, so the step captures).
+    Under rules that shard ``cache_seq`` (:func:`seq_shards`) the self-
+    attention caches are this rank's chunks: the rank whose chunk holds
+    ``index`` writes the new k, v, and the ranks' partials are merged.
     """
     if cross:
         q = _proj(x, params["wq"])
@@ -259,7 +313,26 @@ def decode_step_attention(params: L.Params, x: torch.Tensor,
         cos, sin = rotary_cos_sin(pos, cfg)
         q = L.apply_rope(q, cos, sin)
         k_new = L.apply_rope(k_new, cos, sin)
-        cache_k.index_copy_(1, index, k_new.to(cache_k.dtype))
-        cache_v.index_copy_(1, index, v_new.to(cache_v.dtype))
-    out = decode_attention(q, cache_k, cache_v, index)
+        shards = seq_shards()
+        for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+            if shards is None:
+                cache.index_copy_(1, index, new.to(cache.dtype))
+            else:
+                _write_step(cache, new, index, shards)
+    out = decode_attention(q, cache_k, cache_v, index,
+                           None if cross else shards)
     return _out_proj(out, params["wo"]), cache_k, cache_v
+
+
+def _write_step(cache: torch.Tensor, new: torch.Tensor, index: torch.Tensor,
+                shards) -> None:
+    """A step's k or v (B, 1, KV, hd) at ``index`` into this rank's chunk
+    of a seq-sharded cache, where the chunk holds the index; elsewhere the
+    chunk's row it would take is written with its own value. Device ops
+    only: the host never reads the index."""
+    sc = cache.shape[1]
+    local = index - shards.index * sc
+    mine = (local >= 0) & (local < sc)
+    row = local.clamp(0, sc - 1)
+    keep = cache.index_select(1, row)
+    cache.index_copy_(1, row, torch.where(mine, new.to(cache.dtype), keep))

@@ -8,8 +8,12 @@ parameter names are the reference's dict keys (``attn.wq``, ``mlp.w_up``,
 parameters as ``params["wq"]``, so they take a ``ParamTree`` or a plain dict
 of tensors alike.
 
-There is no mesh: the sharded and one-hot embedding paths of the reference
-serve a mesh only, and the plain gather computes the same lookup.
+Under mesh rules (:func:`repro_torch.sharding.use_rules`) :func:`embed`
+takes the reference's mesh paths on a rank's shard of the table (vocab→model,
+d_model→data): the vocab-parallel lookup for T ≥ 32,768 tokens, an exact
+masked lookup summed over the ranks for fewer; :func:`unembed` of a tied
+table gives the local logits and gathers them over the model axis.
+Without rules, the plain gather.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.sharding import current_rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +49,7 @@ class Param:
 ParamDefs = Dict[str, Any]  # nested dict of Param, a list for a layer stack
 
 
-def _init_leaf(p: Param, gen: torch.Generator, dtype: torch.dtype
+def init_leaf(p: Param, gen: torch.Generator, dtype: torch.dtype
                ) -> torch.Tensor:
     dev = gen.device
     if p.init == "zeros":
@@ -90,7 +96,7 @@ def init_params(defs: ParamDefs, gen: torch.Generator,
     them. The leaves
     are drawn in declaration order from one generator, so a seed fixes the
     tree (it does not give JAX's numbers)."""
-    return _map_defs(defs, lambda p: _init_leaf(p, gen, dtype))
+    return _map_defs(defs, lambda p: init_leaf(p, gen, dtype))
 
 
 def empty_params(defs: ParamDefs, dtype: torch.dtype, device
@@ -220,14 +226,84 @@ def embed_defs(vocab: int, d_model: int) -> ParamDefs:
     return {"embedding": Param((vocab, d_model), ("vocab", "embed"))}
 
 
+# tokens from which a mesh takes the vocab-parallel lookup (the reference's)
+SHARDED_MIN_TOKENS = 32768
+
+
 def embed(params: Params, tokens: torch.Tensor, dtype: torch.dtype
           ) -> torch.Tensor:
-    """Token embedding lookup: a gather of the rows, in ``dtype``."""
+    """Token embedding lookup: a gather of the rows, in ``dtype``. Under
+    mesh rules ``tokens`` (B_loc, S) are this rank's rows of the batch and
+    ``params["embedding"]`` its (V/M, D/Dn) shard; the result is its rows'
+    (B_loc, S, D), exact (every sum on the way has one nonzero term)."""
+    rules = current_rules()
+    if rules is not None and rules.mesh is not None:
+        return _embed_mesh(params["embedding"], tokens, dtype, rules)
     return F.embedding(tokens, params["embedding"]).to(dtype)
 
 
+def _embed_mesh(table, tokens, dtype, rules):
+    from repro_torch.core.collectives import mesh_groups
+    data, model = mesh_groups(rules)
+    split_v = bool(rules.mesh_axes_for("vocab"))
+    split_d = bool(rules.mesh_axes_for("embed"))
+    b_loc, s = tokens.shape
+    if (b_loc * data.k * s >= SHARDED_MIN_TOKENS and split_v
+            and s % model.k == 0):
+        return embed_sharded(table, tokens, dtype, data, model, split_d)
+    # decode-sized T: the tokens move and the table stays. Every rank looks
+    # up every row of the batch in its shard; the vocab shards' partials
+    # are summed over model, the d_model slices gathered over data
+    tok = data.gather_dim(tokens, 0)
+    x = _masked_lookup(table, tok, model.index * table.shape[0]
+                       if split_v else 0)
+    if split_v:
+        x = model.sum(x)
+    if split_d:
+        x = data.gather_dim(x, 2)
+    return x.narrow(0, data.index * b_loc, b_loc).to(dtype)
+
+
+def _masked_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int
+                   ) -> torch.Tensor:
+    """f32 rows of the tokens that fall in this shard (its first id ``lo``),
+    zeros for the others."""
+    ids = tokens - lo
+    ok = (ids >= 0) & (ids < table.shape[0])
+    x = F.embedding(ids.clamp(0, table.shape[0] - 1), table).float()
+    return torch.where(ok[..., None], x, 0.0)
+
+
+def embed_sharded(table: torch.Tensor, tokens: torch.Tensor,
+                  dtype: torch.dtype, data, model, split_d: bool = True
+                  ) -> torch.Tensor:
+    """The reference's ``_embed_sharded`` on this rank's tokens (B_loc, S)
+    and its (V/M, D/Dn) table shard: the table gathered over data (FSDP), a
+    masked local gather in f32, the sum-scatter over model into the act_seq
+    layout (B_loc, S/M, D), as the reference; then, in ``dtype``, gathered
+    back along seq over model, since the port's dense layers take the whole
+    sequence."""
+    tab = data.gather_dim(table, 1) if split_d else table
+    x = _masked_lookup(tab, tokens, model.index * tab.shape[0])
+    x = model.sum_scatter_dim(x, 1).to(dtype)
+    return model.gather_dim(x, 1)
+
+
 def unembed(params: Params, x: torch.Tensor, tied: bool) -> torch.Tensor:
+    """x @ tableᵀ. Under mesh rules a tied table is this rank's (V/M, D/Dn)
+    shard of the embedding: gathered over data, the local logits, gathered
+    over model along the vocab."""
     table = params["embedding"] if tied else params["out_embedding"]
+    rules = current_rules()
+    if tied and rules is not None and rules.mesh is not None:
+        from repro_torch.core.collectives import mesh_groups
+        data, model = mesh_groups(rules)
+        if rules.mesh_axes_for("embed"):
+            table = data.gather_dim(table, 1)
+        logits = x @ table.to(x.dtype).T
+        if rules.mesh_axes_for("vocab"):
+            logits = model.gather_dim(logits, -1)
+        return logits
     return x @ table.to(x.dtype).T
 
 

@@ -1,9 +1,25 @@
 """Mixture-of-Experts FFN: top-k routing with scatter/gather dispatch.
 
-The port of ``repro.models.moe``'s single-device path (the reference's
-``moe_ffn`` with no mesh rules; its expert-parallel ``_moe_ffn_sharded``
-and one-hot ``_moe_ffn_onehot`` serve a mesh and wait for expert
-parallelism across ranks, ROADMAP §1 item 21).
+The port of ``repro.models.moe``. :func:`moe_ffn` dispatches as the
+reference does:
+
+* no mesh rules current: the single-device path below;
+* a mesh (:func:`repro_torch.sharding.use_rules`) and T ≥ 32,768 tokens
+  where the experts split over the model axis, d_model over the data axis
+  and the sequence over the model axis: :func:`moe_ffn_sharded`, the
+  reference's expert parallelism (an all-to-all of the dispatched tokens to
+  the ranks that own their experts, the FSDP gathers of the expert tables
+  over data, the return trip);
+* a mesh and fewer tokens: :func:`moe_ffn_onehot`, the reference's
+  decode-sized function with the expert tables left where they sit;
+* a mesh, T ≥ 32,768 and those conditions failing: the tables and the
+  batch gathered and the single-device body run, the function the
+  reference's scatter path computes there.
+
+On a mesh a rank holds its data shard of the batch, the whole sequence
+(replicated over the model axis) and its shards of the expert tables
+(experts→model, d_model→data; the router whole), and gets back the output
+of its rows.
 
 Tokens are scattered into a static (E, C, D) expert buffer (C = capacity
 per expert), the expert products run as batched (E, C, D)×(E, D, F)
@@ -25,18 +41,30 @@ routed share is counted from the indices and carries none, as in the
 reference. The backward of the dispatch is deterministic: a kept (expert,
 rank) has one writer, and the gather's duplicate rows (a dropped slot reads
 row C − 1 of its expert) carry a weight of 0, so their gradient adds zeros.
+On a mesh the sharded path's gradient goes through the collectives'
+transposes (:mod:`repro_torch.core.collectives`): each rank's loss is its
+share of the whole, a replicated leaf's gradient (the router's) this rank's
+part of it.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.core import collectives as CL
 from repro_torch.models import layers as L
+from repro_torch.sharding import current_rules
 
 CAPACITY_FACTOR = 1.25
+# tokens from which a mesh takes the all-to-all path (the reference's)
+SHARDED_MIN_TOKENS = 32768
+# calls of each mesh path in this process: "sharded" (all-to-all),
+# "onehot", "gathered" (the tables and the batch gathered)
+PATHS: Counter = Counter()
 
 
 def moe_defs(cfg: ModelConfig) -> L.ParamDefs:
@@ -99,14 +127,55 @@ def load_balance(logits: torch.Tensor, indices: torch.Tensor,
     and their routed experts (T, k): E × Σ_e (mean gate mass of e) × (share
     of the routed slots that went to e), the reference's ``aux``. The
     serving path does not compute it; a training loss adds it."""
+    me, ce = _load_terms(logits, indices, cfg)
+    return logits.shape[1] * torch.sum(me * ce)
+
+
+def _load_terms(logits: torch.Tensor, indices: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the mean gate mass of each expert, its share of the routed slots)."""
     t, e = logits.shape
     gates = torch.softmax(logits.float(), dim=-1)
     routed = torch.zeros((t, e), dtype=torch.float32, device=logits.device)
     routed.scatter_add_(1, indices, torch.ones(indices.shape,
                                                dtype=torch.float32,
                                                device=logits.device))
-    ce = routed.mean(dim=0) / cfg.moe.top_k
-    return e * torch.sum(gates.mean(dim=0) * ce)
+    return gates.mean(dim=0), routed.mean(dim=0) / cfg.moe.top_k
+
+
+def _dispatch(xt: torch.Tensor, indices: torch.Tensor, pos: torch.Tensor,
+              cap: int, e: int) -> torch.Tensor:
+    """Scatter per slot into (E, C + 1, D): a slot over capacity lands in
+    the spare row C, cut off here (the reference's mode="drop"). A kept
+    (expert, rank) has one writer, so the sum is the token's row."""
+    row = indices * (cap + 1) + torch.clamp(pos, max=cap)
+    buf = torch.zeros((e * (cap + 1), xt.shape[1]), dtype=xt.dtype,
+                      device=xt.device)
+    for j in range(indices.shape[1]):
+        buf.index_add_(0, row[:, j], xt)
+    return buf.reshape(e, cap + 1, xt.shape[1])[:, :cap]
+
+
+def _experts(buf: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """The expert products of (E, C, D) slots: SwiGLU, (E, C, D) out."""
+    dtype = buf.dtype
+    gate = torch.bmm(buf, w_gate.to(dtype))
+    up = torch.bmm(buf, w_up.to(dtype))
+    return torch.bmm(F.silu(gate) * up, w_down.to(dtype))
+
+
+def _combine(ye: torch.Tensor, indices: torch.Tensor, pos: torch.Tensor,
+             weights: torch.Tensor, cap: int) -> torch.Tensor:
+    """Gather back per slot in slot order from (E·C, D); dropped slots (and
+    slots of weight 0) contribute 0."""
+    t, d = indices.shape[0], ye.shape[1]
+    out = torch.zeros((t, d), dtype=ye.dtype, device=ye.device)
+    for j in range(indices.shape[1]):
+        kept = (pos[:, j] < cap).to(weights.dtype)
+        yt = ye.index_select(
+            0, indices[:, j] * cap + torch.clamp(pos[:, j], max=cap - 1))
+        out = out + yt * (weights[:, j] * kept)[:, None].to(ye.dtype)
+    return out
 
 
 def moe_ffn(params: L.Params, x: torch.Tensor, cfg: ModelConfig,
@@ -115,37 +184,166 @@ def moe_ffn(params: L.Params, x: torch.Tensor, cfg: ModelConfig,
     """x (B, S, D) → out (B, S, D), or with ``return_aux`` (out, aux): the
     f32 :func:`load_balance` term of the router logits and routed experts
     this dispatch used (the reference's pair). Serving takes out alone and
-    computes no aux."""
+    computes no aux. Under mesh rules x is this rank's rows of the batch
+    and ``params`` holds its shards of the expert tables (the module
+    docstring); aux is then the whole batch's."""
+    rules = current_rules()
+    if rules is not None and rules.mesh is not None:
+        return _moe_ffn_mesh(params, x, cfg, capacity_factor, return_aux,
+                             rules)
+    return _moe_ffn_local(params, x, cfg, capacity_factor, return_aux)
+
+
+def _moe_ffn_local(params, x, cfg, capacity_factor, return_aux):
+    """The single-device path."""
     b, s, d = x.shape
-    e, k = cfg.moe.num_experts, cfg.moe.top_k
-    t = b * s
-    dtype = x.dtype
-    xt = x.reshape(t, d)
+    e = cfg.moe.num_experts
+    xt = x.reshape(b * s, d)
     logits = router_logits(params, x)
     weights, indices, pos, cap = routing(logits, cfg, capacity_factor)
-
-    # scatter per slot into (E, C + 1, D): a slot over capacity lands in
-    # the spare row C, cut off below (the reference's mode="drop"). A kept
-    # (expert, rank) has one writer, so the sum is the token's row.
-    row = indices * (cap + 1) + torch.clamp(pos, max=cap)
-    buf = torch.zeros((e * (cap + 1), d), dtype=dtype, device=x.device)
-    for j in range(k):
-        buf.index_add_(0, row[:, j], xt)
-    buf = buf.reshape(e, cap + 1, d)[:, :cap]
-
-    gate = torch.bmm(buf, params["w_gate"].to(dtype))
-    up = torch.bmm(buf, params["w_up"].to(dtype))
-    ye = torch.bmm(F.silu(gate) * up, params["w_down"].to(dtype))
-    ye = ye.reshape(e * cap, d)
-
-    # gather back per slot in slot order; dropped slots contribute 0
-    out = torch.zeros((t, d), dtype=dtype, device=x.device)
-    for j in range(k):
-        kept = (pos[:, j] < cap).to(weights.dtype)
-        yt = ye.index_select(
-            0, indices[:, j] * cap + torch.clamp(pos[:, j], max=cap - 1))
-        out = out + yt * (weights[:, j] * kept)[:, None].to(dtype)
+    buf = _dispatch(xt, indices, pos, cap, e)
+    ye = _experts(buf, params["w_gate"], params["w_up"], params["w_down"])
+    out = _combine(ye.reshape(e * cap, d), indices, pos, weights, cap)
     out = out.reshape(b, s, d)
     if return_aux:
         return out, load_balance(logits, indices, cfg)
     return out
+
+
+# ---------------------------------------------------------------------------
+# on a mesh
+# ---------------------------------------------------------------------------
+
+def _moe_ffn_mesh(params, x, cfg, capacity_factor, return_aux, rules):
+    data, model = CL.mesh_groups(rules)
+    # how the rank holds its tables: the rules' axes of their dims
+    split = (bool(rules.mesh_axes_for("experts")),
+             bool(rules.mesh_axes_for("expert_embed")))
+    b_loc, s, d = x.shape
+    e = cfg.moe.num_experts
+    if b_loc * data.k * s < SHARDED_MIN_TOKENS:
+        PATHS["onehot"] += 1
+        out, aux = moe_ffn_onehot(params, x, cfg, data, model, split,
+                                  capacity_factor, return_aux)
+    elif all(split) and e % model.k == 0 and d % data.k == 0 \
+            and s % model.k == 0:
+        # the act_seq slice of this rank's rows, and the outputs of every
+        # slice gathered back along seq over the model axis
+        s_loc = s // model.k
+        PATHS["sharded"] += 1
+        out, aux = moe_ffn_sharded(
+            params, x.narrow(1, model.index * s_loc, s_loc), cfg, data,
+            model, capacity_factor, return_aux)
+        out = model.gather_dim(out, 1)
+    else:
+        PATHS["gathered"] += 1
+        tables = {name: params[name]
+                  for name in ("router", "w_gate", "w_up", "w_down")}
+        for name, d_dim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
+            if split[0]:
+                tables[name] = model.gather_dim(tables[name], 0)
+            if split[1]:
+                tables[name] = data.gather_dim(tables[name], d_dim)
+        out, aux = _moe_ffn_local(tables, data.gather_dim(x, 0), cfg,
+                                  capacity_factor, True)
+        out = out.narrow(0, data.index * b_loc, b_loc)
+    return (out, aux) if return_aux else out
+
+
+def moe_ffn_sharded(params: L.Params, x: torch.Tensor, cfg: ModelConfig,
+                    data, model, capacity_factor: float = CAPACITY_FACTOR,
+                    return_aux: bool = True):
+    """The reference's ``_moe_ffn_sharded`` body on this rank's (B_loc,
+    S_loc, D) tokens → (its out, aux over every rank's tokens).
+
+    ``data`` and ``model`` are the mesh's groups
+    (:class:`repro_torch.core.collectives.Group`); ``params`` holds the
+    router whole and this rank's (E/M, D/Dn, F) / (E/M, F, D/Dn) expert
+    tables. Route the local tokens; scatter them into an (E, C_s, D) send
+    buffer, C_s = ⌈cf·k·T_loc/E⌉ rounded up to 8 (a capacity per expert
+    and source shard: it decides which slots drop, not the global C); an
+    all-to-all over model carries each expert's slots to its owner; gather
+    the tables over data (FSDP); the expert products; the reverse
+    all-to-all; the local weighted combine. aux (None unless
+    ``return_aux``) takes its two means averaged over every rank."""
+    b, s, d = x.shape
+    e = cfg.moe.num_experts
+    m = model.k
+    e_loc = e // m
+    xt = x.reshape(b * s, d)
+    logits = router_logits(params, x)
+    weights, indices, pos, cap = routing(logits, cfg, capacity_factor)
+
+    aux = None
+    if return_aux:
+        me, ce = _load_terms(logits, indices, cfg)
+        n = data.k * model.k
+        me = CL._div_exact(model.sum(data.sum(me)), n)
+        ce = CL._div_exact(model.sum(data.sum(ce)), n)
+        aux = e * torch.sum(me * ce)
+
+    buf = _dispatch(xt, indices, pos, cap, e)            # (E, C_s, D)
+    # dispatch: the slots of the experts of model rank j go to rank j
+    recv = model.all_to_all(buf.reshape(m, e_loc, cap, d))
+    xe = recv.transpose(0, 1).reshape(e_loc, m * cap, d)
+    ye = _experts(xe, data.gather_dim(params["w_gate"], 1),
+                  data.gather_dim(params["w_up"], 1),
+                  data.gather_dim(params["w_down"], 2))
+    # the return trip
+    ye = ye.reshape(e_loc, m, cap, d).transpose(0, 1)
+    back = model.all_to_all(ye)
+    out = _combine(back.reshape(e * cap, d), indices, pos, weights, cap)
+    return out.reshape(b, s, d), aux
+
+
+def moe_ffn_onehot(params: L.Params, x: torch.Tensor, cfg: ModelConfig,
+                   data, model, split: Tuple[bool, bool] = (True, True),
+                   capacity_factor: float = CAPACITY_FACTOR,
+                   return_aux: bool = True):
+    """The function of the reference's ``_moe_ffn_onehot`` (decode-sized
+    T on a mesh) on this rank's (B_loc, S, D) rows → (their out, aux),
+    with the expert tables left where they sit: the activations move.
+
+    The batch is gathered over data, so every rank routes every token as
+    one device would (the capacity from the whole T). A rank dispatches the
+    slots of its E/M experts, on its d_model slice; its partial products
+    over that slice are summed over data (f32); its experts' outputs on its
+    d_model slice are combined for every token and the partials summed over
+    model (f32); the d_model slices are gathered over data and the rank
+    keeps its rows. ``split``: whether the tables are split over experts
+    (model) and over d_model (data). aux is None unless ``return_aux``."""
+    b_loc, s, d = x.shape
+    e = cfg.moe.num_experts
+    xg = data.gather_dim(x, 0)
+    t = xg.shape[0] * s
+    xt = xg.reshape(t, d)
+    logits = router_logits(params, xg)
+    weights, indices, pos, cap = routing(logits, cfg, capacity_factor)
+    aux = load_balance(logits, indices, cfg) if return_aux else None
+
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    e_loc, d_loc = wg.shape[0], wg.shape[1]
+    split_e, split_d = split
+    lo = model.index * e_loc if split_e else 0
+    mine = (indices >= lo) & (indices < lo + e_loc)
+    local = torch.where(mine, indices - lo, 0)
+    # a slot of another rank's expert goes to the spare row, like a drop
+    pos_mine = torch.where(mine, pos, cap)
+    if split_d:
+        xt = xt.narrow(1, data.index * d_loc, d_loc)
+    buf = _dispatch(xt, local, pos_mine, cap, e_loc)    # (E_loc, C, D_loc)
+    dtype = buf.dtype
+
+    def over_d(part):
+        return data.sum(part.float()).to(dtype) if split_d else part
+    gate = over_d(torch.bmm(buf, wg.to(dtype)))
+    up = over_d(torch.bmm(buf, wu.to(dtype)))
+    ye = torch.bmm(F.silu(gate) * up, wd.to(dtype))     # (E_loc, C, D_loc)
+    out = _combine(ye.reshape(e_loc * cap, d_loc), local, pos_mine,
+                   weights, cap)
+    if split_e:
+        out = model.sum(out.float()).to(dtype)
+    if split_d:
+        out = data.gather_dim(out, 1)
+    out = out.reshape(-1, s, d).narrow(0, data.index * b_loc, b_loc)
+    return out, aux

@@ -21,6 +21,16 @@ layers take :func:`repro_torch.models.moe.moe_ffn` in place of the MLP, and
 its loss adds the mean over the layers of their load-balance terms;
 :class:`PrefixVLM` puts stub patch embeddings before the text under a
 prefix-LM mask and takes its loss over the text positions.
+
+Under mesh rules (the serving engine's on a ``(data, model)`` mesh,
+:class:`repro_torch.launch.serve.ServeEngine`) a rank holds its data shard
+of the batch. The norms, the attention (the flash kernel) and the dense MLP
+run on the whole sequence, replicated across the model axis: the reference
+leaves those layers to XLA's partitioner, and replication is their plain
+equivalent (tensor- or sequence-parallel dense layers are ROADMAP §1 item 19
+(h)). The embedding, the MoE (on its act_seq slice of the sequence, gathered
+back along seq) and the decode attention take their mesh paths, and the
+prefill writes this rank's chunk of the cache.
 """
 from __future__ import annotations
 
@@ -189,9 +199,8 @@ class LM:
 
     def _logits_last(self, params: L.Params, x_last: torch.Tensor
                      ) -> torch.Tensor:
-        table = params["embed"]["embedding"] if self.cfg.tie_embeddings \
-            else params["out_embedding"]
-        return x_last @ table.to(x_last.dtype).T
+        tied = self.cfg.tie_embeddings
+        return L.unembed(params["embed"] if tied else params, x_last, tied)
 
     def prefill(self, params: L.Params, batch,
                 cache: Optional[Dict[str, torch.Tensor]] = None
@@ -247,8 +256,11 @@ class DecoderLM(LM):
         """x: (B, S, D) embedded inputs → final hidden (+ cache), causal, or
         causal ∪ the first :meth:`positions_before` positions (the VLM's
         prefix-LM mask). With ``return_cache`` each layer's k, v is written into
-        ``cache[name][i, :, :S]``: the given cache (e.g. of ``max_len``), or
-        one of length S in the activations' dtype. With ``return_aux``
+        ``cache[name][i, :, :S]`` (under rules that shard the cache's
+        sequence, the positions of this rank's chunk,
+        :func:`repro_torch.models.attention.write_cache`): the given cache
+        (e.g. of ``max_len``), or one of length S (its chunk) in the
+        activations' dtype. With ``return_aux``
         (training) it returns (final hidden, the mean over the layers of
         their load-balance terms), each layer's term going through its
         checkpoint beside x.
@@ -258,8 +270,10 @@ class DecoderLM(LM):
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         prefix_len = self.positions_before()
         mask_mode = "prefix" if prefix_len else "causal"
+        shards = A.seq_shards() if return_cache else None
         if return_cache and cache is None:
-            cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
+            cache = self.init_cache(b, s // (shards.k if shards else 1),
+                                    dtype=x.dtype, device=x.device)
         fwd = (remat_layer(layer_fwd, self.remat)
                if torch.is_grad_enabled() and not return_cache else layer_fwd)
         auxes = []
@@ -268,8 +282,8 @@ class DecoderLM(LM):
                       self.attn_impl, return_cache, return_aux)
             if return_cache:
                 x, k, v = out
-                cache["k"][i, :, :s] = k
-                cache["v"][i, :, :s] = v
+                A.write_cache(cache["k"][i], k, shards)
+                A.write_cache(cache["v"][i], v, shards)
             elif return_aux:
                 x, aux = out
                 auxes.append(aux)

@@ -13,14 +13,27 @@ A spec is a plain tuple, one entry a dim up to the last sharded one: ``None``
 ``PartitionSpec`` entries). :func:`shard_shape` gives the per-device shape a
 spec leaves of an array on a mesh's axis sizes, which the dry run reads.
 
+:func:`use_rules` makes rules current for the calls inside it, as the
+reference's does; the model code reads them with :func:`current_rules` and
+takes its mesh paths where they have a mesh. :func:`shard_of` and
+:func:`shard_tree` give the slice of each dim that this rank's mesh
+coordinates take (the port's counterpart of placing an array under a
+``NamedSharding``); :func:`unshard_tree` puts the ranks' slices back
+together.
+
 The reference's ``constrain`` and ``sharding_for`` have no counterpart:
 they hand a spec to XLA's SPMD partitioner, and PyTorch's eager program has
-none. The port shards no weights yet (ROADMAP item 21); its trainer splits
+none. So a rank holds a weight either whole or as the slice its mesh path
+reads: serving on a mesh shards the MoE's expert tables, the embedding table
+and the decode cache (:class:`repro_torch.launch.serve.ServeEngine`) and
+holds every other weight whole; the trainer shards no weights and splits
 the batch over its ranks (:mod:`repro_torch.core.local_sgd`).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+import contextlib
+import contextvars
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 from repro_torch.config.base import MeshConfig
 
@@ -93,6 +106,14 @@ class ShardingRules:
         # drop axes absent from the mesh (e.g. "pod" on the single-pod mesh)
         return tuple(a for a in axes if a in self._axis_sizes)
 
+    def would_shard(self, logical: Optional[str], size: int) -> bool:
+        """Whether a dim of this logical name and size shards on this
+        mesh."""
+        total = 1
+        for a in self.mesh_axes_for(logical):
+            total *= self._axis_sizes.get(a, 1)
+        return total > 1 and size % total == 0
+
     def spec_for(self, logical_axes: Sequence[Optional[str]],
                  shape: Optional[Sequence[int]] = None) -> Spec:
         """The spec of one array; replicates non-divisible dims and uses each
@@ -134,6 +155,25 @@ class ShardingRules:
                                  f"over {axes} ({div})")
             out.append(n // div)
         return tuple(out)
+
+
+_RULES: contextvars.ContextVar = contextvars.ContextVar("sharding_rules",
+                                                       default=None)
+
+
+def current_rules() -> Optional[ShardingRules]:
+    """The rules :func:`use_rules` made current, or None."""
+    return _RULES.get()
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[ShardingRules]):
+    """Make ``rules`` current inside the block (None: no rules)."""
+    token = _RULES.set(rules)
+    try:
+        yield rules
+    finally:
+        _RULES.reset(token)
 
 
 def rules_for(mesh_cfg: MeshConfig, mesh=None,
@@ -182,3 +222,159 @@ def tree_specs(logical_tree, shapes_tree, rules: ShardingRules):
                          f"{sorted(shapes_tree)}")
     return {k: tree_specs(v, shapes_tree[k], rules)
             for k, v in logical_tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# a rank's shard
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry: MeshAxes) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def _block(entry: MeshAxes, coords: Mapping[str, int],
+           sizes: Mapping[str, int]) -> Tuple[int, int]:
+    """(this block's index, the number of blocks) of one spec entry: its
+    axes row-major, the first the slowest, as ``PartitionSpec`` orders a
+    tuple of axes."""
+    index, count = 0, 1
+    for a in _entry_axes(entry):
+        index = index * sizes[a] + coords[a]
+        count *= sizes[a]
+    return index, count
+
+
+def coords_of(mesh) -> Dict[str, int]:
+    """This rank's index along each axis of ``mesh`` (a live
+    :class:`repro_torch.launch.mesh.Mesh`)."""
+    return {a: mesh.rank(a) for a in axis_sizes(mesh)}
+
+
+def _slice(tensor, spec: Spec, coords, sizes):
+    out = tensor
+    for dim, entry in enumerate(spec):
+        index, count = _block(entry, coords, sizes)
+        if count == 1:
+            continue
+        if out.shape[dim] % count:
+            raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
+                             f"split over {_entry_axes(entry)} ({count})")
+        size = out.shape[dim] // count
+        out = out.narrow(dim, index * size, size)
+    return out
+
+
+def shard_of(tensor, spec: Spec, mesh):
+    """The slice of ``tensor`` that this rank's coordinates on ``mesh``
+    take under ``spec`` (a view; each sharded dim must divide)."""
+    return _slice(tensor, spec, coords_of(mesh), axis_sizes(mesh))
+
+
+def map_with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree (nested dicts and lists, visited in
+    the tree's own order) and the matching tree of specs."""
+    if isinstance(tree, Mapping):
+        if set(tree) != set(specs):
+            raise ValueError(f"trees differ: {sorted(tree)} against "
+                             f"{sorted(specs)}")
+        return {k: map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_specs(fn, t, s)
+                for t, s in zip(tree, specs, strict=True)]
+    return fn(tree, specs)
+
+
+def shard_tree(tree, specs, mesh):
+    """:func:`shard_of` over a tree (nested dicts and lists) and the matching
+    tree of specs."""
+    coords, sizes = coords_of(mesh), axis_sizes(mesh)
+    return map_with_specs(lambda t, s: _slice(t, s, coords, sizes), tree,
+                          specs)
+
+
+def unshard_tree(trees: Sequence, specs, mesh):
+    """The whole tree from every rank's :func:`shard_tree` (``trees`` in
+    world-rank order, numpy arrays or tensors; ``mesh`` anything
+    :func:`axis_sizes` reads, e.g. a :class:`MeshConfig`): each leaf the
+    ranks' slices put back along every sharded dim. The inverse of
+    :func:`shard_tree` for the tests; ranks that hold one block alike must
+    hold it bitwise alike."""
+    import numpy as np
+    sizes = axis_sizes(mesh)
+    names = list(sizes)
+    world = 1
+    for n in sizes.values():
+        world *= n
+    if len(trees) != world:
+        raise ValueError(f"{len(trees)} trees for a mesh of {world} ranks")
+    coords = [dict(zip(names, np.unravel_index(r, tuple(sizes.values()))))
+              for r in range(world)]
+
+    def join(spec, *parts):
+        parts = [np.asarray(p) for p in parts]
+        shape = list(parts[0].shape)
+        for dim, entry in enumerate(spec):
+            shape[dim] *= _block(entry, coords[0], sizes)[1]
+        out = np.zeros(shape, parts[0].dtype)
+        filled = np.zeros(shape, bool)
+        for part, c in zip(parts, coords):
+            index = tuple(slice(_block(e, c, sizes)[0] * n,
+                                (_block(e, c, sizes)[0] + 1) * n)
+                          for e, n in zip(spec, part.shape))
+            if filled[index].any() and not np.array_equal(out[index], part):
+                raise ValueError("two ranks hold one block differently")
+            out[index] = part
+            filled[index] = True
+        return out
+
+    def walk(spec_node, *nodes):
+        if isinstance(spec_node, Mapping):
+            return {k: walk(v, *(n[k] for n in nodes))
+                    for k, v in spec_node.items()}
+        if isinstance(spec_node, list):
+            return [walk(s, *(n[i] for n in nodes))
+                    for i, s in enumerate(spec_node)]
+        return join(spec_node, *nodes)
+    return walk(specs, *trees)
+
+
+# ---------------------------------------------------------------------------
+# what serving on a mesh holds sharded
+# ---------------------------------------------------------------------------
+
+# the leaves a serving rank holds as its shards, by the last two keys of
+# their path: the tables the mesh paths read sharded (the MoE's expert
+# tables, the embedding). Every other weight is held whole.
+SERVE_SHARDED = (("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down"),
+                 ("embed", "embedding"))
+
+
+def serve_specs(defs, rules: ShardingRules):
+    """The tree of specs a serving rank holds a model's params under:
+    ``rules.spec_for`` of each :data:`SERVE_SHARDED` leaf's logical axes,
+    ``()`` (whole) for every other leaf. ``defs`` is the model's
+    ``param_defs()`` (its leaves carry ``logical`` and ``shape``)."""
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
+        if path[-2:] in SERVE_SHARDED:
+            return rules.spec_for(node.logical, node.shape)
+        return ()
+    return walk(defs, ())
+
+
+def flat_keys(tree, prefix: str = "") -> Dict[str, Any]:
+    """A tree's leaves by dotted key (``layers.0.moe.w_gate``), as a
+    ``ParamTree``'s state dict names them."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix[:-1]: tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(flat_keys(v, f"{prefix}{k}."))
+    return out

@@ -631,3 +631,161 @@ def fault_inside_the_step(with_mesh):
                         mesh=mesh)
     state, _ = runner.run({"w": torch.zeros(())}, 0, 3)
     return runner.restarts, float(state["w"])
+
+
+# ---------------------------------------------------------------------------
+# serving on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def _mesh_2x2():
+    from repro_torch import sharding as S
+    mesh = M.make_mesh((2, 2), ("data", "model"))
+    return mesh, S.rules_for(M.mesh_config((2, 2), ("data", "model")), mesh)
+
+
+def _data_rows(a, mesh):
+    """This rank's data shard of a whole batch (dim 0)."""
+    t = torch.as_tensor(a)
+    n = t.shape[0] // mesh.size("data")
+    return t.narrow(0, mesh.rank("data") * n, n)
+
+
+class _Drops:
+    """The slots ``moe.routing`` dropped in this process while active."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.count = moe, moe.routing, 0
+
+        def routing(logits, cfg, capacity_factor=moe.CAPACITY_FACTOR):
+            out = self.orig(logits, cfg, capacity_factor)
+            self.count += int((out[2] >= out[3]).sum())
+            return out
+        moe.routing = routing
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.routing = self.orig
+
+
+def mesh_moe_cases(cfg_kw, params, cases):
+    """The MoE, embedding and decode-attention mesh paths on a (2, 2) mesh
+    of CPU ranks. ``params``: the MoE's whole tables (numpy); ``cases``:
+    the inputs by case. Returns, by case, this rank's outputs (grads: this
+    rank's shard, the router's its part), the paths taken and drops."""
+    from repro_torch import sharding as S
+    from repro_torch.config.base import ModelConfig, MoEConfig
+    from repro_torch.core import collectives as CL
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    torch.set_num_threads(1)
+    mesh, rules = _mesh_2x2()
+    cfg = ModelConfig(name="t", family="moe", d_model=cfg_kw["d_model"],
+                      d_ff=cfg_kw["d_ff"],
+                      moe=MoEConfig(num_experts=cfg_kw["experts"],
+                                    top_k=cfg_kw["top_k"]))
+    specs = S.serve_specs({"moe": moe.moe_defs(cfg)}, rules)["moe"]
+    out = {}
+
+    def tables(p):
+        return S.shard_tree({k: torch.as_tensor(v) for k, v in p.items()},
+                            specs, mesh)
+
+    # the sharded path, its aux and its gradient
+    p = {k: v.clone().requires_grad_(True)
+         for k, v in tables(params).items()}
+    x = _data_rows(cases["sharded"], mesh)
+    moe.PATHS.clear()
+    with S.use_rules(rules), _Drops() as drops:
+        y, aux = moe.moe_ffn(p, x, cfg, return_aux=True)
+    n = cases["sharded"].size
+    # this rank's share: out is replicated over model, aux over every rank
+    loss = (y ** 2).sum() / n / mesh.size("model") \
+        + 0.01 * aux / mesh.size()
+    loss.backward()
+    out["sharded"] = dict(out=y.detach().numpy(), aux=float(aux),
+                          grads={k: v.grad.numpy() for k, v in p.items()},
+                          paths=dict(moe.PATHS), drops=drops.count)
+    # slots drop: a skewed router
+    moe.PATHS.clear()
+    with torch.no_grad(), S.use_rules(rules), _Drops() as drops:
+        y, aux = moe.moe_ffn(tables(cases["skewed_params"]),
+                             _data_rows(cases["skewed"], mesh), cfg,
+                             return_aux=True)
+    out["skewed"] = dict(out=y.numpy(), aux=float(aux),
+                         paths=dict(moe.PATHS), drops=drops.count)
+    # decode-sized T: the one-hot path
+    moe.PATHS.clear()
+    with torch.no_grad(), S.use_rules(rules):
+        y, aux = moe.moe_ffn(tables(params),
+                             _data_rows(cases["onehot"], mesh), cfg,
+                             return_aux=True)
+    out["onehot"] = dict(out=y.numpy(), aux=float(aux),
+                         paths=dict(moe.PATHS))
+    # the vocab-parallel embedding
+    table = torch.as_tensor(cases["table"])
+    spec = rules.spec_for(("vocab", "embed"), table.shape)
+    with S.use_rules(rules):
+        e = L.embed({"embedding": S.shard_of(table, spec, mesh)},
+                    _data_rows(cases["tokens"], mesh), torch.float32)
+    out["embed"] = e.numpy()
+    # seq-sharded decode attention
+    model = CL.mesh_groups(rules)[1]
+    chunk = cases["k"].shape[1] // model.k
+
+    def seq_chunk(a):
+        return _data_rows(a, mesh).narrow(1, model.index * chunk, chunk)
+    o = A.decode_attention(_data_rows(cases["q"], mesh),
+                           seq_chunk(cases["k"]), seq_chunk(cases["v"]),
+                           torch.tensor([cases["index"]]), model)
+    out["decode"] = o.numpy()
+    out["staged"] = dict(CL.STAGED)
+    return out
+
+
+def mesh_serve(cfg, ref_params, prompts, gen, max_len):
+    """``ServeEngine(mesh=)`` on a (2, 2) mesh of CPU ranks with the
+    reference engine's weights: the prefill's logits, each teacher-free
+    step's logits, ``generate``'s tokens; the round trip of the shards;
+    what a gloo mesh refuses."""
+    from repro_torch import interop
+    from repro_torch import sharding as S
+    from repro_torch.config import get_smoke
+    from repro_torch.core import collectives as CL
+    from repro_torch.launch.serve import ServeEngine, serving_rules
+    from repro_torch.models import moe
+    torch.set_num_threads(1)
+    mesh, _ = _mesh_2x2()
+    rules = serving_rules(cfg, mesh, max_len)
+    sd = interop.rank_params_from_jax(ref_params, cfg, rules, mesh)
+    engine = ServeEngine(cfg, "cpu", max_len=max_len, dtype=torch.float32,
+                         params=sd, mesh=mesh)
+    moe.PATHS.clear()
+    tokens = torch.as_tensor(prompts).long()
+    logits, cache = engine.prefill(tokens)
+    prefill_paths = dict(moe.PATHS)
+    steps, token = [], torch.argmax(logits, -1, keepdim=True)
+    for i in range(gen):
+        step = engine.decode(token, cache, prompts.shape[1] + i)
+        steps.append(step.numpy())
+        token = torch.argmax(step, -1, keepdim=True)
+    out = dict(prefill=logits.numpy(), steps=np.stack(steps),
+               tokens=engine.generate(prompts, gen), paths=prefill_paths,
+               shards=_np(S.shard_tree(
+                   interop.lm_params_from_jax(ref_params, cfg),
+                   S.flat_keys(engine.specs()), mesh)),
+               params=_np(dict(engine.params.state_dict())),
+               specs=S.flat_keys(engine.specs()), raises={})
+    try:
+        ServeEngine(cfg, "cpu", max_len=max_len, dtype=torch.float32,
+                    params=engine.params, mesh=mesh, graphs=True)
+    except ValueError as exc:
+        out["raises"]["graphs"] = str(exc)
+    try:
+        ServeEngine(get_smoke("mamba2-2.7b"), "cpu", max_len=max_len,
+                    mesh=mesh)
+    except NotImplementedError as exc:
+        out["raises"]["family"] = str(exc)
+    out["staged"] = dict(CL.STAGED)
+    return out
