@@ -56,7 +56,8 @@ entry points and holds every run to its plain-version twin:
    the max over the ranks, the block ``choose_period`` picks), and the
    port's all-gather mean timed alone beside the reference's all-reduce
    on the same w; (d4) the
-   local-SGD trainer on smollm-360m at full width across 2 ranks (H 4,
+   local-SGD trainer on smollm-360m at its widths, its depth cut to 4 of
+   32 layers for the time limit, across 2 ranks (H 4,
    int8, 1 × 2,048 tokens a replica step, 2 blocks) against the
    one-process trainer at K = 2 (losses, params, the first sync's int8
    payloads bitwise, 22 quant launches a block on each rank, the ranks'
@@ -65,7 +66,7 @@ entry points and holds every run to its plain-version twin:
    (d6) ``dms(backend="dist")`` on an NCCL world of one rank against
    ``srdms`` (relative 1e-6), every hinge launch counted on ``hinge.cu``;
    then the adaptive path across ranks: (d7), on (d4)'s two ranks, the
-   adaptive trainer at full width (ladder (1, 2, 4) from H = 4): a
+   adaptive trainer on (d4)'s model (ladder (1, 2, 4) from H = 4): a
    scripted move 4 -> 2 after block 2 held bitwise on each rank to the
    one-process K = 2 run's replica (sha256 of every params, opt and sync
    leaf and of the first sync's int8 payloads and scales), then 6 blocks
@@ -123,8 +124,8 @@ entry points and holds every run to its plain-version twin:
    holding a NaN, +inf or −inf (alone, or one bad row among good ones),
    with and without the residual: bitwise the plain version's (NaN as NaN),
    scale NaN or inf, q 0, dequantized NaN, as the reference gives;
-8. the LM trainer: local SGD on smollm-360m at full width (32 layers, bf16
-   compute, f32 master params), K = 4 replicas, H = 4, int8 sync with error
+8. the LM trainer: local SGD on smollm-360m at its widths, its depth cut
+   to 8 of 32 layers for the time limit (bf16 compute, f32 master params), K = 4 replicas, H = 4, int8 sync with error
    feedback, AdamW, 2 sequences of 2,048 tokens per replica a step: 2 blocks
    on the kernel path (quant launches counted: one quantize and one
    dequantize per leaf per sync) and 2 on the plain path from the same state
@@ -176,8 +177,9 @@ entry points and holds every run to its plain-version twin:
     must take, two launches bitwise equal; with the time of each, the
     chunked scan's and the bound, and at the serving shapes the CUDA-core
     kernel's time on the same bf16 inputs;
-11. the SSM serving path: ``ServeEngine.generate`` on mamba2-2.7b at full
-    width (64 layers, bf16, seeded random weights), 4 prompts of 1,920
+11. the SSM serving path: ``ServeEngine.generate`` on mamba2-2.7b at its
+    widths, its depth cut to 16 of 64 layers for the time limit (bf16,
+    seeded random weights), 4 prompts of 1,920
     tokens and 128 new tokens each, graph against eager as in 6, SSD
     launches counted (one per layer per
     prefill, all on the tensor-core kernel in bf16 and none of them in f32;
@@ -189,16 +191,16 @@ entry points and holds every run to its plain-version twin:
     within 1.5× the bf16 plain path's own relative L2 to the f32 plain
     path;
 12. the hybrid serving path: the same, graph against eager too, on
-    zamba2-1.2b at full width (38
-    Mamba2 layers, the shared attention block after every 6: 38 SSD and 6
+    zamba2-1.2b at its widths, its depth cut to 12 of 38 Mamba2 layers for
+    the time limit (the shared attention block after every 6: 12 SSD and 2
     flash launches per prefill, on the tensor-core kernels in bf16; in f32
     the SSD ones on ``ssd.cu`` and the flash ones on the split-TF32
     kernel);
 13. phase families, every other family the port serves, each at full
     width in bf16 on seeded weights drawn leaf by leaf, 4 requests: the
-    dense llama3.2-3b (1,920 prompt tokens + 128 new), internlm2-1.8b and
-    qwen2.5-3b (1,920 + 16); the MoE phi3.5-moe (depth cut to 24 of 32
-    layers) and qwen3-moe (12 of 94), 1,920 + 16; the prefix-LM VLM
+    dense llama3.2-3b, internlm2-1.8b and qwen2.5-3b (1,920 prompt tokens
+    + 16 new); the MoE phi3.5-moe (depth cut to 8 of 32
+    layers) and qwen3-moe (4 of 94), 1,920 + 16; the prefix-LM VLM
     paligemma-3b (seeded patches of 256 positions + 1,920 + 16); the
     encoder-decoder whisper-base (seeded frames of 1,500, 384 + 64). Each
     as phase 6 holds smollm: ``generate`` with graph replays, flash
@@ -214,7 +216,7 @@ entry points and holds every run to its plain-version twin:
     experts 0..k-1, as the reference's top-k picks them;
 14. phase mesh_serve, serving on a (data 2, model 2) process mesh of 4
     gloo ranks that share the card: ``ServeEngine(mesh=)`` on phi3.5-moe
-    at its published widths, its depth cut to 2 of 32 layers for the time
+    at its published widths, its depth cut to 1 of 32 layers for the time
     limit, each rank drawing every leaf from the seed and keeping its
     shards (the expert and embedding tables, the cache's sequence); the
     main path's counted run, a bf16 ``generate`` of 16 prompts of 2,048
@@ -229,7 +231,29 @@ entry points and holds every run to its plain-version twin:
     drop; bf16 within 0.1), the slots dropped on both paths, the paths
     taken, the walls beside the one-process engine's, each collective's
     ms and bytes, the host-staged ops and the peaks a rank;
-15. phase tooling: (t1) the roofline of three whole calls, each counted by
+15. phase mesh_train, training on a process mesh of 4 gloo ranks that
+    share the card, phi3.5-moe at its published widths, its depth cut to 1
+    of 32 layers, f32, remat full, sgd (AdamW's moments do not fit the
+    four ranks on the card), each rank drawing every leaf from the seed
+    and keeping its shards (the expert and embedding tables, their sync
+    state): (m1) ``build_trainer``'s DDP step on (data 2,
+    model 2), 32 x 1,024 tokens a step (T = 32,768: the all-to-all
+    MoE and the vocab-parallel embedding), 2 steps, held to the
+    one-process ``make_ddp_step`` under the sharded capacity rule (losses
+    and aux relative 1e-3, the params put back together relative L2
+    1e-3), the paths a rank, the slots dropped, each collective's ms and
+    bytes, the peaks a rank, the walls beside the twin's; (m2) the
+    local-SGD block on (pod 2, data 1, model 2), K = 2, H = 2, the int8
+    sync on each rank's shards, 2 x
+    2,048 tokens a replica step (the one-hot MoE), 2 blocks, held to the
+    one-process K = 2 block the same way; its first sync's int8 payloads
+    each rank's block of the quant kernel's whole-leaf quantization of the
+    same values, bitwise, and within one int8 step of the twin's; quant
+    launches a rank 2 x leaves x blocks, the amax and the pack given it
+    once a split leaf a block; the sync's ms (CUDA events); then the
+    shard path's quant entry points against their plain version at the
+    main path's expert block, timed beside it and a PyTorch call;
+16. phase tooling: (t1) the roofline of three whole calls, each counted by
     ``repro_torch.launch.roofline.WorkCounter`` in a run apart from its
     phase's timed ones: the epsilon ``dms`` call of phase 3 with
     ``graphs=False`` (a replay hides its ops; against the median of 3
@@ -249,8 +273,9 @@ entry points and holds every run to its plain-version twin:
     started as the phase starts: the count of ok / skip / error (an error
     fails), each cell's fits_80g and bound.
 
-The line before the last is the kernels' JSON record (five kernels: the
-flash route twice, bf16 and f32); the last line is
+The line before the last is the kernels' JSON record (seven entries: the
+flash route twice, bf16 and f32, and quant's shard path's two entry points
+beside its whole-leaf pair); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once. It imports
 no JAX and nothing of the JAX package.
@@ -291,6 +316,9 @@ QUANT_MAIN = ((4, 32 * 960 * 2560), True)
 # later int8 value moves one step; a wrong scale or sync is O(1)
 TRAIN_LOSS_REL, TRAIN_PARAMS_REL_L2 = 1e-3, 1e-3
 TRAIN_K, TRAIN_H, TRAIN_SEQ, TRAIN_BATCH = 4, 4, 2048, 8
+# phases 8 and (a): smollm-360m at its widths, the depth cut from 32 to this
+# many layers for the script's time limit (phase mesh_train's room)
+TRAIN_DEPTH = 8
 # phase train_ssm: (t1) zamba2-1.2b, K = 2, H = 4, 2 sequences a replica
 # step; (t3) remat at full width, the depth cut to this many layers
 TRAIN_SSM_K, TRAIN_SSM_H, TRAIN_SSM_BATCH = 2, 4, 4
@@ -401,14 +429,18 @@ SSM_F32_LOGITS_REL_L2 = 1e-2
 # at zamba2-1.2b (1.03x). A subtly wrong kernel lands O(1) away (unrelated
 # logits of equal norm are ~1.4 apart), above 1.5 x 0.509 = 0.76.
 SSM_BF16_VS_F32_FACTOR = 1.5
+# phases 11 and 12: mamba2-2.7b and zamba2-1.2b served at their widths with
+# the depth cut from 64 and 38 to these many layers (zamba2's two shared
+# blocks) for the script's time limit (phase mesh_train's room)
+SSM_SERVE_DEPTH, HYBRID_SERVE_DEPTH = 16, 12
 # phase families: (arch, layers kept (None: all), prompt tokens, new tokens)
 # a request, 4 requests; an MoE's f32 check at MOE_F32_DEPTH layers over
 # MOE_F32_STEPS decode steps
-FAMILY_RUNS = [("llama3.2-3b", None, 1920, 128),
+FAMILY_RUNS = [("llama3.2-3b", None, 1920, 16),
                ("internlm2-1.8b", None, 1920, 16),
                ("qwen2.5-3b", None, 1920, 16),
-               ("phi3.5-moe-42b-a6.6b", 24, 1920, 16),
-               ("qwen3-moe-235b-a22b", 12, 1920, 16),
+               ("phi3.5-moe-42b-a6.6b", 8, 1920, 16),
+               ("qwen3-moe-235b-a22b", 4, 1920, 16),
                ("paligemma-3b", None, 1920, 16),
                ("whisper-base", None, 384, 64)]
 FAMILY_PEAK_GB = 75.0
@@ -418,18 +450,38 @@ DIST_K, DIST_BS, DIST_EPOCHS = 8, 64, 1
 DIST_MODES = [("delayed", "all", False), ("chunked", "all", False),
               ("none", "ring", False), ("none", "pairwise", False),
               ("none", "pairwise", True), ("none", "ring", True)]
-DIST_TIMED_BS, DIST_TIMED_BLOCKS = (16, 64, 256, 1024), 24
+DIST_TIMED_BS, DIST_TIMED_BLOCKS = (16, 64, 256, 1024), 12
 # (d3)'s collectives alone: calls of each, in turns, after one warm-up
 DIST_COLL_CALLS = 50
 DIST_TRAIN_K, DIST_TRAIN_H, DIST_TRAIN_BLOCKS = 2, 4, 2
+# (d4) and (d7): smollm-360m at its widths, the depth cut from 32 to this
+# many layers for the script's time limit (phase mesh_train's room)
+D4_DEPTH = 4
 DIST_PEAK_GB = 75.0
-# phase mesh_serve: phi3.5-moe cut to 2 of its 32 layers for the time
-# limit, 16 prompts of 2,048 tokens (T = 32,768, the all-to-all path's
+# phase mesh_serve: phi3.5-moe cut to 1 of its 32 layers for the time
+# limit (2 until phase mesh_train came), 16 prompts of 2,048 tokens (T = 32,768, the all-to-all path's
 # threshold) and 8 new tokens on a (data 2, model 2) mesh of gloo ranks
 MESH_SHAPE = (2, 2)
-MESH_ARCH, MESH_DEPTH = "phi3.5-moe-42b-a6.6b", 2
+MESH_ARCH, MESH_DEPTH = "phi3.5-moe-42b-a6.6b", 1
 MESH_BATCH, MESH_PROMPT, MESH_GEN, MESH_SEED = 16, 2048, 8, 7
 MESH_F32_REL_L2 = 1e-3
+# phase mesh_train: phi3.5-moe at its published widths cut to 1 of its 32
+# layers, f32, remat full, 4 gloo ranks on the card, sgd lr 0.1 (the
+# reference's own mesh test's optimizer): with AdamW's two moments (m1)'s
+# ranks ran out of the card's memory (a rank at 17.51 GiB asking 1 GiB more,
+# 78.25 GiB in use, on an H100 80GB HBM3 at 700 W), and (m2)'s would hold
+# about 75 GB before activations. (m1) DDP on (data 2, model 2), 32 x 1,024
+# tokens a step (T = 32,768: moe_ffn_sharded and embed_sharded; at 16 x
+# 2,048 a rank's plain attention ran out too, at 17.27 GiB asking 0.78 GiB
+# more with 77.81 GiB in use), 2 steps;
+# (m2) local SGD on (pod 2, data 1, model 2), K = 2, H = 2, int8, 2 x 2,048
+# tokens a replica step (the one-hot MoE), 2 blocks; each held to its
+# one-process twin at the trainer's bounds
+MTRAIN_DEPTH, MTRAIN_REL = 1, 1e-3
+# (sequences, tokens a sequence) a step, over all ranks
+MTRAIN_M1_MESH, MTRAIN_M1_SHAPE, MTRAIN_M1_STEPS = (2, 2), (32, 1024), 2
+MTRAIN_M2_MESH, MTRAIN_M2_SHAPE = (2, 1, 2), (4, 2048)
+MTRAIN_M2_H, MTRAIN_M2_BLOCKS = 2, 2
 # (d7): the adaptive trainer across the two ranks: a scripted move 4 -> 2
 # after block 2 over 3 blocks, then blocks under the live controller
 D7_SCRIPT, D7_SCRIPTED_BLOCKS, D7_LIVE_BLOCKS = {2: 2}, 3, 6
@@ -452,8 +504,9 @@ SIMSYNC_DIGESTS = {"dcn_default": "3b1eaf215aa3d3c8",
                    "ici_pod": "bdf9e5a3ca19c264"}
 # phase tooling (t3): the script's own clock (from main's start) by which
 # the dry run must have ended, so that the script ends inside its 1,200 s
-# limit with room for the start before that clock and the lines after
-DRYRUN_DEADLINE_S = 1100
+# limit with room for the start before that clock (imports, ~5 s) and the
+# lines after (under a second)
+DRYRUN_DEADLINE_S = 1150
 # device_ms's side stream, made at its first call
 _SIDE = {}
 DMS_MODES = [("none", "all", False), ("delayed", "all", False),
@@ -3034,6 +3087,7 @@ def _first_sync_check(torch, results):
     the check holds less of a large leaf at once. The comparison's own
     launches are taken off the count."""
     from repro_torch import tree as T
+    from repro_torch.core import collectives as CL
     from repro_torch.core import compression
     from repro_torch.kernels.quant import ops
     inner = compression.compress_tree
@@ -3043,11 +3097,13 @@ def _first_sync_check(torch, results):
             before = ops.LAUNCHES
             for d, e in zip(T.leaves(delta), T.leaves(ef)):
                 v = d.float() + e
-                got = compression._quantize_residual(v, True, "kernel")
+                got = compression.quantize_shard(
+                    v, CL.WHOLE, rows=True, impl="kernel", residual=True)
                 same = True
                 for r in range(v.shape[0]):
-                    want = compression._quantize_residual(v[r:r + 1], True,
-                                                          "torch")
+                    want = compression.quantize_shard(
+                        v[r:r + 1], CL.WHOLE, rows=True, impl="torch",
+                        residual=True)
                     same &= all(torch.equal(g[r:r + 1], w)
                                 for g, w in zip(got, want))
                     del want
@@ -3697,11 +3753,12 @@ def _digest(t) -> str:
 
 
 def _dist_train_rank(paths, h, blocks):
-    """(d4) on one of two ranks: the local-SGD trainer at full width, one
-    replica a rank, its first sync's int8 payloads kept."""
+    """(d4) on one of two ranks: the local-SGD trainer at smollm's widths
+    (D4_DEPTH layers), one replica a rank, its first sync's int8 payloads
+    kept."""
     import torch
     from repro_torch import tree as T
-    from repro_torch.config import SyncConfig, get_arch
+    from repro_torch.config import SyncConfig
     from repro_torch.core import collectives as CL
     from repro_torch.core import compression
     from repro_torch.kernels.quant import ops, ref
@@ -3710,8 +3767,8 @@ def _dist_train_rank(paths, h, blocks):
     mesh = M.make_mesh((DIST_TRAIN_K,), ("pod",))
     dev, r = mesh.device, mesh.rank("pod")
     sync_cfg = SyncConfig(strategy="periodic", period=h, compression="int8")
-    cfg = _train_cfg(get_arch("smollm-360m"), sync_cfg, TRAIN_SEQ,
-                     DIST_TRAIN_K, DIST_TRAIN_K)
+    cfg = _train_cfg(_d4_model(), sync_cfg, TRAIN_SEQ, DIST_TRAIN_K,
+                     DIST_TRAIN_K)
     captured = []
     inner = compression.compress_tree
 
@@ -3811,9 +3868,16 @@ def _digests(torch, tree):
     return out
 
 
+def _d4_model():
+    """(d4)'s and (d7)'s smollm-360m: its widths, the depth cut to
+    D4_DEPTH layers for the script's time limit."""
+    from repro_torch.config import get_arch
+    return dataclasses.replace(get_arch("smollm-360m"), n_layers=D4_DEPTH)
+
+
 def _d7_cfg():
-    from repro_torch.config import SyncConfig, get_arch
-    return _train_cfg(get_arch("smollm-360m"), SyncConfig(
+    from repro_torch.config import SyncConfig
+    return _train_cfg(_d4_model(), SyncConfig(
         strategy="periodic", period=4, compression="int8", adaptive=True,
         adapt_ladder=(1, 2, 4), adapt_every=2), TRAIN_SEQ, DIST_TRAIN_K,
         DIST_TRAIN_K)
@@ -4034,7 +4098,7 @@ def phase_dist(torch, dev, tmp):
     across processes that share the one card (gloo), each held to its
     one-process twin; then one NCCL world of one rank. The kernels are
     built and loaded here first, so no rank compiles them."""
-    from repro_torch.config import SyncConfig, get_arch, get_smoke
+    from repro_torch.config import SyncConfig, get_smoke
     from repro_torch.core import autotune, costmodel, svm
     from repro_torch.kernels.hinge import ops as hinge_ops
     from repro_torch.kernels.quant import ops as quant_ops
@@ -4083,7 +4147,7 @@ def phase_dist(torch, dev, tmp):
     del xw, yw
 
     # (d4)'s twin: the one-process trainer at K = 2 on the same rows
-    model_cfg = get_arch("smollm-360m")
+    model_cfg = _d4_model()
     sync_cfg = SyncConfig(strategy="periodic", period=DIST_TRAIN_H,
                           compression="int8")
     cfg = _train_cfg(model_cfg, sync_cfg, TRAIN_SEQ, DIST_TRAIN_K,
@@ -4548,7 +4612,9 @@ class ShardedCapacity:
     """Within ``with``: ``moe_ffn`` on T ≥ 32,768 tokens runs on each (data,
     model) block of MESH_SHAPE apart (rows over data, the sequence over
     model), so each block routes with the mesh path's capacity C_s: a
-    one-process run of the sharded capacity rule."""
+    one-process run of the sharded capacity rule. A training loss's
+    load-balance term is the sharded path's: E · Σ_e (the blocks' mean gate
+    mass) · (their mean routed share)."""
 
     def __enter__(self):
         import torch
@@ -4559,13 +4625,27 @@ class ShardedCapacity:
         def blocks(params, x, cfg, capacity_factor=moe.CAPACITY_FACTOR,
                    return_aux=False):
             b, s, _ = x.shape
-            if return_aux or b * s < moe.SHARDED_MIN_TOKENS:
+            if b * s < moe.SHARDED_MIN_TOKENS:
                 return self.orig(params, x, cfg, capacity_factor,
                                  return_aux)
-            return torch.cat([torch.cat(
-                [self.orig(params, blk, cfg, capacity_factor)
-                 for blk in row.chunk(n_model, 1)], 1)
-                for row in x.chunk(n_data, 0)], 0)
+            rows, mes, ces = [], [], []
+            for row in x.chunk(n_data, 0):
+                parts = []
+                for blk in row.chunk(n_model, 1):
+                    parts.append(self.orig(params, blk, cfg,
+                                           capacity_factor))
+                    if return_aux:
+                        logits = moe.router_logits(params, blk)
+                        me, ce = moe._load_terms(logits, moe.top_k_routing(
+                            logits, cfg.moe.top_k)[1], cfg)
+                        mes.append(me)
+                        ces.append(ce)
+                rows.append(torch.cat(parts, 1))
+            out = torch.cat(rows, 0)
+            if not return_aux:
+                return out
+            return out, cfg.moe.num_experts * torch.sum(
+                torch.stack(mes).mean(0) * torch.stack(ces).mean(0))
         moe.moe_ffn = blocks
         return self
 
@@ -4575,11 +4655,13 @@ class ShardedCapacity:
 
 class CollectiveTimer:
     """Every mesh collective of this process (``Group``'s ``all_to_all``,
-    ``gather_dim``, ``sum_scatter_dim``, ``sum``, ``maximum``) waited for on
+    ``gather_dim``, ``sum_scatter_dim``, ``sum``, ``maximum``, ``sum_``: the
+    trainer's gradient reduction) waited for on
     both sides and timed on the host clock: ``records`` holds (op, input
     shape, input bytes, seconds). Installed for the life of a rank."""
 
-    OPS = ("all_to_all", "gather_dim", "sum_scatter_dim", "sum", "maximum")
+    OPS = ("all_to_all", "gather_dim", "sum_scatter_dim", "sum", "maximum",
+           "sum_")
 
     def __init__(self, torch):
         from repro_torch.core import collectives as CL
@@ -4877,6 +4959,572 @@ def phase_mesh_serve(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase mesh_train: training on a (pod, data, model) process mesh
+# ---------------------------------------------------------------------------
+
+def _mtrain_cfg(part: str, shape, twin: bool = False):
+    """(m1)'s or (m2)'s TrainConfig: phi3.5-moe at its published widths,
+    MTRAIN_DEPTH layers, f32 activations and params, remat full, ``shape``
+    (sequences, tokens a sequence) a step, on its mesh; ``twin`` the
+    one-process twin's (no model axis)."""
+    from repro_torch.config import (DataConfig, MeshConfig, OptimizerConfig,
+                                    SyncConfig, TrainConfig, get_arch)
+    from repro_torch.launch.mesh import mesh_config
+    model = dataclasses.replace(get_arch(MESH_ARCH), n_layers=MTRAIN_DEPTH,
+                                dtype="float32")
+    if part == "m1":
+        mesh = (MeshConfig() if twin
+                else mesh_config(MTRAIN_M1_MESH, ("data", "model")))
+        return TrainConfig(
+            model=model, mesh=mesh,
+            sync=SyncConfig(strategy="sync_every_step"),
+            optimizer=OptimizerConfig(name="sgd", learning_rate=0.1),
+            data=DataConfig(seq_len=shape[1], global_batch=shape[0]),
+            remat="full")
+    mesh = (MeshConfig(shape=(2,), axis_names=("pod",), replica_axis="pod")
+            if twin else mesh_config(MTRAIN_M2_MESH,
+                                     ("pod", "data", "model")))
+    return TrainConfig(
+        model=model, mesh=mesh,
+        sync=SyncConfig(strategy="periodic", period=MTRAIN_M2_H,
+                        compression="int8"),
+        optimizer=OptimizerConfig(name="sgd", learning_rate=0.1),
+        data=DataConfig(seq_len=shape[1], global_batch=shape[0]),
+        remat="full")
+
+
+def _mtrain_twin(torch, dev, part, shape):
+    """The one-process twin of (m1) (``make_ddp_step`` under
+    :class:`ShardedCapacity`) or (m2) (the K = 2 local-SGD block, its
+    first sync's int8 payloads and scales kept on the host): losses, walls,
+    peak, drops and the final params on the host (one replica)."""
+    from repro_torch import sharding as S
+    from repro_torch import tree as T
+    from repro_torch.core import compression
+    from repro_torch.launch.train import build_trainer
+    cfg = _mtrain_cfg(part, shape, twin=True)
+    _wait(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, state, make_pipeline, model, _, _ = build_trainer(cfg, dev)
+    pipe = make_pipeline(0)
+    n = MTRAIN_M1_STEPS if part == "m1" else MTRAIN_M2_BLOCKS
+    batches = [next(pipe) for _ in range(n)]
+    out = dict(losses=[], aux=[], walls=[], payload=None)
+    inner = compression.compress_tree
+    if part == "m2":
+        def capture(delta, ef, **kw):
+            got = inner(delta, ef, **kw)
+            if out["payload"] is None:
+                out["payload"] = (
+                    {k: q.cpu() for k, q in S.flat_keys(got[0]).items()},
+                    {k: s.cpu() for k, s in S.flat_keys(got[1]).items()})
+            return got
+        compression.compress_tree = capture
+    import contextlib
+    try:
+        with DropCounter() as drops, (ShardedCapacity() if part == "m1"
+                                      else contextlib.nullcontext()):
+            for b in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batches[b])
+                torch.cuda.synchronize()
+                out["walls"].append(time.perf_counter() - t0)
+                out["losses"].append(float(metrics["loss"]))
+                if "aux" in metrics:
+                    out["aux"].append(float(metrics["aux"]))
+    finally:
+        compression.compress_tree = inner
+    out["drops"] = drops.dropped
+    out["peak"] = _peak(torch, dev)
+    params = state["params"]
+    if part == "m2":
+        params = T.map(lambda t: t[0], params)
+    out["params"] = T.map(lambda t: t.to("cpu"), params)
+    del state, params, step, batches, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mtrain_rank(part, shape, tmp):
+    """One rank of phase mesh_train's (m1) or (m2): ``build_trainer`` on its
+    mesh (each leaf drawn from the seed and its shard kept), the steps or
+    blocks with every collective timed, the slots dropped and the paths
+    taken, the sync's CUDA-event time, the quant launches of the counted
+    run, the peak; (m2)'s first sync's int8 blocks and scales; this rank's
+    blocks of the final params (every rank of pod 0; rank 0 also the whole
+    leaves), with a digest of every block. Arrays go to ``tmp`` (one .npy
+    each, named in the result): the parent maps them from the host's page
+    cache, where a result through ``spawn``'s queue is pickled and copied
+    three times."""
+    import torch
+    from repro_torch import sharding as S
+    from repro_torch.core import collectives as CL
+    from repro_torch.core import compression
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.core import sync as SY
+    from repro_torch.kernels.quant import ops as quant_ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import moe
+    t_start = time.time()
+    _rank_setup(torch)
+    mesh_shape, axes = ((MTRAIN_M1_MESH, ("data", "model")) if part == "m1"
+                        else (MTRAIN_M2_MESH, ("pod", "data", "model")))
+    mesh = M.make_mesh(mesh_shape, axes)
+    dev = mesh.device
+    timer = CollectiveTimer(torch)
+    cfg = _mtrain_cfg(part, shape)
+    _wait(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step, state, make_pipeline, model, _, _ = build_trainer(cfg, dev, mesh)
+    _wait(torch, dev)
+    out = dict(rank=mesh.rank(), coords=S.coords_of(mesh),
+               draw_s=time.perf_counter() - t0, losses=[], aux=[], walls=[],
+               sync_ms=[], payload=None)
+    specs = LS.rank_state_specs(model, cfg, mesh, state)["params"]
+    pipe = make_pipeline(0)
+    n = MTRAIN_M1_STEPS if part == "m1" else MTRAIN_M2_BLOCKS
+    batches = [next(pipe) for _ in range(n)]
+    e_loc = cfg.model.moe.num_experts // mesh.size("model")
+    d_loc = cfg.model.d_model // mesh.size("data")
+    fsdp = {(e_loc, d_loc, cfg.model.d_ff), (e_loc, cfg.model.d_ff, d_loc)}
+    inner_c, inner_s, events = compression.compress_tree, SY.sync_point, []
+
+    def save(name, t):
+        path = os.path.join(tmp, f"{part}_r{mesh.rank()}_{name}.npy")
+        np.save(path, t.cpu().numpy())
+        return path
+
+    def capture(delta, ef, **kw):
+        got = inner_c(delta, ef, **kw)
+        if out["payload"] is None:
+            out["payload"] = (
+                {k: save(f"q_{k}", q[0]) for k, q in
+                 S.flat_keys(got[0]).items()},
+                {k: float(x[0]) for k, x in S.flat_keys(got[1]).items()})
+        return got
+
+    def timed_sync(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = inner_s(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return got
+    compression.compress_tree, SY.sync_point = capture, timed_sync
+    timer.take(fsdp)
+    out["t_ready"] = time.time() - t_start
+    try:
+        with DropCounter() as drops:
+            # the main path's counted run: the counts 0 just before
+            quant_ops.LAUNCHES = quant_ops.AMAX_LAUNCHES = 0
+            quant_ops.GIVEN_LAUNCHES = 0
+            moe.PATHS.clear()
+            for b in range(n):
+                _wait(torch, dev)
+                t0 = time.perf_counter()
+                state, metrics = step(state, batches[b])
+                _wait(torch, dev)
+                out["walls"].append(time.perf_counter() - t0)
+                out["losses"].append(float(metrics["loss"]))
+                if "aux" in metrics:
+                    out["aux"].append(float(metrics["aux"]))
+            out["launches"] = dict(quant=quant_ops.LAUNCHES,
+                                   amax=quant_ops.AMAX_LAUNCHES,
+                                   given=quant_ops.GIVEN_LAUNCHES)
+            out["paths"] = dict(moe.PATHS)
+    finally:
+        compression.compress_tree, SY.sync_point = inner_c, inner_s
+    out["t_steps"] = time.time() - t_start - out["t_ready"]
+    out["drops"] = drops.dropped
+    out["coll"] = timer.take(fsdp)
+    out["sync_ms"] = [a.elapsed_time(b) for a, b in events]
+    out["peak"] = _peak(torch, dev)
+    flat, flat_specs = S.flat_keys(state["params"]), S.flat_keys(specs)
+    out["n_leaves"] = len(flat)
+    out["n_split"] = sum(1 for s in flat_specs.values() if any(s))
+    keep = part == "m1" or mesh.rank("pod") == 0
+    out["blocks"] = {k: save(f"p_{k}", t[0] if part == "m2" else t)
+                     for k, t in flat.items()
+                     if keep and (any(flat_specs[k]) or mesh.rank() == 0)}
+    out["block_digests"] = dict(zip(flat, _digests(torch,
+                                                   list(flat.values()))))
+    out["specs"] = {k: (tuple(s[1:]) if part == "m2" else s)
+                    for k, s in flat_specs.items()}
+    out["staged"] = dict(CL.STAGED)
+    out["t_end"] = time.time() - t_start
+    del state, step, batches
+    return out
+
+
+def _load_array(torch, dev, path):
+    """A rank's array (its .npy, mapped from the page cache) on the card."""
+    return torch.from_numpy(np.load(path, mmap_mode="r")).to(dev)
+
+
+def _mtrain_hold(torch, dev, part, one, ranks, mesh_cfg):
+    """(m1)/(m2)'s checks against the one-process twin: losses (and aux)
+    within MTRAIN_REL; the final params, each rank's blocks against the
+    same blocks of the twin's leaves (each block once, a whole leaf from
+    rank 0), within relative L2 MTRAIN_REL over the whole tree; the ranks
+    that hold one block bitwise alike. Returns (the worst loss rel, params
+    rel L2)."""
+    from repro_torch import sharding as S
+    rel_loss = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], one["losses"]))
+    check(rel_loss <= MTRAIN_REL, f"mesh_train ({part}): losses "
+          f"{[r['losses'] for r in ranks]} against the twin's "
+          f"{one['losses']}")
+    if one["aux"]:
+        rel_aux = max(abs(a - b) / abs(b) for r in ranks
+                      for a, b in zip(r["aux"], one["aux"]))
+        check(rel_aux <= MTRAIN_REL, f"mesh_train ({part}): aux "
+              f"{[r['aux'] for r in ranks]} against {one['aux']}")
+    want = S.flat_keys(one["params"])
+    check(sorted(ranks[0]["specs"]) == sorted(want), f"mesh_train ({part}): "
+          f"leaves {sorted(ranks[0]['specs'])} against {sorted(want)}")
+    num = den = 0.0
+    for key, w in want.items():
+        w = w.to(dev)
+        den += float(w.square().sum())
+        spec = ranks[0]["specs"][key]
+        for r in (ranks if any(spec) else ranks[:1]):
+            if key in r["blocks"]:
+                blk = S.block_of(w, spec, r["coords"], mesh_cfg)
+                num += float((_load_array(torch, dev, r["blocks"][key])
+                              - blk).square().sum())
+        del w
+    rel = (num / den) ** 0.5
+    check(rel <= MTRAIN_REL, f"mesh_train ({part}): params rel L2 {rel}")
+    by_block = {}
+    for r in ranks:
+        for key, spec in r["specs"].items():
+            coord = tuple(r["coords"][a] for a in sorted(S.spec_axes(spec)))
+            by_block.setdefault((key, coord), set()).add(
+                r["block_digests"][key])
+    check(all(len(d) == 1 for d in by_block.values()),
+          f"mesh_train ({part}): ranks that hold one block differ")
+    return rel_loss, rel
+
+
+def _payload_against_twin(torch, dev, ranks, twin, mesh_cfg):
+    """The ranks' first-sync int8 blocks and scales against the twin's
+    (K, …) payload: int8 values that differ, the largest |dq|, the largest
+    relative scale difference; and whether the model ranks of a replica
+    packed each leaf with one scale (the whole leaf's)."""
+    from repro_torch import sharding as S
+    twin_q, twin_s = twin
+    differ = values = max_dq = 0
+    scale_rel = 0.0
+    for r in ranks:
+        paths, scales = r["payload"]
+        for key, path in paths.items():
+            spec = ("pod",) + tuple(r["specs"][key])
+            want = S.block_of(twin_q[key], spec, r["coords"],
+                              mesh_cfg)[0].to(dev)
+            dq = (_load_array(torch, dev, path).to(torch.int16)
+                  - want.to(torch.int16)).abs()
+            differ += int((dq > 0).sum())
+            values += dq.numel()
+            max_dq = max(max_dq, int(dq.max()))
+            w = float(twin_s[key][r["coords"]["pod"]])
+            scale_rel = max(scale_rel, abs(scales[key] - w) / abs(w))
+            del want, dq
+    one_scale = all(
+        a["payload"][1] == b["payload"][1] for a in ranks for b in ranks
+        if a["coords"]["pod"] == b["coords"]["pod"])
+    return dict(differ=differ, values=values, max_dq=max_dq,
+                scale_rel=scale_rel, one_scale=one_scale)
+
+
+def _quant_shard_rows(torch, dev, shape):
+    """The shard path's quant entry points on the card: at small shapes
+    and at ``shape`` (the main path's expert block), the amax and the pack
+    given it bitwise the plain version's, a leaf packed block by block with
+    the blocks' max amax bitwise the whole-leaf quantization (also a leaf
+    of two main-path blocks, as (m2)'s two model ranks hold the expert
+    tables); the main shape timed beside the plain version and a PyTorch
+    call. Returns the kernels-line rows of ``quant_amax`` and
+    ``quant_int8_given_amax``."""
+    import warnings
+    from repro_torch.kernels.quant import ops, ref
+    from repro_torch.kernels.quant.ops import amax_work, quantize_work
+    for i, rshape in enumerate([(4, 33, 7), (2, 1_000_003), (3, 1)]):
+        x = torch.from_numpy(np.random.default_rng(400 + i).normal(
+            size=rshape).astype(np.float32)).to(dev)
+        a = ops.amax(x, rows=True)
+        check(torch.equal(a, ref.amax(x, rows=True)),
+              f"quant shards {rshape}: amax differs from the plain version")
+        got = ops.quantize_given_amax(x, a, rows=True, residual=True)
+        want = ref.quantize_given_amax(x, a)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and torch.equal(got[2], x - ref.dequantize(*want)),
+              f"quant shards {rshape}: the pack differs from the plain "
+              f"version")
+        # the leaf split in two along its last dim, each block on its own
+        # amax maxed with the other's: the whole leaf's payload
+        blocks = x.chunk(2, -1) if rshape[-1] > 1 else [x]
+        whole = torch.stack([ops.amax(b.contiguous(), rows=True)
+                             for b in blocks]).amax(0)
+        parts = [ops.quantize_given_amax(b.contiguous(), whole, rows=True)
+                 for b in blocks]
+        wq, ws = ops.quantize(x, rows=True)
+        check(torch.equal(torch.cat([p[0] for p in parts], -1), wq)
+              and all(torch.equal(p[1], ws) for p in parts),
+              f"quant shards {rshape}: the blocks' payloads are not the "
+              f"whole leaf's")
+    # a leaf of two main-path blocks, each packed with their maxed amax
+    leaf = torch.randn((shape[0], 2 * shape[1]), device=dev,
+                       generator=torch.Generator(dev).manual_seed(411))
+    halves = [h.contiguous() for h in leaf.chunk(2, -1)]
+    whole = torch.maximum(*[ops.amax(h, rows=True) for h in halves])
+    wq, ws = ops.quantize(leaf, rows=True)
+    for i, h in enumerate(halves):
+        q, s = ops.quantize_given_amax(h, whole, rows=True)
+        check(torch.equal(q, wq.narrow(1, i * shape[1], shape[1]))
+              and torch.equal(s, ws), f"quant shards: block {i} of a "
+              f"{tuple(leaf.shape)} leaf is not its block of the whole "
+              f"leaf's payload")
+    del leaf, halves, wq, q
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(410)
+    sets = [(torch.from_numpy((rng.normal(size=shape) * 0.01)
+                              .astype(np.float32)).to(dev),)]
+    x = sets[0][0]
+    numel = x.numel()
+    a = ops.amax(x, rows=True)
+    check(torch.equal(a, ref.amax(x, rows=True)),
+          f"quant shards {shape}: amax differs from the plain version")
+    q, s, res = ops.quantize_given_amax(x, a, rows=True, residual=True)
+    qr, sr = ref.quantize_given_amax(x, a)
+    deqr = ref.dequantize(qr, sr)
+    check(torch.equal(q, qr) and torch.equal(s, sr)
+          and torch.equal(res, x - deqr),
+          f"quant shards {shape}: the pack differs from the plain version")
+    err = float((ops.dequantize(q, s) - deqr).abs().max())
+    del q, s, res, qr, sr, deqr
+    amax_ms = device_ms(torch, lambda t: ops.amax(t, rows=True), sets)
+    amax_plain = device_ms(torch, lambda t: ref.amax(t, rows=True), sets)
+    amax_lib = event_ms(torch, lambda t: torch.linalg.vector_norm(
+        t, float("inf")), (x,))
+    pack_ms = device_ms(torch, lambda t: ops.quantize_given_amax(
+        t, a, rows=True, residual=True), sets)
+
+    def plain_pack(t):
+        qq, ss = ref.quantize_given_amax(t, a)
+        return qq, ss, t - ref.dequantize(qq, ss)
+    pack_plain = device_ms(torch, plain_pack, sets)
+    scale = float(ref.quantize_given_amax(x[:1, :1], a)[1][0])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            pack_lib = event_ms(torch, lambda t: torch.quantize_per_tensor(
+                t, scale, 0, torch.qint8), (x,))
+        except (RuntimeError, NotImplementedError) as exc:
+            log(f"quant shards: torch.quantize_per_tensor not available on "
+                f"this card: {exc}")
+            pack_lib = None
+    amax_bound, amax_by = work_bound(amax_work(numel))
+    pack_bound, pack_by = work_bound(quantize_work(numel, True))
+    log(f"quant shards {shape} (the main path's expert block): amax and the "
+        f"pack given it bitwise the plain version; amax kernel "
+        f"{amax_ms * 1e3:.4f} us plain {amax_plain * 1e3:.4f} us "
+        f"torch.linalg.vector_norm(inf) {amax_lib * 1e3:.4f} us bound "
+        f"{amax_bound * 1e3:.4f} us ({amax_by}); pack+residual kernel "
+        f"{pack_ms * 1e3:.4f} us plain {pack_plain * 1e3:.4f} us "
+        f"torch.quantize_per_tensor "
+        f"{'n/a' if pack_lib is None else f'{pack_lib * 1e3:.4f} us'} "
+        f"bound {pack_bound * 1e3:.4f} us ({pack_by})")
+    del sets, x, a
+    torch.cuda.empty_cache()
+    return (dict(max_abs_err=0.0, ms=amax_ms, plain_ms=amax_plain,
+                 bound_ms=amax_bound, bound_by=amax_by, library_ms=amax_lib),
+            dict(max_abs_err=err, ms=pack_ms, plain_ms=pack_plain,
+                 bound_ms=pack_bound, bound_by=pack_by,
+                 library_ms=pack_lib))
+
+
+def _mtrain_log_ranks(part, ranks, one, spawn_s, held_s):
+    walls = np.array([r["walls"] for r in ranks]).max(0)
+    log(f"mesh_train ({part}) the ranks' {spawn_s:.1f} s: start-up (the "
+        f"process, CUDA, gloo, the draw of the shards) "
+        f"{max(r['t_ready'] for r in ranks):.1f} s, the steps "
+        f"{max(r['t_steps'] for r in ranks):.1f} s, the results written "
+        f"and digested {max(r['t_end'] - r['t_ready'] - r['t_steps'] for r in ranks):.1f}"
+        f" s (max over the ranks); the checks against the twin "
+        f"{held_s:.1f} s")
+    log(f"mesh_train ({part}) walls: a {'step' if part == 'm1' else 'block'}"
+        f" {[round(float(w), 3) for w in walls]} s (max over the ranks) "
+        f"against the twin's {[round(w, 3) for w in one['walls']]} s; the "
+        f"draw of each rank's shards {max(r['draw_s'] for r in ranks):.1f} "
+        f"s")
+    per = len(one["walls"])
+    log(f"mesh_train ({part}) rank 0's collectives a "
+        f"{'step' if part == 'm1' else 'block'}: "
+        f"{_coll_line(ranks[0]['coll'], per)} (each waited for on both "
+        f"sides, host clock)")
+    peaks = [r["peak"] for r in ranks]
+    log(f"mesh_train ({part}) peak memory a rank "
+        f"{[round(p / 2**30, 2) for p in peaks]} GiB, {sum(peaks) / 1e9:.2f} "
+        f"GB in all; the twin {one['peak'] / 2**30:.2f} GiB; host-staged "
+        f"ops a rank {[r['staged'] or 'none' for r in ranks]}")
+
+
+def _mtrain_spawn(part, shape, tmp):
+    """The 4 ranks of (m1) or (m2), their allocators growing segments in
+    place (the four share the card's memory; set in their environment
+    before they start)."""
+    from repro_torch.launch import mesh as M
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    before = os.environ.get(key)
+    os.environ[key] = "expandable_segments:True"
+    try:
+        return M.spawn(_mtrain_rank, 4, backend="gloo",
+                       args=(part, shape, tmp), timeout_s=900)
+    finally:
+        if before is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = before
+
+
+def _mtrain_m1(torch, dev, shape, tmp):
+    """(m1): DDP on (data 2, model 2) against the one-process twin."""
+    rows, seq = shape
+    t0 = time.perf_counter()
+    one = _mtrain_twin(torch, dev, "m1", shape)
+    twin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = _mtrain_spawn("m1", shape, tmp)
+    spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_paths = 2 * MTRAIN_DEPTH * MTRAIN_M1_STEPS   # forward and recompute
+    for r in ranks:
+        check(r["paths"] == {"sharded": n_paths}, f"mesh_train (m1): rank "
+              f"{r['rank']} paths {r['paths']}, expected the all-to-all "
+              f"path {n_paths} times (forward and the remat's recompute)")
+    rel_loss, rel = _mtrain_hold(torch, dev, "m1", one, ranks,
+                                 _mtrain_cfg("m1", shape).mesh)
+    log(f"mesh_train (m1) DDP on (data {MTRAIN_M1_MESH[0]}, model "
+        f"{MTRAIN_M1_MESH[1]}), sgd lr 0.1, {rows} x {seq} tokens a step "
+        f"(T = {rows * seq}: moe_ffn_sharded and embed_sharded), "
+        f"{MTRAIN_M1_STEPS} steps: losses {ranks[0]['losses']} against the "
+        f"one-process twin's {one['losses']} (make_ddp_step under the "
+        f"sharded capacity rule), rel {rel_loss:.3e} (bound {MTRAIN_REL}); "
+        f"aux {ranks[0]['aux']} against {one['aux']}; params rel L2 "
+        f"{rel:.3e} (bound {MTRAIN_REL}); paths a rank {ranks[0]['paths']}; "
+        f"slots dropped {sum(r['drops'] for r in ranks)} over the ranks (C_s "
+        f"per source shard), the twin {one['drops']}; twin {twin_s:.1f} s, "
+        f"the ranks' spawn and run {spawn_s:.1f} s")
+    _mtrain_log_ranks("m1", ranks, one, spawn_s, time.perf_counter() - t0)
+    del one, ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mtrain_m2(torch, dev, shape, tmp):
+    """(m2): local SGD on (pod 2, data 1, model 2), int8, against the
+    one-process K = 2 block; returns the quant launches of each rank."""
+    rows, seq = shape
+    t0 = time.perf_counter()
+    one = _mtrain_twin(torch, dev, "m2", shape)
+    twin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = _mtrain_spawn("m2", shape, tmp)
+    spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_cfg = _mtrain_cfg("m2", shape).mesh
+    n_paths = 2 * MTRAIN_DEPTH * MTRAIN_M2_H * MTRAIN_M2_BLOCKS
+    for r in ranks:
+        check(r["paths"] == {"onehot": n_paths}, f"mesh_train (m2): rank "
+              f"{r['rank']} paths {r['paths']}, expected the one-hot path "
+              f"{n_paths} times")
+    pay = _payload_against_twin(torch, dev, ranks, one["payload"],
+                                mesh_cfg)
+    check(pay["one_scale"], "mesh_train (m2): the model ranks of a replica "
+                            "packed a leaf with different scales")
+    check(pay["max_dq"] <= 1 and pay["differ"] <= 1e-4 * pay["values"]
+          and pay["scale_rel"] <= MTRAIN_REL,
+          f"mesh_train (m2): the first sync's payloads against the twin's "
+          f"{pay}")
+    mesh_drops = sum(r["drops"] for r in ranks)
+    check(mesh_drops == MTRAIN_M2_MESH[2] * one["drops"],
+          f"mesh_train (m2): slots dropped {mesh_drops}, expected the "
+          f"twin's {one['drops']} on each of the {MTRAIN_M2_MESH[2]} model "
+          f"ranks")
+    launches = [r["launches"] for r in ranks]
+    for r in ranks:
+        want = dict(quant=2 * r["n_leaves"] * MTRAIN_M2_BLOCKS,
+                    amax=r["n_split"] * MTRAIN_M2_BLOCKS,
+                    given=r["n_split"] * MTRAIN_M2_BLOCKS)
+        check(r["launches"] == want, f"mesh_train (m2): rank {r['rank']} "
+              f"quant launches {r['launches']}, expected {want}")
+    rel_loss, rel = _mtrain_hold(torch, dev, "m2", one, ranks, mesh_cfg)
+    sync_ms = np.array([r["sync_ms"] for r in ranks]).max(0)
+    log(f"mesh_train (m2) local SGD on (pod {MTRAIN_M2_MESH[0]}, data "
+        f"{MTRAIN_M2_MESH[1]}, model {MTRAIN_M2_MESH[2]}), K = 2, H = "
+        f"{MTRAIN_M2_H}, int8, sgd lr 0.1, {rows // 2} x {seq} tokens a "
+        f"replica step (the one-hot MoE), {MTRAIN_M2_BLOCKS} blocks: losses "
+        f"{ranks[0]['losses']} against the one-process K = 2 block's "
+        f"{one['losses']}, rel {rel_loss:.3e} (bound {MTRAIN_REL}); params "
+        f"rel L2 {rel:.3e} (bound {MTRAIN_REL}); the first sync's int8 "
+        f"payloads: the {ranks[0]['n_leaves']} leaves' blocks packed with "
+        f"one scale a leaf on a replica's model ranks (the blocks' amax "
+        f"maxed); against the twin's (whose deltas differ in their last "
+        f"bits: the mesh sums the gradient in another order) "
+        f"{pay['differ']} of {pay['values']} int8 values differ (max |dq| "
+        f"{pay['max_dq']}), scales rel {pay['scale_rel']:.3e}; quant "
+        f"launches a rank {launches} (expected quant 2 x "
+        f"{ranks[0]['n_leaves']} leaves x {MTRAIN_M2_BLOCKS} blocks, amax "
+        f"and given {ranks[0]['n_split']} split leaves x "
+        f"{MTRAIN_M2_BLOCKS}); sync {[round(float(x), 2) for x in sync_ms]} "
+        f"ms a block (CUDA events, max over the ranks); slots dropped "
+        f"{mesh_drops} over the ranks (each model rank routes its replica's "
+        f"every token), the twin {one['drops']}; twin {twin_s:.1f} s, the "
+        f"ranks' spawn and run {spawn_s:.1f} s")
+    _mtrain_log_ranks("m2", ranks, one, spawn_s, time.perf_counter() - t0)
+    del one, ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mesh_train(torch, dev):
+    """Phase mesh_train (the docstring, item 15): (m1) DDP on (data 2, model
+    2) and (m2) local SGD on (pod 2, data 1, model 2), phi3.5-moe at its
+    published widths, MTRAIN_DEPTH layer, 4 gloo ranks on the card, each
+    held to its one-process twin. Returns the kernels-line rows of the
+    quant shard entry points with their launches in (m2)'s counted run."""
+    from repro_torch.config import get_arch
+    t_phase = time.perf_counter()
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"mesh_train: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free on "
+        f"the card at the start, this process's allocator reserving "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB")
+    cfg = _mtrain_cfg("m1", MTRAIN_M1_SHAPE).model
+    log(f"mesh_train: {cfg.name} at its published widths (d_model "
+        f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"{MTRAIN_DEPTH} of {get_arch(MESH_ARCH).n_layers} layers, f32, "
+        f"remat full; 4 gloo ranks on the one card")
+    with tempfile.TemporaryDirectory() as tmp:
+        _mtrain_m1(torch, dev, MTRAIN_M1_SHAPE, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = _mtrain_m2(torch, dev, MTRAIN_M2_SHAPE, tmp)
+    e_loc = cfg.moe.num_experts // MTRAIN_M2_MESH[2]
+    amax_row, given_row = _quant_shard_rows(
+        torch, dev, (1, MTRAIN_DEPTH * e_loc * cfg.d_model * cfg.d_ff))
+    amax_row["launches"] = sum(x["amax"] for x in launches)
+    given_row["launches"] = sum(x["given"] for x in launches)
+    log(f"mesh_train: phase {time.perf_counter() - t_phase:.1f} s")
+    return amax_row, given_row
+
+
+# ---------------------------------------------------------------------------
 # phase tooling: the roofline of whole calls, simsync on the card's times,
 # the dry run
 # ---------------------------------------------------------------------------
@@ -5116,10 +5764,12 @@ def main() -> int:
     done("smollm serving")
     quant_row = phase_quant(torch, dev)
     from repro_torch.config import get_smoke
-    quant_launches = phase_train(torch, dev, get_arch("smollm-360m"),
-                                 TRAIN_SEQ, TRAIN_BATCH, TRAIN_K, TRAIN_H)
-    phase_adaptive_train(torch, dev, get_arch("smollm-360m"), TRAIN_SEQ,
-                         TRAIN_BATCH, TRAIN_K)
+    train_model = dataclasses.replace(get_arch("smollm-360m"),
+                                      n_layers=TRAIN_DEPTH)
+    quant_launches = phase_train(torch, dev, train_model, TRAIN_SEQ,
+                                 TRAIN_BATCH, TRAIN_K, TRAIN_H)
+    phase_adaptive_train(torch, dev, train_model, TRAIN_SEQ, TRAIN_BATCH,
+                         TRAIN_K)
     phase_fault_restart(torch, dev, get_smoke("smollm-360m"))
     phase_train_modes(torch, dev, get_smoke("smollm-360m"))
     done("quant and training")
@@ -5133,13 +5783,16 @@ def main() -> int:
     done("train_families")
     ssd_row = phase_ssd(torch, dev)
     ssd_launches = phase_serve(
-        torch, dev, get_arch("mamba2-2.7b"), SERVE_BATCH, SERVE_PROMPT,
+        torch, dev, dataclasses.replace(get_arch("mamba2-2.7b"),
+                                        n_layers=SSM_SERVE_DEPTH),
+        SERVE_BATCH, SERVE_PROMPT,
         SERVE_GEN, None, SSM_F32_LOGITS_REL_L2,
         bf16_factor=SSM_BF16_VS_F32_FACTOR)[0]["ssd_tc"]
     # the f32 route's launches: zamba2's f32 prefill, the row's shape
     tc32_launches = phase_serve(
-        torch, dev, get_arch("zamba2-1.2b"), SERVE_BATCH, SERVE_PROMPT,
-        SERVE_GEN, None, SSM_F32_LOGITS_REL_L2,
+        torch, dev, dataclasses.replace(get_arch("zamba2-1.2b"),
+                                        n_layers=HYBRID_SERVE_DEPTH),
+        SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, None, SSM_F32_LOGITS_REL_L2,
         bf16_factor=SSM_BF16_VS_F32_FACTOR)[1]["flash_attention_tc32"]
     done("SSM and hybrid serving")
     t_families = time.perf_counter()
@@ -5149,6 +5802,8 @@ def main() -> int:
     done("families")
     phase_mesh_serve(torch, dev)
     done("mesh_serve")
+    amax_row, given_row = phase_mesh_train(torch, dev)
+    done("mesh_train")
     t_tooling = time.perf_counter()
     phase_tooling(card, t_start)
     log(f"tooling: phase {time.perf_counter() - t_tooling:.1f} s")
@@ -5176,6 +5831,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/quant/csrc/quant.cu",
         "replaces": "src/repro/kernels/quant/kernel.py:18",
         "launches": quant_launches, **quant_row}, {
+        "name": "quant_amax", "route": "cuda",
+        "source": "src/repro_torch/kernels/quant/csrc/quant.cu",
+        "replaces": "src/repro/kernels/quant/ops.py:28",
+        **amax_row}, {
+        "name": "quant_int8_given_amax", "route": "cuda",
+        "source": "src/repro_torch/kernels/quant/csrc/quant.cu",
+        "replaces": "src/repro/kernels/quant/kernel.py:29",
+        **given_row}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_tc.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:32",

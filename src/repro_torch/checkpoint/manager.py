@@ -27,7 +27,12 @@ checkpoint is the same file whether the run had one process or K; the ranks
 wait for the write. ``restore`` reads that file on every rank and scatters
 it back (:func:`repro_torch.core.local_sgd.scatter_replicas`). With
 ``axis=None`` the state is the same on every rank (data parallelism's):
-rank 0 writes it as it is, and every rank reads it back as it is.
+rank 0 writes it as it is, and every rank reads it back as it is. On a mesh
+with a model axis a rank holds its blocks of some leaves (``specs``, the
+specs of its share, :func:`repro_torch.core.local_sgd.rank_state_specs`):
+``save`` also puts the blocks back together over the replica's ranks
+(:func:`repro_torch.core.local_sgd.gather_shards`), so the file is the
+one-process file, and ``restore`` gives each rank its blocks again.
 """
 from __future__ import annotations
 
@@ -85,10 +90,10 @@ def _from_numpy(arr: np.ndarray, dtype: str, like, device):
 
 class CheckpointManager:
     def __init__(self, cfg: CheckpointConfig, mesh=None,
-                 axis: Optional[str] = "pod"):
+                 axis: Optional[str] = "pod", specs=None):
         self.cfg = cfg
         self.directory = cfg.directory
-        self.mesh, self.axis = mesh, axis
+        self.mesh, self.axis, self.specs = mesh, axis, specs
         self._lock = threading.Lock()
         self._pending: List[threading.Thread] = []
 
@@ -96,6 +101,9 @@ class CheckpointManager:
     def save(self, step: int, state, extra: Optional[Dict[str, Any]] = None,
              fingerprint: str = "") -> None:
         if self.mesh is not None:
+            if self.specs is not None:
+                from repro_torch.core.local_sgd import gather_shards
+                state = gather_shards(state, self.specs, self.mesh)
             if self.axis is not None:
                 from repro_torch.core.local_sgd import gather_replicas
                 state = gather_replicas(state, self.mesh, self.axis)
@@ -216,4 +224,10 @@ class CheckpointManager:
         if self.mesh is not None and self.axis is not None:
             from repro_torch.core.local_sgd import scatter_replicas
             state = scatter_replicas(state, self.mesh, self.axis)
+        if self.mesh is not None and self.specs is not None:
+            from repro_torch.sharding import shard_tree
+            state = dict(state)
+            for key, specs in self.specs.items():
+                state[key] = T.map(torch.clone, shard_tree(
+                    state[key], specs, self.mesh))
         return state, manifest.get("extra", {})

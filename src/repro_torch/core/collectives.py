@@ -178,6 +178,10 @@ class Group:
             return _Sum.apply(self, x)
         return self._all_reduce(x, dist.ReduceOp.SUM)
 
+    def sum_(self, x: torch.Tensor) -> None:
+        """``x`` in place ← its sum over the group (contiguous ``x``)."""
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+
     def amax(self, x: torch.Tensor) -> torch.Tensor:
         """``lax.pmax`` of this rank's largest element."""
         return self._all_reduce(x.amax(), dist.ReduceOp.MAX)
@@ -365,6 +369,50 @@ def mesh_groups(rules) -> Tuple[Group, Group]:
                          f"{model} on {mesh!r}")
     return (Group(mesh.group(data[0]), mesh.device, mesh.backend),
             Group(mesh.group(model[0]), mesh.device, mesh.backend))
+
+
+class Shards:
+    """How the ranks of one replica hold a leaf on a mesh with a model
+    axis: split over the groups ``split`` (each rank its block along the
+    leaf's spec), repeated alike on the ranks of ``copies`` (the
+    within-replica axes the spec does not use). :data:`WHOLE` is a leaf
+    that one process holds whole (no mesh, or a mesh without a model
+    axis)."""
+
+    def __init__(self, split: Sequence[Group] = (),
+                 copies: Sequence[Group] = ()):
+        self.split, self.copies = tuple(split), tuple(copies)
+
+    @property
+    def count(self) -> int:
+        """The blocks the leaf is split into."""
+        n = 1
+        for g in self.split:
+            n *= g.k
+        return n
+
+    def whole_max(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over the ranks that hold the leaf's other blocks
+        (a shard's amax → the whole leaf's; exact)."""
+        for g in self.split:
+            x = g.maximum(x)
+        return x
+
+    def sum_split(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks that hold the leaf's other blocks (a shard's
+        squares → the whole leaf's)."""
+        for g in self.split:
+            x = g._all_reduce(x, dist.ReduceOp.SUM)
+        return x
+
+    def sum_copies_(self, x: torch.Tensor) -> None:
+        """``x`` in place ← its sum over the ranks that hold the same block
+        (a gradient's parts on the ranks that computed alike)."""
+        for g in self.copies:
+            g.sum_(x)
+
+
+WHOLE = Shards()
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], group, k: int

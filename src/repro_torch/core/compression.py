@@ -18,6 +18,16 @@ own scale, as each replica quantizes its own leaf in the reference. Across
 processes each rank holds one replica, a ``(1, …)`` leaf, and quantizes it
 alone (through the quant kernel on the card); the payloads meet in
 :func:`allgather_mean_dequant`.
+
+On a mesh with a model axis a rank holds only its block of some leaves (the
+expert and embedding tables, :func:`repro_torch.sharding.train_specs`). Such
+a leaf is quantized with the whole leaf's scale, as the reference's
+per-tensor ``amax`` over a sharded leaf is global: the block's amax
+(:func:`repro_torch.kernels.quant.ops.amax`), its max over the ranks that
+hold the other blocks (``shards``, a tree of
+:class:`repro_torch.core.collectives.Shards`; exact), then the pack with it
+(``quantize_given_amax``). The blocks' payloads put back together are
+bitwise the whole leaf's quantization.
 """
 from __future__ import annotations
 
@@ -62,21 +72,43 @@ def init_error_feedback(params) -> Any:
                                        device=p.device), params)
 
 
-def _quantize_residual(v: torch.Tensor, rows: bool, impl: str):
-    """(q, scale, v − dequantize(q, scale)): on the kernel path the residual
-    is written by the quantize pass itself (bitwise the same)."""
+def quantize_shard(x: torch.Tensor, shards: "CL.Shards", *,
+                   rows: bool = False, impl: str = "kernel",
+                   residual: bool = False):
+    """:func:`quantize` of this rank's block of a leaf held split as
+    ``shards`` says, with the whole leaf's scale (the module docstring);
+    ``residual`` adds ``x − dequantize(q, scale)``. A leaf held whole
+    (``shards.split`` empty) takes :func:`quantize` itself."""
+    _check_impl(impl)
+    x32 = x.float().contiguous()
+    if not shards.split:
+        if impl == "torch":
+            q, s = quant_ref.quantize(x32, rows=rows)
+            return (q, s, x32 - quant_ref.dequantize(q, s)) if residual \
+                else (q, s)
+        return quant_ops.quantize(x32, rows=rows, residual=residual)
     if impl == "torch":
-        q, s = quant_ref.quantize(v, rows=rows)
-        return q, s, v - quant_ref.dequantize(q, s)
-    return quant_ops.quantize(v.contiguous(), rows=rows, residual=True)
+        q, s = quant_ref.quantize_given_amax(
+            x32, shards.whole_max(quant_ref.amax(x32, rows)))
+        return (q, s, x32 - quant_ref.dequantize(q, s)) if residual \
+            else (q, s)
+    whole = shards.whole_max(quant_ops.amax(x32, rows=rows))
+    return quant_ops.quantize_given_amax(x32, whole, rows=rows,
+                                         residual=residual)
 
 
-def compress_tree(delta, ef, *, rows: bool = False, impl: str = "kernel"):
-    """(delta, ef) → (q_tree, scale_tree, new_ef). delta+ef is quantized."""
+def compress_tree(delta, ef, *, rows: bool = False, impl: str = "kernel",
+                  shards=None):
+    """(delta, ef) → (q_tree, scale_tree, new_ef). delta+ef is quantized
+    (on the kernel path the residual is written by the quantize pass
+    itself, bitwise the same); ``shards`` (a tree like delta's, or None:
+    every leaf whole) how the ranks of a replica hold each leaf."""
     _check_impl(impl)
     flat, unflatten = T.flatten(delta)
-    out = [_quantize_residual(d.float() + e, rows, impl)
-           for d, e in zip(flat, T.leaves(ef))]
+    held = T.leaves(shards) if shards is not None else [CL.WHOLE] * len(flat)
+    out = [quantize_shard(d.float() + e, sh, rows=rows, impl=impl,
+                          residual=True)
+           for d, e, sh in zip(flat, T.leaves(ef), held)]
     return tuple(unflatten([o[i] for o in out]) for i in range(3))
 
 
@@ -94,6 +126,12 @@ def allgather_mean_dequant(q_tree, s_tree, *, impl: str = "kernel",
     dequantized row by row, all K in that fixed order, and averaged over
     dim 0, kept as a ``(1, …)`` dim that broadcasts to every replica.
     """
-    return T.map(lambda q, s: dequantize(rep.gather(q), rep.gather(s),
-                                         impl=impl).mean(dim=0, keepdim=True),
+    return T.map(lambda q, s: mean_dequant(q, s, impl=impl, rep=rep),
                  q_tree, s_tree)
+
+
+def mean_dequant(q: torch.Tensor, scale: torch.Tensor, *,
+                 impl: str = "kernel", rep=CL.STACKED) -> torch.Tensor:
+    """One leaf of :func:`allgather_mean_dequant`."""
+    return dequantize(rep.gather(q), rep.gather(scale),
+                      impl=impl).mean(dim=0, keepdim=True)

@@ -23,6 +23,24 @@ collectives. :func:`scatter_replicas` and :func:`gather_replicas` take the
 one-process K-replica state to each rank's share and back (the port's
 ``build_state_axes`` / ``state_shardings``).
 
+On a mesh with a ``model`` axis (``(data, model)`` for DDP, ``(pod, data,
+model)`` for local SGD; :func:`repro_torch.sharding.training_rules`) the
+step runs under the mesh rules, as the reference's runs its data and model
+axes in XLA's auto mode: a rank holds its shards of the expert and
+embedding tables (:func:`repro_torch.sharding.train_specs`; their moments
+and sync state follow, :func:`state_specs`) and every other leaf whole,
+computes the dense layers on its data rows alike on every model rank, and
+reaches the MoE's and the embedding's mesh paths, whose collectives carry
+the gradient between the ranks (each backward its transpose). Each rank
+differentiates its own loss; the sum of those over the replica's n ranks is
+n times the reference's loss (a whole-batch mean, the MoE's aux a mean over
+every rank already). So each leaf's gradient is summed over the ranks that
+hold the same block of it and divided by n (:class:`Within`): a whole leaf
+over every rank of the replica, a shard over the axes its spec leaves
+free. ``grad_clip`` reads the whole tree's norm, each shard's squares summed
+over its blocks' ranks once; the int8 sync packs each shard with its whole
+leaf's scale.
+
 State layout (plain dict), the reference's:
 
     {"params": …, "opt": …, "sync": …, "step": int}
@@ -64,14 +82,20 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding as S
 from repro_torch import tree as T
 from repro_torch.config.base import TrainConfig
 from repro_torch.core import collectives as CL
-from repro_torch.core import sync as S
+from repro_torch.core import sync as SY
 from repro_torch.device import wait
 from repro_torch.models import layers as L
 from repro_torch.optim import apply_updates_, init_opt_state
+
+# the families that train on a mesh with a model axis; the others are
+# ROADMAP §1 item 22
+MESH_FAMILIES = ("dense", "moe")
 
 
 # ---------------------------------------------------------------------------
@@ -84,13 +108,24 @@ def _stack(layers):
 
 
 def init_state(model, cfg: TrainConfig, gen: torch.Generator,
-               replicas: int = 0):
+               replicas: int = 0, rules=None, mesh=None):
     """Fresh state on ``gen``'s device (the draws of ``model.init``, each
     layer stack stacked into the reference's layout); ``replicas > 0`` adds
     the leading replica dim (local-SGD layout), every replica a copy of one
-    draw."""
-    params = L.init_params(model.param_defs(), gen,
-                           getattr(torch, cfg.model.param_dtype))
+    draw. With mesh ``rules`` (:func:`repro_torch.sharding.training_rules`)
+    each leaf is drawn whole, this rank's shard of it kept and the leaf
+    freed before the next is drawn: the one-process draw's values, without
+    the whole model on the rank."""
+    dtype = getattr(torch, cfg.model.param_dtype)
+    defs = model.param_defs()
+    if rules is None:
+        params = L.init_params(defs, gen, dtype)
+    else:
+        def shard(p, spec):
+            leaf = L.init_leaf(p, gen, dtype)
+            return S.shard_of(leaf, spec, mesh).clone() if any(spec) \
+                else leaf
+        params = S.map_with_specs(shard, defs, S.serve_specs(defs, rules))
     return state_of(params, cfg, replicas)
 
 
@@ -106,7 +141,7 @@ def state_of(params, cfg: TrainConfig, replicas: int = 0):
     state = {
         "params": params,
         "opt": init_opt_state(cfg.optimizer, params),
-        "sync": S.init_sync_state(cfg.sync, params),
+        "sync": SY.init_sync_state(cfg.sync, params),
         "step": 0,
     }
     if replicas:
@@ -143,6 +178,106 @@ def value_and_grad(model, params, batch) -> Tuple[torch.Tensor, Dict, Dict]:
         grads[key] = _stack(grads[key])
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, grads
+
+
+def state_specs(state, param_specs, replicated: bool):
+    """The specs of a trainer state's leaves (``state``: its ``params``,
+    ``opt`` and ``sync``) given one replica's param specs (:func:`repro_torch
+    .sharding.train_specs`): every moment and every per-leaf sync buffer
+    (``ef``, ``pending``, ``anchor``, ``slowmo_m``, ``sent``, ``mixbuf``)
+    its param's, the schedule counters whole; ``replicated`` leaves the
+    leading replica dim whole too."""
+    lead = (None,) if replicated else ()
+
+    def with_lead(spec):
+        return lead + spec if any(spec) else ()
+    params = S.map_with_specs(lambda spec, _: with_lead(spec), param_specs,
+                              param_specs)
+    return {"params": params,
+            "opt": {name: params for name in state["opt"]},
+            "sync": {name: (params if isinstance(value, dict) else ())
+                     for name, value in state["sync"].items()}}
+
+
+class Within:
+    """The ranks of one replica on a mesh with a model axis (every mesh
+    axis but the replica axis under local SGD, every axis under DDP), and
+    how they hold each param leaf: ``shards``, a tree like the params of
+    :class:`repro_torch.core.collectives.Shards` from the leaves' specs
+    (split over the axes a spec names, repeated over the others).
+    :meth:`reduce_` makes each rank's gradient of its own loss the
+    reference's gradient of the whole batch's (the module docstring),
+    :meth:`mean` a metric's mean over the ranks, :meth:`norm` the whole
+    tree's gradient norm."""
+
+    def __init__(self, model, cfg: TrainConfig, mesh, rules,
+                 replicated: bool):
+        replica_axis = cfg.mesh.replica_axis or "pod"
+        axes = [a for a in mesh.axes
+                if not (replicated and a == replica_axis)]
+        self.n = 1
+        for a in axes:
+            self.n *= mesh.size(a)
+        self.groups = {a: CL.Group(mesh.group(a), mesh.device, mesh.backend)
+                       for a in axes if mesh.size(a) > 1}
+        self.rules = rules
+        self.specs = S.train_specs(model.param_defs(), rules)
+
+        def layout(spec, _):
+            used = S.spec_axes(spec)
+            return CL.Shards(
+                [g for a, g in self.groups.items() if a in used],
+                [g for a, g in self.groups.items() if a not in used])
+        self.shards = S.map_with_specs(layout, self.specs, self.specs)
+
+    def reduce_(self, grads) -> None:
+        """Each gradient leaf in place ← its sum over the ranks that hold
+        the same block, divided by the replica's ranks."""
+        for g, sh in zip(T.leaves(grads), T.leaves(self.shards)):
+            sh.sum_copies_(g)
+            g.copy_(CL._div_exact(g, self.n))
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """A 0-dim metric's mean over the replica's ranks."""
+        out = x.detach().reshape(1).clone()
+        for g in self.groups.values():
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g.group)
+        return CL._div_exact(out, self.n)[0]
+
+    def norm(self, grads) -> torch.Tensor:
+        """The L2 norm of the whole gradient tree: a whole leaf's squares
+        counted once, a shard's summed over the ranks of its blocks."""
+        parts: Dict[tuple, torch.Tensor] = {}
+        split: Dict[tuple, CL.Shards] = {}
+        for g, sh in zip(T.leaves(grads), T.leaves(self.shards)):
+            key = tuple(id(x) for x in sh.split)
+            sq = torch.sum(torch.square(g.float()))
+            parts[key] = parts[key] + sq if key in parts else sq
+            split[key] = sh
+        total = sum(split[key].sum_split(sq.reshape(1))[0]
+                    for key, sq in parts.items())
+        return torch.sqrt(total)
+
+
+def _within(model, cfg: TrainConfig, mesh, replicated: bool):
+    """The :class:`Within` of a mesh with a model axis, else None."""
+    rules = S.training_rules(cfg, mesh)
+    if rules is None:
+        return None
+    if cfg.model.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"training the {cfg.model.family} family on a mesh with a model "
+            f"axis is ROADMAP §1 item 22; the mesh trains {MESH_FAMILIES}")
+    return Within(model, cfg, mesh, rules, replicated)
+
+
+def _grad_under(within, model, params, batch):
+    """:func:`value_and_grad` under the mesh rules of ``within`` (None: as
+    it is)."""
+    if within is None:
+        return value_and_grad(model, params, batch)
+    with S.use_rules(within.rules):
+        return value_and_grad(model, params, batch)
 
 
 def _replica(tree, r: int):
@@ -189,7 +324,15 @@ def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1,
     this rank's rows (``DataPipeline(…, mesh=mesh)``) and the gradient and
     the metrics are all-reduced to their mean over every rank of the mesh
     (the reference shards the batch over all its axes), so each rank takes
-    the same step."""
+    the same step. On a ``(data, model)`` mesh the state is this rank's
+    shards (:func:`init_state` with the mesh rules, or
+    ``interop.rank_train_state_from_jax``), the model ranks of a data row
+    take its rows alike, and each leaf's gradient is reduced as the module
+    docstring says; the step of every rank is then the reference's on its
+    block."""
+    within = (_within(model, cfg, mesh, replicated=False)
+              if mesh is not None else None)
+
     def step(state, batch):
         b = next(iter(batch.values())).shape[0]
         if grad_accum < 1 or b % grad_accum:
@@ -198,8 +341,8 @@ def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1,
         per = b // grad_accum
         loss, grads, aux = 0.0, None, {}
         for i in range(grad_accum):
-            li, mi, gi = value_and_grad(model, state["params"],
-                                        _rows(batch, i * per, (i + 1) * per))
+            li, mi, gi = _grad_under(within, model, state["params"],
+                                     _rows(batch, i * per, (i + 1) * per))
             if grad_accum > 1:
                 li = li / grad_accum
                 mi = {k: v / grad_accum for k, v in mi.items()}
@@ -207,13 +350,19 @@ def make_ddp_step(model, cfg: TrainConfig, *, grad_accum: int = 1,
             loss = loss + li
             aux = {k: aux.get(k, 0.0) + v for k, v in mi.items()}
             grads = gi if grads is None else T.map(torch.add, grads, gi)
-        if mesh is not None:
+        norm = {}
+        if within is not None:
+            within.reduce_(grads)
+            loss = within.mean(loss)
+            aux = {k: within.mean(v) for k, v in aux.items()}
+            norm = {"global_norm": within.norm}
+        elif mesh is not None:
             world = mesh.size()
             CL.all_reduce_mean_(T.leaves(grads), None, world)
             loss = _world_mean(loss, None, world)
             aux = {k: _world_mean(v, None, world) for k, v in aux.items()}
         apply_updates_(cfg.optimizer, grads, state["opt"], state["params"],
-                       state["step"])
+                       state["step"], **norm)
         new_state = {"params": state["params"], "opt": state["opt"],
                      "sync": state["sync"], "step": state["step"] + 1}
         return new_state, {"loss": loss, **aux}
@@ -244,7 +393,11 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
     rank's rows (``DataPipeline(…, mesh=mesh)``), and the sync is over the
     replica axis's collectives. Where the mesh also has a ``data`` axis of
     more than one rank (``strategy="hierarchical"``, which needs one), the
-    replica's gradient and loss are all-reduced over it every step.
+    replica's gradient and loss are all-reduced over it every step. Where
+    it also has a ``model`` axis (``(pod, data, model)``) each rank holds
+    its shards of the replica (the module docstring), the step runs under
+    the mesh rules with the replica axis stripped, and the sync runs over
+    the replica axis on each rank's shards.
 
     ``telemetry`` records each block's wall time keyed by its H (the
     batch's leading dim, ``cfg.sync.period`` unless an H-ladder re-blocks
@@ -252,14 +405,19 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
     """
     replica_axis = cfg.mesh.replica_axis or "pod"
     data_group, n_data = None, 1
+    within = None
     if mesh is not None:
         k_cfg = cfg.mesh.axis_size(replica_axis)
         if mesh.size(replica_axis) != k_cfg:
             raise ValueError(f"mesh axis {replica_axis!r} has "
                              f"{mesh.size(replica_axis)} ranks, but the "
                              f"config has {k_cfg} replicas")
-        data_group, n_data = _data_group(mesh, cfg)
-    if cfg.sync.strategy == "hierarchical" and data_group is None:
+        within = _within(model, cfg, mesh, replicated=True)
+        if within is None:
+            data_group, n_data = _data_group(mesh, cfg)
+    splits_data = data_group is not None or (
+        within is not None and cfg.mesh.data_axis in within.groups)
+    if cfg.sync.strategy == "hierarchical" and not splits_data:
         raise ValueError(
             "strategy='hierarchical' all-reduces each replica's gradient over "
             "a data axis every step: pass a (pod, data) mesh with more than "
@@ -287,20 +445,26 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
             for j in range(h):
                 mb = _rows({n: v[j] for n, v in batch.items()},
                            r * per, (r + 1) * per)
-                loss, _, grads = value_and_grad(model, p_r, mb)
-                if data_group is not None:
+                loss, _, grads = _grad_under(within, model, p_r, mb)
+                norm = {}
+                if within is not None:
+                    within.reduce_(grads)
+                    loss = within.mean(loss)
+                    norm = {"global_norm": within.norm}
+                elif data_group is not None:
                     CL.all_reduce_mean_(T.leaves(grads), data_group, n_data)
                     loss = _world_mean(loss, data_group, n_data)
                 apply_updates_(cfg.optimizer, grads, o_r, p_r,
-                               state["step"] + j)
+                               state["step"] + j, **norm)
                 del grads
                 losses[r, j] = loss
         step = state["step"] + h
-        sync = (S.sync_point if clock is None
-                else clock.wrap(S.sync_point))
-        params, sync_state = sync(start, params, state["sync"], cfg.sync,
-                                  impl=quant_impl, mesh=mesh,
-                                  axis=replica_axis)
+        sync = (SY.sync_point if clock is None
+                else clock.wrap(SY.sync_point))
+        params, sync_state = sync(
+            start, params, state["sync"], cfg.sync, impl=quant_impl,
+            mesh=mesh, axis=replica_axis,
+            shards=within.shards if within is not None else None)
         mean_loss = losses.mean(dim=1).mean()
         if mesh is not None:
             mean_loss = rep.mean(mean_loss.reshape(1))[0]
@@ -309,7 +473,7 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
             metrics["sync_eval_loss"] = _sync_eval_loss(
                 model, cfg, params, sync_state,
                 {n: v[-1] for n, v in batch.items()}, per, rep,
-                data_group, n_data)
+                data_group, n_data, within)
         return ({"params": params, "opt": opt, "sync": sync_state,
                  "step": step}, metrics)
 
@@ -321,7 +485,7 @@ def make_local_sgd_block(model, cfg: TrainConfig, *,
 
 def _sync_eval_loss(model, cfg: TrainConfig, params, sync_state, last_mb,
                     per: int, rep=CL.STACKED, data_group=None,
-                    n_data: int = 1) -> torch.Tensor:
+                    n_data: int = 1, within=None) -> torch.Tensor:
     """The paper's per-sync convergence check (§V-C2): each replica's loss
     on its rows of the last microbatch under the *synchronized* model,
     averaged over replicas. Under overlap the block-end params are still
@@ -336,12 +500,14 @@ def _sync_eval_loss(model, cfg: TrainConfig, params, sync_state, last_mb,
         eval_params = T.map(lambda p: rep.mean(p.float())
                             .expand(p.shape).to(p.dtype), eval_params)
     k = T.leaves(params)[0].shape[0]
-    with torch.no_grad():
+    with torch.no_grad(), S.use_rules(within.rules if within else None):
         losses = [model.loss(_replica(eval_params, r),
                              _rows(last_mb, r * per, (r + 1) * per))[0]
                   for r in range(k)]
     out = torch.stack(losses).mean()
-    if data_group is not None:
+    if within is not None:
+        out = within.mean(out)
+    elif data_group is not None:
         out = _world_mean(out, data_group, n_data)
     if rep is not CL.STACKED:
         out = rep.mean(out.reshape(1))[0]
@@ -367,10 +533,10 @@ def finalize_state(state, cfg: TrainConfig, mesh=None):
         new_sync["pending"] = T.map(torch.zeros_like, new_sync["pending"])
     if "ef" in new_sync:
         new_sync["ef"] = T.map(torch.zeros_like, new_sync["ef"])
-    flushed = S.flush_overlap(state["params"], state["sync"], cfg.sync,
-                              mesh=mesh, axis=cfg.mesh.replica_axis or "pod")
+    flushed = SY.flush_overlap(state["params"], state["sync"], cfg.sync,
+                               mesh=mesh, axis=cfg.mesh.replica_axis or "pod")
     if "sent" in new_sync:
-        new_sync["sent"], new_sync["mixbuf"] = S.init_async_buffers(
+        new_sync["sent"], new_sync["mixbuf"] = SY.init_async_buffers(
             flushed, cfg.sync.topology)
     return {**state, "params": flushed, "sync": new_sync}
 
@@ -528,9 +694,44 @@ def gather_replicas(state, mesh, axis: str = "pod"):
     return out
 
 
+def rank_state_specs(model, cfg: TrainConfig, mesh, state):
+    """The specs of this rank's share of a trainer state on ``mesh``
+    (:func:`state_specs` of the mesh rules' :func:`repro_torch.sharding
+    .train_specs`), or None where the mesh has no model axis (every leaf
+    whole)."""
+    rules = S.training_rules(cfg, mesh)
+    if rules is None:
+        return None
+    return state_specs(state, S.train_specs(model.param_defs(), rules),
+                       SY.needs_replica_axis(cfg.sync))
+
+
+def gather_shards(state, specs, mesh):
+    """Each params/opt/sync leaf of this rank's share put back together
+    from the blocks its ``specs`` (:func:`rank_state_specs`) split it into
+    (a collective over the axes of each spec: every rank calls it, and
+    gets the whole leaves on its device); the inverse of
+    ``sharding.shard_tree``."""
+    groups = {}
+
+    def whole(x, spec):
+        for dim in range(len(spec) - 1, -1, -1):
+            # the last axis of an entry varies fastest: gather it first
+            for axis in reversed(S.entry_axes(spec[dim])):
+                if axis not in groups:
+                    groups[axis] = CL.Group(mesh.group(axis), mesh.device,
+                                            mesh.backend)
+                x = groups[axis]._gather_dim(x, dim)
+        return x
+    out = dict(state)
+    for key in _replicated_parts(state):
+        out[key] = S.map_with_specs(whole, state[key], specs[key])
+    return out
+
+
 def make_train_step(model, cfg: TrainConfig, *, quant_impl: str = "kernel",
                     telemetry=None, mesh=None) -> Callable:
-    if S.needs_replica_axis(cfg.sync):
+    if SY.needs_replica_axis(cfg.sync):
         return make_local_sgd_block(model, cfg, quant_impl=quant_impl,
                                     telemetry=telemetry, mesh=mesh)
     return make_ddp_step(model, cfg, telemetry=telemetry, mesh=mesh)

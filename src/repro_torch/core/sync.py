@@ -33,6 +33,16 @@ group's ``torch.distributed`` collectives: an all-reduce, a
 wire's sum runs on int32 (NCCL has no int16 reduction); the ``qmax = 32767
 // K`` guard keeps it exact, so it equals the reference's int16 ``psum``.
 
+On a mesh with a model axis a rank holds its block of some leaves
+(``shards``, a tree like the params of
+:class:`repro_torch.core.collectives.Shards`; the trainer's
+``local_sgd.Within.shards``). Every step here is
+elementwise over the replica axis, so it runs on the blocks as they are;
+the compressed wires take each leaf's scale over the whole leaf (its
+blocks' amax maxed over the ranks that hold them,
+:func:`repro_torch.core.compression.quantize_shard`), and the chunked
+sync assigns leaves to shards by their whole sizes.
+
 The schedule counters (``chunk_idx``, ``gossip_round``) are read on the host
 (the reference selects with ``lax.switch``/``lax.cond``); across processes
 they advance alike on every rank, so no collective reads them. The
@@ -265,24 +275,30 @@ def gossip_later(x: torch.Tensor, topology: str, round_idx=None,
 _div_exact = CL._div_exact
 
 
-def _wire_dequant(val: torch.Tensor, compression: str, impl: str
-                  ) -> torch.Tensor:
+def _wire_dequant(val: torch.Tensor, compression: str, impl: str,
+                  shards: CL.Shards = CL.WHOLE) -> torch.Tensor:
     """Each replica's own dequantized payload of ``val`` (K, …) under a
     point-to-point wire: a per-sender scale, the full int range. int8 goes
-    through the quant kernel; int16 has no kernel in the reference either."""
+    through the quant kernel; int16 has no kernel in the reference either.
+    A block of a split leaf takes the whole leaf's scale."""
     if compression == "int8":
-        q, s = C.quantize(val, rows=True, impl=impl)
+        q, s = C.quantize_shard(val, shards, rows=True, impl=impl)
         return C.dequantize(q, s, impl=impl)
     qmax = 32767
-    amax = val.abs().reshape(val.shape[0], -1).amax(dim=1)
+    amax = shards.whole_max(val.abs().reshape(val.shape[0], -1).amax(dim=1))
     scale = _div_exact(torch.clamp(amax, min=1e-12), qmax)
     scale = scale.reshape((-1,) + (1,) * (val.dim() - 1))
     q = torch.clamp(torch.round(val / scale), -qmax, qmax).to(torch.int16)
     return q.float() * scale
 
 
+def _held(shards, n: int):
+    """The flat list of ``shards`` (a tree), or every leaf whole."""
+    return T.leaves(shards) if shards is not None else [CL.WHOLE] * n
+
+
 def _gossip_exchange(values, ef, cfg: SyncConfig, round_idx,
-                     impl: str = "kernel", rep=CL.STACKED):
+                     impl: str = "kernel", rep=CL.STACKED, shards=None):
     """Neighbor-mixed tree under ``cfg.topology``/``cfg.compression``.
 
     Returns ``(mixed_tree, new_ef_tree_or_None)``. Compressed wires carry
@@ -295,9 +311,9 @@ def _gossip_exchange(values, ef, cfg: SyncConfig, round_idx,
     if cfg.compression in ("int8", "int16"):
         flat, unflatten = T.flatten(values)
         mixed, new_ef = [], []
-        for v, e in zip(flat, T.leaves(ef)):
+        for v, e, sh in zip(flat, T.leaves(ef), _held(shards, len(flat))):
             val = v.float() + e
-            deq = _wire_dequant(val, cfg.compression, impl)
+            deq = _wire_dequant(val, cfg.compression, impl, sh)
             mixed.append(_mix_with(deq,
                                    lambda perm, d=deq: rep.permute(d, perm),
                                    rep.size(v), cfg.topology, round_idx))
@@ -321,16 +337,17 @@ def init_async_buffers(params, topology: str):
 
 
 def _gossip_async_exchange(values, ef, cfg: SyncConfig, round_idx,
-                           impl: str = "kernel", rep=CL.STACKED):
+                           impl: str = "kernel", rep=CL.STACKED,
+                           shards=None):
     """Double-buffered half-exchange: returns ``(recv_tree, sent_tree,
     new_ef_tree_or_None)`` — what lands in the buffers, consumed at the next
     boundary. Under compression ``sent`` is the own *dequantized* payload."""
     if cfg.compression in ("int8", "int16"):
         flat, unflatten = T.flatten(values)
         recv, sent, new_ef = [], [], []
-        for v, e in zip(flat, T.leaves(ef)):
+        for v, e, sh in zip(flat, T.leaves(ef), _held(shards, len(flat))):
             val = v + e
-            deq = _wire_dequant(val, cfg.compression, impl)
+            deq = _wire_dequant(val, cfg.compression, impl, sh)
             recv.append(_recv_with(lambda perm, d=deq: rep.permute(d, perm),
                                    rep.size(v), cfg.topology, round_idx))
             sent.append(deq)
@@ -341,7 +358,7 @@ def _gossip_async_exchange(values, ef, cfg: SyncConfig, round_idx,
 
 
 def _exchange_mean(values, ef, cfg: SyncConfig, round_idx=None,
-                   impl: str = "kernel", rep=CL.STACKED):
+                   impl: str = "kernel", rep=CL.STACKED, shards=None):
     """Replica exchange of a tree of ``(K, …)`` leaves under
     cfg.compression.
 
@@ -351,9 +368,11 @@ def _exchange_mean(values, ef, cfg: SyncConfig, round_idx=None,
     new_ef_tree_or_None)``.
     """
     if cfg.topology != "all":
-        return _gossip_exchange(values, ef, cfg, round_idx, impl, rep)
+        return _gossip_exchange(values, ef, cfg, round_idx, impl, rep,
+                                shards)
     if cfg.compression == "int8":
-        q, s, new_ef = C.compress_tree(values, ef, rows=True, impl=impl)
+        q, s, new_ef = C.compress_tree(values, ef, rows=True, impl=impl,
+                                       shards=shards)
         return C.allgather_mean_dequant(q, s, impl=impl, rep=rep), new_ef
     if cfg.compression == "int16":
         # fixed-point 2-byte wire through an ordinary sum, with one scale
@@ -365,10 +384,10 @@ def _exchange_mean(values, ef, cfg: SyncConfig, round_idx=None,
         k = rep.size(flat[0]) if flat else 1
         qmax = 32767 // k
         mean, new_ef = [], []
-        for d, e in zip(flat, T.leaves(ef)):
+        for d, e, sh in zip(flat, T.leaves(ef), _held(shards, len(flat))):
             v = d + e
-            scale = _div_exact(torch.clamp(rep.amax(v.abs()), min=1e-12),
-                               qmax)
+            scale = _div_exact(torch.clamp(sh.whole_max(rep.amax(v.abs())),
+                                           min=1e-12), qmax)
             q = torch.clamp(torch.round(v / scale), -qmax, qmax
                             ).to(torch.int16)
             summed = rep.sum(q.to(torch.int32)).float()
@@ -417,7 +436,8 @@ def _cast_like(values, params):
 
 def sync_point(params_start, params_end, sync_state: Dict[str, Any],
                cfg: SyncConfig, *, impl: str = "kernel", mesh=None,
-               axis: str = "pod") -> Tuple[Any, Dict[str, Any]]:
+               axis: str = "pod", shards=None
+               ) -> Tuple[Any, Dict[str, Any]]:
     """One model synchronization over the replica axis: the leading dim of
     every leaf on one process, or ``mesh``'s ``axis`` across processes
     (each holding one replica; see the module docstring).
@@ -426,7 +446,9 @@ def sync_point(params_start, params_end, sync_state: Dict[str, Any],
     replicas for ``overlap="none"``; per-replica under delayed/chunked and
     any gossip topology); ``params_end`` — the replicas' drifted params.
     ``impl`` selects the int8 wire's quantize/dequantize: the quant kernel
-    (``"kernel"``) or its plain version (``"torch"``).
+    (``"kernel"``) or its plain version (``"torch"``). ``shards`` (a tree
+    like the params, or None: every leaf whole) says how the ranks of a
+    replica hold each leaf (the module docstring).
 
     The blocking global sync takes ``params_end`` over, as the reference's
     trainer donates its state (``params_end`` is the local-SGD block's
@@ -439,19 +461,34 @@ def sync_point(params_start, params_end, sync_state: Dict[str, Any],
     rep = CL.replicas(mesh, axis)
     if cfg.gossip_async:
         return _sync_point_gossip_async(params_end, sync_state, cfg, impl,
-                                        rep)
+                                        rep, shards)
     if cfg.topology != "all" and cfg.overlap != "chunked":
-        return _sync_point_gossip(params_end, sync_state, cfg, impl, rep)
+        return _sync_point_gossip(params_end, sync_state, cfg, impl, rep,
+                                  shards)
     if cfg.overlap == "delayed":
         return _sync_point_delayed(params_start, params_end, sync_state,
-                                   cfg, impl, rep)
+                                   cfg, impl, rep, shards)
     if cfg.overlap == "chunked":
-        return _sync_point_chunked(params_end, sync_state, cfg, impl, rep)
+        return _sync_point_chunked(params_end, sync_state, cfg, impl, rep,
+                                   shards)
 
     delta = T.map(_delta_into, params_end, params_start)
     new_state = dict(sync_state)
+    if cfg.compression == "int8" and cfg.slowmo <= 0.0:
+        # each leaf's mean written into params_end as soon as it is
+        # dequantized: no tree of means is held beside the params, the
+        # start copy and two error-feedback residuals (a copy fewer)
+        q, s, new_state["ef"] = C.compress_tree(
+            delta, sync_state["ef"], rows=True, impl=impl, shards=shards)
+        del delta
+        for e, st, qq, ss in zip(T.leaves(params_end),
+                                 T.leaves(params_start), T.leaves(q),
+                                 T.leaves(s)):
+            torch.add(st.float(), C.mean_dequant(qq, ss, impl=impl, rep=rep),
+                      out=e)
+        return params_end, new_state
     mean_delta, new_ef = _exchange_mean(delta, sync_state.get("ef"), cfg,
-                                        impl=impl, rep=rep)
+                                        impl=impl, rep=rep, shards=shards)
     del delta
     if new_ef is not None:
         new_state["ef"] = new_ef
@@ -463,7 +500,7 @@ def sync_point(params_start, params_end, sync_state: Dict[str, Any],
 
 
 def _sync_point_delayed(params_start, params_end, sync_state, cfg, impl,
-                        rep):
+                        rep, shards=None):
     """Stale-by-one averaging: compute this block's mean, apply last
     block's. Replica k's params stay ``anchor + own latest local delta``;
     applying ``pending = mean_{i−1} − Δ_{i−1,k}`` swaps the stale local
@@ -471,7 +508,7 @@ def _sync_point_delayed(params_start, params_end, sync_state, cfg, impl,
     delta = _f32_delta(params_end, params_start)
     new_state = dict(sync_state)
     mean_delta, new_ef = _exchange_mean(delta, sync_state.get("ef"), cfg,
-                                        impl=impl, rep=rep)
+                                        impl=impl, rep=rep, shards=shards)
     if new_ef is not None:
         new_state["ef"] = new_ef
     step_delta = _slowmo_step(mean_delta, sync_state, new_state, cfg)
@@ -481,7 +518,7 @@ def _sync_point_delayed(params_start, params_end, sync_state, cfg, impl,
     return new_params, new_state
 
 
-def _sync_point_gossip(params_end, sync_state, cfg, impl, rep):
+def _sync_point_gossip(params_end, sync_state, cfg, impl, rep, shards=None):
     """Gossip sync (ring/pairwise): mix parameter *values* with neighbors
     (value form keeps the replica mean invariant). ``overlap="delayed"``
     carries the gossip correction ``mix(w) − w`` one block stale."""
@@ -491,7 +528,7 @@ def _sync_point_gossip(params_end, sync_state, cfg, impl, rep):
         new_state["gossip_round"] = rnd + 1
     vals = T.map(lambda p: p.float(), params_end)
     mixed, new_ef = _gossip_exchange(vals, sync_state.get("ef"), cfg,
-                                     _round(rnd), impl, rep)
+                                     _round(rnd), impl, rep, shards)
     if new_ef is not None:
         new_state["ef"] = new_ef
     if cfg.overlap == "delayed":
@@ -501,7 +538,8 @@ def _sync_point_gossip(params_end, sync_state, cfg, impl, rep):
     return _cast_like(mixed, params_end), new_state
 
 
-def _sync_point_gossip_async(params_end, sync_state, cfg, impl, rep):
+def _sync_point_gossip_async(params_end, sync_state, cfg, impl, rep,
+                             shards=None):
     """Asynchronous (unsynchronized-round) gossip: mix with the *last
     received* neighbor snapshot. The correction applied here is
     ``mixbuf + M_ii·sent − sent``, the doubly stochastic mix of the snapshot
@@ -516,7 +554,7 @@ def _sync_point_gossip_async(params_end, sync_state, cfg, impl, rep):
     new_w = T.map(lambda v, rb, s: v + rb + (w_self - 1.0) * s,
                   vals, sync_state["mixbuf"], sync_state["sent"])
     recv, sent, new_ef = _gossip_async_exchange(
-        new_w, sync_state.get("ef"), cfg, _round(rnd), impl, rep)
+        new_w, sync_state.get("ef"), cfg, _round(rnd), impl, rep, shards)
     new_state["mixbuf"] = recv
     new_state["sent"] = sent
     if new_ef is not None:
@@ -524,25 +562,28 @@ def _sync_point_gossip_async(params_end, sync_state, cfg, impl, rep):
     return _cast_like(new_w, params_end), new_state
 
 
-def chunk_assignment(leaves, chunks: int):
+def chunk_assignment(leaves, chunks: int, blocks=None):
     """Leaf index → shard id, byte-balanced (greedy largest-first onto the
     lightest shard; ties broken by leaf order, so equal-size leaves land
     round-robin). ``leaves`` are tensors (or anything with ``shape`` and
-    ``element_size()``), one replica's, in tree-leaf order."""
-    def nbytes(leaf):
-        return math.prod(leaf.shape) * leaf.element_size()
-    order = sorted(range(len(leaves)),
-                   key=lambda i: (-nbytes(leaves[i]), i))
+    ``element_size()``), one replica's, in tree-leaf order; ``blocks`` (one
+    int a leaf, or None) the blocks a leaf is split into across ranks, so
+    that its whole size is weighed."""
+    counts = blocks if blocks is not None else [1] * len(leaves)
+    sizes = [math.prod(leaf.shape) * leaf.element_size() * n
+             for leaf, n in zip(leaves, counts)]
+    order = sorted(range(len(leaves)), key=lambda i: (-sizes[i], i))
     load = [0] * max(1, chunks)
     assign = [0] * len(leaves)
     for i in order:
         s = min(range(len(load)), key=lambda rr: (load[rr], rr))
         assign[i] = s
-        load[s] += nbytes(leaves[i])
+        load[s] += sizes[i]
     return assign
 
 
-def _sync_point_chunked(params_end, sync_state, cfg, impl, rep):
+def _sync_point_chunked(params_end, sync_state, cfg, impl, rep,
+                        shards=None):
     """Value-average one shard of the tree per boundary (the shard of
     ``chunk_idx % chunks``; only its leaves cross the wire). Under a gossip
     topology the shard is neighbor-mixed, the pairwise round advancing once
@@ -557,7 +598,9 @@ def _sync_point_chunked(params_end, sync_state, cfg, impl, rep):
     have_ef = ef is not None
     slowmo = cfg.slowmo > 0.0
     leaves, unflatten = T.flatten(params_end)
-    assign = chunk_assignment([p[0] for p in leaves], r)
+    held = _held(shards, len(leaves))
+    assign = chunk_assignment([p[0] for p in leaves], r,
+                              [sh.count for sh in held])
     ef_leaves = T.leaves(ef) if have_ef else [None] * len(leaves)
     m_leaves = T.leaves(sync_state["slowmo_m"]) if slowmo else None
     a_leaves = T.leaves(sync_state["anchor"]) if slowmo else None
@@ -565,7 +608,8 @@ def _sync_point_chunked(params_end, sync_state, cfg, impl, rep):
     vals = {i: leaves[i].float() for i in sub}
     efs = {i: ef_leaves[i] for i in sub} if have_ef else None
     mean, new_ef = _exchange_mean(vals, efs, cfg, round_idx=idx // r,
-                                  impl=impl, rep=rep)
+                                  impl=impl, rep=rep,
+                                  shards={i: held[i] for i in sub})
     new_leaves = list(leaves)
     new_ef_leaves = list(ef_leaves)
     new_m = list(m_leaves) if slowmo else None

@@ -76,16 +76,23 @@ class DataPipeline:
                       ) -> Dict[str, np.ndarray]:
         """The rows this process contributes: row block ``rank`` of
         ``size`` equal blocks of the global batch (the mesh's rank and
-        size; the whole batch without a mesh)."""
+        size; the whole batch without a mesh). On a mesh with a ``model``
+        axis the model ranks of a data row take the same rows: the block
+        and the count are over the other axes (row-major)."""
         if self.mesh is None or self.mesh.size() == 1:
             return batch
-        n_proc = self.mesh.size()
+        n_proc, index = 1, 0
+        for axis in self.mesh.axes:
+            if axis == "model":
+                continue
+            n_proc *= self.mesh.size(axis)
+            index = index * self.mesh.size(axis) + self.mesh.rank(axis)
         b = self.cfg.global_batch
         if b % n_proc:
             raise ValueError(f"global batch {b} does not split over "
                              f"{n_proc} processes")
         per = b // n_proc
-        lo = self.mesh.rank() * per
+        lo = index * per
         return {k: v[lo:lo + per] for k, v in batch.items()}
 
     def next_host(self) -> Dict[str, np.ndarray]:

@@ -6,7 +6,8 @@ dict (``repro.core.svm.dms_stepper_init``'s keys) into the port's tensors on
 a given device; :func:`lm_params_from_jax` turns an LM param pytree into the
 port's state dict, and :func:`rank_params_from_jax` into a serving rank's
 shards of it; :func:`lm_train_state_from_jax` turns a local-SGD train
-state into the port's trainer state. All keep each dtype. This module imports no JAX: the
+state into the port's trainer state, and :func:`rank_train_state_from_jax`
+into a training rank's share of it. All keep each dtype. This module imports no JAX: the
 caller converts to numpy (``jax.tree.map(np.asarray, params)``).
 """
 from __future__ import annotations
@@ -147,4 +148,30 @@ def lm_train_state_from_jax(state: Mapping[str, Any], cfg: TrainConfig,
 
     out = {key: convert(state[key], key) for key in ("params", "opt", "sync")}
     out["step"] = int(np.asarray(state["step"]))
+    return out
+
+
+def rank_train_state_from_jax(state: Mapping[str, Any], cfg: TrainConfig,
+                              rules, mesh) -> Dict[str, Any]:
+    """This rank's share of the reference's train state on ``mesh``:
+    :func:`lm_train_state_from_jax`, then (under a replica strategy) the
+    rank's replica (``local_sgd.scatter_replicas``), then its shard of each
+    leaf (``sharding.shard_of``) under ``rules``
+    (:func:`repro_torch.sharding.training_rules`) and
+    ``local_sgd.state_specs``; each leaf its own memory on the mesh's
+    device."""
+    from repro_torch import sharding as S
+    from repro_torch import tree as T
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.models.registry import build_model
+    full = lm_train_state_from_jax(state, cfg)
+    replicated = cfg.sync.strategy in ("periodic", "hierarchical")
+    if replicated:
+        full = LS.scatter_replicas(full, mesh, cfg.mesh.replica_axis or "pod")
+    specs = LS.state_specs(full, S.train_specs(
+        build_model(cfg.model).param_defs(), rules), replicated)
+    out = dict(full)
+    for key in ("params", "opt", "sync"):
+        out[key] = T.map(lambda t: t.to(mesh.device, copy=True),
+                         S.shard_tree(full[key], specs[key], mesh))
     return out

@@ -32,12 +32,21 @@
 //                       max and a max over the CTA's warps in shared memory:
 //                       partial[r, block].
 //   quant_scale         one CTA per row: the max over its partials, then
-//                       scale[r]. Max is exact, so the result does not depend
-//                       on the order: two launches give the same bits.
+//                       scale[r] (or, amax-only, the max itself). Max is
+//                       exact, so the result does not depend on the order:
+//                       two launches give the same bits.
 //   quant_int8          grid (blocks, R): q (char4 stores) and, if asked, the
 //                       residual (float4 stores).
 //   dequant_int8        grid (blocks, R): out = f32(q)·scale (char4 loads,
 //                       float4 stores).
+//
+// A leaf that one process holds only a shard of (the trainer on a model mesh)
+// is packed with the whole leaf's scale: quant_amax_f32 gives the shard's
+// amax (the partials and their max, no floor), the caller takes the max over
+// the ranks that hold the other shards (exact), and quant_int8_given_amax_f32
+// packs with that amax: quant_scale over one partial a row (the amax itself)
+// and quant_int8. The payloads put back together are bitwise the whole
+// leaf's, since every step is the whole-leaf path's own arithmetic.
 //
 // Bound: bytes. Quantize reads x twice (amax, then q) where the bound counts it
 // once: 4 bytes read and 1 written an element (plus 4 for the residual);
@@ -121,6 +130,8 @@ quant_amax_partial(const float* __restrict__ x, long long x_rs,
                                 blockIdx.x] = m;
 }
 
+// kScale: scale[r] from the row's max; else the max itself (amax-only)
+template <bool kScale>
 __global__ void __launch_bounds__(kThreads)
 quant_scale(const float* __restrict__ partial, int blocks,
             float* __restrict__ scale) {
@@ -131,7 +142,7 @@ quant_scale(const float* __restrict__ partial, int blocks,
   m = block_max(m);
   // the 1e-12 floor keeps a NaN amax NaN (fmaxf would give 1e-12)
   if (threadIdx.x == 0)
-    scale[r] = __fdiv_rn(m != m ? m : fmaxf(m, 1e-12f), 127.0f);
+    scale[r] = kScale ? __fdiv_rn(m != m ? m : fmaxf(m, 1e-12f), 127.0f) : m;
 }
 
 template <bool kVec, bool kRes>
@@ -232,6 +243,42 @@ int grid_blocks(long long n, int rows, int cap) {
 
 constexpr int kGridCap = 8192;  // CTAs over all rows: ~62 per SM on 132 SMs
 
+bool quant_vec(const float* x, long long x_rs, const int8_t* q,
+               long long q_rs, const float* res, long long res_rs, int rows) {
+  return rows_aligned(x, x_rs, 4, rows, 16) &&
+         rows_aligned(q, q_rs, 1, rows, 4) &&
+         rows_aligned(res, res_rs, 4, rows, 16);
+}
+
+void launch_amax_partial(const float* x, long long x_rs, float* partial,
+                         int rows, long long n, int blocks, cudaStream_t st) {
+  if (rows_aligned(x, x_rs, 4, rows, 16))
+    quant_amax_partial<true><<<dim3(blocks, rows), kThreads, 0, st>>>(
+        x, x_rs, partial, n);
+  else
+    quant_amax_partial<false><<<dim3(blocks, rows), kThreads, 0, st>>>(
+        x, x_rs, partial, n);
+}
+
+void launch_pack(const float* x, long long x_rs, int8_t* q, long long q_rs,
+                 float* res, long long res_rs, const float* scale, int rows,
+                 long long n, cudaStream_t st) {
+  const bool vec = quant_vec(x, x_rs, q, q_rs, res, res_rs, rows);
+  const dim3 grid(grid_blocks(n, rows, kGridCap), rows);
+  if (vec && res)
+    quant_int8<true, true><<<grid, kThreads, 0, st>>>(x, x_rs, q, q_rs, res,
+                                                      res_rs, scale, n);
+  else if (vec)
+    quant_int8<true, false><<<grid, kThreads, 0, st>>>(x, x_rs, q, q_rs, res,
+                                                       res_rs, scale, n);
+  else if (res)
+    quant_int8<false, true><<<grid, kThreads, 0, st>>>(x, x_rs, q, q_rs, res,
+                                                       res_rs, scale, n);
+  else
+    quant_int8<false, false><<<grid, kThreads, 0, st>>>(x, x_rs, q, q_rs, res,
+                                                        res_rs, scale, n);
+}
+
 }  // namespace
 
 // Blocks the amax stage uses a row: the wrapper allocates rows·blocks floats
@@ -251,29 +298,38 @@ extern "C" int quant_int8_f32(const float* x, long long x_rs, int8_t* q,
                               long long n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ab = quant_amax_blocks(n, rows);
-  const bool vec = rows_aligned(x, x_rs, 4, rows, 16) &&
-                   rows_aligned(q, q_rs, 1, rows, 4) &&
-                   rows_aligned(res, res_rs, 4, rows, 16);
-  if (vec)
-    quant_amax_partial<true><<<dim3(ab, rows), kThreads, 0, st>>>(
-        x, x_rs, partial, n);
-  else
-    quant_amax_partial<false><<<dim3(ab, rows), kThreads, 0, st>>>(
-        x, x_rs, partial, n);
-  quant_scale<<<rows, kThreads, 0, st>>>(partial, ab, scale);
-  const dim3 grid(grid_blocks(n, rows, kGridCap), rows);
-  if (vec && res)
-    quant_int8<true, true><<<grid, kThreads, 0, st>>>(x, x_rs, q, q_rs, res,
-                                                      res_rs, scale, n);
-  else if (vec)
-    quant_int8<true, false><<<grid, kThreads, 0, st>>>(x, x_rs, q, q_rs, res,
-                                                       res_rs, scale, n);
-  else if (res)
-    quant_int8<false, true><<<grid, kThreads, 0, st>>>(x, x_rs, q, q_rs, res,
-                                                       res_rs, scale, n);
-  else
-    quant_int8<false, false><<<grid, kThreads, 0, st>>>(x, x_rs, q, q_rs, res,
-                                                        res_rs, scale, n);
+  launch_amax_partial(x, x_rs, partial, rows, n, ab, st);
+  quant_scale<true><<<rows, kThreads, 0, st>>>(partial, ab, scale);
+  launch_pack(x, x_rs, q, q_rs, res, res_rs, scale, rows, n, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// amax[r] = max_j |x[r, j]| (NaN kept, no floor) of `rows` rows of n floats;
+// `partial` holds rows·quant_amax_blocks(n, rows) floats of scratch. Two
+// launches on `stream`; returns cudaGetLastError().
+extern "C" int quant_amax_f32(const float* x, long long x_rs, float* amax,
+                              float* partial, int rows, long long n,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ab = quant_amax_blocks(n, rows);
+  launch_amax_partial(x, x_rs, partial, rows, n, ab, st);
+  quant_scale<false><<<rows, kThreads, 0, st>>>(partial, ab, amax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// quant_int8_f32 with each row's amax given (amax[r], e.g. the max over the
+// shards of a leaf): scale[r] from it as quant_int8_f32 takes it from its own
+// partials, then the pack (and the residual if `res` is not null). Two
+// launches on `stream`; returns cudaGetLastError().
+extern "C" int quant_int8_given_amax_f32(const float* x, long long x_rs,
+                                         int8_t* q, long long q_rs,
+                                         float* res, long long res_rs,
+                                         const float* amax, float* scale,
+                                         int rows, long long n,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  quant_scale<true><<<rows, kThreads, 0, st>>>(amax, 1, scale);
+  launch_pack(x, x_rs, q, q_rs, res, res_rs, scale, rows, n, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,10 +25,15 @@ from repro_torch.kernels.quant import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quant.cu"
 
-# kernel launches so far: one per quantize call and one per dequantize call
-# on CUDA tensors (a quantize call runs three CUDA kernels: amax, scale,
-# pack), none for the CPU path. A run sets it to 0 and reads it after.
+# kernel launches so far: one per quantize call, quantize_given_amax call
+# and dequantize call on CUDA tensors (a quantize call runs three CUDA
+# kernels: amax, scale, pack), none for the CPU path. A run sets it to 0 and
+# reads it after.
 LAUNCHES = 0
+# launches of the shard path's entry points alone: amax calls, and the
+# quantize_given_amax calls (also in LAUNCHES)
+AMAX_LAUNCHES = 0
+GIVEN_LAUNCHES = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -47,6 +52,11 @@ ARGTYPES = {
                        _I64, _PTR],
     # q, q_rs, scale, out, out_rs, rows, n, stream
     "dequant_int8_f32": [_PTR, _I64, _PTR, _PTR, _I64, _I32, _I64, _PTR],
+    # x, x_rs, amax, partial, rows, n, stream
+    "quant_amax_f32": [_PTR, _I64, _PTR, _PTR, _I32, _I64, _PTR],
+    # x, x_rs, q, q_rs, res, res_rs, amax, scale, rows, n, stream
+    "quant_int8_given_amax_f32": [_PTR, _I64, _PTR, _I64, _PTR, _I64, _PTR,
+                                  _PTR, _I32, _I64, _PTR],
 }
 
 
@@ -170,6 +180,89 @@ def _quantize(x, rows, residual, r, n, stride, counted):
     if not rows:
         scale = scale[0]
     return (q, scale, res) if residual else (q, scale)
+
+
+def amax_work(numel: int) -> work.Work:
+    """The work of one amax call: x read once; no products."""
+    return work.Work("amax", {}, 4 * numel)
+
+
+def amax(x: torch.Tensor, *, rows: bool = False) -> torch.Tensor:
+    """max |x| in f32 (NaN kept, no floor): 0-dim, or with ``rows`` one per
+    row of the leading dim (``(R,)``), a shard's part of the whole leaf's
+    scale. On CUDA tensors: float32, rows contiguous (the row stride
+    free)."""
+    r, n, stride = _rows_of(x, rows)
+    with work.call(amax_work, x.numel()) as counted:
+        if x.device == work.META:
+            work.on_meta(counted, "amax")
+            return torch.empty((r,) if rows else (), dtype=torch.float32,
+                               device=work.META)
+        if not x.is_cuda:
+            return ref.amax(x, rows)
+        _check_cuda("x", x)
+        _check_rows(r)
+        if x.dtype != torch.float32:
+            raise TypeError(f"the CUDA amax kernel takes float32; x is "
+                            f"{x.dtype}")
+        lib = load_library()
+        out = torch.empty((r,), dtype=torch.float32, device=x.device)
+        partial = torch.empty((r * lib.quant_amax_blocks(n, r),),
+                              dtype=torch.float32, device=x.device)
+        err = lib.quant_amax_f32(x.data_ptr(), stride, out.data_ptr(),
+                                 partial.data_ptr(), r, n, _stream(x))
+        if err != 0:
+            raise RuntimeError(f"amax kernel launch failed: CUDA error {err}")
+        global AMAX_LAUNCHES
+        AMAX_LAUNCHES += 1
+        return out if rows else out[0]
+
+
+def quantize_given_amax(x: torch.Tensor, amax_: torch.Tensor, *,
+                        rows: bool = False, residual: bool = False):
+    """:func:`quantize` with each scale's amax given (0-dim, or ``(R,)``
+    with ``rows``): the scale ``max(amax, 1e-12) / 127``, computed as the
+    whole-tensor path computes it, then the pack (and the residual). A
+    shard packed with its whole leaf's amax (the max over every shard's
+    :func:`amax`) is its block of the whole leaf's payload, bitwise."""
+    r, n, stride = _rows_of(x, rows)
+    if tuple(amax_.shape) != ((r,) if rows else ()):
+        raise ValueError(f"amax {tuple(amax_.shape)} must be one per row "
+                         f"({r}) with rows, else 0-dim")
+    with work.call(_quantize_work_of, x, residual) as counted:
+        if x.device == work.META:
+            return _quantize(x, rows, residual, r, n, stride, counted)
+        if not x.is_cuda:
+            q, scale = ref.quantize_given_amax(x, amax_)
+            if residual:
+                return q, scale, x.float() - ref.dequantize(q, scale)
+            return q, scale
+        _check_cuda("x", x)
+        _check_rows(r)
+        if x.dtype != torch.float32 or amax_.dtype != torch.float32 \
+                or amax_.device != x.device:
+            raise TypeError(f"the CUDA quant kernel takes float32 x and amax "
+                            f"on one device; got {x.dtype} on {x.device}, "
+                            f"{amax_.dtype} on {amax_.device}")
+        lib = load_library()
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        scale = torch.empty((r,), dtype=torch.float32, device=x.device)
+        res = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+               if residual else None)
+        am = amax_.reshape(r).contiguous()
+        err = lib.quant_int8_given_amax_f32(
+            x.data_ptr(), stride, q.data_ptr(), n,
+            res.data_ptr() if residual else None, n, am.data_ptr(),
+            scale.data_ptr(), r, n, _stream(x))
+        if err != 0:
+            raise RuntimeError(f"quant kernel launch failed: CUDA error "
+                               f"{err}")
+        global LAUNCHES, GIVEN_LAUNCHES
+        LAUNCHES += 1
+        GIVEN_LAUNCHES += 1
+        if not rows:
+            scale = scale[0]
+        return (q, scale, res) if residual else (q, scale)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

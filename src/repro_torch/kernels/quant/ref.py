@@ -20,6 +20,15 @@ def _row_view(scale: torch.Tensor, ndim: int) -> torch.Tensor:
     return scale.reshape(scale.shape + (1,) * (ndim - scale.dim()))
 
 
+def amax(x: torch.Tensor, rows: bool = False) -> torch.Tensor:
+    """max |x| in f32: over all of x (0-dim), or with ``rows`` over each row
+    of the leading dim (``(R,)``); a NaN propagates."""
+    x32 = x.float()
+    if rows:
+        return x32.abs().reshape(x32.shape[0], -1).amax(dim=1)
+    return x32.abs().amax()
+
+
 def quantize(x: torch.Tensor, rows: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (float) → (q int8 of x's shape, scale f32): one scale over all of x
@@ -28,14 +37,19 @@ def quantize(x: torch.Tensor, rows: bool = False
     A NaN propagates to the scale (``amax`` and ``clamp`` keep it) and an
     infinity makes it infinite; the q of such a tensor or row are all 0, so
     it dequantizes to NaN, as the oracle's does."""
+    return quantize_given_amax(x, amax(x, rows))
+
+
+def quantize_given_amax(x: torch.Tensor, amax_: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize` with the amax given (0-dim, or ``(R,)`` a row): the
+    scale ``max(amax, 1e-12) / 127`` and the pack. With the whole leaf's
+    amax (the max of its shards' :func:`amax`) a shard packs to its block of
+    the whole leaf's payload, bit for bit."""
     x32 = x.float()
-    if rows:
-        amax = x32.abs().reshape(x32.shape[0], -1).amax(dim=1)
-    else:
-        amax = x32.abs().amax()
     # divide by a tensor: on CUDA, PyTorch applies a Python-scalar divisor
     # as a product with its reciprocal, one ulp off the oracle's division
-    scale = torch.clamp(amax, min=1e-12) / torch.full_like(amax, QMAX)
+    scale = torch.clamp(amax_, min=1e-12) / torch.full_like(amax_, QMAX)
     r = torch.clamp(torch.round(x32 / _row_view(scale, x32.dim())),
                     -QMAX, QMAX)
     # a NaN quotient (a NaN x, or any x over a NaN or an infinite scale)

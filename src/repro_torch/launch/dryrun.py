@@ -18,11 +18,11 @@ reference's fields, with these changes: ``status`` is ``ok``, ``skip``
 at once, counted on the meta device) in place of XLA's memory analysis, and
 ``fits_80g`` in place of ``fits_16g``; ``flops`` (products by dtype) and
 ``hbm_bytes`` counted, and ``roofline`` from
-:func:`repro_torch.launch.roofline.compute_terms` at H100 rates. A cell's
-card holds the weights whole: serving on a mesh may now shard the expert
-tables, the embedding and the cache (``ServeEngine(mesh=)``), but the dry
-run counts the one-card call; training still shards no weights (ROADMAP
-item 21 (a)).
+:func:`repro_torch.launch.roofline.compute_terms` at H100 rates. A cell
+counts the one-card call. A train cell's ``state_bytes_per_card`` is the
+state as a rank of its mesh holds it (the expert and embedding tables,
+their moments and sync state at their shard shapes, the rest whole:
+:mod:`repro_torch.launch.specs`); a serving cell's weights are whole.
 """
 from __future__ import annotations
 

@@ -68,15 +68,11 @@ def serving_rules(cfg: ModelConfig, mesh, max_len: int) -> S.ShardingRules:
     if tuple(mesh.axes) != ("data", "model"):
         raise ValueError(f"serving takes a (data, model) mesh, not "
                          f"{mesh.axes}")
-    mesh_cfg = mesh_config(mesh.shape, mesh.axes)
-    rules = S.rules_for(mesh_cfg, mesh)
     dims = {"vocab": cfg.vocab_size, "embed": cfg.d_model,
             "cache_seq": max_len}
     if cfg.is_moe:
         dims.update(experts=cfg.moe.num_experts, expert_embed=cfg.d_model)
-    whole = {name: () for name, n in dims.items()
-             if not rules.would_shard(name, n)}
-    return S.rules_for(mesh_cfg, mesh, whole)
+    return S.fitted_rules(mesh_config(mesh.shape, mesh.axes), mesh, dims)
 
 
 class ServeEngine:

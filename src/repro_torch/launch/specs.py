@@ -14,13 +14,17 @@ or computed: :class:`repro_torch.launch.roofline.WorkCounter` counts it):
 * decode: one ``model.decode_step`` against a cache of the cell's length.
 
 The per-card batch is the share of the batch axes that the sharding rules
-give (:mod:`repro_torch.sharding`). A cell's card holds the weights, the
-optimizer moments and the sync state whole and runs the whole model on its
-rows: along the model axis the cards repeat each other's work, which the
-record's ``useful_ratio`` shows. Serving cells may now shard (a
-``ServeEngine(mesh=)`` rank holds its shards of the expert tables, the
-embedding and the cache), but a cell counts the one-card call; training
-cells still may not (the trainer shards no weights, ROADMAP item 21 (a)).
+give (:mod:`repro_torch.sharding`). A cell counts the one-card call: the
+whole model run on its rows, so along the model axis the cards repeat each
+other's work, which the record's ``useful_ratio`` shows (the mesh paths'
+collectives cannot run on one process). A train cell's state is counted at
+the shapes a rank of the cell's mesh holds it in: the expert and embedding
+tables, their optimizer moments and their sync state at the shard shapes
+:func:`repro_torch.sharding.train_specs` gives under
+:func:`repro_torch.sharding.training_rules`, every other leaf whole, as the
+trainer on a mesh with a model axis holds them. Serving cells count the
+weights whole (a ``ServeEngine(mesh=)`` rank holds its shards of the
+expert tables, the embedding and the cache).
 The collectives a card's call would make across the mesh (the gradients'
 all-reduce over the batch axes, the replicas' sync) are priced from
 :func:`repro_torch.core.costmodel.wire_bytes_per_sync` on the link of the
@@ -50,7 +54,8 @@ from repro_torch.launch.roofline import WorkCounter, link_for_axis
 from repro_torch.models import layers as L
 from repro_torch.models.registry import analytic_param_count, build_model
 from repro_torch.optim import apply_updates_
-from repro_torch.sharding import axis_sizes, rules_for
+from repro_torch.sharding import (axis_sizes, map_with_specs, rules_for,
+                                  train_specs, training_rules)
 
 META = torch.device("meta")
 SERVE_DTYPE = torch.bfloat16     # the serving cells' weights and caches
@@ -188,6 +193,28 @@ def _bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _held_bytes(state, model, tcfg: TrainConfig, mesh_cfg: MeshConfig,
+                replicated: bool) -> int:
+    """The bytes of a trainer ``state`` as a rank of ``mesh_cfg`` holds it:
+    each params/opt/sync leaf at its shard shape under the training rules
+    (:func:`repro_torch.core.local_sgd.state_specs`), whole where the mesh
+    has no model axis."""
+    rules = training_rules(tcfg, mesh_cfg)
+    if rules is None:
+        return _bytes(state)
+    specs = LS.state_specs(state, train_specs(model.param_defs(), rules),
+                           replicated)
+    total = 0
+    for key in ("params", "opt", "sync"):
+        def held(t, spec):
+            n = 1
+            for d in rules.shard_shape(spec, t.shape):
+                n *= d
+            return n * t.element_size()
+        total += sum(T.leaves(map_with_specs(held, state[key], specs[key])))
+    return total
+
+
 def _wire(sizes: Dict[str, int], axes, param_bytes: float, k: int,
           cfg: SyncConfig, times: int, name: str, out: Dict[str, float],
           colls: Dict[str, dict]) -> None:
@@ -237,8 +264,9 @@ def build_cell(arch: str, shape_name: str, mesh_cfg: MeshConfig, *,
         batch = _inputs(cfg, "train", b, cell.seq,
                         getattr(torch, cfg.dtype))
         n_data = sizes.get(mesh_cfg.data_axis, 1)
-        notes = ("weights, moments and sync state whole on each card (the "
-                 "trainer shards no weights: item 21 (a))")
+        notes = ("state as a rank holds it: the expert and embedding "
+                 "tables, their moments and sync state at train_specs' "
+                 "shard shapes, the rest whole; the one-card call counted")
         if not local:
             state = LS.state_of(params, tcfg)
             step = LS.make_ddp_step(model, tcfg)
@@ -249,7 +277,9 @@ def build_cell(arch: str, shape_name: str, mesh_cfg: MeshConfig, *,
                   "grad_all_reduce", wire, colls)
             return BuiltCell(run=lambda: step(state, batch),
                              batch_per_card=b, opt_steps=1,
-                             state_bytes=_bytes(state) + _bytes(batch),
+                             state_bytes=_held_bytes(state, model, tcfg,
+                                                     mesh_cfg, False)
+                             + _bytes(batch),
                              wire=wire, collectives=colls, notes=notes,
                              **common)
         # a rank's one replica through the local-SGD block (on one process
@@ -279,7 +309,9 @@ def build_cell(arch: str, shape_name: str, mesh_cfg: MeshConfig, *,
             apply_updates_(block_cfg.optimizer, grads, o_r, p_r, 0)
         return BuiltCell(run=lambda: block(state, one), batch_per_card=b,
                          opt_steps=h, repeat=(local_step, h - 1),
-                         state_bytes=_bytes(state) + h * _bytes(batch),
+                         state_bytes=_held_bytes(state, model, tcfg,
+                                                 mesh_cfg, True)
+                         + h * _bytes(batch),
                          wire=wire, collectives=colls, notes=notes, **common)
 
     # serving: the batch over the replica and data axes

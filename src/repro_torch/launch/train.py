@@ -28,7 +28,20 @@ hierarchical``):
         --backend gloo --smoke --device cpu --steps 3 \\
         --set sync.strategy=periodic --set sync.period=2
 
-Rank 0 prints the JSON line. The adaptive H ladder and the fault-tolerant
+``--model M`` adds a model axis of M ranks: a ``(pod, data, model)`` mesh
+under a replica strategy, a ``(data, model)`` mesh of ``world / M`` data
+ranks under ``sync_every_step``; each rank then holds its shards of the
+expert and embedding tables and their optimizer and sync state, and the
+step reaches the MoE's and the embedding's mesh paths
+(:mod:`repro_torch.core.local_sgd`; the dense and MoE families):
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --backend gloo --arch phi3.5-moe-42b-a6.6b --smoke --device cpu \
+        --model 2 --steps 2 --set sync.strategy=periodic \
+        --set sync.period=2 --set sync.compression=int8
+
+Rank 0 prints the JSON line, which names the mesh. The adaptive H ladder
+and the fault-tolerant
 restarts run across ranks too: every rank's controller sees the world's
 block times and the ranks agree on each move of H; a fault on one rank
 restarts every rank (:mod:`repro_torch.runtime.ft`). Under
@@ -57,6 +70,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from repro_torch import sharding as S
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import (DataConfig, TrainConfig,
                                 config_fingerprint, get_arch, get_smoke)
@@ -182,7 +196,10 @@ def build_trainer(cfg: TrainConfig,
     device its own) each rank holds one replica: the state is this rank's
     share (:func:`repro_torch.core.local_sgd.scatter_replicas` of the
     one-process state, the same draw), ``make_pipeline`` yields this
-    rank's rows, and the step syncs over the mesh. The ladder is then live
+    rank's rows, and the step syncs over the mesh. On a mesh with a model
+    axis (:func:`repro_torch.sharding.training_rules`) the rank holds its
+    shards of the replica, each leaf drawn and its shard kept leaf by leaf
+    (never the whole model on a rank). The ladder is then live
     on every rank: its rungs take this rank's rows, every rank's telemetry
     holds the world's block times (the max over the ranks) and the ranks
     agree on each move of H, which is the mesh's replica-axis size's own
@@ -205,7 +222,8 @@ def build_trainer(cfg: TrainConfig,
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     state = LS.init_state(model, cfg, gen,
                           replicas=1 if mesh is not None and use_replicas
-                          else replicas)
+                          else replicas, rules=S.training_rules(cfg, mesh),
+                          mesh=mesh)
     h = cfg.sync.period if use_replicas else 0
 
     telemetry = None
@@ -283,6 +301,10 @@ def main(argv=None) -> None:
     p.add_argument("--data", type=int, default=1,
                    help="across ranks: data ranks a replica (a (pod, data) "
                         "mesh when > 1)")
+    p.add_argument("--model", type=int, default=1,
+                   help="across ranks: model ranks a data row (a (pod, "
+                        "data, model) mesh, or (data, model) under "
+                        "sync_every_step, when > 1)")
     args = p.parse_args(argv)
 
     mesh = None
@@ -290,26 +312,37 @@ def main(argv=None) -> None:
         from repro_torch.launch import mesh as M
         dev = M.init_from_env(args.backend, args.device)
         world = torch.distributed.get_world_size()
-        if world % args.data:
-            raise ValueError(f"--data {args.data} does not divide the "
-                             f"world of {world}")
-        replicas = world // args.data
-        shape, axes = (((replicas, args.data), ("pod", "data"))
-                       if args.data > 1 else ((replicas,), ("pod",)))
+        if world % (args.data * args.model):
+            raise ValueError(f"--data {args.data} × --model {args.model} "
+                             f"does not divide the world of {world}")
+        replicas = world // (args.data * args.model)
+        rows = world // args.model
+        if args.model > 1:
+            replicated = SY.needs_replica_axis(
+                apply_overrides(TrainConfig(), args.overrides).sync)
+            shape, axes = (((replicas, args.data, args.model),
+                            ("pod", "data", "model")) if replicated
+                           else ((rows, args.model), ("data", "model")))
+        else:
+            shape, axes = (((replicas, args.data), ("pod", "data"))
+                           if args.data > 1 else ((replicas,), ("pod",)))
         mesh = M.make_mesh(shape, axes)
     else:
+        if args.model > 1:
+            raise ValueError("--model needs ranks: pass --backend under "
+                             "torchrun")
         dev = resolve_device(args.device or "cuda")
         replicas, shape, axes = args.replicas, (args.replicas,), ("pod",)
+        rows = replicas
     model_cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     mesh_cfg = mesh_config(shape, axes)
     cfg = TrainConfig(model=model_cfg, mesh=mesh_cfg,
                       data=DataConfig(seq_len=64 if args.smoke else 4096,
-                                      global_batch=2 * replicas
-                                      * (args.data if mesh else 1)),
+                                      global_batch=2 * rows),
                       steps=args.steps)
     cfg = apply_overrides(cfg, args.overrides)
 
-    step, state, make_pipeline, _, telemetry, ladder = build_trainer(
+    step, state, make_pipeline, model, telemetry, ladder = build_trainer(
         cfg, dev, mesh)
     # checkpoints only into a directory the caller names: the default one
     # is shared by every run on the host
@@ -319,8 +352,10 @@ def main(argv=None) -> None:
     # the same on every rank, as it is
     axis = ((cfg.mesh.replica_axis or "pod")
             if SY.needs_replica_axis(cfg.sync) else None)
-    ckpt = (CheckpointManager(cfg.checkpoint, mesh=mesh, axis=axis)
-            if named else None)
+    ckpt = (CheckpointManager(
+        cfg.checkpoint, mesh=mesh, axis=axis,
+        specs=LS.rank_state_specs(model, cfg, mesh, state)) if named
+        else None)
     runner = StepRunner(step, ckpt, cfg.fault, cfg.checkpoint.interval_steps,
                         make_pipeline, fingerprint=config_fingerprint(cfg),
                         ladder=ladder, mesh=mesh)
@@ -344,6 +379,7 @@ def main(argv=None) -> None:
     if mesh is not None:
         out["ranks"] = mesh.size()
         out["backend"] = mesh.backend
+        out["mesh"] = dict(zip(mesh.axes, mesh.shape))
     if ladder is not None:
         # the live H-ladder run: trajectory, switches, per-rung telemetry
         # and the compile count

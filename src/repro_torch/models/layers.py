@@ -289,6 +289,23 @@ def embed_sharded(table: torch.Tensor, tokens: torch.Tensor,
     return model.gather_dim(x, 1)
 
 
+def whole_table(table: torch.Tensor) -> torch.Tensor:
+    """The whole (V, D) embedding table: ``table`` as it is, or under mesh
+    rules this rank's (V/M, D/Dn) shard gathered over data and model (the
+    gathers' transposes, sum-scatters, carry its gradient back to the
+    shard). The training loss of a tied model takes its logits from it."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return table
+    from repro_torch.core.collectives import mesh_groups
+    data, model = mesh_groups(rules)
+    if rules.mesh_axes_for("embed"):
+        table = data.gather_dim(table, 1)
+    if rules.mesh_axes_for("vocab"):
+        table = model.gather_dim(table, 0)
+    return table
+
+
 def unembed(params: Params, x: torch.Tensor, tied: bool) -> torch.Tensor:
     """x @ tableᵀ. Under mesh rules a tied table is this rank's (V/M, D/Dn)
     shard of the embedding: gathered over data, the local logits, gathered

@@ -46,6 +46,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.losses import ce_loss
+from repro_torch.sharding import current_rules, use_rules
 
 
 REMAT_POLICIES = ("none", "full", "dots")
@@ -60,7 +61,12 @@ def remat_layer(fn: Callable, remat: str) -> Callable:
     recomputes the rest); ``"dots"`` keeps the outputs of its 2-D matrix
     products as well and recomputes everything else, the batched products
     too; any other value leaves ``fn`` as it is. Non-reentrant, as
-    ``torch.autograd.grad`` needs, and bitwise the gradient of ``fn``."""
+    ``torch.autograd.grad`` needs, and bitwise the gradient of ``fn``. The
+    mesh rules current at the call go with the recompute, which the
+    backward may run on another thread (the card's autograd thread)."""
+    rules = current_rules()
+    if rules is not None and remat in ("full", "dots"):
+        fn = functools.partial(_under_rules, rules, fn)
     if remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     if remat == "dots":
@@ -69,6 +75,11 @@ def remat_layer(fn: Callable, remat: str) -> Callable:
             context_fn=functools.partial(create_selective_checkpoint_contexts,
                                          _SAVED_PRODUCTS))
     return fn
+
+
+def _under_rules(rules, fn: Callable, *args):
+    with use_rules(rules):
+        return fn(*args)
 
 
 def layer_defs(cfg: ModelConfig) -> L.ParamDefs:
@@ -193,8 +204,8 @@ class LM:
              mask=None) -> torch.Tensor:
         """The mean NLL of ``targets`` under final hidden ``x`` (chunked
         by ``ce_chunk``)."""
-        table = params["embed"]["embedding"] if self.cfg.tie_embeddings \
-            else params["out_embedding"]
+        table = L.whole_table(params["embed"]["embedding"]) \
+            if self.cfg.tie_embeddings else params["out_embedding"]
         return ce_loss(x, table, targets, mask=mask, chunk=self.cfg.ce_chunk)
 
     def _logits_last(self, params: L.Params, x_last: torch.Tensor

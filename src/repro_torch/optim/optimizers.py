@@ -91,10 +91,10 @@ def _global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def _maybe_clip(grads, clip: float):
+def _maybe_clip(grads, clip: float, global_norm=_global_norm):
     if not clip:
         return grads
-    norm = _global_norm(grads)
+    norm = global_norm(grads)
     scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
     return T.map(lambda g: (g * scale).to(g.dtype), grads)
 
@@ -140,12 +140,15 @@ def _leaf_update_(cfg: OptimizerConfig, lr, bc, p, g, moments) -> None:
 
 
 def apply_updates_(cfg: OptimizerConfig, grads, state: OptState, params,
-                   step: Step, lr: Optional[torch.Tensor] = None) -> None:
+                   step: Step, lr: Optional[torch.Tensor] = None,
+                   global_norm: Callable = _global_norm) -> None:
     """The update written into ``params`` and ``state``'s moments leaf by
     leaf, as the reference's trainer donates its state to the jitted step
     and XLA updates the buffers in place: no second copy of the params or
     moments is alive at once, only one leaf's temporaries. ``step`` is the
-    global step counter."""
+    global step counter. ``global_norm`` (grads → 0-dim) is the norm that
+    ``grad_clip`` reads: on a mesh the whole tree's over its ranks'
+    shards."""
     if cfg.name not in MOMENTS:
         raise ValueError(f"unknown optimizer {cfg.name!r}")
     if lr is None:
@@ -155,7 +158,7 @@ def apply_updates_(cfg: OptimizerConfig, grads, state: OptState, params,
         t = _f32(step) + 1.0
         bc = (1.0 - torch.pow(_f32(cfg.beta1), t),
               1.0 - torch.pow(_f32(cfg.beta2), t))
-    grads = _maybe_clip(grads, cfg.grad_clip)
+    grads = _maybe_clip(grads, cfg.grad_clip, global_norm)
     flat = T.leaves(params)
     moments = [T.leaves(state[name]) for name in MOMENTS[cfg.name]]
     per_leaf = list(zip(*moments)) if moments else [()] * len(flat)

@@ -26,8 +26,11 @@ they hand a spec to XLA's SPMD partitioner, and PyTorch's eager program has
 none. So a rank holds a weight either whole or as the slice its mesh path
 reads: serving on a mesh shards the MoE's expert tables, the embedding table
 and the decode cache (:class:`repro_torch.launch.serve.ServeEngine`) and
-holds every other weight whole; the trainer shards no weights and splits
-the batch over its ranks (:mod:`repro_torch.core.local_sgd`).
+holds every other weight whole; the trainer on a mesh with a model axis
+holds its shards of the same tables, of their optimizer moments and of their
+sync state (:func:`training_rules`, :func:`train_specs`,
+:mod:`repro_torch.core.local_sgd`), and on a mesh without one shards no
+weights and splits the batch over its ranks.
 """
 from __future__ import annotations
 
@@ -194,6 +197,42 @@ def rules_for(mesh_cfg: MeshConfig, mesh=None,
     return ShardingRules(rules, mesh)
 
 
+def fitted_rules(mesh_cfg: MeshConfig, mesh, dims: Mapping[str, int]
+                 ) -> ShardingRules:
+    """:func:`rules_for` with each logical dim of ``dims`` (name → size)
+    held whole where its size does not divide its mesh axes, so the model
+    code reads from the rules how a rank holds it."""
+    rules = rules_for(mesh_cfg, mesh)
+    whole = {name: () for name, n in dims.items()
+             if not rules.would_shard(name, n)}
+    return rules_for(mesh_cfg, mesh, whole)
+
+
+def training_rules(cfg, mesh) -> Optional[ShardingRules]:
+    """The rules a trainer (``cfg`` a ``TrainConfig``) runs under on
+    ``mesh`` (a live :class:`repro_torch.launch.mesh.Mesh`), or None where
+    the mesh has no model axis (the trainer then splits only the batch).
+    The default rules with the vocab, d_model and the experts held whole
+    where they do not divide their axes (as :func:`fitted_rules`); under a
+    replica strategy the replica axis stripped, as the reference's
+    local-SGD block strips its manual axis."""
+    if mesh is None or cfg.mesh.model_axis not in axis_sizes(mesh):
+        return None
+    if cfg.mesh.data_axis not in axis_sizes(mesh):
+        raise ValueError(f"a trainer on a mesh with a model axis needs a "
+                         f"data axis too (of 1 rank where the batch is not "
+                         f"split): {mesh!r}")
+    model = cfg.model
+    dims = {"vocab": model.vocab_size, "embed": model.d_model}
+    if model.is_moe:
+        dims.update(experts=model.moe.num_experts,
+                    expert_embed=model.d_model)
+    rules = fitted_rules(cfg.mesh, mesh, dims)
+    if cfg.sync.strategy in ("periodic", "hierarchical"):
+        rules = strip_axes(rules, {cfg.mesh.replica_axis or "pod"})
+    return rules
+
+
 def strip_axes(rules: ShardingRules, axes) -> ShardingRules:
     """Rules with the given mesh axes removed from every mapping (the
     reference uses it inside ``shard_map`` bodies, whose axes are manual)."""
@@ -228,8 +267,14 @@ def tree_specs(logical_tree, shapes_tree, rules: ShardingRules):
 # a rank's shard
 # ---------------------------------------------------------------------------
 
-def _entry_axes(entry: MeshAxes) -> Tuple[str, ...]:
+def entry_axes(entry: MeshAxes) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, the slowest first."""
     return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def spec_axes(spec: Spec) -> set:
+    """The mesh axes a spec splits its array over."""
+    return {a for entry in spec for a in entry_axes(entry)}
 
 
 def _block(entry: MeshAxes, coords: Mapping[str, int],
@@ -238,7 +283,7 @@ def _block(entry: MeshAxes, coords: Mapping[str, int],
     axes row-major, the first the slowest, as ``PartitionSpec`` orders a
     tuple of axes."""
     index, count = 0, 1
-    for a in _entry_axes(entry):
+    for a in entry_axes(entry):
         index = index * sizes[a] + coords[a]
         count *= sizes[a]
     return index, count
@@ -258,7 +303,7 @@ def _slice(tensor, spec: Spec, coords, sizes):
             continue
         if out.shape[dim] % count:
             raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
-                             f"split over {_entry_axes(entry)} ({count})")
+                             f"split over {entry_axes(entry)} ({count})")
         size = out.shape[dim] // count
         out = out.narrow(dim, index * size, size)
     return out
@@ -268,6 +313,13 @@ def shard_of(tensor, spec: Spec, mesh):
     """The slice of ``tensor`` that this rank's coordinates on ``mesh``
     take under ``spec`` (a view; each sharded dim must divide)."""
     return _slice(tensor, spec, coords_of(mesh), axis_sizes(mesh))
+
+
+def block_of(tensor, spec: Spec, coords: Mapping[str, int], mesh):
+    """The slice of ``tensor`` that the mesh coordinates ``coords`` (axis →
+    index) take under ``spec`` on ``mesh`` (anything :func:`axis_sizes`
+    reads): another rank's :func:`shard_of`, seen from here."""
+    return _slice(tensor, spec, coords, axis_sizes(mesh))
 
 
 def map_with_specs(fn, tree, specs):
@@ -353,7 +405,8 @@ def serve_specs(defs, rules: ShardingRules):
     """The tree of specs a serving rank holds a model's params under:
     ``rules.spec_for`` of each :data:`SERVE_SHARDED` leaf's logical axes,
     ``()`` (whole) for every other leaf. ``defs`` is the model's
-    ``param_defs()`` (its leaves carry ``logical`` and ``shape``)."""
+    ``param_defs()`` (its leaves carry ``logical`` and ``shape``); a
+    training rank holds the same leaves sharded (:func:`train_specs`)."""
     def walk(node, path):
         if isinstance(node, Mapping):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
@@ -363,6 +416,26 @@ def serve_specs(defs, rules: ShardingRules):
             return rules.spec_for(node.logical, node.shape)
         return ()
     return walk(defs, ())
+
+
+def train_specs(defs, rules: ShardingRules):
+    """The tree of specs a training rank holds one replica's params under,
+    in the trainer's layout: :func:`serve_specs`'s leaves, each layer
+    stack (a list in ``defs``) one dict of ``(depth, …)`` leaves whose
+    depth dim stays whole (the spec's first entry ``None``)."""
+    def stack(node):
+        if isinstance(node, Mapping):
+            return {k: stack(v) for k, v in node.items()}
+        if isinstance(node, list):
+            first = node[0]
+            if any(layer != first for layer in node):
+                raise ValueError("the layers of a stack hold their leaves "
+                                 "under different specs")
+            return map_with_specs(
+                lambda spec, _: (None,) + spec if any(spec) else (),
+                first, first)
+        return node
+    return stack(serve_specs(defs, rules))
 
 
 def flat_keys(tree, prefix: str = "") -> Dict[str, Any]:

@@ -232,3 +232,71 @@ def test_cuda_leaf_past_2_31_values(cuda, shape):
         assert torch.equal(qs, qr), lo
         assert torch.equal(ds, qr.float() * sc), lo
         assert torch.equal(rs, xs - qr.float() * sc), lo
+
+
+# ---------------------------------------------------------------------------
+# the shard path's entry points: amax, and the pack given the amax
+# ---------------------------------------------------------------------------
+
+def test_shard_entry_points_are_bound_with_64_bit_sizes():
+    """The trainer on a model mesh packs a leaf's block with the whole
+    leaf's scale through two more C entry points; both are in the ctypes
+    signatures the check above holds to ``quant.cu``."""
+    for name in ("quant_amax_f32", "quant_int8_given_amax_f32"):
+        assert name in ops.ARGTYPES
+        assert f'extern "C" int {name}(' in ops.SOURCE.read_text()
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_cpu_shard_path_is_the_plain_version(shape):
+    """On the CPU: ``amax`` and ``quantize_given_amax`` are the plain
+    versions, no launch counted; the pack given a tensor's own amax is its
+    ``quantize``, and two halves of a row packed with their maxed amax are
+    the whole row's payload, bitwise."""
+    x = _x(7, shape, scale=2.0)
+    before = (ops.LAUNCHES, ops.AMAX_LAUNCHES, ops.GIVEN_LAUNCHES)
+    a = ops.amax(x, rows=True)
+    assert torch.equal(a, ref.amax(x, rows=True)) and a.shape == shape[:1]
+    q, s, res = ops.quantize_given_amax(x, a, rows=True, residual=True)
+    qr, sr = ref.quantize(x, rows=True)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert torch.equal(res, x - ref.dequantize(qr, sr))
+    assert ops.amax(x[0]).dim() == 0
+    if shape[-1] > 1:
+        halves = [h.contiguous() for h in x.chunk(2, -1)]
+        whole = torch.maximum(*[ops.amax(h, rows=True) for h in halves])
+        parts = [ops.quantize_given_amax(h, whole, rows=True)
+                 for h in halves]
+        assert torch.equal(torch.cat([p[0] for p in parts], -1), qr)
+        assert all(torch.equal(p[1], sr) for p in parts)
+    assert (ops.LAUNCHES, ops.AMAX_LAUNCHES, ops.GIVEN_LAUNCHES) == before
+    with pytest.raises(ValueError, match="one per row"):
+        ops.quantize_given_amax(x, a[:1] if shape[0] > 1 else a[0],
+                                rows=True)
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_cuda_shard_path_matches_plain(cuda, shape):
+    """On the card: the amax kernel and the pack given it bitwise their
+    plain versions (payload, scale, residual), each launch counted once on
+    its own counter; halves of each row packed with their maxed amax are
+    the whole row's payload."""
+    x = _x(8, shape, cuda, scale=2.0)
+    before = (ops.LAUNCHES, ops.AMAX_LAUNCHES, ops.GIVEN_LAUNCHES)
+    a = ops.amax(x, rows=True)
+    q, s, res = ops.quantize_given_amax(x, a, rows=True, residual=True)
+    assert (ops.LAUNCHES - before[0], ops.AMAX_LAUNCHES - before[1],
+            ops.GIVEN_LAUNCHES - before[2]) == (1, 1, 1)
+    assert torch.equal(a, ref.amax(x, rows=True))
+    qr, sr = ref.quantize_given_amax(x, a)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert torch.equal(res, x - ref.dequantize(qr, sr))
+    wq, ws = ops.quantize(x, rows=True)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    if shape[-1] > 1:
+        halves = [h.contiguous() for h in x.chunk(2, -1)]
+        whole = torch.maximum(*[ops.amax(h, rows=True) for h in halves])
+        parts = [ops.quantize_given_amax(h, whole, rows=True)
+                 for h in halves]
+        assert torch.equal(torch.cat([p[0] for p in parts], -1), wq)
+        assert all(torch.equal(p[1], ws) for p in parts)

@@ -328,3 +328,37 @@ def test_block_counted_as_one_step_and_repeats():
     assert dict(got.flops) == dict(want.flops)
     assert got.kernels == want.kernels
     assert abs(got.bytes - want.bytes) / want.bytes < 1e-6
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+def test_train_cell_counts_the_state_a_rank_holds(mesh):
+    """A train cell on a mesh with a model axis counts its state at the
+    shapes a rank holds it in: phi3.5-moe's expert tables (16 experts over
+    the 16 model ranks, d_model over the 16 data ranks) and its embedding
+    table (vocab over model, d_model over data), with their moments and
+    sync state, a 256th each; every other leaf whole. On one card all of
+    it is whole."""
+    arch = "phi3.5-moe-42b-a6.6b"
+    mesh_cfg = SP.MESHES[mesh]
+    cell = SP.SHAPE_CELLS["train_4k"]
+    built = SP.build_cell(arch, "train_4k", mesh_cfg)
+    one = SP.build_cell(arch, "train_4k", SP.MESHES["1"])
+    cfg = get_arch(arch)
+    tcfg = SP.make_train_config(cfg, mesh_cfg, cell)
+    replicated = mesh == "2x16x16"
+    model = tbuild(cfg, attn_impl="torch", ssd_impl="torch", remat="full")
+    state = LS.state_of(TL.empty_params(model.param_defs(), torch.float32,
+                                        META), tcfg,
+                        replicas=1 if replicated else 0)
+    sharded = {"w_gate", "w_up", "w_down", "embedding"}
+
+    def held(tree, path=()):
+        if isinstance(tree, dict):
+            return sum(held(v, path + (k,)) for k, v in tree.items())
+        n = tree.numel() * tree.element_size()
+        return n // 256 if path[-1] in sharded else n
+    want = sum(held(state[k]) for k in ("params", "opt", "sync"))
+    h = tcfg.sync.period if replicated else 1
+    batch = built.state_bytes - want
+    assert batch == h * built.batch_per_card * cell.seq * 8 * 2
+    assert built.state_bytes < one.state_bytes

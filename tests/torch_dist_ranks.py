@@ -789,3 +789,164 @@ def mesh_serve(cfg, ref_params, prompts, gen, max_len):
         out["raises"]["family"] = str(exc)
     out["staged"] = dict(CL.STAGED)
     return out
+
+
+# ---------------------------------------------------------------------------
+# training on a (pod, data, model) mesh
+# ---------------------------------------------------------------------------
+
+def _train_cfg(kw, mesh_cfg, sync=None):
+    import dataclasses
+    from repro_torch.config import (DataConfig, OptimizerConfig, SyncConfig,
+                                    TrainConfig, get_smoke)
+    model_cfg = get_smoke(kw["arch"])
+    if kw.get("f32", True):
+        model_cfg = dataclasses.replace(model_cfg, dtype="float32")
+    return TrainConfig(model=model_cfg, mesh=mesh_cfg,
+                       sync=SyncConfig(**(sync or {})),
+                       optimizer=OptimizerConfig(**kw["opt"]),
+                       data=DataConfig(seq_len=kw["seq"],
+                                       global_batch=kw["rows"]))
+
+
+def mesh_train_cases(cases, local, inits, batches, ckpt_dir, cli_argv):
+    """The trainer on a (data 2, model 2) mesh of CPU ranks from the
+    reference's initial states (``interop.rank_train_state_from_jax``):
+    per DDP case this rank's loss and metrics, its blocks of the reduced
+    gradient (where asked), the mesh's global norm against the norm of the
+    whole gradient tree, its params after one step and the MoE paths
+    taken; the sharded quantize of a leaf; the local-SGD block on (pod 2,
+    data 1, model 2) for ``local["blocks"]`` blocks with its int8
+    payloads; a checkpoint of that state written, read back and stepped
+    from; last the CLI with ``--model 2`` (which leaves the world)."""
+    import contextlib
+    import copy
+    import io
+    from repro_torch import interop
+    from repro_torch import sharding as S
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import CheckpointConfig
+    from repro_torch.core import collectives as CL
+    from repro_torch.core import compression as C
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.launch import train as TR
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    torch.set_num_threads(1)
+    mesh = M.make_mesh((2, 2), ("data", "model"))
+    out = {"rank": mesh.rank(), "data": mesh.rank("data"),
+           "model": mesh.rank("model"), "ddp": {}}
+    for tag, kw in cases.items():
+        cfg = _train_cfg(kw, M.mesh_config((2, 2), ("data", "model")))
+        model = build_model(cfg.model, attn_impl="torch")
+        rules = S.training_rules(cfg, mesh)
+        state = interop.rank_train_state_from_jax(inits[tag], cfg, rules,
+                                                  mesh)
+        batch = {k: _data_rows(v, mesh).long() for k, v in
+                 batches[tag].items()}
+        got = {"specs": S.flat_keys(S.train_specs(model.param_defs(),
+                                                  rules))}
+        if kw.get("grads"):
+            within = LS.Within(model, cfg, mesh, rules, replicated=False)
+            moe.PATHS.clear()
+            _, _, grads = LS._grad_under(within, model, state["params"],
+                                         batch)
+            within.reduce_(grads)
+            got["grads"] = _np(grads)
+            got["norm"] = float(within.norm(grads))
+            whole = LS.gather_shards({"params": grads},
+                                     {"params": within.specs}, mesh)
+            got["whole_norm"] = float(torch.sqrt(sum(
+                torch.sum(g.double() ** 2)
+                for g in T.leaves(whole["params"]))))
+        moe.PATHS.clear()
+        state, metrics = LS.make_ddp_step(model, cfg, mesh=mesh)(state,
+                                                                 batch)
+        got["paths"] = dict(moe.PATHS)
+        got["metrics"] = {k: float(v) for k, v in metrics.items()}
+        got["final"] = _np(state["params"])
+        out["ddp"][tag] = got
+
+    # the sharded quantize of one leaf: this rank's block, the whole
+    # leaf's scale
+    data_g, model_g = (CL.Group(mesh.group(a), mesh.device, mesh.backend)
+                       for a in ("data", "model"))
+    leaf = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(2, 2, 4, 16, 8)).astype(np.float32) * 3.0)
+    spec = (None, None, "model", "data")
+    block = S.shard_of(leaf, spec, mesh).contiguous()
+    shards = CL.Shards([model_g, data_g])
+    out["quant"] = {"spec": spec}
+    for impl in ("torch", "kernel"):
+        q, s, res = C.quantize_shard(block, shards, rows=True, impl=impl,
+                                     residual=True)
+        out["quant"][impl] = dict(q=q.numpy(), scale=s.numpy(),
+                                  res=res.numpy())
+
+    # local SGD on (pod 2, data 1, model 2)
+    mesh3 = M.make_mesh((2, 1, 2), ("pod", "data", "model"))
+    cfg = _train_cfg(local, M.mesh_config((2, 1, 2),
+                                          ("pod", "data", "model")),
+                     local["sync"])
+    model = build_model(cfg.model, attn_impl="torch")
+    rules = S.training_rules(cfg, mesh3)
+    state = interop.rank_train_state_from_jax(inits["local"], cfg, rules,
+                                              mesh3)
+    block_fn = LS.make_local_sgd_block(model, cfg, mesh=mesh3)
+    rows = local["rows"] // 2
+    lo = mesh3.rank("pod") * rows
+    specs = LS.rank_state_specs(model, cfg, mesh3, state)
+    payloads = []
+    orig = C.compress_tree
+
+    def keep(*args, **kw):
+        got = orig(*args, **kw)
+        payloads.append({"q": _np(got[0]), "scale": _np(got[1])})
+        return got
+    C.compress_tree = keep
+    local_out = {"metrics": []}
+    try:
+        for b, blk in enumerate(batches["local"]):
+            mine = {k: torch.as_tensor(v)[:, lo:lo + rows].long()
+                    for k, v in blk.items()}
+            moe.PATHS.clear()
+            state, metrics = block_fn(state, mine)
+            local_out["metrics"].append({k: float(v)
+                                         for k, v in metrics.items()})
+            local_out.setdefault("paths", dict(moe.PATHS))
+            if b == 0:
+                # a copy: the next block steps the moments in place
+                local_out["first"] = T.map(np.copy, _np(
+                    {k: state[k] for k in ("params", "opt", "sync")}))
+    finally:
+        C.compress_tree = orig
+    local_out["payloads"] = payloads
+    local_out["final"] = _np({k: state[k] for k in ("params", "opt",
+                                                     "sync")})
+    local_out["specs"] = specs
+    # a checkpoint on the model mesh: the one-process file; read back, it
+    # steps as the state it was written from
+    ckpt = CheckpointManager(CheckpointConfig(directory=ckpt_dir),
+                             mesh=mesh3, axis="pod", specs=specs)
+    ckpt.save(int(state["step"]), state, fingerprint="mesh")
+    back, _ = ckpt.restore(state)
+    local_out["restored_equal"] = back["step"] == state["step"] and all(
+        torch.equal(a, b) for k in ("params", "opt", "sync")
+        for a, b in zip(T.leaves(back[k]), T.leaves(state[k])))
+    blk = batches["local"][0]
+    mine = {k: torch.as_tensor(v)[:, lo:lo + rows].long()
+            for k, v in blk.items()}
+    again = copy.deepcopy(state)
+    s1, m1 = block_fn(again, mine)
+    s2, m2 = block_fn(back, mine)
+    local_out["replay_bitwise"] = float(m1["loss"]) == float(m2["loss"]) \
+        and all(torch.equal(a, b) for k in ("params", "opt", "sync")
+                for a, b in zip(T.leaves(s1[k]), T.leaves(s2[k])))
+    out["local"] = local_out
+
+    # the CLI with a model axis (it leaves the world)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        TR.main(cli_argv)
+    out["cli"] = buf.getvalue()
+    return out
