@@ -125,7 +125,7 @@ entry points and holds every run to its plain-version twin:
    with and without the residual: bitwise the plain version's (NaN as NaN),
    scale NaN or inf, q 0, dequantized NaN, as the reference gives;
 8. the LM trainer: local SGD on smollm-360m at its widths, its depth cut
-   to 8 of 32 layers for the time limit (bf16 compute, f32 master params), K = 4 replicas, H = 4, int8 sync with error
+   to 4 of 32 layers for the time limit (bf16 compute, f32 master params), K = 4 replicas, H = 4, int8 sync with error
    feedback, AdamW, 2 sequences of 2,048 tokens per replica a step: 2 blocks
    on the kernel path (quant launches counted: one quantize and one
    dequantize per leaf per sync) and 2 on the plain path from the same state
@@ -178,7 +178,7 @@ entry points and holds every run to its plain-version twin:
     chunked scan's and the bound, and at the serving shapes the CUDA-core
     kernel's time on the same bf16 inputs;
 11. the SSM serving path: ``ServeEngine.generate`` on mamba2-2.7b at its
-    widths, its depth cut to 16 of 64 layers for the time limit (bf16,
+    widths, its depth cut to 8 of 64 layers for the time limit (bf16,
     seeded random weights), 4 prompts of 1,920
     tokens and 128 new tokens each, graph against eager as in 6, SSD
     launches counted (one per layer per
@@ -231,14 +231,39 @@ entry points and holds every run to its plain-version twin:
     drop; bf16 within 0.1), the slots dropped on both paths, the paths
     taken, the walls beside the one-process engine's, each collective's
     ms and bytes, the host-staged ops and the peaks a rank;
-15. phase mesh_train, training on a process mesh of 4 gloo ranks that
+15. phase mesh_families, serving the SSM, hybrid, VLM and audio families
+    on the same mesh of 4 gloo ranks (one spawn for the four models):
+    ``ServeEngine(mesh=)`` at their published widths, mamba2-2.7b cut to 4
+    of 64 layers, zamba2-1.2b to 6 of 38 (one application of its shared
+    block), paligemma-3b to 2 of 18, whisper-base whole (6 + 6), each rank
+    drawing every leaf from the seed and keeping its shards (the embedding
+    table; the attention caches' sequence where it tiles the model axis:
+    the self caches by ``max_len``, rounded up to a multiple of 2, and
+    whisper's 1,500-frame cross cache; the Mamba2 mixers, their state and
+    conv tails whole on the rank's rows); the main path's counted run, a
+    bf16 ``generate`` of 16 prompts of 2,048 tokens (T = 32,768: the
+    vocab-parallel embedding; paligemma's 256 seeded patch positions before
+    them) or whisper's 16 of 384 over 1,500 seeded frames (its odd vocab
+    held whole, the masked lookup over data), 8 new tokens, with the flash
+    and SSD launches a rank on their routes (all on the bf16 tensor-core
+    kernels); then the bf16 prefill, and in f32 the prefill and 8 steps
+    teacher-forced on the one-process f32 engine's tokens, held to the
+    one-process engine at the same depth, seed, prompts and extras (f32
+    logits within relative L2 1e-3 and the same argmax at every position,
+    on ``flash_attention_tc32.cu`` for zamba2 and whisper,
+    ``flash_attention.cu`` for paligemma's head dim 256 and ``ssd.cu``;
+    bf16 within 0.1), the walls beside the one-process engine's (a bf16
+    step: the counted ``generate``'s wall less the prefill's, over its
+    steps), each collective's ms and bytes, the host-staged ops and the
+    peaks a rank;
+16. phase mesh_train, training on a process mesh of 4 gloo ranks that
     share the card, phi3.5-moe at its published widths, its depth cut to 1
     of 32 layers, f32, remat full, sgd (AdamW's moments do not fit the
     four ranks on the card), each rank drawing every leaf from the seed
     and keeping its shards (the expert and embedding tables, their sync
     state): (m1) ``build_trainer``'s DDP step on (data 2,
     model 2), 32 x 1,024 tokens a step (T = 32,768: the all-to-all
-    MoE and the vocab-parallel embedding), 2 steps, held to the
+    MoE and the vocab-parallel embedding), 1 step, held to the
     one-process ``make_ddp_step`` under the sharded capacity rule (losses
     and aux relative 1e-3, the params put back together relative L2
     1e-3), the paths a rank, the slots dropped, each collective's ms and
@@ -253,7 +278,7 @@ entry points and holds every run to its plain-version twin:
     once a split leaf a block; the sync's ms (CUDA events); then the
     shard path's quant entry points against their plain version at the
     main path's expert block, timed beside it and a PyTorch call;
-16. phase tooling: (t1) the roofline of three whole calls, each counted by
+17. phase tooling: (t1) the roofline of three whole calls, each counted by
     ``repro_torch.launch.roofline.WorkCounter`` in a run apart from its
     phase's timed ones: the epsilon ``dms`` call of phase 3 with
     ``graphs=False`` (a replay hides its ops; against the median of 3
@@ -275,7 +300,9 @@ entry points and holds every run to its plain-version twin:
 
 The line before the last is the kernels' JSON record (seven entries: the
 flash route twice, bf16 and f32, and quant's shard path's two entry points
-beside its whole-leaf pair); the last line is
+beside its whole-leaf pair; the bf16 flash and the SSD entries also carry
+``mesh_families_launches``, phase mesh_families's counted launches a rank
+over its four models); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once. It imports
 no JAX and nothing of the JAX package.
@@ -317,8 +344,9 @@ QUANT_MAIN = ((4, 32 * 960 * 2560), True)
 TRAIN_LOSS_REL, TRAIN_PARAMS_REL_L2 = 1e-3, 1e-3
 TRAIN_K, TRAIN_H, TRAIN_SEQ, TRAIN_BATCH = 4, 4, 2048, 8
 # phases 8 and (a): smollm-360m at its widths, the depth cut from 32 to this
-# many layers for the script's time limit (phase mesh_train's room)
-TRAIN_DEPTH = 8
+# many layers for the script's time limit (8 for phase mesh_train's room,
+# then 4 for phase mesh_families')
+TRAIN_DEPTH = 4
 # phase train_ssm: (t1) zamba2-1.2b, K = 2, H = 4, 2 sequences a replica
 # step; (t3) remat at full width, the depth cut to this many layers
 TRAIN_SSM_K, TRAIN_SSM_H, TRAIN_SSM_BATCH = 2, 4, 4
@@ -431,8 +459,9 @@ SSM_F32_LOGITS_REL_L2 = 1e-2
 SSM_BF16_VS_F32_FACTOR = 1.5
 # phases 11 and 12: mamba2-2.7b and zamba2-1.2b served at their widths with
 # the depth cut from 64 and 38 to these many layers (zamba2's two shared
-# blocks) for the script's time limit (phase mesh_train's room)
-SSM_SERVE_DEPTH, HYBRID_SERVE_DEPTH = 16, 12
+# blocks) for the script's time limit (phase mesh_train's room; mamba2 from
+# 16 to 8 for phase mesh_families')
+SSM_SERVE_DEPTH, HYBRID_SERVE_DEPTH = 8, 12
 # phase families: (arch, layers kept (None: all), prompt tokens, new tokens)
 # a request, 4 requests; an MoE's f32 check at MOE_F32_DEPTH layers over
 # MOE_F32_STEPS decode steps
@@ -465,6 +494,15 @@ MESH_SHAPE = (2, 2)
 MESH_ARCH, MESH_DEPTH = "phi3.5-moe-42b-a6.6b", 1
 MESH_BATCH, MESH_PROMPT, MESH_GEN, MESH_SEED = 16, 2048, 8, 7
 MESH_F32_REL_L2 = 1e-3
+# phase mesh_families: the SSM, hybrid, VLM and audio families at their
+# published widths on the same mesh, each (arch, layers kept of its depth for
+# the time limit or None for all, prompt tokens): 16 x 2,048 (T = 32,768,
+# the vocab-parallel lookup's threshold; paligemma's 256 seeded patch
+# positions before them) or whisper's 16 x 384 over 1,500 seeded frames, 8
+# new tokens each
+MFAM_RUNS = [("mamba2-2.7b", 4, 2048), ("zamba2-1.2b", 6, 2048),
+             ("paligemma-3b", 2, 2048), ("whisper-base", None, 384)]
+MFAM_BATCH, MFAM_GEN, MFAM_SEED = 16, 8, 17
 # phase mesh_train: phi3.5-moe at its published widths cut to 1 of its 32
 # layers, f32, remat full, 4 gloo ranks on the card, sgd lr 0.1 (the
 # reference's own mesh test's optimizer): with AdamW's two moments (m1)'s
@@ -473,13 +511,13 @@ MESH_F32_REL_L2 = 1e-3
 # about 75 GB before activations. (m1) DDP on (data 2, model 2), 32 x 1,024
 # tokens a step (T = 32,768: moe_ffn_sharded and embed_sharded; at 16 x
 # 2,048 a rank's plain attention ran out too, at 17.27 GiB asking 0.78 GiB
-# more with 77.81 GiB in use), 2 steps;
+# more with 77.81 GiB in use), 1 step (2 until phase mesh_families came);
 # (m2) local SGD on (pod 2, data 1, model 2), K = 2, H = 2, int8, 2 x 2,048
 # tokens a replica step (the one-hot MoE), 2 blocks; each held to its
 # one-process twin at the trainer's bounds
 MTRAIN_DEPTH, MTRAIN_REL = 1, 1e-3
 # (sequences, tokens a sequence) a step, over all ranks
-MTRAIN_M1_MESH, MTRAIN_M1_SHAPE, MTRAIN_M1_STEPS = (2, 2), (32, 1024), 2
+MTRAIN_M1_MESH, MTRAIN_M1_SHAPE, MTRAIN_M1_STEPS = (2, 2), (32, 1024), 1
 MTRAIN_M2_MESH, MTRAIN_M2_SHAPE = (2, 1, 2), (4, 2048)
 MTRAIN_M2_H, MTRAIN_M2_BLOCKS = 2, 2
 # (d7): the adaptive trainer across the two ranks: a scripted move 4 -> 2
@@ -4959,6 +4997,316 @@ def phase_mesh_serve(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase mesh_families: the SSM, hybrid, VLM and audio families on a mesh
+# ---------------------------------------------------------------------------
+
+def _mfam_cfg(arch: str, depth, dtype: str):
+    """``arch`` at its published widths, its depth cut to ``depth`` layers
+    (None: all of them), activations in ``dtype``."""
+    from repro_torch.config import get_arch
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers,
+                               dtype=dtype)
+
+
+def _mfam_sizes(cfg, prompt_len: int):
+    """(the position decoding starts at, ``max_len``): the prompt's
+    positions after the VLM's image prefix, the new tokens and one more,
+    rounded up to a multiple of the model axis so the self-attention caches
+    split over it."""
+    start = prompt_len + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+    n = start + MFAM_GEN + 1
+    return start, n + -n % MESH_SHAPE[1]
+
+
+def _mfam_launches(cfg, bf16: bool):
+    """The kernel launches a prefill makes (:func:`serve_launches`); in f32
+    the flash kernel at a head dim past 128 (paligemma's 256) runs on
+    ``flash_attention.cu``."""
+    want = serve_launches(cfg, bf16)
+    if not bf16 and want["flash_attention"] and cfg.resolved_head_dim > 128:
+        want["flash_attention_tc32"] = 0
+    return want
+
+
+def _mfam_one(torch, dev, cfg, prompts, extras, start, max_len, forced):
+    """The one-process engine: the prefill's logits and wall, then
+    MFAM_GEN eager steps, greedy (``forced`` None) or teacher-forced on
+    ``forced``; the logits (steps + 1, B, V) on the host."""
+    from repro_torch.launch.serve import ServeEngine
+    eng = ServeEngine(cfg, dev, max_len=max_len,
+                      dtype=getattr(torch, cfg.dtype), graphs=False)
+    on_card = torch.from_numpy(prompts).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = eng.prefill(on_card, extras)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if forced is None:
+        loop = eng.decode_loop(MFAM_BATCH)
+        loop.start(logits, start)
+        steps = [loop.step().clone() for _ in range(MFAM_GEN)]
+    else:
+        steps = _forced_steps(eng, logits, start, forced)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / MFAM_GEN
+    out = torch.stack([x.float() for x in [logits] + steps]).cpu()
+    del eng, logits, steps
+    torch.cuda.empty_cache()
+    return dict(logits=out, prefill_s=prefill_s, decode_ms=decode_ms,
+                argmax=out.argmax(-1).T)
+
+
+def _mfam_rank(runs, tmp):
+    """One rank of phase mesh_families's (data, model) mesh, each model of
+    ``runs`` in turn, per dtype a ``ServeEngine(mesh=)`` drawn from the
+    seed (its shards kept): in bf16 the main path's counted run,
+    ``generate``, then the prefill; in f32 the prefill and MFAM_GEN steps
+    teacher-forced on the one-process f32 engine's tokens (this rank's
+    rows); every collective timed. The first model rank of each data row
+    writes its logits to ``tmp`` (.npy); every rank returns their
+    digest."""
+    import hashlib
+    import torch
+    from repro_torch.core import collectives as CL
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import layers as L
+    _rank_setup(torch)
+    mesh = M.make_mesh(MESH_SHAPE, ("data", "model"))
+    dev = mesh.device
+    timer = CollectiveTimer(torch)
+    counters = serve_counters()
+    # the vocab-parallel lookup's calls (T >= 32,768 and S tiling model)
+    sharded = [0]
+    embed_sharded = L.embed_sharded
+
+    def counted(*args, **kw):
+        sharded[0] += 1
+        return embed_sharded(*args, **kw)
+    L.embed_sharded = counted
+    rows = MFAM_BATCH // MESH_SHAPE[0]
+    out = dict(rank=mesh.rank(), data=mesh.rank("data"),
+               model=mesh.rank("model"), device=str(dev), runs={})
+    for run in runs:
+        arch = run["arch"]
+        prompts = torch.from_numpy(run["prompts"]).to(dev)
+        extras = {k: torch.from_numpy(v) for k, v in run["extras"].items()}
+        forced = torch.from_numpy(run["forced"]).to(dev).narrow(
+            0, mesh.rank("data") * rows, rows)
+        res = {}
+        for dtype in ("bfloat16", "float32"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            eng = ServeEngine(_mfam_cfg(arch, run["depth"], dtype), dev,
+                              max_len=run["max_len"],
+                              dtype=getattr(torch, dtype), mesh=mesh)
+            _wait(torch, dev)
+            r = dict(draw_s=time.perf_counter() - t0,
+                     table=tuple(eng.params["embed"]["embedding"].shape))
+            fsdp = {r["table"]}
+            if dtype == "bfloat16":
+                # the main path's counted run: the counts set to 0 just
+                # before and read just after
+                reset(counters)
+                sharded[0] = 0
+                t0 = time.perf_counter()
+                tokens = eng.generate(prompts, MFAM_GEN, extras)
+                _wait(torch, dev)
+                r["generate"] = dict(tokens=tokens,
+                                     wall=time.perf_counter() - t0,
+                                     launches=read(counters),
+                                     sharded=sharded[0])
+            timer.take(fsdp)
+            reset(counters)
+            sharded[0] = 0
+            t0 = time.perf_counter()
+            logits, _ = eng.prefill(prompts, extras)
+            _wait(torch, dev)
+            r["prefill_s"] = time.perf_counter() - t0
+            r["prefill"] = dict(launches=read(counters), sharded=sharded[0],
+                                coll=timer.take(fsdp))
+            steps = []
+            if dtype == "bfloat16":
+                # the counted generate's steps: its wall less a prefill's
+                r["decode_ms"] = 1e3 * (r["generate"]["wall"]
+                                        - r["prefill_s"]) / MFAM_GEN
+            else:
+                t0 = time.perf_counter()
+                loop = eng.decode_loop(MFAM_BATCH)
+                loop.start(logits, run["start"])
+                for i in range(MFAM_GEN):
+                    loop.token.copy_(forced[:, i:i + 1])
+                    steps.append(loop.step().clone())
+                _wait(torch, dev)
+                r["decode_ms"] = 1e3 * (time.perf_counter() - t0) / MFAM_GEN
+                r["decode"] = dict(coll=timer.take(fsdp))
+                del loop
+            arr = np.stack([x.float().cpu().numpy()
+                            for x in [logits] + steps])
+            r["digest"] = hashlib.sha256(arr.tobytes()).hexdigest()
+            if mesh.rank("model") == 0:
+                np.save(os.path.join(tmp, f"{arch}-{dtype}-"
+                                          f"{mesh.rank('data')}.npy"), arr)
+            r["peak"] = _peak(torch, dev)
+            res[dtype] = r
+            del eng, logits, steps, arr
+            torch.cuda.empty_cache()
+        out["runs"][arch] = res
+    L.embed_sharded = embed_sharded
+    out["staged"] = dict(CL.STAGED)
+    out["staged_bytes"] = dict(CL.STAGED_BYTES)
+    return out
+
+
+def _mfam_hold(torch, run, one, ranks, tmp):
+    """Hold one model's mesh runs to the one-process engine's and log
+    them; its counted ``generate``'s launches a rank by counter."""
+    arch, cfg = run["arch"], run["cfg"]
+    for dtype in ("bfloat16", "float32"):
+        runs = [r["runs"][arch][dtype] for r in ranks]
+        same = all(runs[i]["digest"] == runs[i + 1]["digest"]
+                   for i in range(0, len(runs), MESH_SHAPE[1]))
+        check(same, f"mesh_families {arch} {dtype}: the model ranks of a "
+                    f"data row differ")
+        got = torch.from_numpy(np.concatenate(
+            [np.load(os.path.join(tmp, f"{arch}-{dtype}-{d}.npy"))
+             for d in range(MESH_SHAPE[0])], axis=1))
+        ref = one[dtype]
+        rels = [rel_l2(torch, a, b) for a, b in zip(got, ref["logits"])]
+        bound = MESH_F32_REL_L2 if dtype == "float32" else LOGITS_REL_L2
+        same_tokens = bool((got.argmax(-1).T
+                            == ref["argmax"][:, :len(got)]).all())
+        want = _mfam_launches(cfg, dtype == "bfloat16")
+        for r in runs:
+            check(r["prefill"]["launches"] == want,
+                  f"mesh_families {arch} {dtype}: launches a prefill "
+                  f"{r['prefill']['launches']}, expected {want}")
+        steps = (f", {MFAM_GEN} steps max {max(rels[1:]):.4e}"
+                 if len(rels) > 1 else "")
+        log(f"mesh_families {arch} {dtype} against the one-process engine: "
+            f"prefill logits rel L2 {rels[0]:.4e}{steps} (bound {bound}); "
+            f"argmax identical at every position {same_tokens}; "
+            f"model ranks bitwise alike "
+            f"{same}; launches a rank a prefill {runs[0]['prefill']['launches']}"
+            f", vocab-parallel lookups a prefill "
+            f"{[r['prefill']['sharded'] for r in runs]}")
+        check(max(rels) <= bound, f"mesh_families {arch} {dtype}: logits "
+                                  f"rel L2 {max(rels)} > {bound}")
+        if dtype == "float32":
+            check(same_tokens, f"mesh_families {arch} float32: argmax "
+                               f"differs from the one-process engine's")
+        pre = [r["prefill_s"] for r in runs]
+        dec = [r["decode_ms"] for r in runs]
+        r0 = runs[0]
+        how = ("the counted generate's wall less the prefill's, over its "
+               "steps" if dtype == "bfloat16" else "teacher-forced")
+        log(f"mesh_families {arch} {dtype} walls: prefill {max(pre):.4f} s "
+            f"(max over the ranks; min {min(pre):.4f}) against one process "
+            f"{ref['prefill_s']:.4f} s; decode {max(dec):.3f} ms a step "
+            f"({how}) against {ref['decode_ms']:.3f} ms (teacher-forced; "
+            f"both eager); the draw of "
+            f"each rank's shards {max(r['draw_s'] for r in runs):.1f} s; "
+            f"the table shard a rank {r0['table']}")
+        step = (f"; a decode step: "
+                f"{_coll_line(r0['decode']['coll'], MFAM_GEN)}"
+                if "decode" in r0 else "")
+        log(f"mesh_families {arch} {dtype} rank 0's collectives, prefill: "
+            f"{_coll_line(r0['prefill']['coll'])}{step} (each waited for on "
+            f"both sides, host clock; fsdp_gather: the table shard gathered "
+            f"over data)")
+        peaks = [r["peak"] for r in runs]
+        log(f"mesh_families {arch} {dtype} peak memory a rank "
+            f"{[round(p / 2**30, 2) for p in peaks]} GiB, "
+            f"{sum(peaks) / 1e9:.2f} GB in all")
+    gen = [r["runs"][arch]["bfloat16"]["generate"] for r in ranks]
+    toks = gen[0]["tokens"]
+    want = _mfam_launches(cfg, True)
+    check(toks.shape == (MFAM_BATCH, MFAM_GEN)
+          and all(np.array_equal(g["tokens"], toks) for g in gen),
+          f"mesh_families {arch}: generate's tokens differ across the ranks")
+    check(all(g["launches"] == want for g in gen),
+          f"mesh_families {arch}: the counted generate's launches "
+          f"{[g['launches'] for g in gen]}, expected {want} a rank")
+    wall = max(g["wall"] for g in gen)
+    log(f"mesh_families {arch} the main path's counted run (bf16 generate, "
+        f"counts 0 just before, read just after): launches a rank "
+        f"{gen[0]['launches']} (flash on the bf16 tensor-core kernel, SSD "
+        f"on ssd_tc.cu), vocab-parallel lookups {gen[0]['sharded']}; wall "
+        f"{wall:.4f} s (max over the ranks), "
+        f"{MFAM_BATCH * MFAM_GEN / wall:.1f} new tokens/s; tokens identical "
+        f"on every rank")
+    return [g["launches"] for g in gen]
+
+
+def phase_mesh_families(torch, dev):
+    """Phase mesh_families: ``ServeEngine(mesh=)`` on the SSM, hybrid, VLM
+    and audio families (MFAM_RUNS: published widths, depths cut), 4 gloo
+    ranks sharing the card on a (data 2, model 2) mesh, one spawn for the
+    four models: each held to the one-process engine at the same depth,
+    seed, prompts and extras (f32 logits within MESH_F32_REL_L2 and the
+    same argmax at every position, bf16 within LOGITS_REL_L2); launches a
+    rank by counter; walls, collectives and peaks a rank. Returns the
+    counted runs' launches a rank, by counter, summed over the models."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch import mesh as M
+    t_phase = time.perf_counter()
+    runs, one = [], {}
+    for i, (arch, depth, prompt_len) in enumerate(MFAM_RUNS):
+        cfg = _mfam_cfg(arch, depth, "float32")
+        start, max_len = _mfam_sizes(cfg, prompt_len)
+        prompts = np.random.default_rng(MFAM_SEED + i).integers(
+            1, cfg.vocab_size, (MFAM_BATCH, prompt_len)).astype(np.int64)
+        extras = family_extras(torch, dev, cfg, MFAM_BATCH, MFAM_SEED + i)
+        log(f"mesh_families: {arch} at its published widths (d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}), {cfg.n_layers} of "
+            f"{get_arch(arch).n_layers} layers; {MFAM_BATCH} x {prompt_len} "
+            f"prompt tokens (T = {MFAM_BATCH * prompt_len})"
+            + "".join(f", {k} {tuple(v.shape)}" for k, v in extras.items())
+            + f", {MFAM_GEN} new from position {start}, max_len {max_len}")
+        t0 = time.perf_counter()
+        o32 = _mfam_one(torch, dev, cfg, prompts, extras, start, max_len,
+                        None)
+        forced = o32["argmax"][:, :MFAM_GEN]
+        o16 = _mfam_one(torch, dev, _mfam_cfg(arch, depth, "bfloat16"),
+                        prompts, extras, start, max_len, forced.to(dev))
+        one[arch] = {"float32": o32, "bfloat16": o16}
+        runs.append(dict(arch=arch, depth=depth, cfg=cfg, prompts=prompts,
+                         extras={k: v.float().cpu().numpy()
+                                 for k, v in extras.items()},
+                         forced=forced.numpy(), start=start,
+                         max_len=max_len))
+        log(f"mesh_families {arch}: the one-process engines "
+            f"{time.perf_counter() - t0:.1f} s")
+        del extras
+    torch.cuda.empty_cache()
+    log(f"mesh_families: mesh (data {MESH_SHAPE[0]}, model "
+        f"{MESH_SHAPE[1]}), {MESH_SHAPE[0] * MESH_SHAPE[1]} gloo ranks on "
+        f"the one card, one spawn for the four models")
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = M.spawn(_mfam_rank, MESH_SHAPE[0] * MESH_SHAPE[1],
+                        backend="gloo", args=(runs, tmp), timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+        for run in runs:
+            for r, counts in enumerate(_mfam_hold(torch, run, one[run["arch"]],
+                                                  ranks, tmp)):
+                for name, n in counts.items():
+                    totals.setdefault(name, [0] * len(ranks))[r] += n
+    for r in ranks:
+        log(f"mesh_families rank {r['rank']} (data {r['data']}, model "
+            f"{r['model']}) on {r['device']}: host-staged ops "
+            f"{r['staged'] or 'none'}, staged bytes "
+            f"{r['staged_bytes'] or 'none'}")
+    log(f"mesh_families: the counted runs' launches a rank over the four "
+        f"models {totals}; the ranks' spawn and run {spawn_s:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase mesh_train: training on a (pod, data, model) process mesh
 # ---------------------------------------------------------------------------
 
@@ -5494,7 +5842,7 @@ def _mtrain_m2(torch, dev, shape, tmp):
 
 
 def phase_mesh_train(torch, dev):
-    """Phase mesh_train (the docstring, item 15): (m1) DDP on (data 2, model
+    """Phase mesh_train (the docstring, item 16): (m1) DDP on (data 2, model
     2) and (m2) local SGD on (pod 2, data 1, model 2), phi3.5-moe at its
     published widths, MTRAIN_DEPTH layer, 4 gloo ranks on the card, each
     held to its one-process twin. Returns the kernels-line rows of the
@@ -5802,6 +6150,8 @@ def main() -> int:
     done("families")
     phase_mesh_serve(torch, dev)
     done("mesh_serve")
+    mfam_launches = phase_mesh_families(torch, dev)
+    done("mesh_families")
     amax_row, given_row = phase_mesh_train(torch, dev)
     done("mesh_train")
     t_tooling = time.perf_counter()
@@ -5821,7 +6171,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-        "launches": flash_launches, **flash_rows["bf16"]}, {
+        "launches": flash_launches, **flash_rows["bf16"],
+        "mesh_families_launches": mfam_launches["flash_attention_tc"]}, {
         "name": "flash_attention_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_tc32.cu",
@@ -5842,7 +6193,8 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_tc.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:32",
-        "launches": ssd_launches, **ssd_row}]}))
+        "launches": ssd_launches, **ssd_row,
+        "mesh_families_launches": mfam_launches["ssd_tc"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

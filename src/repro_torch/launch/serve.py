@@ -18,21 +18,22 @@ static cache and reused by every later call; ``graphs=False`` runs the same
 step eagerly, the comparison path on the card and the path on the CPU.
 
 On a ``(data, model)`` process mesh (``mesh=``, a
-:class:`repro_torch.launch.mesh.Mesh` of that rank) the engine serves the
-decoder-only families as the reference's engine does on its mesh: every
-call runs under the mesh's rules (:func:`serving_rules`); the rank holds its
-shards of the expert tables (experts→model, d_model→data), of the
-embedding table (vocab→model, d_model→data) and of the decode cache (its
-sequence over model), every other weight whole
+:class:`repro_torch.launch.mesh.Mesh` of that rank) the engine serves every
+family as the reference's engine does on its mesh: every call runs under
+the mesh's rules (:func:`serving_rules`); the rank holds its shards of the
+expert tables (experts→model, d_model→data), of the embedding table
+(vocab→model, d_model→data) and of the attention caches (their sequence
+over model, wherever it tiles the axis: the self caches by ``max_len``,
+the enc-dec's cross cache by its frames), every other weight, the Mamba2
+mixers and their state and conv tails whole
 (:func:`repro_torch.sharding.serve_specs`), and its data shard of the
-batch; ``generate`` returns the whole batch's
-tokens on every rank. Decode runs eagerly there.
+batch and of each extra (patches, frames); ``generate`` returns the whole
+batch's tokens on every rank. Decode runs eagerly there.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --smoke --device cpu --requests 4 --gen-tokens 8
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
-        --arch phi3.5-moe-42b-a6.6b --smoke --device cpu --mesh 2,2 \\
-        --backend gloo
+        --arch mamba2-2.7b --smoke --device cpu --mesh 2,2 --backend gloo
 """
 from __future__ import annotations
 
@@ -55,8 +56,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.registry import build_model
 from repro_torch.runtime import graphs as G
 
-# the families that serve on a mesh; the others are ROADMAP §1 item 22
-MESH_FAMILIES = ("dense", "moe")
+# the families that serve on a mesh
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def serving_rules(cfg: ModelConfig, mesh, max_len: int) -> S.ShardingRules:
@@ -95,8 +96,8 @@ class ServeEngine:
 
     ``mesh``: this rank's :class:`repro_torch.launch.mesh.Mesh` of axes
     ``(data, model)``, on whose device the engine runs (module docstring);
-    the dense and MoE families only (the others raise
-    ``NotImplementedError``). A batch must split over the data axis.
+    every family of :data:`MESH_FAMILIES`. A batch must split over the data
+    axis.
 
     The engine owns one decode cache per batch size, of its ``max_len``:
     each prefill of that batch size zeroes it and writes into it, so a
@@ -192,16 +193,21 @@ class ServeEngine:
         return batch.narrow(0, self.data.index * rows, rows)
 
     def cache(self, batch: int) -> Dict[str, torch.Tensor]:
-        """The decode cache of a batch of ``batch`` rows (this rank's rows
-        and chunk of the sequence on a mesh), made (zeros) at first use."""
+        """The decode cache of a batch of ``batch`` rows, made (zeros) at
+        first use. On a mesh each leaf at this rank's size: its rows; its
+        chunk of a self-attention cache's ``max_len`` where the rules shard
+        ``cache_seq``; the enc-dec's cross cache split by its own length
+        (:func:`repro_torch.models.attention.tile_shards`); the SSM state
+        and conv tails whole."""
         if batch not in self._caches:
             length = self.max_len
             if self.rules is not None and \
                     self.rules.mesh_axes_for("cache_seq"):
                 length //= self.seq_axis.k
-            self._caches[batch] = self.model.init_cache(
-                self.rows(batch), length, dtype=self.dtype,
-                device=self.device)
+            with S.use_rules(self.rules):
+                self._caches[batch] = self.model.init_cache(
+                    self.rows(batch), length, dtype=self.dtype,
+                    device=self.device)
         return self._caches[batch]
 
     @torch.no_grad()
@@ -215,14 +221,15 @@ class ServeEngine:
         cross-attention). ``extras``: the VLM's ``patches`` (B, P, D), the
         audio family's ``frames`` (B, T, D), moved to the device. The cache
         is the engine's own: the next prefill of B rows zeroes and
-        overwrites it, so it is valid until then. On a mesh ``prompts`` is
-        the whole batch, and the logits and cache are this rank's rows."""
+        overwrites it, so it is valid until then. On a mesh ``prompts`` and
+        each extra are the whole batch, the model takes this rank's rows of
+        each, and the logits and cache are its rows."""
         cache = self.cache(prompts.shape[0])
         for leaf in T.leaves(cache):
             leaf.zero_()
         batch = {"tokens": self.local(prompts)}
         for name, value in (extras or {}).items():
-            batch[name] = torch.as_tensor(value, device=self.device)
+            batch[name] = self.local(torch.as_tensor(value)).to(self.device)
         with S.use_rules(self.rules):
             return self.model.prefill(self.params, batch, cache)
 
@@ -344,8 +351,9 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--mesh", default=None, metavar="D,M",
-                   help="serve on a (data D, model M) mesh of the ranks "
-                        "torchrun started (D·M of them)")
+                   help="serve any family on a (data D, model M) mesh of "
+                        "the ranks torchrun started (D·M of them); "
+                        "--requests must split over D")
     p.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
                    help="the mesh's collectives: nccl (a card a rank) or "
                         "gloo (ranks that share a card, or the CPU)")
@@ -371,8 +379,9 @@ def main(argv=None) -> None:
     if args.mesh:
         from repro_torch.launch import mesh as M
         M.init_from_env(args.backend, args.device)
-        mesh = M.make_mesh(tuple(int(n) for n in args.mesh.split(",")),
-                           ("data", "model"))
+        shape = tuple(int(n) for n in args.mesh.split(","))
+        mesh = M.make_mesh(shape, ("data", "model"))
+        max_len += -max_len % shape[1]      # so the caches split over model
     try:
         engine = ServeEngine(cfg, mesh.device if mesh else args.device,
                              max_len=max_len, mesh=mesh)

@@ -5,12 +5,14 @@ cache of the encoder's k, v).
 The port of ``repro.models.attention``. Layouts are the reference's:
 activations (B, S, H, hd), caches (B, S, KV, hd). Under mesh rules whose
 ``cache_seq`` maps to a mesh axis (:func:`repro_torch.sharding.use_rules`),
-a rank holds its chunk of every cache's sequence (chunk r the positions
-[r·Sc, (r + 1)·Sc)): the prefill writes the positions its chunk holds
-(:func:`write_cache`), a decode step writes the new k, v on the rank whose
-chunk holds the index, and :func:`decode_attention` merges the ranks'
-flash-decode partials by log-sum-exp, as the reference's seq-sharded
-decode does. The full-sequence attention is the same on every rank.
+a rank holds its chunk of every self-attention cache's sequence (chunk r
+the positions [r·Sc, (r + 1)·Sc)): the prefill writes the positions its
+chunk holds (:func:`write_cache`), a decode step writes the new k, v on the
+rank whose chunk holds the index, and :func:`decode_attention` merges the
+ranks' flash-decode partials by log-sum-exp, as the reference's seq-sharded
+decode does. A cross-attention cache is split the same way where its own
+length tiles the model axis (:func:`tile_shards`), as the reference decides
+per cache. The full-sequence attention is the same on every rank.
 
 ``full_attention(impl=…)`` selects the attention of a full sequence:
 ``"kernel"`` (the default) goes through
@@ -237,6 +239,19 @@ def seq_shards():
     return mesh_groups(rules)[1]
 
 
+def tile_shards(length: int):
+    """The model group over which a cache of ``length`` positions that the
+    rules do not size (the enc-dec's cross cache) is split: under mesh
+    rules, where ``length`` tiles the model axis, as the reference's
+    ``decode_attention`` decides per cache; else None (held whole)."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return None
+    from repro_torch.core.collectives import mesh_groups
+    model = mesh_groups(rules)[1]
+    return model if model.k > 1 and length % model.k == 0 else None
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, index: torch.Tensor,
                      mesh=None) -> torch.Tensor:
@@ -286,7 +301,7 @@ def write_cache(cache: torch.Tensor, k: torch.Tensor, shards=None) -> None:
 def decode_step_attention(params: L.Params, x: torch.Tensor,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
                           index: torch.Tensor, cfg: ModelConfig,
-                          cross: bool = False
+                          cross: bool = False, shards=None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token attention step; returns (y, cache_k, cache_v).
 
@@ -297,16 +312,20 @@ def decode_step_attention(params: L.Params, x: torch.Tensor,
     without a second cache in memory). ``cross=True`` is the enc-dec
     cross-attention against the fixed encoder states: no RoPE, no cache
     write, every one of the cache's S positions attended (the reference's
-    ``eff_index = S − 1``, here a device tensor too, so the step captures).
-    Under rules that shard ``cache_seq`` (:func:`seq_shards`) the self-
-    attention caches are this rank's chunks: the rank whose chunk holds
-    ``index`` writes the new k, v, and the ranks' partials are merged.
+    ``eff_index = S − 1``, here a device tensor too, so the step captures);
+    with ``shards`` (the model group of a split cross cache,
+    :func:`tile_shards`) the caches are this rank's chunks of the whole S
+    and the ranks' partials are merged. Under rules that shard
+    ``cache_seq`` (:func:`seq_shards`) the self-attention caches are this
+    rank's chunks: the rank whose chunk holds ``index`` writes the new k,
+    v, and the ranks' partials are merged.
     """
     if cross:
         q = _proj(x, params["wq"])
         if "bq" in params:
             q = q + params["bq"].to(x.dtype)
-        index = torch.full_like(index, cache_k.shape[1] - 1)
+        whole = cache_k.shape[1] * (shards.k if shards is not None else 1)
+        index = torch.full_like(index, whole - 1)
     else:
         q, k_new, v_new = _project_qkv(params, x)
         pos = index.to(torch.int32).expand(x.shape[0], 1)
@@ -319,8 +338,7 @@ def decode_step_attention(params: L.Params, x: torch.Tensor,
                 cache.index_copy_(1, index, new.to(cache.dtype))
             else:
                 _write_step(cache, new, index, shards)
-    out = decode_attention(q, cache_k, cache_v, index,
-                           None if cross else shards)
+    out = decode_attention(q, cache_k, cache_v, index, shards)
     return _out_proj(out, params["wo"]), cache_k, cache_v
 
 

@@ -14,6 +14,14 @@ encoder output and only read after. ``attn_impl="kernel"`` takes the flash
 kernel for all three attentions of a prefill (the encoder's, the decoder's
 causal one, its cross-attention over T ≠ S keys).
 
+Under mesh rules (:class:`repro_torch.launch.serve.ServeEngine` on a
+``(data, model)`` mesh) a rank runs the encoder and decoder on its rows of
+the batch; its self cache is its chunk of ``max_len`` where the rules shard
+``cache_seq``, and its cross cache its chunk of the frames where
+``n_audio_frames`` tiles the model axis (whole otherwise), as the
+reference's decode attention decides per cache; the logits come from the
+tied table through :func:`repro_torch.models.layers.unembed`.
+
 ``loss`` encodes the frames, runs the decoder over the tokens without a
 cache and takes the CE on the tied embedding (plain attention only, as the
 reference trains). ``remat`` other than ``"none"`` checkpoints each layer of
@@ -92,7 +100,12 @@ class EncDecModel(LM):
 
     def _logits_last(self, params: L.Params, x_last: torch.Tensor
                      ) -> torch.Tensor:
-        return x_last @ params["embed"]["embedding"].to(x_last.dtype).T
+        return L.unembed(params["embed"], x_last, tied=True)
+
+    def _cross_shards(self):
+        """The model group the cross cache is split over under the current
+        rules, or None (whole)."""
+        return A.tile_shards(self.cfg.n_audio_frames)
 
     def _remat(self, fn):
         """``fn`` (a layer) checkpointed whole where a gradient is taken
@@ -175,32 +188,41 @@ class EncDecModel(LM):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"tokens": (B,S) int, "frames": (B,T,D)} → (last-position
         logits (B,V), the decode cache): each decoder layer's self k, v at
-        ``[i, :, :S]`` and its cross k, v over the T frames, written into
-        the given cache or a new one of self length S."""
+        ``[i, :, :S]`` and its cross k, v over the T frames (under mesh
+        rules the positions of this rank's chunks,
+        :func:`repro_torch.models.attention.write_cache`), written into the
+        given cache or a new one of self length S (its chunk)."""
         enc_out = self.encode(params, batch["frames"])
         x = L.embed(params["embed"], batch["tokens"], self.dtype)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        shards, cross = A.seq_shards(), self._cross_shards()
         if cache is None:
-            cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
+            cache = self.init_cache(b, s // (shards.k if shards else 1),
+                                    dtype=x.dtype, device=x.device)
         for i, lp in enumerate(L.layer_list(params["dec_layers"])):
             x, (sk, sv, ck, cv) = self._dec_layer(lp, x, positions, enc_out,
                                                   return_kv=True)
-            cache["self_k"][i, :, :s] = sk
-            cache["self_v"][i, :, :s] = sv
-            cache["cross_k"][i] = ck
-            cache["cross_v"][i] = cv
+            A.write_cache(cache["self_k"][i], sk, shards)
+            A.write_cache(cache["self_v"][i], sv, shards)
+            A.write_cache(cache["cross_k"][i], ck, cross)
+            A.write_cache(cache["cross_v"][i], cv, cross)
         x = self._norm(params["final_norm"], x)
         return self._logits_last(params, x[:, -1]), cache
 
     def init_cache(self, batch_size: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
                    device=None) -> Dict[str, torch.Tensor]:
+        """Self k, v of ``max_len`` positions; cross k, v of the frames, or
+        under mesh rules that split them (:func:`repro_torch.models.
+        attention.tile_shards`) this rank's chunk of them."""
         cfg = self.cfg
         own = A.init_cache(cfg, batch_size, max_len, cfg.n_layers, dtype,
                            device)
-        cross = A.init_cache(cfg, batch_size, cfg.n_audio_frames,
-                             cfg.n_layers, dtype, device)
+        shards = self._cross_shards()
+        cross = A.init_cache(cfg, batch_size, cfg.n_audio_frames
+                             // (shards.k if shards else 1), cfg.n_layers,
+                             dtype, device)
         return {"self_k": own["k"], "self_v": own["v"],
                 "cross_k": cross["k"], "cross_v": cross["v"]}
 
@@ -213,6 +235,7 @@ class EncDecModel(LM):
         x = L.embed(params["embed"], batch["token"], self.dtype)
         cache = batch["cache"]
         index = A.decode_index(batch["index"], x.device)
+        cross = self._cross_shards()
         for i, lp in enumerate(L.layer_list(params["dec_layers"])):
             out, _, _ = A.decode_step_attention(
                 lp["self_attn"], self._norm(lp["ln1"], x),
@@ -221,7 +244,7 @@ class EncDecModel(LM):
             out, _, _ = A.decode_step_attention(
                 lp["cross_attn"], self._norm(lp["ln_x"], x),
                 cache["cross_k"][i], cache["cross_v"][i], index, cfg,
-                cross=True)
+                cross=True, shards=cross)
             x = x + out
             x = x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x))
         x = self._norm(params["final_norm"], x)

@@ -80,13 +80,20 @@ class HybridModel(LM):
                  cache: Optional[Dict[str, torch.Tensor]] = None):
         """x: (B, S, D) embedded inputs → final hidden (+ cache). With
         ``return_cache`` the Mamba2 layers' states and conv tails and each
-        application point's k, v (at ``[g, :, :S]``) are written into the
-        given cache, or a new one of length S in the activations' dtype."""
+        application point's k, v (at ``[g, :, :S]``; under rules that shard
+        the cache's sequence the positions of this rank's chunk,
+        :func:`repro_torch.models.attention.write_cache`) are written into
+        the given cache, or a new one of length S (its chunk) in the
+        activations' dtype. On a mesh the Mamba2 layers, their states and
+        the shared block run on this rank's rows, whole across the model
+        axis."""
         cfg = self.cfg
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        shards = A.seq_shards() if return_cache else None
         if return_cache and cache is None:
-            cache = self.init_cache(b, s, dtype=x.dtype, device=x.device)
+            cache = self.init_cache(b, s // (shards.k if shards else 1),
+                                    dtype=x.dtype, device=x.device)
         layers = L.layer_list(params["layers"])
         fwd = S.block_fwd
         if self.remat != "none" and torch.is_grad_enabled() \
@@ -102,8 +109,8 @@ class HybridModel(LM):
                             self.attn_impl, return_kv=return_cache)
             if return_cache:
                 x, k, v = out
-                cache["attn_k"][g, :, :s] = k
-                cache["attn_v"][g, :, :s] = v
+                A.write_cache(cache["attn_k"][g], k, shards)
+                A.write_cache(cache["attn_v"][g], v, shards)
             else:
                 x = out
         x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)

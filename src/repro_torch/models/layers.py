@@ -235,10 +235,14 @@ def embed(params: Params, tokens: torch.Tensor, dtype: torch.dtype
     """Token embedding lookup: a gather of the rows, in ``dtype``. Under
     mesh rules ``tokens`` (B_loc, S) are this rank's rows of the batch and
     ``params["embedding"]`` its (V/M, D/Dn) shard; the result is its rows'
-    (B_loc, S, D), exact (every sum on the way has one nonzero term)."""
+    (B_loc, S, D), exact (every sum on the way has one nonzero term), laid
+    out as the one-device lookup's (contiguous: a gather along seq or
+    d_model returns a permuted view, and the layers after it round
+    otherwise on a permuted residual stream on the card)."""
     rules = current_rules()
     if rules is not None and rules.mesh is not None:
-        return _embed_mesh(params["embedding"], tokens, dtype, rules)
+        return _embed_mesh(params["embedding"], tokens, dtype,
+                           rules).contiguous()
     return F.embedding(tokens, params["embedding"]).to(dtype)
 
 

@@ -344,7 +344,11 @@ class SSMModel(LM):
     only, so serving only) or ``"torch"`` (:func:`ssd_chunked`, the
     reference's model path, which it trains with). ``remat``: any value but
     ``"none"`` checkpoints each block where a gradient is taken, as the
-    reference does."""
+    reference does. Under mesh rules (``ServeEngine(mesh=)``) the prefill
+    and decode run on this rank's rows through the mesh embedding and the
+    whole ``out_embedding``; the mixers, their state and conv tails are
+    held whole across the model axis (their split over ``ssm_heads`` is
+    ROADMAP §1 item 19 (h))."""
 
     def __init__(self, cfg: ModelConfig, *, ssd_impl: str = "kernel",
                  remat: str = "none"):

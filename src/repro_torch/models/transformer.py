@@ -24,7 +24,8 @@ prefix-LM mask and takes its loss over the text positions.
 
 Under mesh rules (the serving engine's on a ``(data, model)`` mesh,
 :class:`repro_torch.launch.serve.ServeEngine`) a rank holds its data shard
-of the batch. The norms, the attention (the flash kernel) and the dense MLP
+of the batch (the VLM's patches too). The norms, the attention (the flash
+kernel) and the dense MLP
 run on the whole sequence, replicated across the model axis: the reference
 leaves those layers to XLA's partitioner, and replication is their plain
 equivalent (tensor- or sequence-parallel dense layers are ROADMAP §1 item 19
@@ -357,7 +358,11 @@ class PrefixVLM(DecoderLM):
     P image positions: bidirectional over the prefix). A prefill of S text
     tokens fills P + S cache positions and gives the last text position's
     logits; decoding goes on from position P + S. ``batch["patches"]`` is
-    cast to the activations' dtype, as in the reference."""
+    cast to the activations' dtype, as in the reference. On a mesh the
+    patches are this rank's rows, beside its rows of the text, and the P +
+    S positions fill the seq-sharded cache's chunks across the prefix's
+    end (the mask the one :func:`repro_torch.models.attention.make_mask`
+    gives)."""
 
     families = ("vlm",)
 

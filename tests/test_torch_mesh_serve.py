@@ -153,6 +153,8 @@ def test_graphs_on_a_gloo_mesh_raise(ranks):
 
 
 def test_unsupported_family_on_a_mesh_raises(ranks):
+    """The mesh serves every family (``test_torch_mesh_families.py``); the
+    trainer still refuses the SSM family on a mesh with a model axis."""
     msg = ranks[0]["raises"]["family"]
     assert "ssm" in msg and "item 22" in msg
 

@@ -748,7 +748,7 @@ def mesh_serve(cfg, ref_params, prompts, gen, max_len):
     """``ServeEngine(mesh=)`` on a (2, 2) mesh of CPU ranks with the
     reference engine's weights: the prefill's logits, each teacher-free
     step's logits, ``generate``'s tokens; the round trip of the shards;
-    what a gloo mesh refuses."""
+    what a gloo mesh refuses, and the trainer's family gate on it."""
     from repro_torch import interop
     from repro_torch import sharding as S
     from repro_torch.config import get_smoke
@@ -782,12 +782,125 @@ def mesh_serve(cfg, ref_params, prompts, gen, max_len):
                     params=engine.params, mesh=mesh, graphs=True)
     except ValueError as exc:
         out["raises"]["graphs"] = str(exc)
+    # the trainer still refuses the SSM family on a mesh with a model axis
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.train import build_trainer
     try:
-        ServeEngine(get_smoke("mamba2-2.7b"), "cpu", max_len=max_len,
-                    mesh=mesh)
+        build_trainer(TrainConfig(model=get_smoke("mamba2-2.7b"),
+                                  mesh=M.mesh_config((2, 2),
+                                                     ("data", "model"))),
+                      "cpu", mesh)
     except NotImplementedError as exc:
         out["raises"]["family"] = str(exc)
     out["staged"] = dict(CL.STAGED)
+    return out
+
+
+def _flat_cache(cache, prefix=""):
+    """A (nested) cache dict as {"a/b": numpy}."""
+    out = {}
+    for key, value in cache.items():
+        if isinstance(value, dict):
+            out.update(_flat_cache(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = value.detach().numpy().copy()
+    return out
+
+
+class _Handed:
+    """The batch each ``prefill`` of ``model`` is handed, recorded."""
+
+    def __init__(self, model):
+        self.batches, self.orig = [], model.prefill
+
+        def prefill(params, batch, cache=None):
+            self.batches.append({k: v.clone() for k, v in batch.items()})
+            return self.orig(params, batch, cache)
+        model.prefill = prefill
+
+
+def mesh_families(cases, gen):
+    """``ServeEngine(mesh=)`` on a (2, 2) mesh of CPU ranks for each case
+    (by name: cfg, the reference's params or None for the engine's own
+    seeded draw, prompts, extras, max_len, the position decoding starts
+    at): the prefill's logits and cache (this rank's rows and chunks), the
+    greedy steps' logits, ``generate``'s tokens, the extras the model was
+    handed; beside it the one-process engine on the same weights (its
+    prefill's logits, cache and steps) and the prefill with the
+    vocab-parallel embedding taken at this size. Then a cross cache split
+    over model against the whole one, on the same k, v."""
+    from repro_torch import interop
+    from repro_torch import sharding as S
+    from repro_torch.launch.serve import ServeEngine, serving_rules
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    torch.set_num_threads(1)
+    mesh, _ = _mesh_2x2()
+    out = {}
+    for name, case in cases.items():
+        cfg, max_len = case["cfg"], case["max_len"]
+        rules = serving_rules(cfg, mesh, max_len)
+        if case["params"] is None:
+            sd = one_sd = None
+        else:
+            sd = interop.rank_params_from_jax(case["params"], cfg, rules,
+                                              mesh)
+            one_sd = interop.lm_params_from_jax(case["params"], cfg)
+        engine = ServeEngine(cfg, "cpu", max_len=max_len,
+                             dtype=torch.float32, params=sd, mesh=mesh)
+        one = ServeEngine(cfg, "cpu", max_len=max_len, dtype=torch.float32,
+                          params=one_sd)
+        prompts = torch.as_tensor(case["prompts"]).long()
+        extras = {k: torch.as_tensor(v) for k, v in case["extras"].items()}
+        handed = _Handed(engine.model)
+        res = {}
+        for label, eng in (("mesh", engine), ("one", one)):
+            logits, cache = eng.prefill(prompts, extras)
+            run = dict(prefill=logits.numpy().copy(),
+                       cache=_flat_cache(cache))
+            steps, token = [], torch.argmax(logits, -1, keepdim=True)
+            for i in range(gen):
+                step = eng.decode(token, cache, case["start"] + i)
+                steps.append(step.numpy().copy())
+                token = torch.argmax(step, -1, keepdim=True)
+            run["steps"] = np.stack(steps)
+            res[label] = run
+        res["handed"] = {k: v.numpy() for k, v in handed.batches[0].items()}
+        res["tokens"] = engine.generate(case["prompts"], gen, extras)
+        # the vocab-parallel embedding at this size, against the same prefill
+        threshold = L.SHARDED_MIN_TOKENS
+        L.SHARDED_MIN_TOKENS = 1
+        try:
+            res["prefill_sharded_embed"] = engine.prefill(
+                prompts, extras)[0].numpy().copy()
+        finally:
+            L.SHARDED_MIN_TOKENS = threshold
+        res["shards"] = _np(dict(engine.params.state_dict()))
+        res["specs"] = S.flat_keys(engine.specs())
+        out[name] = res
+    # a cross cache split over model against the whole one (same k, v)
+    cfg = cases["whisper-base"]["cfg"]
+    g = torch.Generator().manual_seed(5)
+    b, t = 4, cfg.n_audio_frames
+    p = {k: torch.randn(v.shape, generator=g) * 0.2 for k, v in
+         A.attn_defs(cfg).items()}
+    x = torch.randn((b, 1, cfg.d_model), generator=g)
+    kv = torch.randn((2, b, t, cfg.n_kv_heads, cfg.resolved_head_dim),
+                     generator=g)
+    index = torch.tensor([3])
+    whole, _, _ = A.decode_step_attention(p, x, kv[0], kv[1], index, cfg,
+                                          cross=True)
+    rules = serving_rules(cfg, mesh, 64)
+    with S.use_rules(rules):
+        shards = A.tile_shards(t)
+        sc = t // shards.k
+        chunk = kv.narrow(2, shards.index * sc, sc)
+        split, _, _ = A.decode_step_attention(p, x, chunk[0].clone(),
+                                              chunk[1].clone(), index, cfg,
+                                              cross=True, shards=shards)
+        odd = A.tile_shards(t + 1)
+    out["cross"] = dict(whole=whole.numpy(), split=split.numpy(),
+                        k=shards.k, odd=odd)
     return out
 
 
