@@ -278,7 +278,31 @@ entry points and holds every run to its plain-version twin:
     once a split leaf a block; the sync's ms (CUDA events); then the
     shard path's quant entry points against their plain version at the
     main path's expert block, timed beside it and a PyTorch call;
-17. phase tooling: (t1) the roofline of three whole calls, each counted by
+17. phase mesh_train_families, mesh_train's two parts on the SSM, hybrid,
+    VLM and audio families (MTF_RUNS) at their published widths, f32,
+    remat full, AdamW where the four ranks fit it (sgd lr 0.1 for
+    paligemma): mamba2-2.7b cut to 2 of 64 layers, zamba2-1.2b to 6 of 38
+    (one application of its shared block), paligemma-3b to 2 of 18,
+    whisper-base whole (6 + 6); the
+    one-process twins first, then every part of every family in one spawn
+    of 4 gloo ranks on the card, each rank drawing every leaf from the
+    seed and keeping its shards (the embedding table; every other leaf
+    whole), the stub inputs seeded on the global batch before a rank takes
+    its rows (``SeededExtras``): (n1) ``build_trainer``'s DDP step on
+    (data 2, model 2), one step, and (n2) the local-SGD block on (pod 2,
+    data 1, model 2), K = 2, H = 2, int8, 2 blocks (paligemma's 1; zamba2
+    has none, for the time limit), each held to its twin as mesh_train's
+    parts are (losses and the params put back together relative 1e-3,
+    ranks that hold a block bitwise alike,
+    (n2)'s first sync's payloads within one int8 step of the twin's, its
+    quant launches a rank: the amax and the pack given it on the split
+    embedding shards, the whole-leaf pack on every leaf held whole,
+    whisper's odd-vocab table too); the walls beside the twins', each
+    collective's ms and bytes, the sync's ms, the peaks a rank;
+    ``--probe-vlm-t32k`` runs the build and paligemma's (n1) at
+    VLM_PROBE_SHAPES alone (T >= 32,768), each run's peak or its error,
+    with no result line;
+18. phase tooling: (t1) the roofline of three whole calls, each counted by
     ``repro_torch.launch.roofline.WorkCounter`` in a run apart from its
     phase's timed ones: the epsilon ``dms`` call of phase 3 with
     ``graphs=False`` (a replay hides its ops; against the median of 3
@@ -302,7 +326,9 @@ The line before the last is the kernels' JSON record (seven entries: the
 flash route twice, bf16 and f32, and quant's shard path's two entry points
 beside its whole-leaf pair; the bf16 flash and the SSD entries also carry
 ``mesh_families_launches``, phase mesh_families's counted launches a rank
-over its four models); the last line is
+over its four models, and the three quant entries
+``mesh_train_families_launches``, phase mesh_train_families' counted
+launches over its ranks); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. Without CUDA it exits 1 at once. It imports
 no JAX and nothing of the JAX package.
@@ -520,6 +546,33 @@ MTRAIN_DEPTH, MTRAIN_REL = 1, 1e-3
 MTRAIN_M1_MESH, MTRAIN_M1_SHAPE, MTRAIN_M1_STEPS = (2, 2), (32, 1024), 1
 MTRAIN_M2_MESH, MTRAIN_M2_SHAPE = (2, 1, 2), (4, 2048)
 MTRAIN_M2_H, MTRAIN_M2_BLOCKS = 2, 2
+# phase mesh_train_families: mesh_train's (m1) and (m2) on the SSM, hybrid,
+# VLM and audio families at their published widths, depths cut, f32, remat
+# full, 4 gloo ranks on the card in one spawn: (arch, layers or None for
+# all, (n1)'s and (n2)'s (sequences, tokens a sequence) a step over all
+# ranks, the optimizer). (n1) takes T = 32,768 tokens (the vocab-parallel
+# lookup), but paligemma 8 x 4,320 (T = 34,560 after 256 seeded patch
+# positions: its CE chunk of 480 divides the text; at 32 x 1,024 it does
+# not, and every rank's unchunked whole-vocab logits ran the card out of
+# memory, as did the twin's; at 8 x 4,320 the four ranks peaked at 68.39
+# GB) and whisper 16 x 448 over 1,500 seeded frames; (n2) 2 sequences a
+# replica step, (n2)'s blocks. AdamW but for paligemma: with its moments
+# the four ranks peaked at 75.30 GB in (n1) and 76.51 GB in (n2) at 8 x
+# 1,920, past 70 (an H100 80GB HBM3 at 700 W). For the script's time limit
+# paligemma's (n2) takes one block (its tied table's transport made a
+# block 21-25 s) and zamba2 has no (n2) (None): the CPU test holds its
+# local SGD on the mesh to the reference, and mamba2's (n2) runs the same
+# Mamba2 layers here
+MTF_RUNS = [("mamba2-2.7b", 2, (16, 2048), (4, 2048), 2, "adamw"),
+            ("zamba2-1.2b", 6, (16, 2048), None, 0, "adamw"),
+            ("paligemma-3b", 2, (8, 4320), (4, 1920), 1, "sgd"),
+            ("whisper-base", None, (16, 448), (4, 448), 2, "adamw")]
+MTF_SEED = 29
+# --probe-vlm-t32k: paligemma-3b's (n1) of MTF_RUNS at these (sequences,
+# text tokens a sequence) a step, T >= 32,768 (the vocab-parallel lookup):
+# 32 x 1,024 (the CE unchunked: 480 does not divide 1,024) and 8 x 4,320
+# (nine chunks of 480)
+VLM_PROBE_SHAPES = [(32, 1024), (8, 4320)]
 # (d7): the adaptive trainer across the two ranks: a scripted move 4 -> 2
 # after block 2 over 3 blocks, then blocks under the live controller
 D7_SCRIPT, D7_SCRIPTED_BLOCKS, D7_LIVE_BLOCKS = {2: 2}, 3, 6
@@ -4622,6 +4675,36 @@ def phase_dist(torch, dev, tmp):
 # phase mesh_serve: serving on a (data, model) process mesh
 # ---------------------------------------------------------------------------
 
+class SeededExtras:
+    """Within ``with``: the pipeline's stub inputs (the VLM's ``patches``,
+    the audio ``frames``: zeros) drawn in each global batch from ``seed``
+    and the data step, normal f32 on the host, before the pipeline takes
+    a process's rows: a rank's rows are the one process's same rows."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def __enter__(self):
+        from repro_torch.data import pipeline
+        self.cls, self.orig = pipeline.DataPipeline, \
+            pipeline.DataPipeline._host_batch
+        orig, seed = self.orig, self.seed
+
+        def host_batch(pipe, step):
+            batch = orig(pipe, step)
+            rng = np.random.default_rng((seed, step))
+            for key in ("patches", "frames"):
+                if key in batch:
+                    batch[key] = rng.standard_normal(
+                        batch[key].shape, dtype=np.float32)
+            return batch
+        self.cls._host_batch = host_batch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._host_batch = self.orig
+
+
 class DropCounter:
     """Within ``with``: the slots every MoE routing of this process dropped
     (``repro_torch.models.moe.routing`` wrapped, restored on exit); each
@@ -5310,25 +5393,31 @@ def phase_mesh_families(torch, dev):
 # phase mesh_train: training on a (pod, data, model) process mesh
 # ---------------------------------------------------------------------------
 
-def _mtrain_cfg(part: str, shape, twin: bool = False):
-    """(m1)'s or (m2)'s TrainConfig: phi3.5-moe at its published widths,
-    MTRAIN_DEPTH layers, f32 activations and params, remat full, ``shape``
-    (sequences, tokens a sequence) a step, on its mesh; ``twin`` the
-    one-process twin's (no model axis)."""
+def _mtrain_cfg(part: str, shape, twin: bool = False, run=None):
+    """(m1)'s or (m2)'s TrainConfig: ``run`` (an MTF_RUNS entry: arch,
+    layers or None for all, ..., optimizer; None: phase mesh_train's
+    phi3.5-moe at MTRAIN_DEPTH layers, sgd) at its published widths, f32
+    activations and params, remat full, ``shape`` (sequences, tokens a
+    sequence) a step, on its mesh; ``twin`` the one-process twin's (no
+    model axis)."""
     from repro_torch.config import (DataConfig, MeshConfig, OptimizerConfig,
                                     SyncConfig, TrainConfig, get_arch)
     from repro_torch.launch.mesh import mesh_config
-    model = dataclasses.replace(get_arch(MESH_ARCH), n_layers=MTRAIN_DEPTH,
+    arch, depth, opt = ((MESH_ARCH, MTRAIN_DEPTH, "sgd") if run is None
+                        else (run[0], run[1], run[-1]))
+    model = get_arch(arch)
+    model = dataclasses.replace(model, n_layers=depth or model.n_layers,
                                 dtype="float32")
+    optimizer = (OptimizerConfig(name="sgd", learning_rate=0.1)
+                 if opt == "sgd" else
+                 OptimizerConfig(name="adamw", learning_rate=1e-4, eps=1e-6))
+    data = DataConfig(seq_len=shape[1], global_batch=shape[0])
     if part == "m1":
         mesh = (MeshConfig() if twin
                 else mesh_config(MTRAIN_M1_MESH, ("data", "model")))
-        return TrainConfig(
-            model=model, mesh=mesh,
-            sync=SyncConfig(strategy="sync_every_step"),
-            optimizer=OptimizerConfig(name="sgd", learning_rate=0.1),
-            data=DataConfig(seq_len=shape[1], global_batch=shape[0]),
-            remat="full")
+        return TrainConfig(model=model, mesh=mesh,
+                           sync=SyncConfig(strategy="sync_every_step"),
+                           optimizer=optimizer, data=data, remat="full")
     mesh = (MeshConfig(shape=(2,), axis_names=("pod",), replica_axis="pod")
             if twin else mesh_config(MTRAIN_M2_MESH,
                                      ("pod", "data", "model")))
@@ -5336,27 +5425,35 @@ def _mtrain_cfg(part: str, shape, twin: bool = False):
         model=model, mesh=mesh,
         sync=SyncConfig(strategy="periodic", period=MTRAIN_M2_H,
                         compression="int8"),
-        optimizer=OptimizerConfig(name="sgd", learning_rate=0.1),
-        data=DataConfig(seq_len=shape[1], global_batch=shape[0]),
-        remat="full")
+        optimizer=optimizer, data=data, remat="full")
 
 
-def _mtrain_twin(torch, dev, part, shape):
+def _mtrain_steps(part, run=None) -> int:
+    """The steps (m1) or the blocks (m2) of a run (MTF_RUNS' entry, or
+    None: phase mesh_train's)."""
+    if part == "m1":
+        return MTRAIN_M1_STEPS
+    return MTRAIN_M2_BLOCKS if run is None else run[4]
+
+
+def _mtrain_twin(torch, dev, part, shape, run=None):
     """The one-process twin of (m1) (``make_ddp_step`` under
     :class:`ShardedCapacity`) or (m2) (the K = 2 local-SGD block, its
-    first sync's int8 payloads and scales kept on the host): losses, walls,
-    peak, drops and the final params on the host (one replica)."""
+    first sync's int8 payloads and scales kept on the host), the stub
+    inputs seeded (:class:`SeededExtras`): losses, walls, peak, drops and
+    the final params on the host (one replica)."""
     from repro_torch import sharding as S
     from repro_torch import tree as T
     from repro_torch.core import compression
     from repro_torch.launch.train import build_trainer
-    cfg = _mtrain_cfg(part, shape, twin=True)
+    cfg = _mtrain_cfg(part, shape, twin=True, run=run)
     _wait(torch, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     step, state, make_pipeline, model, _, _ = build_trainer(cfg, dev)
-    pipe = make_pipeline(0)
-    n = MTRAIN_M1_STEPS if part == "m1" else MTRAIN_M2_BLOCKS
-    batches = [next(pipe) for _ in range(n)]
+    n = _mtrain_steps(part, run)
+    with SeededExtras(MTF_SEED):
+        pipe = make_pipeline(0)
+        batches = [next(pipe) for _ in range(n)]
     out = dict(losses=[], aux=[], walls=[], payload=None)
     inner = compression.compress_tree
     if part == "m2":
@@ -5395,18 +5492,35 @@ def _mtrain_twin(torch, dev, part, shape):
     return out
 
 
-def _mtrain_rank(part, shape, tmp):
-    """One rank of phase mesh_train's (m1) or (m2): ``build_trainer`` on its
-    mesh (each leaf drawn from the seed and its shard kept), the steps or
-    blocks with every collective timed, the slots dropped and the paths
-    taken, the sync's CUDA-event time, the quant launches of the counted
-    run, the peak; (m2)'s first sync's int8 blocks and scales; this rank's
-    blocks of the final params (every rank of pod 0; rank 0 also the whole
-    leaves), with a digest of every block. Arrays go to ``tmp`` (one .npy
-    each, named in the result): the parent maps them from the host's page
-    cache, where a result through ``spawn``'s queue is pickled and copied
-    three times."""
+def _mtrain_rank(jobs, tmp):
+    """One rank of phase mesh_train's (m1) or (m2), or of phase
+    mesh_train_families' runs: :func:`_mtrain_job` for each (part, shape,
+    run) of ``jobs`` in turn, in the one world, every collective timed
+    (:class:`CollectiveTimer`); the results in the jobs' order."""
     import torch
+    t_start = time.time()
+    _rank_setup(torch)
+    timer = CollectiveTimer(torch)
+    outs = []
+    for part, shape, run in jobs:
+        outs.append(_mtrain_job(torch, part, shape, run, tmp, timer,
+                                t_start if not outs else time.time()))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return outs
+
+
+def _mtrain_job(torch, part, shape, run, tmp, timer, t_start):
+    """(m1) or (m2) on this rank: ``build_trainer`` on its mesh (each leaf
+    drawn from the seed and its shard kept), the steps or blocks on the
+    seeded stub inputs with every collective timed, the slots dropped and
+    the paths taken, the sync's CUDA-event time, the quant launches of the
+    counted run, the peak; (m2)'s first sync's int8 blocks and scales;
+    this rank's blocks of the final params (every rank of pod 0; rank 0
+    also the whole leaves), with a digest of every block. Arrays go to
+    ``tmp`` (one .npy each, named in the result): the parent maps them
+    from the host's page cache, where a result through ``spawn``'s queue
+    is pickled and copied three times."""
     from repro_torch import sharding as S
     from repro_torch.core import collectives as CL
     from repro_torch.core import compression
@@ -5416,14 +5530,13 @@ def _mtrain_rank(part, shape, tmp):
     from repro_torch.launch import mesh as M
     from repro_torch.launch.train import build_trainer
     from repro_torch.models import moe
-    t_start = time.time()
-    _rank_setup(torch)
     mesh_shape, axes = ((MTRAIN_M1_MESH, ("data", "model")) if part == "m1"
                         else (MTRAIN_M2_MESH, ("pod", "data", "model")))
     mesh = M.make_mesh(mesh_shape, axes)
     dev = mesh.device
-    timer = CollectiveTimer(torch)
-    cfg = _mtrain_cfg(part, shape)
+    cfg = _mtrain_cfg(part, shape, run=run)
+    CL.STAGED.clear()
+    CL.STAGED_BYTES.clear()
     _wait(torch, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -5433,16 +5546,21 @@ def _mtrain_rank(part, shape, tmp):
                draw_s=time.perf_counter() - t0, losses=[], aux=[], walls=[],
                sync_ms=[], payload=None)
     specs = LS.rank_state_specs(model, cfg, mesh, state)["params"]
-    pipe = make_pipeline(0)
-    n = MTRAIN_M1_STEPS if part == "m1" else MTRAIN_M2_BLOCKS
-    batches = [next(pipe) for _ in range(n)]
-    e_loc = cfg.model.moe.num_experts // mesh.size("model")
-    d_loc = cfg.model.d_model // mesh.size("data")
-    fsdp = {(e_loc, d_loc, cfg.model.d_ff), (e_loc, cfg.model.d_ff, d_loc)}
+    n = _mtrain_steps(part, run)
+    with SeededExtras(MTF_SEED):
+        pipe = make_pipeline(0)
+        batches = [next(pipe) for _ in range(n)]
+    fsdp = set()
+    if cfg.model.is_moe:
+        e_loc = cfg.model.moe.num_experts // mesh.size("model")
+        d_loc = cfg.model.d_model // mesh.size("data")
+        fsdp = {(e_loc, d_loc, cfg.model.d_ff), (e_loc, cfg.model.d_ff,
+                                                  d_loc)}
     inner_c, inner_s, events = compression.compress_tree, SY.sync_point, []
+    name = part + ("" if run is None else "_" + run[0])
 
-    def save(name, t):
-        path = os.path.join(tmp, f"{part}_r{mesh.rank()}_{name}.npy")
+    def save(key, t):
+        path = os.path.join(tmp, f"{name}_r{mesh.rank()}_{key}.npy")
         np.save(path, t.cpu().numpy())
         return path
 
@@ -5514,7 +5632,7 @@ def _load_array(torch, dev, path):
     return torch.from_numpy(np.load(path, mmap_mode="r")).to(dev)
 
 
-def _mtrain_hold(torch, dev, part, one, ranks, mesh_cfg):
+def _mtrain_hold(torch, dev, label, one, ranks, mesh_cfg):
     """(m1)/(m2)'s checks against the one-process twin: losses (and aux)
     within MTRAIN_REL; the final params, each rank's blocks against the
     same blocks of the twin's leaves (each block once, a whole leaf from
@@ -5524,16 +5642,16 @@ def _mtrain_hold(torch, dev, part, one, ranks, mesh_cfg):
     from repro_torch import sharding as S
     rel_loss = max(abs(a - b) / abs(b) for r in ranks
                    for a, b in zip(r["losses"], one["losses"]))
-    check(rel_loss <= MTRAIN_REL, f"mesh_train ({part}): losses "
+    check(rel_loss <= MTRAIN_REL, f"{label}: losses "
           f"{[r['losses'] for r in ranks]} against the twin's "
           f"{one['losses']}")
     if one["aux"]:
         rel_aux = max(abs(a - b) / abs(b) for r in ranks
                       for a, b in zip(r["aux"], one["aux"]))
-        check(rel_aux <= MTRAIN_REL, f"mesh_train ({part}): aux "
+        check(rel_aux <= MTRAIN_REL, f"{label}: aux "
               f"{[r['aux'] for r in ranks]} against {one['aux']}")
     want = S.flat_keys(one["params"])
-    check(sorted(ranks[0]["specs"]) == sorted(want), f"mesh_train ({part}): "
+    check(sorted(ranks[0]["specs"]) == sorted(want), f"{label}: "
           f"leaves {sorted(ranks[0]['specs'])} against {sorted(want)}")
     num = den = 0.0
     for key, w in want.items():
@@ -5547,7 +5665,7 @@ def _mtrain_hold(torch, dev, part, one, ranks, mesh_cfg):
                               - blk).square().sum())
         del w
     rel = (num / den) ** 0.5
-    check(rel <= MTRAIN_REL, f"mesh_train ({part}): params rel L2 {rel}")
+    check(rel <= MTRAIN_REL, f"{label}: params rel L2 {rel}")
     by_block = {}
     for r in ranks:
         for key, spec in r["specs"].items():
@@ -5555,7 +5673,7 @@ def _mtrain_hold(torch, dev, part, one, ranks, mesh_cfg):
             by_block.setdefault((key, coord), set()).add(
                 r["block_digests"][key])
     check(all(len(d) == 1 for d in by_block.values()),
-          f"mesh_train ({part}): ranks that hold one block differ")
+          f"{label}: ranks that hold one block differ")
     return rel_loss, rel
 
 
@@ -5696,43 +5814,41 @@ def _quant_shard_rows(torch, dev, shape):
                  library_ms=pack_lib))
 
 
-def _mtrain_log_ranks(part, ranks, one, spawn_s, held_s):
+def _mtrain_log_ranks(label, unit, ranks, one, spawn_s, held_s):
     walls = np.array([r["walls"] for r in ranks]).max(0)
-    log(f"mesh_train ({part}) the ranks' {spawn_s:.1f} s: start-up (the "
+    log(f"{label} the ranks' {spawn_s:.1f} s: start-up (the "
         f"process, CUDA, gloo, the draw of the shards) "
-        f"{max(r['t_ready'] for r in ranks):.1f} s, the steps "
+        f"{max(r['t_ready'] for r in ranks):.1f} s, the {unit}s "
         f"{max(r['t_steps'] for r in ranks):.1f} s, the results written "
         f"and digested {max(r['t_end'] - r['t_ready'] - r['t_steps'] for r in ranks):.1f}"
         f" s (max over the ranks); the checks against the twin "
         f"{held_s:.1f} s")
-    log(f"mesh_train ({part}) walls: a {'step' if part == 'm1' else 'block'}"
-        f" {[round(float(w), 3) for w in walls]} s (max over the ranks) "
-        f"against the twin's {[round(w, 3) for w in one['walls']]} s; the "
-        f"draw of each rank's shards {max(r['draw_s'] for r in ranks):.1f} "
-        f"s")
-    per = len(one["walls"])
-    log(f"mesh_train ({part}) rank 0's collectives a "
-        f"{'step' if part == 'm1' else 'block'}: "
-        f"{_coll_line(ranks[0]['coll'], per)} (each waited for on both "
-        f"sides, host clock)")
+    log(f"{label} walls: a {unit} {[round(float(w), 3) for w in walls]} s "
+        f"(max over the ranks) against the twin's "
+        f"{[round(w, 3) for w in one['walls']]} s; the draw of each rank's "
+        f"shards {max(r['draw_s'] for r in ranks):.1f} s")
+    log(f"{label} rank 0's collectives a {unit}: "
+        f"{_coll_line(ranks[0]['coll'], len(one['walls']))} (each waited "
+        f"for on both sides, host clock)")
     peaks = [r["peak"] for r in ranks]
-    log(f"mesh_train ({part}) peak memory a rank "
+    log(f"{label} peak memory a rank "
         f"{[round(p / 2**30, 2) for p in peaks]} GiB, {sum(peaks) / 1e9:.2f} "
         f"GB in all; the twin {one['peak'] / 2**30:.2f} GiB; host-staged "
         f"ops a rank {[r['staged'] or 'none' for r in ranks]}")
 
 
-def _mtrain_spawn(part, shape, tmp):
-    """The 4 ranks of (m1) or (m2), their allocators growing segments in
-    place (the four share the card's memory; set in their environment
-    before they start)."""
+def _mtrain_spawn(jobs, tmp):
+    """The 4 ranks of ``jobs`` (:func:`_mtrain_rank`), their allocators
+    growing segments in place (the four share the card's memory; set in
+    their environment before they start); per rank its results in the
+    jobs' order."""
     from repro_torch.launch import mesh as M
     key = "PYTORCH_CUDA_ALLOC_CONF"
     before = os.environ.get(key)
     os.environ[key] = "expandable_segments:True"
     try:
-        return M.spawn(_mtrain_rank, 4, backend="gloo",
-                       args=(part, shape, tmp), timeout_s=900)
+        return M.spawn(_mtrain_rank, 4, backend="gloo", args=(jobs, tmp),
+                       timeout_s=900)
     finally:
         if before is None:
             del os.environ[key]
@@ -5740,112 +5856,144 @@ def _mtrain_spawn(part, shape, tmp):
             os.environ[key] = before
 
 
-def _mtrain_m1(torch, dev, shape, tmp):
-    """(m1): DDP on (data 2, model 2) against the one-process twin."""
-    rows, seq = shape
-    t0 = time.perf_counter()
-    one = _mtrain_twin(torch, dev, "m1", shape)
-    twin_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ranks = _mtrain_spawn("m1", shape, tmp)
-    spawn_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    n_paths = 2 * MTRAIN_DEPTH * MTRAIN_M1_STEPS   # forward and recompute
-    for r in ranks:
-        check(r["paths"] == {"sharded": n_paths}, f"mesh_train (m1): rank "
-              f"{r['rank']} paths {r['paths']}, expected the all-to-all "
-              f"path {n_paths} times (forward and the remat's recompute)")
-    rel_loss, rel = _mtrain_hold(torch, dev, "m1", one, ranks,
-                                 _mtrain_cfg("m1", shape).mesh)
-    log(f"mesh_train (m1) DDP on (data {MTRAIN_M1_MESH[0]}, model "
-        f"{MTRAIN_M1_MESH[1]}), sgd lr 0.1, {rows} x {seq} tokens a step "
-        f"(T = {rows * seq}: moe_ffn_sharded and embed_sharded), "
-        f"{MTRAIN_M1_STEPS} steps: losses {ranks[0]['losses']} against the "
-        f"one-process twin's {one['losses']} (make_ddp_step under the "
-        f"sharded capacity rule), rel {rel_loss:.3e} (bound {MTRAIN_REL}); "
-        f"aux {ranks[0]['aux']} against {one['aux']}; params rel L2 "
-        f"{rel:.3e} (bound {MTRAIN_REL}); paths a rank {ranks[0]['paths']}; "
-        f"slots dropped {sum(r['drops'] for r in ranks)} over the ranks (C_s "
-        f"per source shard), the twin {one['drops']}; twin {twin_s:.1f} s, "
-        f"the ranks' spawn and run {spawn_s:.1f} s")
-    _mtrain_log_ranks("m1", ranks, one, spawn_s, time.perf_counter() - t0)
-    del one, ranks
-    gc.collect()
-    torch.cuda.empty_cache()
+def _lookup(cfg, tokens: int) -> str:
+    """The mesh embedding path a DDP step of ``tokens`` takes."""
+    from repro_torch.models.layers import SHARDED_MIN_TOKENS
+    split = cfg.model.vocab_size % MTRAIN_M1_MESH[1] == 0
+    return ("the vocab-parallel lookup"
+            if split and tokens >= SHARDED_MIN_TOKENS else
+            "the masked lookup" + ("" if split else
+                                   " (the odd vocab whole over model)"))
 
 
-def _mtrain_m2(torch, dev, shape, tmp):
-    """(m2): local SGD on (pod 2, data 1, model 2), int8, against the
-    one-process K = 2 block; returns the quant launches of each rank."""
+def _mtrain_check_ddp(torch, dev, label, one, ranks, shape, run, twin_s,
+                      spawn_s):
+    """(m1)'s checks and log lines: the MoE's paths a rank, then
+    :func:`_mtrain_hold` against the twin."""
+    cfg = _mtrain_cfg("m1", shape, run=run)
     rows, seq = shape
     t0 = time.perf_counter()
-    one = _mtrain_twin(torch, dev, "m2", shape)
-    twin_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ranks = _mtrain_spawn("m2", shape, tmp)
-    spawn_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mesh_cfg = _mtrain_cfg("m2", shape).mesh
-    n_paths = 2 * MTRAIN_DEPTH * MTRAIN_M2_H * MTRAIN_M2_BLOCKS
+    # the MoE's all-to-all path a layer, forward and the remat's recompute
+    paths = ({"sharded": 2 * cfg.model.n_layers * MTRAIN_M1_STEPS}
+             if cfg.model.is_moe else {})
     for r in ranks:
-        check(r["paths"] == {"onehot": n_paths}, f"mesh_train (m2): rank "
-              f"{r['rank']} paths {r['paths']}, expected the one-hot path "
-              f"{n_paths} times")
-    pay = _payload_against_twin(torch, dev, ranks, one["payload"],
-                                mesh_cfg)
-    check(pay["one_scale"], "mesh_train (m2): the model ranks of a replica "
-                            "packed a leaf with different scales")
+        check(r["paths"] == paths, f"{label}: rank {r['rank']} paths "
+              f"{r['paths']}, expected {paths}")
+    rel_loss, rel = _mtrain_hold(torch, dev, label, one, ranks, cfg.mesh)
+    log(f"{label} DDP on (data {MTRAIN_M1_MESH[0]}, model "
+        f"{MTRAIN_M1_MESH[1]}), {cfg.optimizer.name} lr "
+        f"{cfg.optimizer.learning_rate}, {rows} x {seq} tokens a step (T = "
+        f"{rows * seq}: {_lookup(cfg, rows * seq)}), {MTRAIN_M1_STEPS} "
+        f"steps: losses {ranks[0]['losses']} against the one-process "
+        f"twin's {one['losses']} (make_ddp_step"
+        f"{' under the sharded capacity rule' if cfg.model.is_moe else ''}"
+        f"), rel {rel_loss:.3e} (bound {MTRAIN_REL}); aux {ranks[0]['aux']} "
+        f"against {one['aux']}; params rel L2 {rel:.3e} (bound "
+        f"{MTRAIN_REL}); paths a rank {ranks[0]['paths']}; slots dropped "
+        f"{sum(r['drops'] for r in ranks)} over the ranks, the twin "
+        f"{one['drops']}; twin {twin_s:.1f} s, the ranks' spawn and run "
+        f"{spawn_s:.1f} s")
+    _mtrain_log_ranks(label, "step", ranks, one, spawn_s,
+                      time.perf_counter() - t0)
+
+
+def _mtrain_check_local(torch, dev, label, one, ranks, shape, run, twin_s,
+                        spawn_s):
+    """(m2)'s checks and log lines: the MoE's paths and drops a rank, the
+    first sync's payloads against the twin's, the quant launches a rank
+    (2 x leaves x blocks, the amax and the pack given it once a split
+    leaf a block), :func:`_mtrain_hold`. Returns each rank's launches."""
+    cfg = _mtrain_cfg("m2", shape, run=run)
+    rows, seq = shape
+    blocks = _mtrain_steps("m2", run)
+    t0 = time.perf_counter()
+    mesh_cfg = cfg.mesh
+    paths = ({"onehot": 2 * cfg.model.n_layers * MTRAIN_M2_H * blocks}
+             if cfg.model.is_moe else {})
+    for r in ranks:
+        check(r["paths"] == paths, f"{label}: rank {r['rank']} paths "
+              f"{r['paths']}, expected {paths}")
+    pay = _payload_against_twin(torch, dev, ranks, one["payload"], mesh_cfg)
+    check(pay["one_scale"], f"{label}: the model ranks of a replica packed "
+                            f"a leaf with different scales")
     check(pay["max_dq"] <= 1 and pay["differ"] <= 1e-4 * pay["values"]
           and pay["scale_rel"] <= MTRAIN_REL,
-          f"mesh_train (m2): the first sync's payloads against the twin's "
-          f"{pay}")
+          f"{label}: the first sync's payloads against the twin's {pay}")
     mesh_drops = sum(r["drops"] for r in ranks)
     check(mesh_drops == MTRAIN_M2_MESH[2] * one["drops"],
-          f"mesh_train (m2): slots dropped {mesh_drops}, expected the "
-          f"twin's {one['drops']} on each of the {MTRAIN_M2_MESH[2]} model "
-          f"ranks")
+          f"{label}: slots dropped {mesh_drops}, expected the twin's "
+          f"{one['drops']} on each of the {MTRAIN_M2_MESH[2]} model ranks")
     launches = [r["launches"] for r in ranks]
     for r in ranks:
-        want = dict(quant=2 * r["n_leaves"] * MTRAIN_M2_BLOCKS,
-                    amax=r["n_split"] * MTRAIN_M2_BLOCKS,
-                    given=r["n_split"] * MTRAIN_M2_BLOCKS)
-        check(r["launches"] == want, f"mesh_train (m2): rank {r['rank']} "
-              f"quant launches {r['launches']}, expected {want}")
-    rel_loss, rel = _mtrain_hold(torch, dev, "m2", one, ranks, mesh_cfg)
+        want = dict(quant=2 * r["n_leaves"] * blocks,
+                    amax=r["n_split"] * blocks, given=r["n_split"] * blocks)
+        check(r["launches"] == want, f"{label}: rank {r['rank']} quant "
+              f"launches {r['launches']}, expected {want}")
+    rel_loss, rel = _mtrain_hold(torch, dev, label, one, ranks, mesh_cfg)
     sync_ms = np.array([r["sync_ms"] for r in ranks]).max(0)
-    log(f"mesh_train (m2) local SGD on (pod {MTRAIN_M2_MESH[0]}, data "
+    split = sorted(k for k, s in ranks[0]["specs"].items() if any(s))
+    log(f"{label} local SGD on (pod {MTRAIN_M2_MESH[0]}, data "
         f"{MTRAIN_M2_MESH[1]}, model {MTRAIN_M2_MESH[2]}), K = 2, H = "
-        f"{MTRAIN_M2_H}, int8, sgd lr 0.1, {rows // 2} x {seq} tokens a "
-        f"replica step (the one-hot MoE), {MTRAIN_M2_BLOCKS} blocks: losses "
+        f"{MTRAIN_M2_H}, int8, {cfg.optimizer.name} lr "
+        f"{cfg.optimizer.learning_rate}, {rows // 2} x {seq} tokens a "
+        f"replica step, {blocks} blocks: losses "
         f"{ranks[0]['losses']} against the one-process K = 2 block's "
         f"{one['losses']}, rel {rel_loss:.3e} (bound {MTRAIN_REL}); params "
         f"rel L2 {rel:.3e} (bound {MTRAIN_REL}); the first sync's int8 "
         f"payloads: the {ranks[0]['n_leaves']} leaves' blocks packed with "
         f"one scale a leaf on a replica's model ranks (the blocks' amax "
-        f"maxed); against the twin's (whose deltas differ in their last "
-        f"bits: the mesh sums the gradient in another order) "
-        f"{pay['differ']} of {pay['values']} int8 values differ (max |dq| "
-        f"{pay['max_dq']}), scales rel {pay['scale_rel']:.3e}; quant "
-        f"launches a rank {launches} (expected quant 2 x "
-        f"{ranks[0]['n_leaves']} leaves x {MTRAIN_M2_BLOCKS} blocks, amax "
-        f"and given {ranks[0]['n_split']} split leaves x "
-        f"{MTRAIN_M2_BLOCKS}); sync {[round(float(x), 2) for x in sync_ms]} "
-        f"ms a block (CUDA events, max over the ranks); slots dropped "
-        f"{mesh_drops} over the ranks (each model rank routes its replica's "
-        f"every token), the twin {one['drops']}; twin {twin_s:.1f} s, the "
-        f"ranks' spawn and run {spawn_s:.1f} s")
-    _mtrain_log_ranks("m2", ranks, one, spawn_s, time.perf_counter() - t0)
-    del one, ranks
+        f"maxed; split leaves {split or 'none'}, the rest packed whole); "
+        f"against the twin's (whose deltas differ in their last bits: the "
+        f"mesh sums the gradient in another order) {pay['differ']} of "
+        f"{pay['values']} int8 values differ (max |dq| {pay['max_dq']}), "
+        f"scales rel {pay['scale_rel']:.3e}; quant launches a rank "
+        f"{launches} (expected quant 2 x {ranks[0]['n_leaves']} leaves x "
+        f"{blocks} blocks, amax and given {ranks[0]['n_split']} "
+        f"split leaves x {blocks}); sync "
+        f"{[round(float(x), 2) for x in sync_ms]} ms a block (CUDA events, "
+        f"max over the ranks); slots dropped {mesh_drops} over the ranks, "
+        f"the twin {one['drops']}; twin {twin_s:.1f} s, the ranks' spawn "
+        f"and run {spawn_s:.1f} s")
+    _mtrain_log_ranks(label, "block", ranks, one, spawn_s,
+                      time.perf_counter() - t0)
+    return launches
+
+
+def _mtrain_jobs(torch, dev, jobs, label):
+    """Each job's (part, shape, run) one-process twin, one after another on
+    the card, then every job in one spawn of the 4 ranks, then each job's
+    checks against its twin (``label(part, run)`` names it in the log).
+    Returns (the twins' seconds, the spawn's, each job's quant launches a
+    rank: (m2)'s, None for (m1))."""
+    twins, twin_s = [], []
+    for part, shape, run in jobs:
+        t0 = time.perf_counter()
+        twins.append(_mtrain_twin(torch, dev, part, shape, run))
+        twin_s.append(time.perf_counter() - t0)
+    launches = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = _mtrain_spawn(jobs, tmp)
+        spawn_s = time.perf_counter() - t0
+        for j, (part, shape, run) in enumerate(jobs):
+            check_part = (_mtrain_check_ddp if part == "m1"
+                          else _mtrain_check_local)
+            launches.append(check_part(
+                torch, dev, label(part, run), twins[j],
+                [r[j] for r in ranks], shape, run, twin_s[j], spawn_s))
+            twins[j] = None
+    del ranks
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return sum(twin_s), spawn_s, launches
 
 
 def phase_mesh_train(torch, dev):
     """Phase mesh_train (the docstring, item 16): (m1) DDP on (data 2, model
     2) and (m2) local SGD on (pod 2, data 1, model 2), phi3.5-moe at its
-    published widths, MTRAIN_DEPTH layer, 4 gloo ranks on the card, each
-    held to its one-process twin. Returns the kernels-line rows of the
+    published widths, MTRAIN_DEPTH layer, the twins first, then both parts
+    in one spawn of 4 gloo ranks on the card, each held to its one-process
+    twin. Returns the kernels-line rows of the
     quant shard entry points with their launches in (m2)'s counted run."""
     from repro_torch.config import get_arch
     t_phase = time.perf_counter()
@@ -5859,10 +6007,10 @@ def phase_mesh_train(torch, dev):
         f"{cfg.moe.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
         f"{MTRAIN_DEPTH} of {get_arch(MESH_ARCH).n_layers} layers, f32, "
         f"remat full; 4 gloo ranks on the one card")
-    with tempfile.TemporaryDirectory() as tmp:
-        _mtrain_m1(torch, dev, MTRAIN_M1_SHAPE, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        launches = _mtrain_m2(torch, dev, MTRAIN_M2_SHAPE, tmp)
+    launches = _mtrain_jobs(
+        torch, dev, [("m1", MTRAIN_M1_SHAPE, None),
+                     ("m2", MTRAIN_M2_SHAPE, None)],
+        lambda part, _: f"mesh_train ({part})")[2][1]
     e_loc = cfg.moe.num_experts // MTRAIN_M2_MESH[2]
     amax_row, given_row = _quant_shard_rows(
         torch, dev, (1, MTRAIN_DEPTH * e_loc * cfg.d_model * cfg.d_ff))
@@ -5870,6 +6018,82 @@ def phase_mesh_train(torch, dev):
     given_row["launches"] = sum(x["given"] for x in launches)
     log(f"mesh_train: phase {time.perf_counter() - t_phase:.1f} s")
     return amax_row, given_row
+
+
+# ---------------------------------------------------------------------------
+# phase mesh_train_families: training the SSM, hybrid, VLM and audio
+# families on the (pod, data, model) process mesh
+# ---------------------------------------------------------------------------
+
+def phase_mesh_train_families(torch, dev):
+    """Phase mesh_train_families (the docstring, item 17): mesh_train's
+    (m1) and (m2), here (n1) and (n2), on each family of MTF_RUNS, the
+    one-process twins first, then every part of every family in one spawn
+    of 4 gloo ranks on the card, each held to its twin. Returns the quant
+    launches (whole-leaf packs and dequantizes, amax, packs given it) over
+    the ranks' counted runs."""
+    from repro_torch.config import get_arch
+    t_phase = time.perf_counter()
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"mesh_train_families: {free / 2**30:.2f} of {total / 2**30:.2f} "
+        f"GiB free on the card at the start")
+    jobs = []
+    for run in MTF_RUNS:
+        arch, depth, n1, n2, _, opt = run
+        full = get_arch(arch)
+        cfg = _mtrain_cfg("m1", n1, run=run).model
+        extra = {"vlm": f", {cfg.num_image_tokens} seeded patch positions "
+                        f"before the text",
+                 "audio": f", {cfg.n_audio_frames} seeded frames a "
+                          f"sequence"}.get(cfg.family, "")
+        log(f"mesh_train_families: {arch} ({cfg.family}) at its published "
+            f"widths (d_model {cfg.d_model}, vocab {cfg.vocab_size}), "
+            f"{'all' if depth is None else depth} of {full.n_layers} layers"
+            f"{extra}, f32, remat full, {opt}")
+        jobs += [("m1", n1, run)] + ([("m2", n2, run)] if n2 else [])
+    twin_s, spawn_s, launches = _mtrain_jobs(
+        torch, dev, jobs, lambda part, run: f"mesh_train_families "
+        f"({'n1' if part == 'm1' else 'n2'}, {run[0]})")
+    totals = {k: sum(x[k] for job in launches for x in job or ())
+              for k in ("quant", "amax", "given")}
+    log(f"mesh_train_families: quant launches over the ranks' counted runs "
+        f"{totals}; twins {twin_s:.1f} s, the ranks' spawn and run "
+        f"{spawn_s:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def probe_vlm_t32k(torch, dev):
+    """``--probe-vlm-t32k``: paligemma-3b's (n1) at each shape of
+    VLM_PROBE_SHAPES, the one-process twin, then the 4 ranks (nothing held
+    between them): each run's losses, step wall and peak, or the error it
+    raised (out of memory)."""
+    run = next(r for r in MTF_RUNS if r[0] == "paligemma-3b")
+    for rows, seq in VLM_PROBE_SHAPES:
+        label = (f"probe paligemma-3b (n1) {run[-1]}, {rows} x {seq} text "
+                 f"tokens (T = {rows * seq})")
+        try:
+            one = _mtrain_twin(torch, dev, "m1", (rows, seq), run)
+            log(f"{label}, the twin: losses {one['losses']}, a step "
+                f"{one['walls']} s, peak {one['peak'] / 2**30:.2f} GiB")
+        except torch.cuda.OutOfMemoryError as exc:
+            log(f"{label}, the twin: out of memory: {str(exc)[:400]}")
+        one = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                ranks = [r[0] for r in _mtrain_spawn(
+                    [("m1", (rows, seq), run)], tmp)]
+                peaks = [r["peak"] for r in ranks]
+                log(f"{label}, the 4 ranks: losses "
+                    f"{[r['losses'] for r in ranks]}, a step "
+                    f"{max(r['walls'][0] for r in ranks):.3f} s (max over "
+                    f"the ranks), peak a rank "
+                    f"{[round(p / 2**30, 2) for p in peaks]} GiB, "
+                    f"{sum(peaks) / 1e9:.2f} GB in all")
+            except Exception as exc:    # noqa: BLE001 - logged, the probe
+                log(f"{label}, the 4 ranks: {type(exc).__name__}: "
+                    f"{str(exc)[:400]}")
 
 
 # ---------------------------------------------------------------------------
@@ -6085,6 +6309,10 @@ def main() -> int:
     dist_only = "--dist-only" in sys.argv[1:]
     card = phase_device(torch)
     done("build")
+    if "--probe-vlm-t32k" in sys.argv[1:]:
+        probe_vlm_t32k(torch, dev)
+        log("--probe-vlm-t32k: the phases skipped, no result line")
+        return 0
     if not dist_only:
         row = phase_kernel(torch, dev)
         launches, eps = phase_main(torch, dev)
@@ -6154,6 +6382,8 @@ def main() -> int:
     done("mesh_families")
     amax_row, given_row = phase_mesh_train(torch, dev)
     done("mesh_train")
+    mtf_launches = phase_mesh_train_families(torch, dev)
+    done("mesh_train_families")
     t_tooling = time.perf_counter()
     phase_tooling(card, t_start)
     log(f"tooling: phase {time.perf_counter() - t_tooling:.1f} s")
@@ -6181,15 +6411,17 @@ def main() -> int:
         "name": "quant", "route": "cuda",
         "source": "src/repro_torch/kernels/quant/csrc/quant.cu",
         "replaces": "src/repro/kernels/quant/kernel.py:18",
-        "launches": quant_launches, **quant_row}, {
+        "launches": quant_launches, **quant_row,
+        "mesh_train_families_launches": mtf_launches["quant"]}, {
         "name": "quant_amax", "route": "cuda",
         "source": "src/repro_torch/kernels/quant/csrc/quant.cu",
         "replaces": "src/repro/kernels/quant/ops.py:28",
-        **amax_row}, {
+        **amax_row, "mesh_train_families_launches": mtf_launches["amax"]}, {
         "name": "quant_int8_given_amax", "route": "cuda",
         "source": "src/repro_torch/kernels/quant/csrc/quant.cu",
         "replaces": "src/repro/kernels/quant/kernel.py:29",
-        **given_row}, {
+        **given_row,
+        "mesh_train_families_launches": mtf_launches["given"]}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_tc.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:32",

@@ -39,7 +39,11 @@ hold the same block of it and divided by n (:class:`Within`): a whole leaf
 over every rank of the replica, a shard over the axes its spec leaves
 free. ``grad_clip`` reads the whole tree's norm, each shard's squares summed
 over its blocks' ranks once; the int8 sync packs each shard with its whole
-leaf's scale.
+leaf's scale. Every family trains so: the SSM, hybrid, VLM and audio
+families hold the embedding table alone split, and their Mamba2 mixers,
+the hybrid's shared block (whose gradient, a sum over its application
+points, is a whole leaf's) and the encoder and decoder stacks run whole on
+the rank's rows.
 
 State layout (plain dict), the reference's:
 
@@ -92,10 +96,6 @@ from repro_torch.core import sync as SY
 from repro_torch.device import wait
 from repro_torch.models import layers as L
 from repro_torch.optim import apply_updates_, init_opt_state
-
-# the families that train on a mesh with a model axis; the others are
-# ROADMAP §1 item 22
-MESH_FAMILIES = ("dense", "moe")
 
 
 # ---------------------------------------------------------------------------
@@ -264,10 +264,6 @@ def _within(model, cfg: TrainConfig, mesh, replicated: bool):
     rules = S.training_rules(cfg, mesh)
     if rules is None:
         return None
-    if cfg.model.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.model.family} family on a mesh with a model "
-            f"axis is ROADMAP §1 item 22; the mesh trains {MESH_FAMILIES}")
     return Within(model, cfg, mesh, rules, replicated)
 
 

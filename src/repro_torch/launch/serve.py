@@ -56,9 +56,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.registry import build_model
 from repro_torch.runtime import graphs as G
 
-# the families that serve on a mesh
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-
 
 def serving_rules(cfg: ModelConfig, mesh, max_len: int) -> S.ShardingRules:
     """The rules a serving engine runs under on ``mesh`` (axes ``data`` and
@@ -96,8 +93,7 @@ class ServeEngine:
 
     ``mesh``: this rank's :class:`repro_torch.launch.mesh.Mesh` of axes
     ``(data, model)``, on whose device the engine runs (module docstring);
-    every family of :data:`MESH_FAMILIES`. A batch must split over the data
-    axis.
+    every family. A batch must split over the data axis.
 
     The engine owns one decode cache per batch size, of its ``max_len``:
     each prefill of that batch size zeroes it and writes into it, so a
@@ -115,10 +111,6 @@ class ServeEngine:
         self.mesh = mesh
         self.rules = None
         if mesh is not None:
-            if cfg.family not in MESH_FAMILIES:
-                raise NotImplementedError(
-                    f"serving the {cfg.family} family on a mesh is ROADMAP "
-                    f"§1 item 22; the mesh serves {MESH_FAMILIES}")
             if not same_device(self.device, mesh.device):
                 raise ValueError(f"the engine runs on {self.device}, its "
                                  f"mesh rank on {mesh.device}")

@@ -33,7 +33,7 @@ under a replica strategy, a ``(data, model)`` mesh of ``world / M`` data
 ranks under ``sync_every_step``; each rank then holds its shards of the
 expert and embedding tables and their optimizer and sync state, and the
 step reaches the MoE's and the embedding's mesh paths
-(:mod:`repro_torch.core.local_sgd`; the dense and MoE families):
+(:mod:`repro_torch.core.local_sgd`; every family):
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --backend gloo --arch phi3.5-moe-42b-a6.6b --smoke --device cpu \

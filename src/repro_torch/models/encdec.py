@@ -24,10 +24,12 @@ tied table through :func:`repro_torch.models.layers.unembed`.
 
 ``loss`` encodes the frames, runs the decoder over the tokens without a
 cache and takes the CE on the tied embedding (plain attention only, as the
-reference trains). ``remat`` other than ``"none"`` checkpoints each layer of
-both stacks whole where a gradient is taken, as the reference's
-``jax.checkpoint`` of its scan bodies does for any such value: ``"dots"``
-is a full checkpoint here.
+reference trains); under mesh rules on the whole table, gathered from the
+rank's shard (:func:`repro_torch.models.layers.whole_table`), whose
+gradient the gathers' transposes carry back to the shard. ``remat`` other
+than ``"none"`` checkpoints each layer of both stacks whole where a
+gradient is taken, as the reference's ``jax.checkpoint`` of its scan bodies
+does for any such value: ``"dots"`` is a full checkpoint here.
 """
 from __future__ import annotations
 
@@ -177,8 +179,8 @@ class EncDecModel(LM):
         self._check_trainable()
         enc_out = self.encode(params, batch["frames"])
         x = self.decode_fwd(params, batch["tokens"], enc_out)
-        loss = ce_loss(x, params["embed"]["embedding"], batch["targets"],
-                       chunk=self.cfg.ce_chunk)
+        loss = ce_loss(x, L.whole_table(params["embed"]["embedding"]),
+                       batch["targets"], chunk=self.cfg.ce_chunk)
         return loss, {"ce": loss}
 
     # ------------------------------------------------------------- serving

@@ -312,7 +312,12 @@ def test_whole_vocab_enc_dec_matches_one_process(ranks):
                 one[..., d * rows:(d + 1) * rows, :], rtol=1e-5, atol=1e-6)
 
 
-def test_mesh_serves_every_family():
-    from repro_torch.launch.serve import MESH_FAMILIES
+def test_mesh_serves_every_family(ranks):
+    """``ServeEngine(mesh=)`` builds for every family of the registry: each
+    rank holds its (V/2, D/2) shard of the smoke model's table."""
     from repro_torch.models.registry import FAMILIES
-    assert set(MESH_FAMILIES) == set(FAMILIES)
+    for out in ranks:
+        assert sorted(out["engines"]) == sorted(FAMILIES)
+        for family, (arch, shape) in out["engines"].items():
+            cfg = get_smoke(arch)
+            assert shape == (cfg.vocab_size // 2, cfg.d_model // 2), family

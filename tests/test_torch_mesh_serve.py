@@ -152,11 +152,16 @@ def test_graphs_on_a_gloo_mesh_raise(ranks):
     assert "runs its decode eagerly" in ranks[0]["raises"]["graphs"]
 
 
-def test_unsupported_family_on_a_mesh_raises(ranks):
-    """The mesh serves every family (``test_torch_mesh_families.py``); the
-    trainer still refuses the SSM family on a mesh with a model axis."""
-    msg = ranks[0]["raises"]["family"]
-    assert "ssm" in msg and "item 22" in msg
+def test_trainer_builds_every_family_on_a_mesh(ranks):
+    """``build_trainer`` builds on a mesh with a model axis for every family
+    of the registry: each rank holds its (V/2, D/2) shard of the smoke
+    model's table."""
+    from repro_torch.models.registry import FAMILIES
+    for out in ranks:
+        assert sorted(out["families"]) == sorted(FAMILIES)
+        for family, (arch, shape) in out["families"].items():
+            cfg = get_smoke(arch)
+            assert shape == (cfg.vocab_size // 2, cfg.d_model // 2), family
 
 
 def test_nothing_staged_on_cpu_ranks(ranks):

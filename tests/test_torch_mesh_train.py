@@ -12,7 +12,7 @@ under the mesh rules; and ``make_local_sgd_block`` on (pod 2, data 1, model
 ``repro_torch.launch.mesh.spawn`` of 4 gloo CPU ranks runs the port's from
 the same initial states and batches (``interop.rank_train_state_from_jax``),
 then the sharded quantize of a leaf, a checkpoint written on the model mesh
-and the trainer's CLI with ``--model 2``.
+and the trainer's CLI with ``--model 2`` (phi3.5-moe and zamba2-1.2b).
 
 Bounds: the dense case the reference's own (``tests/test_distributed.py::
 TestDDPStep``): loss relative 1e-3, params rtol 2e-3 / atol 2e-4. The MoE
@@ -57,10 +57,12 @@ LOCAL = dict(arch="phi3.5-moe-42b-a6.6b", rows=4, seq=32, seed=3, h=2,
              opt=dict(name="momentum", learning_rate=0.05))
 DDP_MESH = M.mesh_config((2, 2), ("data", "model"))
 LOCAL_MESH = M.mesh_config((2, 1, 2), ("pod", "data", "model"))
-CLI = ["--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--device", "cpu",
-       "--backend", "gloo", "--model", "2", "--steps", "2",
-       "--set", "sync.strategy=periodic", "--set", "sync.period=2",
-       "--set", "sync.compression=int8", "--set", "data.seq_len=16"]
+# the CLI on the MoE and on one of the SSM, hybrid, VLM and audio families
+CLI = {arch: ["--arch", arch, "--smoke", "--device", "cpu",
+              "--backend", "gloo", "--model", "2", "--steps", "2",
+              "--set", "sync.strategy=periodic", "--set", "sync.period=2",
+              "--set", "sync.compression=int8", "--set", "data.seq_len=16"]
+       for arch in ("phi3.5-moe-42b-a6.6b", "zamba2-1.2b")}
 
 REFERENCE = r"""
 import dataclasses, json
@@ -421,9 +423,12 @@ def test_checkpoint_on_a_model_mesh_is_the_one_process_file(reference,
         assert o["local"]["replay_bitwise"]
 
 
-def test_cli_trains_on_a_model_mesh(ranks):
-    line = json.loads(ranks[0]["cli"].strip().splitlines()[-1])
+@pytest.mark.parametrize("arch", sorted(CLI))
+def test_cli_trains_on_a_model_mesh(ranks, arch):
+    line = json.loads(ranks[0]["cli"][arch].strip().splitlines()[-1])
+    from repro_torch.config import get_smoke
+    assert line["arch"] == get_smoke(arch).name
     assert line["mesh"] == {"pod": 2, "data": 1, "model": 2}
     assert line["steps"] == 2 and line["ranks"] == 4
     assert np.isfinite(line["first_loss"]) and np.isfinite(line["last_loss"])
-    assert all(o["cli"] == "" for o in ranks[1:])
+    assert all(o["cli"][arch] == "" for o in ranks[1:])

@@ -11,6 +11,10 @@ import torch
 from repro_torch import tree as T
 from repro_torch.launch import mesh as M
 
+# one smoke arch of each family of the registry
+FAMILY_ARCHS = ("smollm-360m", "phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
+                "zamba2-1.2b", "paligemma-3b", "whisper-base")
+
 
 def _mesh_of(k: int, axis: str):
     """A mesh whose ``axis`` has ``k`` ranks, the world split into
@@ -782,16 +786,17 @@ def mesh_serve(cfg, ref_params, prompts, gen, max_len):
                     params=engine.params, mesh=mesh, graphs=True)
     except ValueError as exc:
         out["raises"]["graphs"] = str(exc)
-    # the trainer still refuses the SSM family on a mesh with a model axis
+    # the trainer builds on a mesh with a model axis for every family of the
+    # registry: each rank's embedding shard of the smoke model
     from repro_torch.config import TrainConfig
     from repro_torch.launch.train import build_trainer
-    try:
-        build_trainer(TrainConfig(model=get_smoke("mamba2-2.7b"),
-                                  mesh=M.mesh_config((2, 2),
-                                                     ("data", "model"))),
-                      "cpu", mesh)
-    except NotImplementedError as exc:
-        out["raises"]["family"] = str(exc)
+    out["families"] = {}
+    for arch in FAMILY_ARCHS:
+        cfg = TrainConfig(model=get_smoke(arch),
+                          mesh=M.mesh_config((2, 2), ("data", "model")))
+        state = build_trainer(cfg, "cpu", mesh)[1]
+        out["families"][cfg.model.family] = (arch, tuple(
+            state["params"]["embed"]["embedding"].shape))
     out["staged"] = dict(CL.STAGED)
     return out
 
@@ -901,6 +906,16 @@ def mesh_families(cases, gen):
         odd = A.tile_shards(t + 1)
     out["cross"] = dict(whole=whole.numpy(), split=split.numpy(),
                         k=shards.k, odd=odd)
+    # an engine on the mesh for every family of the registry: each rank's
+    # embedding shard of the smoke model
+    from repro_torch.config import get_smoke
+    out["engines"] = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_smoke(arch)
+        engine = ServeEngine(cfg, "cpu", max_len=16, dtype=torch.float32,
+                             mesh=mesh)
+        out["engines"][cfg.family] = (arch, tuple(
+            engine.params.state_dict()["embed.embedding"].shape))
     return out
 
 
@@ -931,7 +946,8 @@ def mesh_train_cases(cases, local, inits, batches, ckpt_dir, cli_argv):
     taken; the sharded quantize of a leaf; the local-SGD block on (pod 2,
     data 1, model 2) for ``local["blocks"]`` blocks with its int8
     payloads; a checkpoint of that state written, read back and stepped
-    from; last the CLI with ``--model 2`` (which leaves the world)."""
+    from; last the CLI with ``--model 2`` for each family of ``cli_argv``
+    (the last run leaves the world)."""
     import contextlib
     import copy
     import io
@@ -1057,9 +1073,274 @@ def mesh_train_cases(cases, local, inits, batches, ckpt_dir, cli_argv):
                 for a, b in zip(T.leaves(s1[k]), T.leaves(s2[k])))
     out["local"] = local_out
 
-    # the CLI with a model axis (it leaves the world)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        TR.main(cli_argv)
-    out["cli"] = buf.getvalue()
+    # the CLI with a model axis, once per family (``cli_argv``: name →
+    # argv); each run but the last keeps the world it would leave
+    out["cli"] = {}
+    leave = torch.distributed.destroy_process_group
+    for i, (name, argv) in enumerate(cli_argv.items()):
+        buf = io.StringIO()
+        torch.distributed.destroy_process_group = (
+            leave if i == len(cli_argv) - 1 else (lambda *a, **k: None))
+        try:
+            with contextlib.redirect_stdout(buf):
+                TR.main(argv)
+        finally:
+            torch.distributed.destroy_process_group = leave
+        out["cli"][name] = buf.getvalue()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training the SSM, hybrid, VLM and audio families on a (pod, data, model)
+# mesh
+# ---------------------------------------------------------------------------
+
+def _family_cfg(kw, mesh_cfg, sync=None):
+    """:func:`_train_cfg` with ``kw["model"]``'s overrides of the smoke
+    config (e.g. an odd vocab) and ``kw["remat"]``."""
+    import dataclasses
+    cfg = _train_cfg(kw, mesh_cfg, sync)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **kw.get("model", {})),
+        remat=kw.get("remat", "none"))
+
+
+def _tensors(batch, lead=None):
+    """A numpy batch as tensors: token leaves long, the extras as they are
+    (f32); ``lead`` a function of the tensor picking this rank's rows."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        t = t.long() if t.dtype in (torch.int32, torch.int64) else t
+        out[k] = lead(t) if lead is not None else t
+    return out
+
+
+def _grads_elsewhere(model, params, batch, rules):
+    """The gradient of ``model.loss`` with its forward under ``rules`` in
+    this thread and its backward (each checkpoint's recompute with it) on a
+    thread whose context holds no rules, as autograd's own thread on the
+    card does: a checkpointed function that reads the rules without
+    carrying them in recomputes otherwise there."""
+    import threading
+    from repro_torch import sharding as S
+    from repro_torch.models import layers as L
+    stacks = [k for k in L.STACKS if k in params]
+
+    def leaf(p):
+        return p.detach().requires_grad_()
+    view = T.map(leaf, {k: v for k, v in params.items() if k not in stacks})
+    for key in stacks:
+        view[key] = [T.map(leaf, lp) for lp in L.layer_list(params[key])]
+    with torch.enable_grad(), S.use_rules(rules):
+        loss, _ = model.loss(view, batch)
+    flat, unflatten = T.flatten(view)
+    got = {}
+
+    def backward():
+        try:
+            got["grads"] = torch.autograd.grad(loss, flat)
+        except Exception as exc:        # noqa: BLE001 - handed to the test
+            got["error"] = repr(exc)
+    thread = threading.Thread(target=backward)
+    thread.start()
+    thread.join()
+    if "error" in got:
+        return got["error"]
+    grads = unflatten(list(got["grads"]))
+    for key in stacks:
+        grads[key] = T.map(lambda *xs: torch.stack(xs), *grads[key])
+    return grads
+
+
+class _RowTags:
+    """While active, every pipeline batch's ``patches`` / ``frames`` row
+    carries its data step and global row (``1000 · step + row`` in every
+    value), and ``model.loss`` records the tokens and the tags it is
+    handed."""
+
+    def __init__(self, model):
+        from repro_torch.data import pipeline
+        self.pipeline, self.model, self.seen = pipeline, model, []
+        self.orig_batch, self.orig_loss = (pipeline.DataPipeline._host_batch,
+                                           model.loss)
+
+    def __enter__(self):
+        orig_batch, orig_loss = self.orig_batch, self.orig_loss
+
+        def host_batch(pipe, step):
+            batch = orig_batch(pipe, step)
+            for key in ("patches", "frames"):
+                if key in batch:
+                    tag = 1000 * step + np.arange(batch[key].shape[0])
+                    batch[key] = np.broadcast_to(
+                        tag[:, None, None].astype(np.float32),
+                        batch[key].shape).copy()
+            return batch
+
+        def loss(params, batch):
+            extra = batch.get("patches", batch.get("frames"))
+            self.seen.append((batch["tokens"].numpy().copy(),
+                              extra[:, 0, 0].double().numpy().copy()))
+            return orig_loss(params, batch)
+        self.pipeline.DataPipeline._host_batch = host_batch
+        self.model.loss = loss
+        return self
+
+    def __exit__(self, *exc):
+        self.pipeline.DataPipeline._host_batch = self.orig_batch
+        del self.model.loss
+
+
+def _rows_of_extras(kw, shape, axes, sync, steps):
+    """``build_trainer`` on a mesh of ``shape``/``axes`` with row-tagged
+    extras, ``steps`` steps: per ``model.loss`` call the global rows its
+    extras came from and whether its tokens are those rows of the global
+    batch of that data step."""
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.train import build_trainer
+    mesh = M.make_mesh(shape, axes)
+    cfg = _family_cfg(kw, M.mesh_config(shape, axes), sync)
+    step, state, make_pipeline, model, _, _ = build_trainer(cfg, "cpu", mesh)
+    with _RowTags(model) as tags:
+        pipe = make_pipeline(0)
+        for _ in range(steps):
+            state, _ = step(state, next(pipe))
+        whole = DataPipeline(cfg.data, cfg.model)
+        calls = []
+        for tokens, tag in tags.seen:
+            data_step = int(tag[0]) // 1000
+            rows = [int(t) - 1000 * data_step for t in tag]
+            want = whole._host_batch(data_step)["tokens"][rows]
+            calls.append({"step": data_step, "rows": rows,
+                          "tokens_match": bool(np.array_equal(tokens, want))})
+    return calls
+
+
+def mesh_train_families(cases, locals_, inits, batches, ckpt, tags):
+    """The trainer on the SSM, hybrid, VLM and audio families, from the
+    reference's initial states (``interop.rank_train_state_from_jax``):
+    per DDP case on (data 2, model 2) this rank's specs, loss, its blocks of
+    the reduced gradient, the mesh's global norm, the gradient again with
+    the backward on a thread without the rules, its params after one step,
+    and the enc-dec loss taken directly on its shard of the table; per
+    local-SGD case on (pod 2, data 1, model 2) the blocks' metrics, int8
+    payloads and states; a checkpoint of the state of case ``ckpt[0]``
+    written into directory ``ckpt[1]``, read back and stepped from; last
+    the rows of the extras each loss saw (``tags``: DDP and local SGD
+    through ``build_trainer``'s pipeline)."""
+    import copy
+    from repro_torch import interop
+    from repro_torch import sharding as S
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import CheckpointConfig
+    from repro_torch.core import compression as C
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.models.registry import build_model
+    torch.set_num_threads(1)
+    mesh = M.make_mesh((2, 2), ("data", "model"))
+    out = {"rank": mesh.rank(), "data": mesh.rank("data"),
+           "model": mesh.rank("model"), "ddp": {}, "local": {}}
+    for tag, kw in cases.items():
+        cfg = _family_cfg(kw, M.mesh_config((2, 2), ("data", "model")))
+        model = build_model(cfg.model, attn_impl="torch", ssd_impl="torch",
+                            remat=cfg.remat)
+        rules = S.training_rules(cfg, mesh)
+        state = interop.rank_train_state_from_jax(inits[tag], cfg, rules,
+                                                  mesh)
+        batch = _tensors(batches[tag], lambda t: _data_rows(t, mesh))
+        within = LS.Within(model, cfg, mesh, rules, replicated=False)
+        got = {"specs": S.flat_keys(within.specs)}
+        loss, _, grads = LS._grad_under(within, model, state["params"],
+                                        batch)
+        got["rank_loss"] = float(loss)
+        elsewhere = _grads_elsewhere(model, state["params"], batch, rules)
+        got["elsewhere"] = (elsewhere if isinstance(elsewhere, str) else all(
+            torch.equal(a, b) for a, b in zip(T.leaves(grads),
+                                              T.leaves(elsewhere))))
+        within.reduce_(grads)
+        got["grads"] = _np(grads)
+        got["norm"] = float(within.norm(grads))
+        whole = LS.gather_shards({"params": grads},
+                                 {"params": within.specs}, mesh)
+        got["whole_norm"] = float(torch.sqrt(sum(
+            torch.sum(g.double() ** 2) for g in T.leaves(whole["params"]))))
+        if cfg.model.family == "audio":
+            # the loss on this rank's rows straight from its shards
+            try:
+                with S.use_rules(rules):
+                    got["direct_loss"] = float(model.loss(state["params"],
+                                                          batch)[0])
+            except Exception as exc:    # noqa: BLE001 - handed to the test
+                got["direct_loss"] = repr(exc)
+        state, metrics = LS.make_ddp_step(model, cfg, mesh=mesh)(state,
+                                                                 batch)
+        got["metrics"] = {k: float(v) for k, v in metrics.items()}
+        got["final"] = _np(state["params"])
+        out["ddp"][tag] = got
+
+    mesh3 = M.make_mesh((2, 1, 2), ("pod", "data", "model"))
+    for tag, kw in locals_.items():
+        cfg = _family_cfg(kw, M.mesh_config((2, 1, 2),
+                                            ("pod", "data", "model")),
+                          kw["sync"])
+        model = build_model(cfg.model, attn_impl="torch", ssd_impl="torch",
+                            remat=cfg.remat)
+        rules = S.training_rules(cfg, mesh3)
+        state = interop.rank_train_state_from_jax(inits[f"local/{tag}"], cfg,
+                                                  rules, mesh3)
+        block_fn = LS.make_local_sgd_block(model, cfg, mesh=mesh3)
+        rows = kw["rows"] // 2
+        lo = mesh3.rank("pod") * rows
+        specs = LS.rank_state_specs(model, cfg, mesh3, state)
+        payloads, orig = [], C.compress_tree
+
+        def keep(*args, **kw_):
+            got = orig(*args, **kw_)
+            payloads.append({"q": _np(got[0]), "scale": _np(got[1])})
+            return got
+        C.compress_tree = keep
+        local_out = {"metrics": [], "specs": specs}
+        try:
+            for b, blk in enumerate(batches[f"local/{tag}"]):
+                mine = _tensors(blk, lambda t: t[:, lo:lo + rows])
+                state, metrics = block_fn(state, mine)
+                local_out["metrics"].append({k: float(v)
+                                             for k, v in metrics.items()})
+                if b == 0:
+                    local_out["first"] = T.map(np.copy, _np(
+                        {k: state[k] for k in ("params", "opt", "sync")}))
+        finally:
+            C.compress_tree = orig
+        local_out["payloads"] = payloads
+        local_out["final"] = _np({k: state[k] for k in ("params", "opt",
+                                                         "sync")})
+        if tag == ckpt[0]:
+            # the one-process file from the model mesh; read back, it steps
+            # as the state it was written from
+            manager = CheckpointManager(
+                CheckpointConfig(directory=ckpt[1]), mesh=mesh3, axis="pod",
+                specs=specs)
+            manager.save(int(state["step"]), state, fingerprint="mesh")
+            back, _ = manager.restore(state)
+            local_out["restored_equal"] = back["step"] == state["step"] \
+                and all(torch.equal(a, b)
+                        for k in ("params", "opt", "sync")
+                        for a, b in zip(T.leaves(back[k]),
+                                        T.leaves(state[k])))
+            mine = _tensors(batches[f"local/{tag}"][0],
+                            lambda t: t[:, lo:lo + rows])
+            s1, m1 = block_fn(copy.deepcopy(state), mine)
+            s2, m2 = block_fn(back, mine)
+            local_out["replay_bitwise"] = (
+                float(m1["loss"]) == float(m2["loss"])
+                and all(torch.equal(a, b) for k in ("params", "opt", "sync")
+                        for a, b in zip(T.leaves(s1[k]), T.leaves(s2[k]))))
+        out["local"][tag] = local_out
+
+    out["tags"] = {
+        "ddp": _rows_of_extras(tags["ddp"], (2, 2), ("data", "model"), None,
+                               1),
+        "local": _rows_of_extras(tags["local"], (2, 1, 2),
+                                 ("pod", "data", "model"), tags["sync"], 1)}
     return out
