@@ -214,48 +214,55 @@ entry points and holds every run to its plain-version twin:
     the split-TF32 kernel path against the plain path at relative L2 1e-2.
     Before them, equal gates over 16 and 128 experts route on the card to
     experts 0..k-1, as the reference's top-k picks them;
-14. phase mesh_serve, serving on a (data 2, model 2) process mesh of 4
-    gloo ranks that share the card: ``ServeEngine(mesh=)`` on phi3.5-moe
-    at its published widths, its depth cut to 1 of 32 layers for the time
-    limit, each rank drawing every leaf from the seed and keeping its
-    shards (the expert and embedding tables, the cache's sequence); the
-    main path's counted run, a bf16 ``generate`` of 16 prompts of 2,048
-    tokens (T = 32,768: the vocab-parallel embedding and the all-to-all
-    MoE once a layer) and 8 new tokens (the one-hot MoE once a layer a
-    step, the seq-sharded decode attention), 2 flash launches a rank on
-    the bf16 tensor-core kernel; then in bf16 and in f32 the prefill and 8
-    steps teacher-forced on the one-process f32 engine's tokens, held to
-    the one-process engine at the same depth, seed and prompts (f32
-    logits within relative L2 1e-3 and the same argmax at every position,
-    against a one-process run of the sharded capacity rule where slots
-    drop; bf16 within 0.1), the slots dropped on both paths, the paths
-    taken, the walls beside the one-process engine's, each collective's
-    ms and bytes, the host-staged ops and the peaks a rank;
-15. phase mesh_families, serving the SSM, hybrid, VLM and audio families
-    on the same mesh of 4 gloo ranks (one spawn for the four models):
-    ``ServeEngine(mesh=)`` at their published widths, mamba2-2.7b cut to 4
-    of 64 layers, zamba2-1.2b to 6 of 38 (one application of its shared
-    block), paligemma-3b to 2 of 18, whisper-base whole (6 + 6), each rank
-    drawing every leaf from the seed and keeping its shards (the embedding
-    table; the attention caches' sequence where it tiles the model axis:
-    the self caches by ``max_len``, rounded up to a multiple of 2, and
-    whisper's 1,500-frame cross cache; the Mamba2 mixers, their state and
-    conv tails whole on the rank's rows); the main path's counted run, a
-    bf16 ``generate`` of 16 prompts of 2,048 tokens (T = 32,768: the
-    vocab-parallel embedding; paligemma's 256 seeded patch positions before
-    them) or whisper's 16 of 384 over 1,500 seeded frames (its odd vocab
-    held whole, the masked lookup over data), 8 new tokens, with the flash
-    and SSD launches a rank on their routes (all on the bf16 tensor-core
-    kernels); then the bf16 prefill, and in f32 the prefill and 8 steps
+14. phase mesh_serve, serving on a (data 2, model 2) process mesh of 4 gloo
+    ranks that share the card: ``ServeEngine(mesh=)`` on phi3.5-moe at its
+    published widths, its depth cut to 1 of 32 layers for the time limit, each
+    rank drawing every leaf from the seed and keeping its shards of every
+    weight as the serving rules split it (the attention's 32 / 8 heads, the
+    router and the expert and embedding tables over model, each d_model dim
+    over data; the cache's sequence), the layers tensor and sequence parallel;
+    the main path's counted run, a bf16 ``generate`` of 16 prompts of 2,048
+    tokens (T = 32,768: the vocab-parallel embedding and the all-to-all MoE
+    once a layer) and 8 new tokens (the one-hot MoE once a layer a step, the
+    seq-sharded decode attention), 1 flash launch a layer a rank on the bf16
+    tensor-core kernel, on its 16 of 32 query heads; then in bf16 and in f32
+    the prefill and 8 steps teacher-forced on the one-process f32 engine's
+    tokens, held to the one-process engine at the same depth, seed and prompts
+    (f32 logits within relative L2 1e-3 and the same argmax at every position,
+    against a one-process run of the sharded capacity rule where slots drop;
+    bf16 within 0.1), the slots dropped on both paths, the paths taken, the
+    walls beside the one-process engine's, each collective's ms and bytes by op
+    (a weight's FSDP gather apart), the host-staged ops, the weight bytes a
+    rank against the whole model's and the peaks a rank;
+15. phase mesh_families, serving the SSM, hybrid, VLM and audio families on the
+    same mesh of 4 gloo ranks (one spawn for the four models):
+    ``ServeEngine(mesh=)`` at their published widths, mamba2-2.7b cut to 4 of
+    64 layers, zamba2-1.2b to 6 of 38 (one application of its shared block),
+    paligemma-3b to 2 of 18, whisper-base whole (6 + 6), each rank drawing
+    every leaf from the seed and keeping its shards of every weight as the
+    serving rules split it (the attention's heads, the MLP's columns, the
+    Mamba2 mixers' heads, the vocab over model, each d_model dim over data; the
+    attention caches' sequence where it tiles the model axis: the self caches
+    by ``max_len``, rounded up to a multiple of 2, and whisper's 1,500-frame
+    cross cache; the Mamba2 state and x conv tails by heads), the layers tensor
+    and sequence parallel; the main path's counted run, a bf16 ``generate`` of
+    16 prompts of 2,048 tokens (T = 32,768: the vocab-parallel embedding;
+    paligemma's 256 seeded patch positions before them) or whisper's 16 of 384
+    over 1,500 seeded frames (its odd vocab held whole, the masked lookup over
+    data), 8 new tokens, with the flash and SSD launches a rank on their routes
+    (all on the bf16 tensor-core kernels, each on the rank's half of the heads;
+    its prefill timed, counted and kept), and in f32 the prefill and 8 steps
     teacher-forced on the one-process f32 engine's tokens, held to the
-    one-process engine at the same depth, seed, prompts and extras (f32
-    logits within relative L2 1e-3 and the same argmax at every position,
-    on ``flash_attention_tc32.cu`` for zamba2 and whisper,
-    ``flash_attention.cu`` for paligemma's head dim 256 and ``ssd.cu``;
-    bf16 within 0.1), the walls beside the one-process engine's (a bf16
-    step: the counted ``generate``'s wall less the prefill's, over its
-    steps), each collective's ms and bytes, the host-staged ops and the
-    peaks a rank;
+    one-process engine at the same depth, seed, prompts and extras (f32 logits
+    within relative L2 1e-3 and the same argmax at every position, on
+    ``flash_attention_tc32.cu`` for zamba2 and whisper, ``flash_attention.cu``
+    for paligemma's head dim 256 and ``ssd.cu``; bf16 within 0.1), the walls
+    beside the one-process engine's (a bf16 step: the counted ``generate``'s
+    wall less the prefill's, over its steps), each collective's ms and bytes by
+    op (a weight's FSDP gather apart), the host-staged ops, the weight bytes a
+    rank against the whole model's and the peaks a rank; ``--mesh-serve-only``
+    runs the build and phases mesh_serve and mesh_families alone, with no
+    result line;
 16. phase mesh_train, training on a process mesh of 4 gloo ranks that
     share the card, phi3.5-moe at its published widths, its depth cut to 1
     of 32 layers, f32, remat full, sgd (AdamW's moments do not fit the
@@ -4744,8 +4751,11 @@ class ShardedCapacity:
         n_data, n_model = MESH_SHAPE
 
         def blocks(params, x, cfg, capacity_factor=moe.CAPACITY_FACTOR,
-                   return_aux=False):
+                   return_aux=False, seq=None):
             b, s, _ = x.shape
+            if seq is not None:
+                raise ValueError("ShardedCapacity runs one process's "
+                                 "whole sequence")
             if b * s < moe.SHARDED_MIN_TOKENS:
                 return self.orig(params, x, cfg, capacity_factor,
                                  return_aux)
@@ -4799,21 +4809,64 @@ class CollectiveTimer:
             torch.cuda.synchronize()
             self.records.append((name, tuple(x.shape),
                                  x.numel() * x.element_size(),
-                                 time.perf_counter() - t0))
+                                 time.perf_counter() - t0,
+                                 isinstance(x, torch.nn.Parameter)))
             return y
         return timed
 
-    def take(self, fsdp_shapes):
+    def take(self, fsdp_shapes=()):
         """The records so far, summed: ms and bytes by op, the FSDP gathers
-        (``gather_dim`` of an expert-table shard) apart; then cleared."""
+        (``gather_dim`` of a serving engine's weight, or of a shard of one
+        of ``fsdp_shapes``: a trainer's expert table) apart; then
+        cleared."""
         out = {}
-        for name, shape, nbytes, sec in self.records:
-            if name == "gather_dim" and shape in fsdp_shapes:
+        for name, shape, nbytes, sec, weight in self.records:
+            if name == "gather_dim" and (weight or shape in fsdp_shapes):
                 name = "fsdp_gather"
             ms, b, n = out.get(name, (0.0, 0, 0))
             out[name] = (ms + 1e3 * sec, b + nbytes, n + 1)
         self.records.clear()
         return out
+
+
+def _weight_bytes(eng):
+    """(the bytes of the weights a mesh engine's rank holds, the whole
+    model's at the engine's dtype)."""
+    import math
+    from repro_torch import sharding as S
+    held = sum(t.numel() * t.element_size() for t in eng.params.parameters())
+    size = next(eng.params.parameters()).element_size()
+    whole = sum(size * math.prod(p.shape)
+                for p in S.flat_keys(eng.model.param_defs()).values())
+    return held, whole
+
+
+def _head_shards(cfg) -> str:
+    """The heads a mesh rank's flash and SSD launches take, as the serving
+    rules split them on MESH_SHAPE."""
+    from repro_torch.launch.serve import serving_rules
+
+    class Mesh:
+        axes, shape = ("data", "model"), MESH_SHAPE
+    rules = serving_rules(cfg, Mesh, MESH_SHAPE[1])
+    parts = []
+    if cfg.family != "ssm":
+        m = MESH_SHAPE[1] if rules.mesh_axes_for("heads") else 1
+        parts.append(f"flash on {cfg.n_heads // m} of {cfg.n_heads} query "
+                     f"heads")
+    if cfg.family in ("ssm", "hybrid"):
+        h = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        m = MESH_SHAPE[1] if rules.mesh_axes_for("ssm_heads") else 1
+        parts.append(f"SSD on {h // m} of {h} heads")
+    return ", ".join(parts) + " a rank"
+
+
+def _weights_line(runs):
+    held = [r["weights"][0] for r in runs]
+    whole = runs[0]["weights"][1]
+    return (f"weights a rank {[round(h / 1e9, 3) for h in held]} GB of the "
+            f"whole model's {whole / 1e9:.3f} GB (a rank "
+            f"{max(held) / whole:.3f} of it)")
 
 
 def _mesh_cfg(dtype: str):
@@ -4877,10 +4930,6 @@ def _mesh_serve_rank(prompts, forced):
     rows = MESH_BATCH // MESH_SHAPE[0]
     forced = torch.from_numpy(forced).to(dev).narrow(
         0, mesh.rank("data") * rows, rows)
-    cfg = _mesh_cfg("float32")
-    e_loc = cfg.moe.num_experts // MESH_SHAPE[1]
-    d_loc = cfg.d_model // MESH_SHAPE[0]
-    fsdp = {(e_loc, d_loc, cfg.d_ff), (e_loc, cfg.d_ff, d_loc)}
     out = dict(rank=mesh.rank(), data=mesh.rank("data"),
                model=mesh.rank("model"), device=str(dev))
     for dtype in ("bfloat16", "float32"):
@@ -4890,7 +4939,8 @@ def _mesh_serve_rank(prompts, forced):
                           max_len=MESH_PROMPT + MESH_GEN,
                           dtype=getattr(torch, dtype), mesh=mesh)
         _wait(torch, dev)
-        run = dict(draw_s=time.perf_counter() - t0)
+        run = dict(draw_s=time.perf_counter() - t0,
+                   weights=_weight_bytes(eng))
         if dtype == "bfloat16":
             # the main path's counted run: the counts set to 0 just before
             # and read just after
@@ -4903,7 +4953,7 @@ def _mesh_serve_rank(prompts, forced):
                                    wall=time.perf_counter() - t0,
                                    launches=read(counters),
                                    paths=dict(moe.PATHS))
-        timer.take(fsdp)
+        timer.take()
         with DropCounter() as drops:
             reset(counters)
             moe.PATHS.clear()
@@ -4913,7 +4963,7 @@ def _mesh_serve_rank(prompts, forced):
             run["prefill_s"] = time.perf_counter() - t0
             run["prefill"] = dict(launches=read(counters),
                                   paths=dict(moe.PATHS),
-                                  coll=timer.take(fsdp))
+                                  coll=timer.take())
             moe.PATHS.clear()
             t0 = time.perf_counter()
             loop = eng.decode_loop(MESH_BATCH)
@@ -4925,7 +4975,7 @@ def _mesh_serve_rank(prompts, forced):
             _wait(torch, dev)
             run["decode_ms"] = 1e3 * (time.perf_counter() - t0) / MESH_GEN
             run["decode"] = dict(paths=dict(moe.PATHS),
-                                 coll=timer.take(fsdp))
+                                 coll=timer.take())
         run["drops"] = drops.dropped
         run["logits"] = np.stack([x.float().cpu().numpy()
                                   for x in [logits] + steps])
@@ -4936,6 +4986,15 @@ def _mesh_serve_rank(prompts, forced):
     out["staged"] = dict(CL.STAGED)
     out["staged_bytes"] = dict(CL.STAGED_BYTES)
     return out
+
+
+def _coll_ranks(runs, key, per=1):
+    """Each rank's collectives of one part (``key``: prefill or decode),
+    summed over the ops: ms and MB in, divided by ``per``."""
+    return "; ".join(
+        f"rank {i} {sum(ms for ms, _, _ in r[key]['coll'].values()) / per:.1f}"
+        f" ms, {sum(b for _, b, _ in r[key]['coll'].values()) / per / 1e6:.1f}"
+        f" MB" for i, r in enumerate(runs))
 
 
 def _coll_line(coll, per=1):
@@ -5048,11 +5107,13 @@ def phase_mesh_serve(torch, dev):
         log(f"mesh_serve {dtype} rank 0's collectives, prefill: "
             f"{_coll_line(r0['prefill']['coll'])}; a decode step: "
             f"{_coll_line(r0['decode']['coll'], n_steps)} (each waited for "
-            f"on both sides, host clock)")
+            f"on both sides, host clock); every rank's, prefill: "
+            f"{_coll_ranks(runs, 'prefill')}; a decode step: "
+            f"{_coll_ranks(runs, 'decode', n_steps)}")
         peaks = [r["peak"] for r in runs]
         log(f"mesh_serve {dtype} peak memory a rank "
             f"{[round(p / 2**30, 2) for p in peaks]} GiB, "
-            f"{sum(peaks) / 1e9:.2f} GB in all")
+            f"{sum(peaks) / 1e9:.2f} GB in all; {_weights_line(runs)}")
     gen = [r["bfloat16"]["generate"] for r in ranks]
     toks = gen[0]["tokens"]
     check(toks.shape == (MESH_BATCH, MESH_GEN)
@@ -5066,7 +5127,8 @@ def phase_mesh_serve(torch, dev):
     log(f"mesh_serve the main path's counted run (bf16 generate, counts 0 "
         f"just before, read just after): flash launches a rank "
         f"{[g['launches']['flash_attention_tc'] for g in gen]} on the bf16 "
-        f"tensor-core kernel; paths a rank {gen[0]['paths']}; wall "
+        f"tensor-core kernel ({_head_shards(_mesh_cfg('float32'))}); paths "
+        f"a rank {gen[0]['paths']}; wall "
         f"{max(g['wall'] for g in gen):.4f} s (max over the ranks), "
         f"{MESH_BATCH * MESH_GEN / max(g['wall'] for g in gen):.1f} new "
         f"tokens/s; tokens identical on every rank")
@@ -5145,7 +5207,8 @@ def _mfam_rank(runs, tmp):
     """One rank of phase mesh_families's (data, model) mesh, each model of
     ``runs`` in turn, per dtype a ``ServeEngine(mesh=)`` drawn from the
     seed (its shards kept): in bf16 the main path's counted run,
-    ``generate``, then the prefill; in f32 the prefill and MFAM_GEN steps
+    ``generate``, whose prefill is timed, counted and kept; in f32 the
+    prefill and MFAM_GEN steps
     teacher-forced on the one-process f32 engine's tokens (this rank's
     rows); every collective timed. The first model rank of each data row
     writes its logits to ``tmp`` (.npy); every rank returns their
@@ -5187,13 +5250,30 @@ def _mfam_rank(runs, tmp):
                               dtype=getattr(torch, dtype), mesh=mesh)
             _wait(torch, dev)
             r = dict(draw_s=time.perf_counter() - t0,
-                     table=tuple(eng.params["embed"]["embedding"].shape))
-            fsdp = {r["table"]}
+                     table=tuple(eng.params["embed"]["embedding"].shape),
+                     weights=_weight_bytes(eng))
+            timer.take()
+            reset(counters)
+            sharded[0] = 0
+            prefill = eng.prefill
+
+            def timed_prefill(*args):
+                # the prefill's wall, logits, launches and collectives,
+                # the counts set to 0 just before it
+                _wait(torch, dev)
+                t0 = time.perf_counter()
+                out = prefill(*args)
+                _wait(torch, dev)
+                r["prefill_s"] = time.perf_counter() - t0
+                r["prefill"] = dict(launches=read(counters),
+                                    sharded=sharded[0], coll=timer.take(),
+                                    logits=out[0].clone())
+                return out
+            eng.prefill = timed_prefill
             if dtype == "bfloat16":
                 # the main path's counted run: the counts set to 0 just
-                # before and read just after
-                reset(counters)
-                sharded[0] = 0
+                # before and read just after; its prefill is the bf16
+                # prefill held to one process
                 t0 = time.perf_counter()
                 tokens = eng.generate(prompts, MFAM_GEN, extras)
                 _wait(torch, dev)
@@ -5201,18 +5281,13 @@ def _mfam_rank(runs, tmp):
                                      wall=time.perf_counter() - t0,
                                      launches=read(counters),
                                      sharded=sharded[0])
-            timer.take(fsdp)
-            reset(counters)
-            sharded[0] = 0
-            t0 = time.perf_counter()
-            logits, _ = eng.prefill(prompts, extras)
-            _wait(torch, dev)
-            r["prefill_s"] = time.perf_counter() - t0
-            r["prefill"] = dict(launches=read(counters), sharded=sharded[0],
-                                coll=timer.take(fsdp))
+                r["decode"] = dict(coll=timer.take())
+            else:
+                eng.prefill(prompts, extras)
+            logits = r["prefill"].pop("logits")
             steps = []
             if dtype == "bfloat16":
-                # the counted generate's steps: its wall less a prefill's
+                # the counted generate's steps: its wall less its prefill's
                 r["decode_ms"] = 1e3 * (r["generate"]["wall"]
                                         - r["prefill_s"]) / MFAM_GEN
             else:
@@ -5224,7 +5299,7 @@ def _mfam_rank(runs, tmp):
                     steps.append(loop.step().clone())
                 _wait(torch, dev)
                 r["decode_ms"] = 1e3 * (time.perf_counter() - t0) / MFAM_GEN
-                r["decode"] = dict(coll=timer.take(fsdp))
+                r["decode"] = dict(coll=timer.take())
                 del loop
             arr = np.stack([x.float().cpu().numpy()
                             for x in [logits] + steps])
@@ -5297,12 +5372,13 @@ def _mfam_hold(torch, run, one, ranks, tmp):
                 if "decode" in r0 else "")
         log(f"mesh_families {arch} {dtype} rank 0's collectives, prefill: "
             f"{_coll_line(r0['prefill']['coll'])}{step} (each waited for on "
-            f"both sides, host clock; fsdp_gather: the table shard gathered "
-            f"over data)")
+            f"both sides, host clock; fsdp_gather: a weight's shard gathered "
+            f"over data); every rank's, prefill: "
+            f"{_coll_ranks(runs, 'prefill')}")
         peaks = [r["peak"] for r in runs]
         log(f"mesh_families {arch} {dtype} peak memory a rank "
             f"{[round(p / 2**30, 2) for p in peaks]} GiB, "
-            f"{sum(peaks) / 1e9:.2f} GB in all")
+            f"{sum(peaks) / 1e9:.2f} GB in all; {_weights_line(runs)}")
     gen = [r["runs"][arch]["bfloat16"]["generate"] for r in ranks]
     toks = gen[0]["tokens"]
     want = _mfam_launches(cfg, True)
@@ -5316,7 +5392,8 @@ def _mfam_hold(torch, run, one, ranks, tmp):
     log(f"mesh_families {arch} the main path's counted run (bf16 generate, "
         f"counts 0 just before, read just after): launches a rank "
         f"{gen[0]['launches']} (flash on the bf16 tensor-core kernel, SSD "
-        f"on ssd_tc.cu), vocab-parallel lookups {gen[0]['sharded']}; wall "
+        f"on ssd_tc.cu; {_head_shards(cfg)}), vocab-parallel lookups "
+        f"{gen[0]['sharded']}; wall "
         f"{wall:.4f} s (max over the ranks), "
         f"{MFAM_BATCH * MFAM_GEN / wall:.1f} new tokens/s; tokens identical "
         f"on every rank")
@@ -6309,6 +6386,13 @@ def main() -> int:
     dist_only = "--dist-only" in sys.argv[1:]
     card = phase_device(torch)
     done("build")
+    if "--mesh-serve-only" in sys.argv[1:]:
+        phase_mesh_serve(torch, dev)
+        done("mesh_serve")
+        phase_mesh_families(torch, dev)
+        done("mesh_families")
+        log("--mesh-serve-only: the other phases skipped, no result line")
+        return 0
     if "--probe-vlm-t32k" in sys.argv[1:]:
         probe_vlm_t32k(torch, dev)
         log("--probe-vlm-t32k: the phases skipped, no result line")

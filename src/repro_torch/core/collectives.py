@@ -358,17 +358,19 @@ def replicas(mesh=None, axis: Optional[str] = None):
 
 
 def mesh_groups(rules) -> Tuple[Group, Group]:
-    """The (data, model) groups of ``rules``' mesh: the mesh axes of the
-    logical ``batch`` and ``act_seq`` dims, one each (the layout the models'
-    mesh paths take)."""
+    """The (data, model) groups of ``rules``' mesh: the mesh axes of its
+    data and model roles (``rules.roles``), where the logical ``batch``
+    maps to the data axis alone (the layout the models' mesh paths
+    take)."""
     mesh = rules.mesh
-    data, model = (rules.mesh_axes_for(n) for n in ("batch", "act_seq"))
-    if len(data) != 1 or len(model) != 1:
+    data, model = rules.roles["data"], rules.roles["model"]
+    if rules.mesh_axes_for("batch") != (data,) or model not in mesh.axes:
         raise ValueError(f"the mesh paths take one data and one model axis; "
-                         f"these rules map batch to {data} and act_seq to "
-                         f"{model} on {mesh!r}")
-    return (Group(mesh.group(data[0]), mesh.device, mesh.backend),
-            Group(mesh.group(model[0]), mesh.device, mesh.backend))
+                         f"these rules map batch to "
+                         f"{rules.mesh_axes_for('batch')} on {mesh!r} (data "
+                         f"{data!r}, model {model!r})")
+    return (Group(mesh.group(data), mesh.device, mesh.backend),
+            Group(mesh.group(model), mesh.device, mesh.backend))
 
 
 class Shards:

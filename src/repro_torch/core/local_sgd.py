@@ -125,7 +125,8 @@ def init_state(model, cfg: TrainConfig, gen: torch.Generator,
             leaf = L.init_leaf(p, gen, dtype)
             return S.shard_of(leaf, spec, mesh).clone() if any(spec) \
                 else leaf
-        params = S.map_with_specs(shard, defs, S.serve_specs(defs, rules))
+        params = S.map_with_specs(shard, defs,
+                                  S.train_leaf_specs(defs, rules))
     return state_of(params, cfg, replicas)
 
 

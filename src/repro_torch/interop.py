@@ -95,11 +95,12 @@ def lm_params_from_jax(params: Mapping[str, Any], cfg: ModelConfig
 
 def rank_params_from_jax(params: Mapping[str, Any], cfg: ModelConfig,
                          rules, mesh) -> Dict[str, torch.Tensor]:
-    """:func:`lm_params_from_jax` followed by this rank's shard of each
+    """:func:`lm_params_from_jax` followed by this rank's shard of every
     entry: the state dict a serving rank on ``mesh`` loads
     (``ServeEngine(…, params=…, mesh=mesh)``), under ``rules`` (the
     engine's, :func:`repro_torch.launch.serve.serving_rules`) and
-    :func:`repro_torch.sharding.serve_specs`."""
+    :func:`repro_torch.sharding.serve_specs` (``spec_for`` of each
+    leaf)."""
     from repro_torch import sharding as S
     from repro_torch.models.registry import build_model
     specs = S.flat_keys(S.serve_specs(build_model(cfg).param_defs(), rules))

@@ -20,15 +20,17 @@ step eagerly, the comparison path on the card and the path on the CPU.
 On a ``(data, model)`` process mesh (``mesh=``, a
 :class:`repro_torch.launch.mesh.Mesh` of that rank) the engine serves every
 family as the reference's engine does on its mesh: every call runs under
-the mesh's rules (:func:`serving_rules`); the rank holds its shards of the
-expert tables (experts→model, d_model→data), of the embedding table
-(vocab→model, d_model→data) and of the attention caches (their sequence
-over model, wherever it tiles the axis: the self caches by ``max_len``,
-the enc-dec's cross cache by its frames), every other weight, the Mamba2
-mixers and their state and conv tails whole
-(:func:`repro_torch.sharding.serve_specs`), and its data shard of the
-batch and of each extra (patches, frames); ``generate`` returns the whole
-batch's tokens on every rank. Decode runs eagerly there.
+the mesh's rules (:func:`serving_rules`); the rank holds every weight as
+the rules shard it (:func:`repro_torch.sharding.serve_specs`: the
+attention's heads, the MLP's columns, the Mamba2 mixers' heads, the vocab
+and the experts over model, each d_model dim over data, a dim held whole
+where it does not divide), its shards of the attention caches (their
+sequence over model, wherever it tiles the axis: the self caches by
+``max_len``, the enc-dec's cross cache by its frames) and of the Mamba2
+state and x conv tails (by heads), and its data shard of the batch and of
+each extra (patches, frames); the layers run tensor and sequence parallel
+(:mod:`repro_torch.models.layers`); ``generate`` returns the whole batch's
+tokens on every rank. Decode runs eagerly there.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --smoke --device cpu --requests 4 --gen-tokens 8
@@ -60,9 +62,13 @@ from repro_torch.runtime import graphs as G
 def serving_rules(cfg: ModelConfig, mesh, max_len: int) -> S.ShardingRules:
     """The rules a serving engine runs under on ``mesh`` (axes ``data`` and
     ``model``): the default rules, with each logical dim the engine shards
-    held whole where its size does not divide its mesh axes (the vocab,
-    d_model, the experts, the cache's ``max_len``), so the model code reads
-    from the rules how a rank holds each of them."""
+    held whole where a size of it does not divide its mesh axes (the vocab,
+    d_model, the experts, the cache's ``max_len``, the attention's query
+    and KV heads, the MLP's d_ff and the Mamba2 mixers' d_inner, both
+    ``mlp``, and their heads), so the model code reads from the rules how a
+    rank holds each of them. ``act_seq`` is fitted per call, on the length
+    of the sequence at hand (:func:`repro_torch.models.layers.act_shards`:
+    a prefill's, or a decode step's one token, held whole)."""
     if tuple(mesh.axes) != ("data", "model"):
         raise ValueError(f"serving takes a (data, model) mesh, not "
                          f"{mesh.axes}")
@@ -70,6 +76,17 @@ def serving_rules(cfg: ModelConfig, mesh, max_len: int) -> S.ShardingRules:
             "cache_seq": max_len}
     if cfg.is_moe:
         dims.update(experts=cfg.moe.num_experts, expert_embed=cfg.d_model)
+    mlp = []
+    if cfg.family != "ssm":
+        dims.update(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads)
+    if cfg.family in ("dense", "vlm", "audio", "hybrid"):
+        mlp.append(cfg.d_ff)
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner = cfg.ssm.expand * cfg.d_model
+        mlp.append(d_inner)
+        dims["ssm_heads"] = d_inner // cfg.ssm.head_dim
+    if mlp:
+        dims["mlp"] = mlp
     return S.fitted_rules(mesh_config(mesh.shape, mesh.axes), mesh, dims)
 
 
@@ -190,7 +207,8 @@ class ServeEngine:
         chunk of a self-attention cache's ``max_len`` where the rules shard
         ``cache_seq``; the enc-dec's cross cache split by its own length
         (:func:`repro_torch.models.attention.tile_shards`); the SSM state
-        and conv tails whole."""
+        by its heads and the x conv tail by its columns where the rules
+        split ``ssm_heads`` (the B and C tails whole)."""
         if batch not in self._caches:
             length = self.max_len
             if self.rules is not None and \

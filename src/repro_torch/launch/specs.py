@@ -23,8 +23,8 @@ tables, their optimizer moments and their sync state at the shard shapes
 :func:`repro_torch.sharding.train_specs` gives under
 :func:`repro_torch.sharding.training_rules`, every other leaf whole, as the
 trainer on a mesh with a model axis holds them. Serving cells count the
-weights whole (a ``ServeEngine(mesh=)`` rank holds its shards of the
-expert tables, the embedding and the cache).
+weights whole (a ``ServeEngine(mesh=)`` rank holds its shard of every
+weight, as ``sharding.serve_specs`` gives it, and of the cache).
 The collectives a card's call would make across the mesh (the gradients'
 all-reduce over the batch axes, the replicas' sync) are priced from
 :func:`repro_torch.core.costmodel.wire_bytes_per_sync` on the link of the
@@ -337,5 +337,5 @@ def build_cell(arch: str, shape_name: str, mesh_cfg: MeshConfig, *,
                      state_bytes=_bytes(params) + _bytes(batch), wire=wire,
                      collectives=colls,
                      notes="weights whole on each card (the one-card "
-                           "call; ServeEngine(mesh=) shards the expert "
-                           "and embedding tables and the cache)", **common)
+                           "call; ServeEngine(mesh=) shards every weight "
+                           "and the cache)", **common)

@@ -12,7 +12,20 @@ rank whose chunk holds the index, and :func:`decode_attention` merges the
 ranks' flash-decode partials by log-sum-exp, as the reference's seq-sharded
 decode does. A cross-attention cache is split the same way where its own
 length tiles the model axis (:func:`tile_shards`), as the reference decides
-per cache. The full-sequence attention is the same on every rank.
+per cache.
+
+Tensor parallel under rules that split ``heads`` over the model axis
+(:func:`repro_torch.models.layers.tp_group`): a rank projects straight into
+its H/M query heads and, where ``kv_heads`` split too, its KV/M key and
+value heads (contiguous (B, S, H/M, hd), so the flash kernel keeps its TMA
+routes); where they do not (paligemma's one KV head) k and v are whole and
+each rank attends with the KV heads of its query heads (the reference's
+``q_group``). ``wo`` is row-parallel: its partial sums are summed over
+model in f32 into the residual's layout. The prefill's head-sharded k, v go
+into the sequence-sharded cache by an all-to-all over model
+(:func:`write_cache`); a decode step gathers its one token's q, k, v over
+model for the sequence-sharded decode attention. Where ``heads`` is held
+whole (smollm's 15) the attention runs whole on every model rank.
 
 ``full_attention(impl=…)`` selects the attention of a full sequence:
 ``"kernel"`` (the default) goes through
@@ -57,14 +70,18 @@ def attn_defs(cfg: ModelConfig) -> L.ParamDefs:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk")`` as one matrix product."""
+    """``einsum("bsd,dhk->bshk")`` as one matrix product, on this rank's
+    heads of ``w`` (its d_model dim gathered where the rank holds its FSDP
+    slice)."""
+    w = L.fsdp(w, 0, x.shape[-1])
     d, h, k = w.shape
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def _project_qkv(params: L.Params, x: torch.Tensor,
                  kv_x: Optional[torch.Tensor] = None):
-    """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``."""
+    """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``; each
+    on the heads this rank holds."""
     src = x if kv_x is None else kv_x
     q = _proj(x, params["wq"])
     k = _proj(src, params["wk"])
@@ -76,10 +93,31 @@ def _project_qkv(params: L.Params, x: torch.Tensor,
     return q, k, v
 
 
-def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshd,hdm->bsm")`` as one matrix product."""
-    h, hd, d = wo.shape
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, d: int) -> torch.Tensor:
+    """``einsum("bshd,hdm->bsm")`` as one matrix product into d_model ``d``:
+    over this rank's heads of ``wo``, a partial sum where they are split."""
+    wo = L.fsdp(wo, 2, d)
+    h, hd, _ = wo.shape
     return out.flatten(-2) @ wo.to(out.dtype).reshape(h * hd, d)
+
+
+def _kv_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads,
+            kv_heads) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k, v (B, T, KV, hd) that this rank's query heads ``q`` attend
+    with. Where ``heads`` is split (its model group) and ``kv_heads`` held
+    whole (None), the KV heads of the rank's H/M query heads, cut from the
+    whole ones (the reference's ``q_group`` split): its heads must lie in
+    one KV head's group or span whole groups, else this raises. Otherwise
+    k, v as they are (both whole, or both this rank's)."""
+    if heads is None or kv_heads is not None:
+        return k, v
+    hq, kv = q.shape[2], k.shape[2]
+    g = hq * heads.k // kv                     # query heads a KV head
+    if g % hq and hq % g:
+        raise ValueError(f"{hq} query heads a rank do not fit the groups of "
+                         f"{g} query heads of the {kv} KV heads held whole")
+    lo, n = heads.index * hq // g, max(1, hq // g)
+    return k.narrow(2, lo, n).contiguous(), v.narrow(2, lo, n).contiguous()
 
 
 def make_mask(q_len: int, kv_len: int, mode: str, prefix_len: int = 0,
@@ -139,7 +177,8 @@ def full_attention(params: L.Params, x: torch.Tensor,
                    positions: torch.Tensor, cfg: ModelConfig,
                    mask_mode: str = "causal", prefix_len: int = 0,
                    kv_x: Optional[torch.Tensor] = None,
-                   impl: str = "kernel", return_kv: bool = False):
+                   impl: str = "kernel", return_kv: bool = False,
+                   seq=None):
     """Training / prefill attention over a full sequence, or cross-attention
     from ``x`` (B, S, D) to ``kv_x`` (B, T, D): k and v projected from
     ``kv_x``, and no RoPE on q or k (the enc-dec cross-attention).
@@ -148,26 +187,37 @@ def full_attention(params: L.Params, x: torch.Tensor,
     stores them as the decode cache. Under ``impl="kernel"`` the prefix mode
     is causal ∪ prefix, as ``make_mask`` has it (the reference's Pallas
     path attends to the prefix only there).
+
+    With ``seq`` (:func:`repro_torch.models.layers.act_shards`) ``x`` is
+    this rank's act_seq chunk of the queries, gathered along the sequence
+    here, and the output is its chunk (``positions`` and ``kv_x`` whole).
+    Under rules that split ``heads`` the rank computes its heads (the
+    module docstring) and the returned k, v are its KV heads where
+    ``kv_heads`` split, else whole.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r} "
                          f"({' | '.join(IMPLS)})")
+    d = x.shape[-1]
+    heads, kv_heads = L.tp_group("heads"), L.tp_group("kv_heads")
+    x = L.seq_gather(x, seq)
     q, k, v = _project_qkv(params, x, kv_x)
     if kv_x is None:
         cos, sin = rotary_cos_sin(positions, cfg)
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
+    ka, va = _kv_for(q, k, v, heads, kv_heads)
     if impl == "kernel":
         out = fa_ops.flash_attention(
-            q, k, v, causal=mask_mode != "full",
+            q, ka, va, causal=mask_mode != "full",
             prefix_len=prefix_len if mask_mode == "prefix" else 0)
     elif q.shape[1] >= _CHUNK_THRESHOLD:
-        out = _sdpa_chunked(q, k, v, mask_mode, prefix_len)
+        out = _sdpa_chunked(q, ka, va, mask_mode, prefix_len)
     else:
-        mask = make_mask(q.shape[1], k.shape[1], mask_mode, prefix_len,
+        mask = make_mask(q.shape[1], ka.shape[1], mask_mode, prefix_len,
                          device=q.device)
-        out = _sdpa(q, k, v, mask)
-    y = _out_proj(out, params["wo"])
+        out = _sdpa(q, ka, va, mask)
+    y = L.tp_out(_out_proj(out, params["wo"], d), heads, seq)
     if return_kv:
         return y, k, v
     return y
@@ -286,7 +336,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def write_cache(cache: torch.Tensor, k: torch.Tensor, shards=None) -> None:
     """The prefill's k (B, s, KV, hd) into ``cache`` (B, S, KV, hd): its
     first s positions, or, on the rank of ``shards`` (the model group of a
-    seq-sharded cache), the positions of its chunk."""
+    seq-sharded cache), the positions of its chunk. Where k holds this
+    rank's KV/M heads (the rules split ``kv_heads``) the ranks' heads are
+    put together: into a seq-sharded cache by one all-to-all over model
+    (rank j gets every rank's heads of its chunk), into a whole one by a
+    gather along the heads."""
+    heads = L.tp_group("kv_heads") if k.shape[2] < cache.shape[2] else None
+    if heads is not None and shards is not None:
+        sc = cache.shape[1]
+        n = min(max(k.shape[1] - shards.index * sc, 0), sc)
+        k = _heads_to_chunks(k, sc, shards)
+        cache[:, :n] = k[:, :n]
+        return
+    if heads is not None:
+        k = heads.gather_dim(k, 2)
     s = k.shape[1]
     if shards is None:
         cache[:, :s] = k
@@ -296,6 +359,24 @@ def write_cache(cache: torch.Tensor, k: torch.Tensor, shards=None) -> None:
     n = min(max(s - lo, 0), sc)
     if n:
         cache[:, :n] = k[:, lo:lo + n]
+
+
+def _heads_to_chunks(k: torch.Tensor, sc: int, model) -> torch.Tensor:
+    """This rank's KV/M heads of a prefill's k (B, s, KV/M, hd) → every
+    head of its chunk of the sequence (B, sc, KV, hd) of a cache split in
+    chunks of ``sc`` over ``model``: k padded with zeros to the cache's
+    M·sc positions, chunk j sent to rank j (``all_to_all``), the sources'
+    heads laid side by side in rank order. The first ``s − index·sc``
+    positions (at most sc) are the prefill's."""
+    b, s, kv_loc, hd = k.shape
+    m = model.k
+    if s > m * sc:
+        raise ValueError(f"{s} prefill positions exceed the cache's "
+                         f"{m} x {sc}")
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, m * sc - s))
+    send = k.reshape(b, m, sc, kv_loc, hd).movedim(1, 0)
+    recv = model.all_to_all(send)                   # (M src, B, sc, KV/M, hd)
+    return recv.movedim(0, 2).reshape(b, sc, m * kv_loc, hd)
 
 
 def decode_step_attention(params: L.Params, x: torch.Tensor,
@@ -320,6 +401,8 @@ def decode_step_attention(params: L.Params, x: torch.Tensor,
     rank's chunks: the rank whose chunk holds ``index`` writes the new k,
     v, and the ranks' partials are merged.
     """
+    d = x.shape[-1]
+    heads, kv_heads = L.tp_group("heads"), L.tp_group("kv_heads")
     if cross:
         q = _proj(x, params["wq"])
         if "bq" in params:
@@ -332,14 +415,26 @@ def decode_step_attention(params: L.Params, x: torch.Tensor,
         cos, sin = rotary_cos_sin(pos, cfg)
         q = L.apply_rope(q, cos, sin)
         k_new = L.apply_rope(k_new, cos, sin)
+        if kv_heads is not None:
+            # the token's every KV head, for the cache that holds them all
+            k_new, v_new = kv_heads.gather_dim(k_new, 2), \
+                kv_heads.gather_dim(v_new, 2)
         shards = seq_shards()
         for cache, new in ((cache_k, k_new), (cache_v, v_new)):
             if shards is None:
                 cache.index_copy_(1, index, new.to(cache.dtype))
             else:
                 _write_step(cache, new, index, shards)
+    if heads is not None:
+        # every head's query for the decode attention over the cache
+        q = heads.gather_dim(q, 2)
     out = decode_attention(q, cache_k, cache_v, index, shards)
-    return _out_proj(out, params["wo"]), cache_k, cache_v
+    if heads is not None:
+        # this rank's heads, through its row shard of wo
+        hq = out.shape[2] // heads.k
+        out = out.narrow(2, heads.index * hq, hq)
+    y = L.tp_out(_out_proj(out, params["wo"], d), heads, None)
+    return y, cache_k, cache_v
 
 
 def _write_step(cache: torch.Tensor, new: torch.Tensor, index: torch.Tensor,

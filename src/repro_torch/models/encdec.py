@@ -16,11 +16,14 @@ causal one, its cross-attention over T ≠ S keys).
 
 Under mesh rules (:class:`repro_torch.launch.serve.ServeEngine` on a
 ``(data, model)`` mesh) a rank runs the encoder and decoder on its rows of
-the batch; its self cache is its chunk of ``max_len`` where the rules shard
-``cache_seq``, and its cross cache its chunk of the frames where
-``n_audio_frames`` tiles the model axis (whole otherwise), as the
-reference's decode attention decides per cache; the logits come from the
-tied table through :func:`repro_torch.models.layers.unembed`.
+the batch, tensor parallel (the self and cross attention on the rank's
+heads, the MLP on its columns, each residual stream in the act_seq layout
+where its length splits over model; the encoder output gathered whole for
+the cross attention's k, v); its self cache is its chunk of ``max_len``
+where the rules shard ``cache_seq``, and its cross cache its chunk of the
+frames where ``n_audio_frames`` tiles the model axis (whole otherwise), as
+the reference's decode attention decides per cache; the logits come from
+the tied table through :func:`repro_torch.models.layers.unembed`.
 
 ``loss`` encodes the frames, runs the decoder over the tokens without a
 cache and takes the CE on the tied embedding (plain attention only, as the
@@ -118,44 +121,50 @@ class EncDecModel(LM):
 
     # -------------------------------------------------------------- encoder
     def _enc_layer(self, lp: L.Params, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, seq=None) -> torch.Tensor:
         x = x + A.full_attention(lp["attn"], self._norm(lp["ln1"], x),
                                  positions, self.cfg, mask_mode="full",
-                                 impl=self.attn_impl)
-        return x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x))
+                                 impl=self.attn_impl, seq=seq)
+        return x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x), seq)
 
     def encode(self, params: L.Params, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, T, D) → the encoder output (B, T, D), in the
-        activations' dtype."""
+        activations' dtype; under mesh rules that split T the encoder's
+        residual is this rank's act_seq chunk, gathered after the final
+        norm."""
         x = frames.to(dtype=self.dtype)
         b, t, _ = x.shape
+        seq = L.act_shards(t)
+        x = L.seq_chunk(x, seq)
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
         layer = self._remat(self._enc_layer)
         for lp in L.layer_list(params["enc_layers"]):
-            x = layer(lp, x, positions)
-        return self._norm(params["enc_norm"], x)
+            x = layer(lp, x, positions, seq)
+        return L.seq_gather(self._norm(params["enc_norm"], x), seq)
 
     # -------------------------------------------------------------- decoder
     def _dec_layer(self, lp: L.Params, x: torch.Tensor,
                    positions: torch.Tensor, enc_out: torch.Tensor,
-                   return_kv: bool = False):
-        """One decoder layer over a full sequence: x, or with ``return_kv``
+                   return_kv: bool = False, seq=None):
+        """One decoder layer over a full sequence (with ``seq``, this rank's
+        act_seq chunk of it; ``enc_out`` whole): x, or with ``return_kv``
         (x, (self k, self v, cross k, cross v))."""
         cfg = self.cfg
         out = A.full_attention(
             lp["self_attn"], self._norm(lp["ln1"], x), positions, cfg,
-            mask_mode="causal", impl=self.attn_impl, return_kv=return_kv)
+            mask_mode="causal", impl=self.attn_impl, return_kv=return_kv,
+            seq=seq)
         if return_kv:
             out, sk, sv = out
         x = x + out
         out = A.full_attention(
             lp["cross_attn"], self._norm(lp["ln_x"], x), positions, cfg,
             mask_mode="full", kv_x=enc_out, impl=self.attn_impl,
-            return_kv=return_kv)
+            return_kv=return_kv, seq=seq)
         if return_kv:
             out, ck, cv = out
         x = x + out
-        x = x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x))
+        x = x + L.mlp(lp["mlp"], self._norm(lp["ln2"], x), seq)
         return (x, (sk, sv, ck, cv)) if return_kv else x
 
     def decode_fwd(self, params: L.Params, tokens: torch.Tensor,
@@ -195,8 +204,9 @@ class EncDecModel(LM):
         :func:`repro_torch.models.attention.write_cache`), written into the
         given cache or a new one of self length S (its chunk)."""
         enc_out = self.encode(params, batch["frames"])
-        x = L.embed(params["embed"], batch["tokens"], self.dtype)
-        b, s, _ = x.shape
+        b, s = batch["tokens"].shape
+        seq = L.act_shards(s)
+        x = L.embed(params["embed"], batch["tokens"], self.dtype, seq)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         shards, cross = A.seq_shards(), self._cross_shards()
         if cache is None:
@@ -204,12 +214,12 @@ class EncDecModel(LM):
                                     dtype=x.dtype, device=x.device)
         for i, lp in enumerate(L.layer_list(params["dec_layers"])):
             x, (sk, sv, ck, cv) = self._dec_layer(lp, x, positions, enc_out,
-                                                  return_kv=True)
+                                                  return_kv=True, seq=seq)
             A.write_cache(cache["self_k"][i], sk, shards)
             A.write_cache(cache["self_v"][i], sv, shards)
             A.write_cache(cache["cross_k"][i], ck, cross)
             A.write_cache(cache["cross_v"][i], cv, cross)
-        x = self._norm(params["final_norm"], x)
+        x = L.seq_gather(self._norm(params["final_norm"], x), seq)
         return self._logits_last(params, x[:, -1]), cache
 
     def init_cache(self, batch_size: int, max_len: int,

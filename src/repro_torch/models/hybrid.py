@@ -77,18 +77,21 @@ class HybridModel(LM):
 
     def backbone(self, params: L.Params, x: torch.Tensor,
                  return_cache: bool = False,
-                 cache: Optional[Dict[str, torch.Tensor]] = None):
+                 cache: Optional[Dict[str, torch.Tensor]] = None, seq=None):
         """x: (B, S, D) embedded inputs → final hidden (+ cache). With
         ``return_cache`` the Mamba2 layers' states and conv tails and each
         application point's k, v (at ``[g, :, :S]``; under rules that shard
         the cache's sequence the positions of this rank's chunk,
         :func:`repro_torch.models.attention.write_cache`) are written into
         the given cache, or a new one of length S (its chunk) in the
-        activations' dtype. On a mesh the Mamba2 layers, their states and
-        the shared block run on this rank's rows, whole across the model
-        axis."""
+        activations' dtype. On a mesh the Mamba2 layers and the shared
+        block run on this rank's rows, tensor parallel over the model axis
+        (the Mamba2 mixers on the rank's heads, the shared attention and
+        MLP on its heads and MLP columns), with ``seq`` the residual this
+        rank's act_seq chunk between them; the final hidden is whole."""
         cfg = self.cfg
-        b, s, _ = x.shape
+        b = x.shape[0]
+        s = x.shape[1] * (seq.k if seq is not None else 1)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         shards = A.seq_shards() if return_cache else None
         if return_cache and cache is None:
@@ -102,11 +105,11 @@ class HybridModel(LM):
         for g, (group, shared) in enumerate(self._groups()):
             for i in group:
                 x = fwd(layers[i], x, cfg, self.ssd_impl,
-                        cache["mamba"] if return_cache else None, i)
+                        cache["mamba"] if return_cache else None, i, seq)
             if not shared:
                 continue
             out = layer_fwd(params["shared"], x, positions, cfg, "causal", 0,
-                            self.attn_impl, return_kv=return_cache)
+                            self.attn_impl, return_kv=return_cache, seq=seq)
             if return_cache:
                 x, k, v = out
                 A.write_cache(cache["attn_k"][g], k, shards)
@@ -114,6 +117,7 @@ class HybridModel(LM):
             else:
                 x = out
         x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+        x = L.seq_gather(x, seq)
         return (x, cache) if return_cache else x
 
     # --------------------------------------------------------------- train

@@ -16,10 +16,15 @@ reference does:
   batch gathered and the single-device body run, the function the
   reference's scatter path computes there.
 
-On a mesh a rank holds its data shard of the batch, the whole sequence
-(replicated over the model axis) and its shards of the expert tables
-(experts→model, d_model→data; the router whole), and gets back the output
-of its rows.
+On a mesh a rank holds its data shard of the batch and its shards of the
+expert tables (experts→model, d_model→data) and of the router
+(d_model→data, experts→model on a serving rank, gathered whole before the
+router product: routing needs every expert's logit; whole on a training
+rank). Its tokens are its act_seq chunk of the sequence where the serving
+prefill splits it (``seq``, :func:`repro_torch.models.layers.act_shards`:
+the token shard the all-to-all path takes as it is), else the whole
+sequence, replicated over the model axis; it gets back the output of the
+tokens it was given.
 
 Tokens are scattered into a static (E, C, D) expert buffer (C = capacity
 per expert), the expert products run as batched (E, C, D)×(E, D, F)
@@ -180,17 +185,18 @@ def _combine(ye: torch.Tensor, indices: torch.Tensor, pos: torch.Tensor,
 
 def moe_ffn(params: L.Params, x: torch.Tensor, cfg: ModelConfig,
             capacity_factor: float = CAPACITY_FACTOR,
-            return_aux: bool = False):
+            return_aux: bool = False, seq=None):
     """x (B, S, D) → out (B, S, D), or with ``return_aux`` (out, aux): the
     f32 :func:`load_balance` term of the router logits and routed experts
     this dispatch used (the reference's pair). Serving takes out alone and
     computes no aux. Under mesh rules x is this rank's rows of the batch
-    and ``params`` holds its shards of the expert tables (the module
+    (with ``seq``, the model group of an act_seq split, its chunk of their
+    sequence) and ``params`` holds its shards of the tables (the module
     docstring); aux is then the whole batch's."""
     rules = current_rules()
     if rules is not None and rules.mesh is not None:
         return _moe_ffn_mesh(params, x, cfg, capacity_factor, return_aux,
-                             rules)
+                             rules, seq)
     return _moe_ffn_local(params, x, cfg, capacity_factor, return_aux)
 
 
@@ -214,39 +220,60 @@ def _moe_ffn_local(params, x, cfg, capacity_factor, return_aux):
 # on a mesh
 # ---------------------------------------------------------------------------
 
-def _moe_ffn_mesh(params, x, cfg, capacity_factor, return_aux, rules):
+def _whole_router(router: torch.Tensor, d: int, e: int, model
+                  ) -> torch.Tensor:
+    """The (D, E) router from what the rank holds: whole (a training
+    rank's), or its (D/Dn, E/M) shard gathered over data and model
+    (exact)."""
+    router = L.fsdp(router, 0, d)
+    if router.shape[1] == e:
+        return router
+    if router.shape[1] * model.k != e:
+        raise ValueError(f"a router of {tuple(router.shape)} is neither the "
+                         f"whole {e} experts nor its share of the model axis")
+    return model.gather_dim(router, 1)
+
+
+def _moe_ffn_mesh(params, x, cfg, capacity_factor, return_aux, rules, seq):
     data, model = CL.mesh_groups(rules)
     # how the rank holds its tables: the rules' axes of their dims
     split = (bool(rules.mesh_axes_for("experts")),
              bool(rules.mesh_axes_for("expert_embed")))
-    b_loc, s, d = x.shape
+    b_loc, s_loc, d = x.shape
+    s = s_loc * (seq.k if seq is not None else 1)
     e = cfg.moe.num_experts
+    tables = {name: params[name] for name in ("w_gate", "w_up", "w_down")}
+    tables["router"] = _whole_router(params["router"], d, e, model)
     if b_loc * data.k * s < SHARDED_MIN_TOKENS:
         PATHS["onehot"] += 1
-        out, aux = moe_ffn_onehot(params, x, cfg, data, model, split,
-                                  capacity_factor, return_aux)
+        out, aux = moe_ffn_onehot(tables, L.seq_gather(x, seq), cfg, data,
+                                  model, split, capacity_factor, return_aux)
+        out = L.seq_chunk(out, seq)
     elif all(split) and e % model.k == 0 and d % data.k == 0 \
             and s % model.k == 0:
-        # the act_seq slice of this rank's rows, and the outputs of every
-        # slice gathered back along seq over the model axis
-        s_loc = s // model.k
         PATHS["sharded"] += 1
-        out, aux = moe_ffn_sharded(
-            params, x.narrow(1, model.index * s_loc, s_loc), cfg, data,
-            model, capacity_factor, return_aux)
-        out = model.gather_dim(out, 1)
+        if seq is not None:
+            # the rank's act_seq chunk is the token shard it dispatches
+            out, aux = moe_ffn_sharded(tables, x, cfg, data, model,
+                                       capacity_factor, return_aux)
+        else:
+            # the act_seq slice of this rank's rows, and the outputs of
+            # every slice gathered back along seq over the model axis
+            s_loc = s // model.k
+            out, aux = moe_ffn_sharded(
+                tables, x.narrow(1, model.index * s_loc, s_loc), cfg, data,
+                model, capacity_factor, return_aux)
+            out = model.gather_dim(out, 1)
     else:
         PATHS["gathered"] += 1
-        tables = {name: params[name]
-                  for name in ("router", "w_gate", "w_up", "w_down")}
         for name, d_dim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
             if split[0]:
                 tables[name] = model.gather_dim(tables[name], 0)
             if split[1]:
                 tables[name] = data.gather_dim(tables[name], d_dim)
-        out, aux = _moe_ffn_local(tables, data.gather_dim(x, 0), cfg,
-                                  capacity_factor, True)
-        out = out.narrow(0, data.index * b_loc, b_loc)
+        out, aux = _moe_ffn_local(tables, data.gather_dim(
+            L.seq_gather(x, seq), 0), cfg, capacity_factor, True)
+        out = L.seq_chunk(out.narrow(0, data.index * b_loc, b_loc), seq)
     return (out, aux) if return_aux else out
 
 

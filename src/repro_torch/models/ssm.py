@@ -190,14 +190,30 @@ def mamba_defs(cfg: ModelConfig, d_model: Optional[int] = None
 
 
 def _project(params: L.Params, x: torch.Tensor):
-    dtype = x.dtype
-    xi = x @ params["in_x"].to(dtype)
-    z = x @ params["in_z"].to(dtype)
-    bm = x @ params["in_b"].to(dtype)
-    cm = x @ params["in_c"].to(dtype)
-    dt = x @ params["in_dt"].to(dtype)
+    """The input projections of x (B, S, D) on what the rank holds: its
+    d_inner columns of x and z and its heads of Δ where the rules split
+    ``mlp``/``ssm_heads``, B and C whole (``ssm_state``)."""
+    dtype, d = x.dtype, x.shape[-1]
+
+    def proj(name):
+        return x @ L.fsdp(params[name], 0, d).to(dtype)
+    xi, z, bm, cm, dt = (proj(n) for n in ("in_x", "in_z", "in_b", "in_c",
+                                            "in_dt"))
     dt = F.softplus(dt.float() + params["dt_bias"].float())
     return xi, z, bm, cm, dt
+
+
+def _heads_split():
+    """The model group over which the current rules split a Mamba2 mixer's
+    heads (``ssm_heads``) and with them its d_inner (``mlp``: head h's
+    columns [h·P, (h + 1)·P)), or None. Raises where the rules split one
+    and not the other: a rank's columns would not be its heads'."""
+    heads, cols = L.tp_group("ssm_heads"), L.tp_group("mlp")
+    if (heads is None) != (cols is None):
+        raise ValueError("a Mamba2 mixer splits its heads (ssm_heads) and "
+                         "its d_inner (mlp) over the model axis together; "
+                         "these rules split one of them")
+    return heads
 
 
 def _conv(params: L.Params, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -206,15 +222,27 @@ def _conv(params: L.Params, name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def mamba_fwd(params: L.Params, x: torch.Tensor, cfg: ModelConfig,
-              return_state: bool = False, ssd_impl: str = "kernel"):
+              return_state: bool = False, ssd_impl: str = "kernel",
+              seq=None):
     """x: (B, S, D) → out, or (out, {"ssm", "conv_x", "conv_b", "conv_c"})
     with ``return_state``: the final SSM state (B, H, N, P) f32 and the
-    conv tails (B, W−1, C) (:func:`conv_tail`)."""
+    conv tails (B, W−1, C) (:func:`conv_tail`).
+
+    With ``seq`` x is this rank's act_seq chunk, gathered along the
+    sequence for the scan, and out is its chunk. Under rules that split
+    the mixer's heads (:func:`_heads_split`) the rank computes its H/M
+    heads: its d_inner columns of x and z, its Δ, conv, SSD scan (the
+    kernel on its heads), skip and gate-norm slices, the gated RMSNorm's sum
+    of squares summed over model in f32, and ``out`` row-parallel; B and C
+    are whole on every rank; the state is its heads' and the x conv tail its
+    columns'."""
     if ssd_impl not in SSD_IMPLS:
         raise ValueError(f"unknown ssd impl {ssd_impl!r} "
                          f"({' | '.join(SSD_IMPLS)})")
     s = cfg.ssm
-    b, l, _ = x.shape
+    model = _heads_split()
+    x = L.seq_gather(x, seq)
+    b, l, d = x.shape
     d_inner = params["in_x"].shape[1]
     h = d_inner // s.head_dim
 
@@ -233,8 +261,8 @@ def mamba_fwd(params: L.Params, x: torch.Tensor, cfg: ModelConfig,
     y = y + params["d_skip"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(b, l, d_inner)
 
-    y = L.rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
-    out = y @ params["out"].to(y.dtype)
+    y = L.rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps, model)
+    out = L.tp_out(y @ L.fsdp(params["out"], 1, d).to(y.dtype), model, seq)
     if return_state:
         w = s.conv_width
         return out, {"ssm": state, "conv_x": conv_tail(xi, w),
@@ -246,9 +274,13 @@ def mamba_decode_step(params: L.Params, x: torch.Tensor,
                       cache: Mapping[str, torch.Tensor], cfg: ModelConfig
                       ) -> torch.Tensor:
     """x: (B, 1, D) one token; cache: {"ssm", "conv_x", "conv_b", "conv_c"}
-    of one layer, updated in place. Returns the block's output (B, 1, D)."""
+    of one layer, updated in place. Returns the block's output (B, 1, D).
+    Under rules that split the mixer's heads the rank steps its heads'
+    state and its columns' x conv tail (:func:`mamba_fwd`), and ``out``'s
+    partial sums are summed over model."""
     s = cfg.ssm
-    b = x.shape[0]
+    model = _heads_split()
+    b, d = x.shape[0], x.shape[-1]
     d_inner = params["in_x"].shape[1]
     h = d_inner // s.head_dim
 
@@ -272,17 +304,24 @@ def mamba_decode_step(params: L.Params, x: torch.Tensor,
     y = y.to(x.dtype) + params["d_skip"].to(x.dtype)[None, :, None] * xh
     y = y.reshape(b, 1, d_inner)
 
-    y = L.rms_norm(y * F.silu(z)[:, None], params["gate_norm"], cfg.norm_eps)
-    return y @ params["out"].to(y.dtype)
+    y = L.rms_norm(y * F.silu(z)[:, None], params["gate_norm"], cfg.norm_eps,
+                   model)
+    return L.tp_out(y @ L.fsdp(params["out"], 1, d).to(y.dtype), model, None)
 
 
 def mamba_cache_defs(cfg: ModelConfig, batch: int, n_layers: int,
                      dtype: torch.dtype
                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) per cache leaf, layer-stacked: the f32 SSM state and
-    the conv tails in ``dtype``."""
+    the conv tails in ``dtype``; under rules that split the mixer's heads
+    (:func:`_heads_split`) this rank's heads of the state and columns of
+    the x tail, as the reference's cache axes (``ssm_heads``, ``mlp``)
+    say."""
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
+    model = _heads_split()
+    if model is not None:
+        d_inner //= model.k
     h = d_inner // s.head_dim
     w = s.conv_width - 1
     return {
@@ -309,15 +348,17 @@ def block_defs(cfg: ModelConfig) -> L.ParamDefs:
 
 def block_fwd(lp: L.Params, x: torch.Tensor, cfg: ModelConfig,
               ssd_impl: str, cache: Optional[Dict[str, torch.Tensor]] = None,
-              layer: int = 0) -> torch.Tensor:
-    """One pre-norm residual Mamba2 block over a sequence. Given a layer-
-    stacked ``cache``, its final SSM state and conv tails are written into
+              layer: int = 0, seq=None) -> torch.Tensor:
+    """One pre-norm residual Mamba2 block over a sequence (with ``seq``,
+    this rank's act_seq chunk of it). Given a layer-stacked ``cache``, its
+    final SSM state and conv tails are written into
     ``cache[leaf][layer]``."""
     h = L.apply_norm(lp["ln"], x, cfg.norm_type, cfg.norm_eps)
     if cache is None:
-        return x + mamba_fwd(lp["mamba"], h, cfg, ssd_impl=ssd_impl)
+        return x + mamba_fwd(lp["mamba"], h, cfg, ssd_impl=ssd_impl,
+                             seq=seq)
     out, tails = mamba_fwd(lp["mamba"], h, cfg, return_state=True,
-                           ssd_impl=ssd_impl)
+                           ssd_impl=ssd_impl, seq=seq)
     for name, t in tails.items():
         cache[name][layer] = t
     return x + out
@@ -345,10 +386,10 @@ class SSMModel(LM):
     reference's model path, which it trains with). ``remat``: any value but
     ``"none"`` checkpoints each block where a gradient is taken, as the
     reference does. Under mesh rules (``ServeEngine(mesh=)``) the prefill
-    and decode run on this rank's rows through the mesh embedding and the
-    whole ``out_embedding``; the mixers, their state and conv tails are
-    held whole across the model axis (their split over ``ssm_heads`` is
-    ROADMAP §1 item 19 (h))."""
+    and decode run on this rank's rows through the mesh embedding, the
+    mixers on the rank's heads (:func:`mamba_fwd`) with the residual in the
+    act_seq layout between them, and the logits from the rank's shard of
+    ``out_embedding``."""
 
     def __init__(self, cfg: ModelConfig, *, ssd_impl: str = "kernel",
                  remat: str = "none"):
@@ -378,8 +419,9 @@ class SSMModel(LM):
     # ------------------------------------------------------------- forward
     def backbone(self, params: L.Params, x: torch.Tensor,
                  return_cache: bool = False,
-                 cache: Optional[Dict[str, torch.Tensor]] = None):
-        """x: (B, S, D) embedded inputs → final hidden (+ cache). With
+                 cache: Optional[Dict[str, torch.Tensor]] = None, seq=None):
+        """x: (B, S, D) embedded inputs (with ``seq``, this rank's act_seq
+        chunk of them) → final hidden (+ cache), whole. With
         ``return_cache`` each layer's state and conv tails are written into
         the given cache, or a new one in the activations' dtype."""
         cfg = self.cfg
@@ -392,8 +434,9 @@ class SSMModel(LM):
             fwd = remat_layer(block_fwd, "full")
         for i, lp in enumerate(L.layer_list(params["layers"])):
             x = fwd(lp, x, cfg, self.ssd_impl,
-                    cache if return_cache else None, i)
+                    cache if return_cache else None, i, seq)
         x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+        x = L.seq_gather(x, seq)
         return (x, cache) if return_cache else x
 
     # --------------------------------------------------------------- train

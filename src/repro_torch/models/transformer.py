@@ -24,14 +24,17 @@ prefix-LM mask and takes its loss over the text positions.
 
 Under mesh rules (the serving engine's on a ``(data, model)`` mesh,
 :class:`repro_torch.launch.serve.ServeEngine`) a rank holds its data shard
-of the batch (the VLM's patches too). The norms, the attention (the flash
-kernel) and the dense MLP
-run on the whole sequence, replicated across the model axis: the reference
-leaves those layers to XLA's partitioner, and replication is their plain
-equivalent (tensor- or sequence-parallel dense layers are ROADMAP §1 item 19
-(h)). The embedding, the MoE (on its act_seq slice of the sequence, gathered
-back along seq) and the decode attention take their mesh paths, and the
-prefill writes this rank's chunk of the cache.
+of the batch (the VLM's patches too) and its shard of every weight. A
+prefill whose length splits over the model axis keeps the residual stream
+in the act_seq layout between layers (:func:`repro_torch.models.layers.
+act_shards`: the rank's chunk of the sequence, from the embedding to the
+final norm, where it is gathered for the logits); the attention (the flash
+kernel on the rank's heads) and the dense MLP are tensor parallel, the MoE
+takes the chunk as its token shard (:func:`repro_torch.models.moe.
+moe_ffn`), and the prefill writes this rank's chunk of the cache. A decode
+step's one token is whole on every rank: its products are tensor parallel,
+their partial sums summed over model. The trainer's rules hold these dims
+whole, so its layers run as on one process on its rows.
 """
 from __future__ import annotations
 
@@ -97,13 +100,13 @@ def layer_defs(cfg: ModelConfig) -> L.ParamDefs:
 
 
 def ffn(lp: L.Params, h: torch.Tensor, cfg: ModelConfig,
-        return_aux: bool = False):
-    """The block's feed-forward: the MoE layer or the dense MLP. With
-    ``return_aux``, (out, the layer's f32 load-balance term: 0 for the
-    MLP)."""
+        return_aux: bool = False, seq=None):
+    """The block's feed-forward: the MoE layer or the dense MLP, on ``h``
+    whole or (``seq``) this rank's act_seq chunk. With ``return_aux``,
+    (out, the layer's f32 load-balance term: 0 for the MLP)."""
     if cfg.is_moe:
-        return M.moe_ffn(lp["moe"], h, cfg, return_aux=return_aux)
-    out = L.mlp(lp["mlp"], h)
+        return M.moe_ffn(lp["moe"], h, cfg, return_aux=return_aux, seq=seq)
+    out = L.mlp(lp["mlp"], h, seq)
     if return_aux:
         return out, torch.zeros((), dtype=torch.float32, device=h.device)
     return out
@@ -112,18 +115,20 @@ def ffn(lp: L.Params, h: torch.Tensor, cfg: ModelConfig,
 def layer_fwd(lp: L.Params, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, mask_mode: str, prefix_len: int,
               attn_impl: str, return_kv: bool = False,
-              return_aux: bool = False):
-    """One transformer block. Returns x, or the tuple of x, the aux term if
-    ``return_aux`` and k, v if ``return_kv`` (the reference's order)."""
+              return_aux: bool = False, seq=None):
+    """One transformer block on ``x`` (whole, or with ``seq`` this rank's
+    act_seq chunk; ``positions`` whole). Returns x, or the tuple of x, the
+    aux term if ``return_aux`` and k, v if ``return_kv`` (the reference's
+    order)."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm_type, cfg.norm_eps)
     attn_out = A.full_attention(lp["attn"], h, positions, cfg,
                                 mask_mode=mask_mode, prefix_len=prefix_len,
-                                impl=attn_impl, return_kv=return_kv)
+                                impl=attn_impl, return_kv=return_kv, seq=seq)
     if return_kv:
         attn_out, k, v = attn_out
     x = x + attn_out
     h = L.apply_norm(lp["ln2"], x, cfg.norm_type, cfg.norm_eps)
-    out = ffn(lp, h, cfg, return_aux)
+    out = ffn(lp, h, cfg, return_aux, seq)
     if return_aux:
         out, aux = out
     x = x + out
@@ -183,8 +188,11 @@ class LM:
         VLM's image prefix); a prompt of S tokens decodes from this + S."""
         return 0
 
-    def _embed_inputs(self, params: L.Params, batch) -> torch.Tensor:
-        return L.embed(params["embed"], batch["tokens"], self.dtype)
+    def _embed_inputs(self, params: L.Params, batch, seq=None
+                      ) -> torch.Tensor:
+        """The backbone's input (B, S, D), or with ``seq`` this rank's
+        act_seq chunk of it."""
+        return L.embed(params["embed"], batch["tokens"], self.dtype, seq)
 
     def _ce(self, params: L.Params, batch, mask=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -219,9 +227,14 @@ class LM:
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"tokens": (B,S) int} → (last-position logits (B,V),
         the decode cache). Given a ``cache`` (e.g. from :meth:`init_cache`
-        at ``max_len``), the prefill writes into it and returns it."""
-        x = self._embed_inputs(params, batch)
-        x, cache = self.backbone(params, x, return_cache=True, cache=cache)
+        at ``max_len``), the prefill writes into it and returns it. Under
+        mesh rules that split its length the residual runs in the act_seq
+        layout (:func:`repro_torch.models.layers.act_shards`)."""
+        seq = L.act_shards(self.positions_before()
+                           + batch["tokens"].shape[1])
+        x = self._embed_inputs(params, batch, seq)
+        x, cache = self.backbone(params, x, return_cache=True, cache=cache,
+                                 seq=seq)
         return self._logits_last(params, x[:, -1]), cache
 
 
@@ -264,8 +277,10 @@ class DecoderLM(LM):
     def backbone(self, params: L.Params, x: torch.Tensor,
                  return_cache: bool = False,
                  cache: Optional[Dict[str, torch.Tensor]] = None,
-                 return_aux: bool = False):
-        """x: (B, S, D) embedded inputs → final hidden (+ cache), causal, or
+                 return_aux: bool = False, seq=None):
+        """x: (B, S, D) embedded inputs (with ``seq``, this rank's act_seq
+        chunk of them; the final hidden is gathered whole after the final
+        norm) → final hidden (+ cache), causal, or
         causal ∪ the first :meth:`positions_before` positions (the VLM's
         prefix-LM mask). With ``return_cache`` each layer's k, v is written into
         ``cache[name][i, :, :S]`` (under rules that shard the cache's
@@ -278,7 +293,8 @@ class DecoderLM(LM):
         checkpoint beside x.
         """
         cfg = self.cfg
-        b, s, _ = x.shape
+        b = x.shape[0]
+        s = x.shape[1] * (seq.k if seq is not None else 1)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         prefix_len = self.positions_before()
         mask_mode = "prefix" if prefix_len else "causal"
@@ -291,7 +307,7 @@ class DecoderLM(LM):
         auxes = []
         for i, lp in enumerate(L.layer_list(params["layers"])):
             out = fwd(lp, x, positions, cfg, mask_mode, prefix_len,
-                      self.attn_impl, return_cache, return_aux)
+                      self.attn_impl, return_cache, return_aux, seq)
             if return_cache:
                 x, k, v = out
                 A.write_cache(cache["k"][i], k, shards)
@@ -302,6 +318,7 @@ class DecoderLM(LM):
             else:
                 x = out
         x = L.apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+        x = L.seq_gather(x, seq)
         if return_cache:
             return x, cache
         if return_aux:
@@ -369,10 +386,11 @@ class PrefixVLM(DecoderLM):
     def positions_before(self) -> int:
         return self.cfg.num_image_tokens
 
-    def _embed_inputs(self, params: L.Params, batch) -> torch.Tensor:
+    def _embed_inputs(self, params: L.Params, batch, seq=None
+                      ) -> torch.Tensor:
         text = L.embed(params["embed"], batch["tokens"], self.dtype)
         patches = batch["patches"].to(device=text.device, dtype=self.dtype)
-        return torch.cat([patches, text], dim=1)
+        return L.seq_chunk(torch.cat([patches, text], dim=1), seq)
 
     def loss(self, params: L.Params, batch
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

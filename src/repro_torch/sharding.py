@@ -24,11 +24,14 @@ together.
 The reference's ``constrain`` and ``sharding_for`` have no counterpart:
 they hand a spec to XLA's SPMD partitioner, and PyTorch's eager program has
 none. So a rank holds a weight either whole or as the slice its mesh path
-reads: serving on a mesh shards the MoE's expert tables, the embedding table
-and the decode cache (:class:`repro_torch.launch.serve.ServeEngine`) and
-holds every other weight whole; the trainer on a mesh with a model axis
-holds its shards of the same tables, of their optimizer moments and of their
-sync state (:func:`training_rules`, :func:`train_specs`,
+reads, and the model code computes on what it holds: serving on a mesh
+holds every leaf as ``spec_for`` gives it (:func:`serve_specs`; the dense
+layers tensor and sequence parallel, each d_model dim FSDP over data) and
+the decode cache by its own axes
+(:class:`repro_torch.launch.serve.ServeEngine`); the trainer on a mesh with
+a model axis holds its shards of the expert and embedding tables, of their
+optimizer moments and of their sync state and every other leaf whole
+(:func:`training_rules`, :func:`train_specs`,
 :mod:`repro_torch.core.local_sgd`), and on a mesh without one shards no
 weights and splits the batch over its ranks.
 """
@@ -93,9 +96,17 @@ def axis_sizes(mesh) -> Dict[str, int]:
 
 
 class ShardingRules:
-    def __init__(self, rules: Mapping[str, Tuple[str, ...]], mesh=None):
+    """``rules`` (logical name → mesh axes) sized on ``mesh``; ``roles``
+    names the mesh's data and model axes (``{"data": …, "model": …}``),
+    which the models' mesh paths take their groups from
+    (:func:`repro_torch.core.collectives.mesh_groups`) whatever the rules
+    hold whole."""
+
+    def __init__(self, rules: Mapping[str, Tuple[str, ...]], mesh=None,
+                 roles: Optional[Mapping[str, str]] = None):
         self.rules = dict(rules)
         self.mesh = mesh
+        self.roles = dict(roles or {"data": "data", "model": "model"})
         self._axis_sizes = axis_sizes(mesh)
 
     def mesh_axes_for(self, logical: Optional[str]) -> Tuple[str, ...]:
@@ -194,18 +205,30 @@ def rules_for(mesh_cfg: MeshConfig, mesh=None,
              for k, v in rules.items()}
     if overrides:
         rules.update(overrides)
-    return ShardingRules(rules, mesh)
+    return ShardingRules(rules, mesh, {"data": mesh_cfg.data_axis,
+                                       "model": mesh_cfg.model_axis})
 
 
-def fitted_rules(mesh_cfg: MeshConfig, mesh, dims: Mapping[str, int]
-                 ) -> ShardingRules:
-    """:func:`rules_for` with each logical dim of ``dims`` (name → size)
-    held whole where its size does not divide its mesh axes, so the model
-    code reads from the rules how a rank holds it."""
+def fitted_rules(mesh_cfg: MeshConfig, mesh,
+                 dims: Mapping[str, Union[int, Sequence[int]]],
+                 whole: Sequence[str] = ()) -> ShardingRules:
+    """:func:`rules_for` with each logical dim of ``dims`` (name → its size,
+    or the sizes of every dim of that name) held whole where a size does
+    not divide its mesh axes, and each name of ``whole`` held whole, so the
+    model code reads from the rules how a rank holds it."""
     rules = rules_for(mesh_cfg, mesh)
-    whole = {name: () for name, n in dims.items()
-             if not rules.would_shard(name, n)}
-    return rules_for(mesh_cfg, mesh, whole)
+    held = {name: () for name in whole}
+    for name, sizes in dims.items():
+        sizes = (sizes,) if isinstance(sizes, int) else tuple(sizes)
+        if not all(rules.would_shard(name, n) for n in sizes):
+            held[name] = ()
+    return rules_for(mesh_cfg, mesh, held)
+
+
+# the logical dims of tensor and sequence parallelism (Megatron's heads,
+# MLP columns, Mamba2 heads and the act_seq residual), which serving splits
+# over the model axis and the trainer holds whole (:func:`training_rules`)
+TP_DIMS = ("heads", "kv_heads", "mlp", "ssm_heads", "act_seq")
 
 
 def training_rules(cfg, mesh) -> Optional[ShardingRules]:
@@ -213,9 +236,11 @@ def training_rules(cfg, mesh) -> Optional[ShardingRules]:
     ``mesh`` (a live :class:`repro_torch.launch.mesh.Mesh`), or None where
     the mesh has no model axis (the trainer then splits only the batch).
     The default rules with the vocab, d_model and the experts held whole
-    where they do not divide their axes (as :func:`fitted_rules`); under a
-    replica strategy the replica axis stripped, as the reference's
-    local-SGD block strips its manual axis."""
+    where they do not divide their axes (as :func:`fitted_rules`) and the
+    dims of :data:`TP_DIMS` held whole: the trainer runs its dense layers
+    whole on a rank's rows (their split is ROADMAP §1 (iii) item 19 (h)'s
+    training half); under a replica strategy the replica axis stripped, as
+    the reference's local-SGD block strips its manual axis."""
     if mesh is None or cfg.mesh.model_axis not in axis_sizes(mesh):
         return None
     if cfg.mesh.data_axis not in axis_sizes(mesh):
@@ -227,7 +252,7 @@ def training_rules(cfg, mesh) -> Optional[ShardingRules]:
     if model.is_moe:
         dims.update(experts=model.moe.num_experts,
                     expert_embed=model.d_model)
-    rules = fitted_rules(cfg.mesh, mesh, dims)
+    rules = fitted_rules(cfg.mesh, mesh, dims, whole=TP_DIMS)
     if cfg.sync.strategy in ("periodic", "hierarchical"):
         rules = strip_axes(rules, {cfg.mesh.replica_axis or "pod"})
     return rules
@@ -240,7 +265,7 @@ def strip_axes(rules: ShardingRules, axes) -> ShardingRules:
     stripped = {k: tuple(a for a in (v if not isinstance(v, str) else (v,))
                          if a not in axes)
                 for k, v in rules.rules.items()}
-    return ShardingRules(stripped, rules.mesh)
+    return ShardingRules(stripped, rules.mesh, rules.roles)
 
 
 def _is_axes(x) -> bool:
@@ -391,38 +416,53 @@ def unshard_tree(trees: Sequence, specs, mesh):
 
 
 # ---------------------------------------------------------------------------
-# what serving on a mesh holds sharded
+# what a serving and a training rank hold sharded
 # ---------------------------------------------------------------------------
 
-# the leaves a serving rank holds as its shards, by the last two keys of
-# their path: the tables the mesh paths read sharded (the MoE's expert
-# tables, the embedding). Every other weight is held whole.
-SERVE_SHARDED = (("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down"),
+# the leaves a training rank holds as its shards, by the last two keys of
+# their path: the tables the trainer's mesh paths read sharded (the MoE's
+# expert tables, the embedding). Every other leaf is held whole: the
+# trainer's dense layers run whole on a rank's rows until ROADMAP §1 (iii)
+# item 19 (h)'s training half splits them as serving does.
+TRAIN_SHARDED = (("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down"),
                  ("embed", "embedding"))
 
 
 def serve_specs(defs, rules: ShardingRules):
     """The tree of specs a serving rank holds a model's params under:
-    ``rules.spec_for`` of each :data:`SERVE_SHARDED` leaf's logical axes,
-    ``()`` (whole) for every other leaf. ``defs`` is the model's
-    ``param_defs()`` (its leaves carry ``logical`` and ``shape``); a
-    training rank holds the same leaves sharded (:func:`train_specs`)."""
+    ``rules.spec_for`` of every leaf's logical axes and shape, as the
+    reference places its serving params (``sharding_for`` on every leaf).
+    ``defs`` is the model's ``param_defs()`` (its leaves carry ``logical``
+    and ``shape``)."""
+    return _specs(defs, rules, lambda path: True)
+
+
+def _specs(defs, rules: ShardingRules, sharded):
+    """``rules.spec_for`` of each leaf whose path ``sharded`` takes, ``()``
+    (whole) for the others."""
     def walk(node, path):
         if isinstance(node, Mapping):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
-        if path[-2:] in SERVE_SHARDED:
+        if sharded(path):
             return rules.spec_for(node.logical, node.shape)
         return ()
     return walk(defs, ())
 
 
+def train_leaf_specs(defs, rules: ShardingRules):
+    """The tree of specs a training rank draws one replica's per-layer
+    params under: ``rules.spec_for`` of each :data:`TRAIN_SHARDED` leaf,
+    ``()`` (whole) for every other leaf."""
+    return _specs(defs, rules, lambda path: path[-2:] in TRAIN_SHARDED)
+
+
 def train_specs(defs, rules: ShardingRules):
     """The tree of specs a training rank holds one replica's params under,
-    in the trainer's layout: :func:`serve_specs`'s leaves, each layer
-    stack (a list in ``defs``) one dict of ``(depth, …)`` leaves whose
-    depth dim stays whole (the spec's first entry ``None``)."""
+    in the trainer's layout: :func:`train_leaf_specs`, each layer stack (a
+    list in ``defs``) one dict of ``(depth, …)`` leaves whose depth dim
+    stays whole (the spec's first entry ``None``)."""
     def stack(node):
         if isinstance(node, Mapping):
             return {k: stack(v) for k, v in node.items()}
@@ -435,7 +475,7 @@ def train_specs(defs, rules: ShardingRules):
                 lambda spec, _: (None,) + spec if any(spec) else (),
                 first, first)
         return node
-    return stack(serve_specs(defs, rules))
+    return stack(train_leaf_specs(defs, rules))
 
 
 def flat_keys(tree, prefix: str = "") -> Dict[str, Any]:

@@ -112,6 +112,14 @@ def _max_len(cfg):
     return n + n % 2
 
 
+class _Sized:
+    """A mesh config seen as a live mesh's axes and shape (what
+    ``serving_rules`` reads)."""
+
+    def __init__(self, mesh_cfg):
+        self.axes, self.shape = mesh_cfg.axis_names, mesh_cfg.shape
+
+
 def _tree(ref, prefix):
     tree = {}
     for key, value in ref.items():
@@ -209,20 +217,28 @@ def test_vocab_parallel_embedding_prefill_matches_reference(reference,
 
 
 def _chunk_of(cfg, key):
-    """The model-axis chunk length of a cache leaf, or None (whole)."""
-    if key.startswith("mamba/") or cfg.family == "ssm":
+    """(the dim a cache leaf is split along over model, the chunk length),
+    or None (whole): the attention caches by their positions, the SSM
+    state by its heads, the x conv tail by its columns."""
+    name = key.split("/")[-1]
+    if name == "ssm":
+        return 2, cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim // 2
+    if name == "conv_x":
+        return 3, cfg.ssm.expand * cfg.d_model // 2
+    if name in ("conv_b", "conv_c"):
         return None
     if key.startswith("cross_"):
-        return cfg.n_audio_frames // 2
-    return _max_len(cfg) // 2
+        return 2, cfg.n_audio_frames // 2
+    return 2, _max_len(cfg) // 2
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_cache_chunks_match_one_process(reference, ranks, arch):
     """Each rank's cache after the prefill: its rows of every leaf, its
-    chunk of each attention cache's positions (the SSM state and conv
-    tails whole, alike on both model ranks), against the one-process
-    engine's cache and, where the prefill wrote, the reference's."""
+    chunk of each attention cache's positions, its heads of the SSM state
+    and its columns of the x conv tail (the B and C tails whole, alike on
+    both model ranks), against the one-process engine's cache and, where
+    the prefill wrote, the reference's."""
     cfg = _cfg(arch)
     rows = B // 2
     one = ranks[0][arch]["one"]["cache"]
@@ -233,8 +249,8 @@ def test_cache_chunks_match_one_process(reference, ranks, arch):
         for key, leaf in got.items():
             want = one[key][:, d * rows:(d + 1) * rows]
             ref = reference[f"{arch}/cache/{key}"][:, d * rows:(d + 1) * rows]
-            sc = _chunk_of(cfg, key)
-            if sc is None:
+            split = _chunk_of(cfg, key)
+            if split is None:
                 assert leaf.shape == want.shape, key
                 np.testing.assert_allclose(leaf, want, rtol=RTOL, atol=ATOL)
                 np.testing.assert_allclose(leaf, ref, rtol=RTOL, atol=ATOL)
@@ -242,12 +258,16 @@ def test_cache_chunks_match_one_process(reference, ranks, arch):
                     assert np.array_equal(
                         leaf, ranks[r - 1][arch]["mesh"]["cache"][key]), key
                 continue
-            assert leaf.shape[2] == sc, (key, leaf.shape)
-            np.testing.assert_allclose(leaf, want[:, :, m * sc:(m + 1) * sc],
-                                       rtol=RTOL, atol=ATOL, err_msg=key)
-            written = ref[:, :, m * sc:(m + 1) * sc]
-            np.testing.assert_allclose(leaf[:, :, :written.shape[2]], written,
-                                       rtol=RTOL, atol=ATOL, err_msg=key)
+            dim, sc = split
+            assert leaf.shape[dim] == sc, (key, leaf.shape)
+            np.testing.assert_allclose(
+                leaf, np.take(want, range(m * sc, (m + 1) * sc), dim),
+                rtol=RTOL, atol=ATOL, err_msg=key)
+            written = np.take(ref, range(m * sc, min((m + 1) * sc,
+                                                     ref.shape[dim])), dim)
+            np.testing.assert_allclose(
+                np.take(leaf, range(written.shape[dim]), dim), written,
+                rtol=RTOL, atol=ATOL, err_msg=key)
 
 
 def test_split_cross_cache_matches_the_whole_one(ranks):
@@ -277,16 +297,48 @@ def test_engine_hands_the_model_each_extras_rank_rows(reference, ranks,
                               [d * rows:(d + 1) * rows])
 
 
+# the leaves of each model held whole on a (2, 2) mesh: a dim of each
+# other leaf divides its axis (B and C's projections and conv tails, of
+# ssm_state, split only over data by their d_model, and their conv biases
+# not at all)
+WHOLE = {"mamba2-2.7b": ("conv_b_w", "conv_b_b", "conv_c_w", "conv_c_b"),
+         "zamba2-1.2b": ("conv_b_w", "conv_b_b", "conv_c_w", "conv_c_b"),
+         "paligemma-3b": (), "whisper-base": ()}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_rank_params_round_trip_bitwise(reference, ranks, arch):
     """The rank state dicts put back together are the reference's weights;
-    the embedding table alone is held as shards."""
+    every leaf is held as the serving rules' ``spec_for`` gives it: the
+    attention's heads (paligemma's one KV head whole), the MLP's columns
+    and the Mamba2 mixers' heads split over model, each d_model dim over
+    data."""
     from repro_torch import interop
+    from repro_torch.launch.serve import serving_rules
+    from repro_torch.models.registry import build_model
     cfg = _cfg(arch)
     whole = interop.lm_params_from_jax(
         _tree(reference, arch + "/params/"), cfg)
     specs = ranks[0][arch]["specs"]
-    assert [k for k, s in specs.items() if any(s)] == ["embed.embedding"]
+    rules = serving_rules(cfg, _Sized(MESH), _max_len(cfg))
+    defs = S.flat_keys(build_model(cfg).param_defs())
+    assert specs == {k: rules.spec_for(p.logical, p.shape)
+                     for k, p in defs.items()}
+    assert sorted({k.split(".")[-1] for k, s in specs.items()
+                   if not any(s)}) == sorted(WHOLE[arch])
+    split_model = [k for k, s in specs.items() if "model" in s]
+    if cfg.family in ("ssm", "hybrid"):
+        assert specs["layers.0.mamba.in_x"] == ("data", "model")
+        assert specs["layers.0.mamba.a_log"] == ("model",)
+    if cfg.family != "ssm":
+        stack = "dec_layers" if cfg.family == "audio" else "layers"
+        prefix = "shared" if cfg.family == "hybrid" else f"{stack}.0"
+        attn = "self_attn" if cfg.family == "audio" else "attn"
+        assert specs[f"{prefix}.{attn}.wq"] == ("data", "model")
+        assert specs[f"{prefix}.{attn}.wk"] == (
+            ("data",) if cfg.n_kv_heads == 1 else ("data", "model"))
+        assert specs[f"{prefix}.mlp.w_down"] == ("model", "data")
+    assert "embed.embedding" in split_model
     back = S.unshard_tree([o[arch]["shards"] for o in ranks], specs, MESH)
     assert back.keys() == whole.keys()
     for key, value in whole.items():
@@ -310,6 +362,17 @@ def test_whole_vocab_enc_dec_matches_one_process(ranks):
             np.testing.assert_allclose(
                 out[ODD]["mesh"][key],
                 one[..., d * rows:(d + 1) * rows, :], rtol=1e-5, atol=1e-6)
+
+
+def test_engine_draw_is_the_one_process_draw_bitwise(ranks):
+    """``ServeEngine(mesh=)`` drawing its own weights (whisper, vocab 511):
+    every leaf on every rank is its ``spec_for`` shard of the one-process
+    engine's draw from the same seed, bitwise, the split ones too."""
+    for out in ranks:
+        same = out[ODD]["draw_bitwise"]
+        assert same and all(same.values()), [k for k, v in same.items()
+                                             if not v]
+        assert sum(any(s) for s in out[ODD]["specs"].values()) > 1
 
 
 def test_mesh_serves_every_family(ranks):

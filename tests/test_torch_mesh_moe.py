@@ -167,25 +167,23 @@ def test_sharded_moe_matches_reference(reference, ranks):
 
 @pytest.mark.parametrize("leaf", ["router", "w_gate", "w_up", "w_down"])
 def test_sharded_moe_gradient_matches_reference(reference, ranks, leaf):
-    """Each rank's loss is its share of mean(out²) + 0.01·aux; a table's
-    gradient shards put back together, the router's (held whole) summed
-    over the ranks."""
+    """Each rank's loss is its share of mean(out²) + 0.01·aux; each
+    table's gradient shards (the router's too: a serving rank holds its
+    (D/2, E/2) shard, gathered whole before the router product) put back
+    together."""
     want = reference[f"ref/sharded/grad/{leaf}"]
     grads = [o["sharded"]["grads"][leaf] for o in ranks]
-    if leaf == "router":
-        got = np.sum(grads, axis=0)
-    else:
-        rules = S.rules_for(MESH, MESH)
-        from repro_torch.config.base import ModelConfig, MoEConfig
-        from repro_torch.models import moe
-        cfg = ModelConfig(name="t", family="moe", d_model=CFG["d_model"],
-                          d_ff=CFG["d_ff"],
-                          moe=MoEConfig(num_experts=CFG["experts"],
-                                        top_k=CFG["top_k"]))
-        spec = S.serve_specs({"moe": moe.moe_defs(cfg)}, rules)["moe"][leaf]
-        assert spec, leaf
-        got = S.unshard_tree([{leaf: g} for g in grads], {leaf: spec},
-                             MESH)[leaf]
+    rules = S.rules_for(MESH, MESH)
+    from repro_torch.config.base import ModelConfig, MoEConfig
+    from repro_torch.models import moe
+    cfg = ModelConfig(name="t", family="moe", d_model=CFG["d_model"],
+                      d_ff=CFG["d_ff"],
+                      moe=MoEConfig(num_experts=CFG["experts"],
+                                    top_k=CFG["top_k"]))
+    spec = S.serve_specs({"moe": moe.moe_defs(cfg)}, rules)["moe"][leaf]
+    assert spec, leaf
+    got = S.unshard_tree([{leaf: g} for g in grads], {leaf: spec},
+                         MESH)[leaf]
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5)
 
 

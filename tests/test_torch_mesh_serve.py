@@ -85,6 +85,14 @@ def reference(tmp_path_factory):
         return {key: data[key] for key in data.files}
 
 
+class _Sized:
+    """A mesh config seen as a live mesh's axes and shape (what
+    ``serving_rules`` reads)."""
+
+    def __init__(self, mesh_cfg):
+        self.axes, self.shape = mesh_cfg.axis_names, mesh_cfg.shape
+
+
 def _params(ref):
     tree = {}
     for key, value in ref.items():
@@ -134,10 +142,23 @@ def test_generate_tokens_identical_on_every_rank(reference, ranks):
 
 
 def test_shard_tree_round_trip_bitwise(reference, ranks):
+    """Every leaf held as the serving rules' ``spec_for`` gives it (each
+    dim split where it divides its axis: here every leaf, at least its
+    d_model over data), the ranks' shards put back together bitwise."""
     from repro_torch import interop
+    from repro_torch.launch.serve import serving_rules
+    from repro_torch.models.registry import build_model
     whole = interop.lm_params_from_jax(_params(reference), _cfg())
     specs = ranks[0]["specs"]
-    assert sum(bool(s) for s in specs.values()) == 1 + 3 * _cfg().n_layers
+    rules = serving_rules(_cfg(), _Sized(MESH), MAX_LEN)
+    defs = S.flat_keys(build_model(_cfg()).param_defs())
+    assert specs == {k: rules.spec_for(p.logical, p.shape)
+                     for k, p in defs.items()}
+    # every leaf is split: each has a d_model dim, over data
+    assert all(any(s) for s in specs.values())
+    assert specs["layers.0.attn.wq"] == ("data", "model")
+    assert specs["layers.0.attn.wo"] == ("model", None, "data")
+    assert specs["layers.0.moe.router"] == ("data", "model")
     back = S.unshard_tree([o["shards"] for o in ranks], specs, MESH)
     assert back.keys() == whole.keys()
     for key, value in whole.items():

@@ -432,3 +432,32 @@ def test_cli_trains_on_a_model_mesh(ranks, arch):
     assert line["steps"] == 2 and line["ranks"] == 4
     assert np.isfinite(line["first_loss"]) and np.isfinite(line["last_loss"])
     assert all(o["cli"][arch] == "" for o in ranks[1:])
+
+
+# the leaves a training rank holds split on a (data 2, model 2) mesh, and
+# their specs: the embedding table and the MoE's expert tables; every other
+# leaf whole (the trainer's dense layers run whole on a rank's rows, while
+# serving splits them)
+TRAIN_SPLIT = {"embed.embedding": ("model", "data"),
+               "layers.moe.w_gate": (None, "model", "data"),
+               "layers.moe.w_up": (None, "model", "data"),
+               "layers.moe.w_down": (None, "model", None, "data")}
+
+
+@pytest.mark.parametrize("arch", R.FAMILY_ARCHS + ("qwen3-moe-235b-a22b",))
+def test_trainer_specs_are_unchanged_by_serving_tp(arch):
+    """The trainer's specs on a (2, 2) mesh: exactly the embedding and the
+    expert tables split, every other leaf whole, whatever the serving
+    rules split; its rules hold heads, kv_heads, mlp, ssm_heads and act_seq
+    whole."""
+    from repro_torch.config import TrainConfig, get_smoke
+    from repro_torch.models.registry import build_model
+    cfg = TrainConfig(model=get_smoke(arch), mesh=DDP_MESH)
+    rules = S.training_rules(cfg, DDP_MESH)
+    for name in S.TP_DIMS:
+        assert rules.mesh_axes_for(name) == (), name
+    specs = _flat(S.train_specs(build_model(cfg.model).param_defs(), rules))
+    want = {k: TRAIN_SPLIT.get(k, ()) for k in specs}
+    assert specs == want
+    assert set(TRAIN_SPLIT) & set(specs) == (
+        set(TRAIN_SPLIT) if cfg.model.is_moe else {"embed.embedding"})

@@ -676,7 +676,8 @@ def mesh_moe_cases(cfg_kw, params, cases):
     """The MoE, embedding and decode-attention mesh paths on a (2, 2) mesh
     of CPU ranks. ``params``: the MoE's whole tables (numpy); ``cases``:
     the inputs by case. Returns, by case, this rank's outputs (grads: this
-    rank's shard, the router's its part), the paths taken and drops."""
+    rank's shard of each table, the router's too), the paths taken and
+    drops."""
     from repro_torch import sharding as S
     from repro_torch.config.base import ModelConfig, MoEConfig
     from repro_torch.core import collectives as CL
@@ -833,7 +834,8 @@ def mesh_families(cases, gen):
     handed; beside it the one-process engine on the same weights (its
     prefill's logits, cache and steps) and the prefill with the
     vocab-parallel embedding taken at this size. Then a cross cache split
-    over model against the whole one, on the same k, v."""
+    over model (the rank on its shards of the weights) against the whole
+    one, on the same k, v."""
     from repro_torch import interop
     from repro_torch import sharding as S
     from repro_torch.launch.serve import ServeEngine, serving_rules
@@ -882,6 +884,14 @@ def mesh_families(cases, gen):
             L.SHARDED_MIN_TOKENS = threshold
         res["shards"] = _np(dict(engine.params.state_dict()))
         res["specs"] = S.flat_keys(engine.specs())
+        if case["params"] is None:
+            # the engine's own draw: each leaf's shard of the one-process
+            # engine's draw, bitwise
+            whole = dict(one.params.state_dict())
+            res["draw_bitwise"] = {
+                key: bool(torch.equal(value, S.shard_of(
+                    whole[key], res["specs"][key], mesh)))
+                for key, value in engine.params.state_dict().items()}
         out[name] = res
     # a cross cache split over model against the whole one (same k, v)
     cfg = cases["whisper-base"]["cfg"]
@@ -896,11 +906,14 @@ def mesh_families(cases, gen):
     whole, _, _ = A.decode_step_attention(p, x, kv[0], kv[1], index, cfg,
                                           cross=True)
     rules = serving_rules(cfg, mesh, 64)
+    # the rank's shards of the weights under the serving rules
+    held = _shard_params(T.map(lambda t: t.numpy(), p), A.attn_defs(cfg),
+                         rules, mesh)
     with S.use_rules(rules):
         shards = A.tile_shards(t)
         sc = t // shards.k
         chunk = kv.narrow(2, shards.index * sc, sc)
-        split, _, _ = A.decode_step_attention(p, x, chunk[0].clone(),
+        split, _, _ = A.decode_step_attention(held, x, chunk[0].clone(),
                                               chunk[1].clone(), index, cfg,
                                               cross=True, shards=shards)
         odd = A.tile_shards(t + 1)
@@ -916,6 +929,206 @@ def mesh_families(cases, gen):
                              mesh=mesh)
         out["engines"][cfg.family] = (arch, tuple(
             engine.params.state_dict()["embed.embedding"].shape))
+    return out
+
+
+def _shard_params(params, defs, rules, mesh):
+    """This rank's shard of each whole leaf (numpy, nested as ``defs``)
+    under ``rules.spec_for``, as tensors of its own."""
+    from repro_torch import sharding as S
+    specs = S.serve_specs(defs, rules)
+    return S.map_with_specs(
+        lambda a, spec: S.shard_of(torch.as_tensor(a), spec, mesh).clone(),
+        params, specs)
+
+
+class _Layout:
+    """The residual each layer of a model's prefill and decode step takes
+    (its (B, S) and the first layer's value), recorded while active."""
+
+    def __init__(self, module, prefill, decode):
+        self.module, self.names = module, (prefill, decode)
+        self.shapes = {"prefill": [], "decode": []}
+        self.first = {}
+
+    def __enter__(self):
+        self.orig = [getattr(self.module, n) for n in self.names]
+        for kind, name, fn in zip(("prefill", "decode"), self.names,
+                                  self.orig):
+            setattr(self.module, name, self._wrap(kind, fn))
+        return self
+
+    def _wrap(self, kind, fn):
+        def wrapped(lp, x, *args, **kw):
+            self.shapes[kind].append(tuple(x.shape[:2]))
+            self.first.setdefault(kind, x.numpy().copy())
+            return fn(lp, x, *args, **kw)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for name, fn in zip(self.names, self.orig):
+            setattr(self.module, name, fn)
+
+
+def mesh_tp_cases(cases, attn, t_max):
+    """The tensor- and sequence-parallel layers on a (2, 2) mesh of CPU
+    ranks, each case (by name: the reference's whole params and inputs) on
+    this rank's shards under the serving rules: its outputs (its act_seq
+    chunk of a prefill's, its rows of a decode step's), k, v and caches.
+    Beside them: each family's engine's param bytes, the residual's layout
+    between layers, and what raises."""
+    import dataclasses
+    from repro_torch import sharding as S
+    from repro_torch.config import get_smoke
+    from repro_torch.launch.serve import ServeEngine, serving_rules
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TR
+    torch.set_num_threads(1)
+    mesh, _ = _mesh_2x2()
+    model = mesh.rank("model")
+    out = {}
+
+    def f32(arch):
+        return dataclasses.replace(get_smoke(arch), dtype="float32")
+
+    def rows(a):
+        return _data_rows(a, mesh).clone()
+
+    def setup(case, cfg, defs):
+        rules = serving_rules(cfg, mesh, t_max)
+        s = case["x"].shape[1]
+        with S.use_rules(rules):
+            seq = L.act_shards(s)
+        b = case["x"].shape[0] // mesh.size("data")
+        positions = torch.arange(s)[None].expand(b, s)
+        return (rules, _shard_params(case["params"], defs, rules, mesh),
+                L.seq_chunk(rows(case["x"]), seq), seq, positions)
+
+    def np_(t):
+        return t.detach().numpy().copy()
+
+    for name, (arch, mode, prefix) in attn.items():
+        case, cfg = cases[name], f32(arch)
+        rules, p, x, seq, positions = setup(case, cfg, A.attn_defs(cfg))
+        s = case["x"].shape[1]
+        with S.use_rules(rules):
+            y, k, v = A.full_attention(p, x, positions, cfg, mask_mode=mode,
+                                       prefix_len=prefix, return_kv=True,
+                                       seq=seq)
+            sc = t_max // mesh.size("model")
+            ck, cv = (rows(case[key]).narrow(1, model * sc, sc).clone()
+                      for key in ("cache_k", "cache_v"))
+            y1, nk, nv = A.decode_step_attention(
+                p, rows(case["x1"]), ck, cv, torch.tensor([s]), cfg)
+        out[name] = dict(y=np_(y), k=np_(k), v=np_(v), y1=np_(y1),
+                         new_k=np_(nk), new_v=np_(nv),
+                         kv_split=k.shape[2] < cfg.n_kv_heads)
+
+    case, cfg = cases["cross"], f32("whisper-base")
+    rules, p, x, seq, positions = setup(case, cfg, A.attn_defs(cfg))
+    with S.use_rules(rules):
+        y, k, v = A.full_attention(p, x, positions, cfg, mask_mode="full",
+                                   kv_x=rows(case["enc"]), return_kv=True,
+                                   seq=seq)
+        shards = A.tile_shards(cfg.n_audio_frames)
+        sc = cfg.n_audio_frames // shards.k
+        ck, cv = (rows(case[key]).narrow(1, shards.index * sc, sc).clone()
+                  for key in ("k", "v"))
+        y1, _, _ = A.decode_step_attention(
+            p, rows(case["x1"]), ck, cv, torch.tensor([0]), cfg, cross=True,
+            shards=shards)
+    out["cross"] = dict(y=np_(y), k=np_(k), v=np_(v), y1=np_(y1),
+                        kv_split=k.shape[2] < cfg.n_kv_heads)
+
+    case, cfg = cases["mlp"], f32("llama3.2-3b")
+    rules, p, x, seq, _ = setup(case, cfg, L.mlp_defs(cfg.d_model, cfg.d_ff))
+    with S.use_rules(rules):
+        out["mlp"] = dict(y=np_(L.mlp(p, x, seq)),
+                          y1=np_(L.mlp(p, rows(case["x1"]))))
+
+    for name, arch in (("rms", "llama3.2-3b"), ("layer", "whisper-base")):
+        case, cfg = cases[name], f32(arch)
+        rules, p, x, _, _ = setup(case, cfg,
+                                  L.norm_defs(cfg.d_model, cfg.norm_type))
+        with S.use_rules(rules):
+            out[name] = dict(y=np_(L.apply_norm(p, x, cfg.norm_type,
+                                                cfg.norm_eps)))
+
+    case, cfg = cases["mamba"], f32("mamba2-2.7b")
+    defs = SSM.mamba_defs(cfg)
+    rules, p, x, seq, _ = setup(case, cfg, defs)
+    with S.use_rules(rules):
+        y, tails = SSM.mamba_fwd(p, x, cfg, return_state=True, seq=seq)
+        cache = {k: t.clone() for k, t in tails.items()}
+        y1 = SSM.mamba_decode_step(p, rows(case["x1"]), cache, cfg)
+    res = dict(y=np_(y), y1=np_(y1))
+    res.update({f"state/{k}": np_(t) for k, t in tails.items()})
+    res.update({f"stepped/{k}": np_(t) for k, t in cache.items()})
+    out["mamba"] = res
+
+    # each family's engine: the bytes a rank holds, against spec_for's
+    # shard shapes and the whole model's
+    out["bytes"] = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_smoke(arch)
+        engine = ServeEngine(cfg, "cpu", max_len=16, dtype=torch.float32,
+                             mesh=mesh)
+        held = sum(t.numel() * t.element_size()
+                   for t in engine.params.parameters())
+        leaves = S.flat_keys(engine.model.param_defs()).values()
+        shards = whole = 0
+        for leaf in leaves:
+            spec = engine.rules.spec_for(leaf.logical, leaf.shape)
+            shards += 4 * int(np.prod(engine.rules.shard_shape(spec,
+                                                               leaf.shape)))
+            whole += 4 * int(np.prod(leaf.shape))
+        out["bytes"][arch] = (held, shards, whole)
+
+    # the residual between layers: a prefill's act_seq chunk, a decode
+    # step's whole token
+    out["layout"] = {}
+    for arch, module, names in (
+            ("llama3.2-3b", TR, ("layer_fwd", "layer_decode")),
+            ("mamba2-2.7b", SSM, ("block_fwd", "block_decode"))):
+        cfg = f32(arch)
+        engine = ServeEngine(cfg, "cpu", max_len=t_max, dtype=torch.float32,
+                             mesh=mesh)
+        prompts = torch.as_tensor(np.random.default_rng(3).integers(
+            1, cfg.vocab_size, (4, 16)))
+        with _Layout(module, *names) as layout:
+            logits, cache = engine.prefill(prompts)
+            engine.decode(torch.argmax(logits, -1, keepdim=True), cache, 16)
+        out["layout"][arch] = dict(layout.shapes, first=layout.first[
+            "prefill"], step=layout.first["decode"])
+
+    # no fallback: splits the code cannot compute on raise
+    out["raises"] = {}
+    cfg = f32("mamba2-2.7b")
+    g = torch.Generator().manual_seed(0)
+    p = L.init_params(SSM.mamba_defs(cfg), g)
+    rules = S.rules_for(M.mesh_config((2, 2), ("data", "model")), mesh,
+                        {"ssm_heads": ()})
+    try:
+        with S.use_rules(rules):
+            SSM.mamba_fwd(_shard_params(T.map(lambda t: t.numpy(), p),
+                                        SSM.mamba_defs(cfg), rules, mesh),
+                          torch.zeros((2, 8, cfg.d_model)), cfg)
+    except ValueError as exc:
+        out["raises"]["mamba"] = str(exc)
+    cfg = dataclasses.replace(f32("llama3.2-3b"), n_heads=6, n_kv_heads=3,
+                              head_dim=32)
+    rules = serving_rules(cfg, mesh, t_max)
+    defs = A.attn_defs(cfg)
+    p = _shard_params(T.map(lambda t: t.numpy(), L.init_params(defs, g)),
+                      defs, rules, mesh)
+    try:
+        with S.use_rules(rules):
+            A.full_attention(p, torch.zeros((2, 8, cfg.d_model)),
+                             torch.arange(8)[None].expand(2, 8), cfg)
+    except ValueError as exc:
+        out["raises"]["q_group"] = str(exc)
     return out
 
 
