@@ -265,47 +265,67 @@ entry points and holds every run to its plain-version twin:
     result line;
 16. phase mesh_train, training on a process mesh of 4 gloo ranks that
     share the card, phi3.5-moe at its published widths, its depth cut to 1
-    of 32 layers, f32, remat full, sgd (AdamW's moments do not fit the
-    four ranks on the card), each rank drawing every leaf from the seed
-    and keeping its shards (the expert and embedding tables, their sync
-    state): (m1) ``build_trainer``'s DDP step on (data 2,
+    of 32 layers, f32, remat full, (m1) AdamW and (m2) sgd (the MTRAIN
+    comment), each rank drawing every leaf from
+    the seed and keeping its shard of every leaf as the reference's
+    training rules split it (the attention's 32 / 8 heads, the router and
+    the expert, embedding and output tables over model, each d_model dim
+    over data), its moments and sync state alike, the layers tensor and
+    sequence parallel under autograd, the CE vocab-parallel: (m1)
+    ``build_trainer``'s DDP step on (data 2,
     model 2), 32 x 1,024 tokens a step (T = 32,768: the all-to-all
     MoE and the vocab-parallel embedding), 1 step, held to the
     one-process ``make_ddp_step`` under the sharded capacity rule (losses
     and aux relative 1e-3, the params put back together relative L2
     1e-3), the paths a rank, the slots dropped, each collective's ms and
-    bytes, the peaks a rank, the walls beside the twin's; (m2) the
+    bytes, the weight bytes and the peaks a rank, the walls beside the
+    twin's; (m2) the
     local-SGD block on (pod 2, data 1, model 2), K = 2, H = 2, the int8
     sync on each rank's shards, 2 x
     2,048 tokens a replica step (the one-hot MoE), 2 blocks, held to the
     one-process K = 2 block the same way; its first sync's int8 payloads
     each rank's block of the quant kernel's whole-leaf quantization of the
-    same values, bitwise, and within one int8 step of the twin's; quant
+    same values, bitwise, and within one int8 step of the twin's; each
+    gradient leaf's norm at the first step within 1e-3 of the twin's (both
+    parts); quant
     launches a rank 2 x leaves x blocks, the amax and the pack given it
-    once a split leaf a block; the sync's ms (CUDA events); then the
-    shard path's quant entry points against their plain version at the
-    main path's expert block, timed beside it and a PyTorch call;
+    once a split leaf a block (every leaf but those the rules hold whole);
+    the sync's ms (CUDA events); then the shard path's quant entry points
+    against their plain version at the main path's expert and
+    query-projection blocks, the expert block timed beside it and a
+    PyTorch call; ``--probe-train-adamw`` runs the build and (m1) and
+    paligemma's (n1) on the 4 ranks alone (each run's losses, weight
+    bytes and peak a rank, or its error), with no result line;
 17. phase mesh_train_families, mesh_train's two parts on the SSM, hybrid,
     VLM and audio families (MTF_RUNS) at their published widths, f32,
-    remat full, AdamW where the four ranks fit it (sgd lr 0.1 for
-    paligemma): mamba2-2.7b cut to 2 of 64 layers, zamba2-1.2b to 6 of 38
+    remat full, (n1) AdamW, (n2) AdamW for mamba2 and whisper and sgd
+    for paligemma:
+    mamba2-2.7b cut to 2 of 64 layers, zamba2-1.2b to 6 of 38
     (one application of its shared block), paligemma-3b to 2 of 18,
     whisper-base whole (6 + 6); the
     one-process twins first, then every part of every family in one spawn
     of 4 gloo ranks on the card, each rank drawing every leaf from the
-    seed and keeping its shards (the embedding table; every other leaf
-    whole), the stub inputs seeded on the global batch before a rank takes
+    seed and keeping its shard of every leaf as mesh_train's do (the
+    attention's heads, the MLP's columns, the Mamba2 mixers' heads, the
+    vocab over model where they divide, each d_model dim over data; the
+    layers tensor and sequence parallel, the CE vocab-parallel on the
+    table's shard), the stub inputs seeded on the global batch before a
+    rank takes
     its rows (``SeededExtras``): (n1) ``build_trainer``'s DDP step on
     (data 2, model 2), one step, and (n2) the local-SGD block on (pod 2,
     data 1, model 2), K = 2, H = 2, int8, 2 blocks (paligemma's 1; zamba2
     has none, for the time limit), each held to its twin as mesh_train's
     parts are (losses and the params put back together relative 1e-3,
     ranks that hold a block bitwise alike,
-    (n2)'s first sync's payloads within one int8 step of the twin's, its
-    quant launches a rank: the amax and the pack given it on the split
-    embedding shards, the whole-leaf pack on every leaf held whole,
+    the first step's gradient norms a leaf, (n2)'s first sync's payloads
+    within one int8 step of the twin's under sgd and under AdamW within
+    what AdamW makes of the first block's gradients, which are held to the
+    twin's blocks at relative L2 1e-3 (``_payload_against_twin``), its
+    quant launches a rank: the amax and the pack given it on every split
+    leaf's block, the whole-leaf pack on every leaf held whole,
     whisper's odd-vocab table too); the walls beside the twins', each
-    collective's ms and bytes, the sync's ms, the peaks a rank;
+    collective's ms and bytes, the sync's ms, the weight bytes and the
+    peaks a rank;
     ``--probe-vlm-t32k`` runs the build and paligemma's (n1) at
     VLM_PROBE_SHAPES alone (T >= 32,768), each run's peak or its error,
     with no result line;
@@ -345,6 +365,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import signal
 import subprocess
@@ -537,11 +558,15 @@ MFAM_RUNS = [("mamba2-2.7b", 4, 2048), ("zamba2-1.2b", 6, 2048),
              ("paligemma-3b", 2, 2048), ("whisper-base", None, 384)]
 MFAM_BATCH, MFAM_GEN, MFAM_SEED = 16, 8, 17
 # phase mesh_train: phi3.5-moe at its published widths cut to 1 of its 32
-# layers, f32, remat full, 4 gloo ranks on the card, sgd lr 0.1 (the
-# reference's own mesh test's optimizer): with AdamW's two moments (m1)'s
-# ranks ran out of the card's memory (a rank at 17.51 GiB asking 1 GiB more,
-# 78.25 GiB in use, on an H100 80GB HBM3 at 700 W), and (m2)'s would hold
-# about 75 GB before activations. (m1) DDP on (data 2, model 2), 32 x 1,024
+# layers, f32, remat full, 4 gloo ranks on the card. (m1) takes AdamW (lr
+# 1e-4, eps 1e-6): with every leaf split the four ranks hold its moments
+# (15.06 GiB a rank, 64.70 GB in all, on an H100 80GB HBM3 at 700 W, where
+# with the dense leaves whole on every rank a rank ran out at 17.51 GiB
+# asking 1 GiB more). (m2) takes sgd lr 0.1 (the reference's own mesh
+# test's optimizer). Every part's first gradient is held to the twin's leaf
+# by leaf (its norm); a sgd part's first sync's payloads within one int8
+# step of the twin's, an AdamW part's within what AdamW makes of the two
+# gradients (_payload_against_twin). (m1) DDP on (data 2, model 2), 32 x 1,024
 # tokens a step (T = 32,768: moe_ffn_sharded and embed_sharded; at 16 x
 # 2,048 a rank's plain attention ran out too, at 17.27 GiB asking 0.78 GiB
 # more with 77.81 GiB in use), 1 step (2 until phase mesh_families came);
@@ -557,21 +582,23 @@ MTRAIN_M2_H, MTRAIN_M2_BLOCKS = 2, 2
 # VLM and audio families at their published widths, depths cut, f32, remat
 # full, 4 gloo ranks on the card in one spawn: (arch, layers or None for
 # all, (n1)'s and (n2)'s (sequences, tokens a sequence) a step over all
-# ranks, the optimizer). (n1) takes T = 32,768 tokens (the vocab-parallel
+# ranks, (n2)'s blocks, (n2)'s optimizer: AdamW lr 1e-4, eps 1e-6, as
+# every (n1), or sgd lr 0.1, as (m2)). (n1) takes T = 32,768 tokens (the vocab-parallel
 # lookup), but paligemma 8 x 4,320 (T = 34,560 after 256 seeded patch
 # positions: its CE chunk of 480 divides the text; at 32 x 1,024 it does
 # not, and every rank's unchunked whole-vocab logits ran the card out of
 # memory, as did the twin's; at 8 x 4,320 the four ranks peaked at 68.39
 # GB) and whisper 16 x 448 over 1,500 seeded frames; (n2) 2 sequences a
-# replica step, (n2)'s blocks. AdamW but for paligemma: with its moments
-# the four ranks peaked at 75.30 GB in (n1) and 76.51 GB in (n2) at 8 x
-# 1,920, past 70 (an H100 80GB HBM3 at 700 W). For the script's time limit
+# replica step. paligemma's (n1) AdamW fits now (10.04 GiB a rank, 43.12
+# GB in all, where its whole dense leaves reached 75.30 GB); its (n2) keeps
+# sgd, so that one family part holds sgd's local SGD too. For the script's
+# time limit
 # paligemma's (n2) takes one block (its tied table's transport made a
 # block 21-25 s) and zamba2 has no (n2) (None): the CPU test holds its
 # local SGD on the mesh to the reference, and mamba2's (n2) runs the same
 # Mamba2 layers here
 MTF_RUNS = [("mamba2-2.7b", 2, (16, 2048), (4, 2048), 2, "adamw"),
-            ("zamba2-1.2b", 6, (16, 2048), None, 0, "adamw"),
+            ("zamba2-1.2b", 6, (16, 2048), None, 0, None),
             ("paligemma-3b", 2, (8, 4320), (4, 1920), 1, "sgd"),
             ("whisper-base", None, (16, 448), (4, 448), 2, "adamw")]
 MTF_SEED = 29
@@ -4787,25 +4814,42 @@ class ShardedCapacity:
 class CollectiveTimer:
     """Every mesh collective of this process (``Group``'s ``all_to_all``,
     ``gather_dim``, ``sum_scatter_dim``, ``sum``, ``maximum``, ``sum_``: the
-    trainer's gradient reduction) waited for on
-    both sides and timed on the host clock: ``records`` holds (op, input
-    shape, input bytes, seconds). Installed for the life of a rank."""
+    trainer's gradient reduction), and the ops the autograd backward runs
+    as their transposes (``_all_to_all``, ``_gather_dim``,
+    ``_sum_scatter_dim``, ``_all_reduce`` called other than from inside
+    one of those: recorded as ``<op> (backward)``; the trainer's global
+    norm sums its squares so too, a few bytes a step), waited for on both
+    sides and timed on the host clock: ``records`` holds (op, input shape,
+    input bytes, seconds). Installed for the life of a rank."""
 
     OPS = ("all_to_all", "gather_dim", "sum_scatter_dim", "sum", "maximum",
            "sum_")
+    TRANSPOSES = {"_all_to_all": "all_to_all", "_gather_dim": "gather_dim",
+                  "_sum_scatter_dim": "sum_scatter_dim", "_all_reduce": "sum"}
 
     def __init__(self, torch):
         from repro_torch.core import collectives as CL
         self.records = []
+        self.depth = 0
         for name in self.OPS:
             setattr(CL.Group, name, self._timed(torch, name,
                                                 getattr(CL.Group, name)))
+        for name, op in self.TRANSPOSES.items():
+            setattr(CL.Group, name, self._timed(
+                torch, f"{op} (backward)", getattr(CL.Group, name),
+                inner=True))
 
-    def _timed(self, torch, name, fn):
+    def _timed(self, torch, name, fn, inner=False):
         def timed(group, x, *args):
+            if inner and self.depth:
+                return fn(group, x, *args)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            y = fn(group, x, *args)
+            self.depth += 1
+            try:
+                y = fn(group, x, *args)
+            finally:
+                self.depth -= 1
             torch.cuda.synchronize()
             self.records.append((name, tuple(x.shape),
                                  x.numel() * x.element_size(),
@@ -4832,7 +4876,6 @@ class CollectiveTimer:
 def _weight_bytes(eng):
     """(the bytes of the weights a mesh engine's rank holds, the whole
     model's at the engine's dtype)."""
-    import math
     from repro_torch import sharding as S
     held = sum(t.numel() * t.element_size() for t in eng.params.parameters())
     size = next(eng.params.parameters()).element_size()
@@ -5472,22 +5515,22 @@ def phase_mesh_families(torch, dev):
 
 def _mtrain_cfg(part: str, shape, twin: bool = False, run=None):
     """(m1)'s or (m2)'s TrainConfig: ``run`` (an MTF_RUNS entry: arch,
-    layers or None for all, ..., optimizer; None: phase mesh_train's
-    phi3.5-moe at MTRAIN_DEPTH layers, sgd) at its published widths, f32
+    layers or None for all, ..., (n2)'s optimizer; None: phase mesh_train's
+    phi3.5-moe at MTRAIN_DEPTH layers) at its published widths, f32
     activations and params, remat full, ``shape`` (sequences, tokens a
-    sequence) a step, on its mesh; ``twin`` the one-process twin's (no
-    model axis)."""
+    sequence) a step, on its mesh, (m1) with AdamW and (m2) with sgd or
+    the run's (the MTRAIN and MTF comments); ``twin`` the one-process
+    twin's (no model axis)."""
     from repro_torch.config import (DataConfig, MeshConfig, OptimizerConfig,
                                     SyncConfig, TrainConfig, get_arch)
     from repro_torch.launch.mesh import mesh_config
-    arch, depth, opt = ((MESH_ARCH, MTRAIN_DEPTH, "sgd") if run is None
-                        else (run[0], run[1], run[-1]))
+    arch, depth = (MESH_ARCH, MTRAIN_DEPTH) if run is None else run[:2]
     model = get_arch(arch)
     model = dataclasses.replace(model, n_layers=depth or model.n_layers,
                                 dtype="float32")
-    optimizer = (OptimizerConfig(name="sgd", learning_rate=0.1)
-                 if opt == "sgd" else
-                 OptimizerConfig(name="adamw", learning_rate=1e-4, eps=1e-6))
+    optimizer = (OptimizerConfig(name="adamw", learning_rate=1e-4, eps=1e-6)
+                 if part == "m1" or (run is not None and run[5] == "adamw")
+                 else OptimizerConfig(name="sgd", learning_rate=0.1))
     data = DataConfig(seq_len=shape[1], global_batch=shape[0])
     if part == "m1":
         mesh = (MeshConfig() if twin
@@ -5513,12 +5556,43 @@ def _mtrain_steps(part, run=None) -> int:
     return MTRAIN_M2_BLOCKS if run is None else run[4]
 
 
+def _take_grads(torch, out, norms: int, keep: int, p0: bool):
+    """Wraps the trainers' optimizer step (``local_sgd.apply_updates_``,
+    handed each step's reduced gradient) to record on the card, at its
+    first ``norms`` calls, each gradient leaf's norm
+    (``out["grad_norms"]``, one {key: 0-dim} a call), and at its first
+    ``keep`` a copy of every gradient leaf (``out["grads"]``, one {key:
+    tensor} a call), with the params before the first update
+    (``out["p0"]``) where ``p0``. Returns the function that unwraps it."""
+    from repro_torch import sharding as S
+    from repro_torch.core import local_sgd as LS
+    inner = LS.apply_updates_
+    out.update(grad_norms=[], grads=[], p0=None)
+
+    def take(opt_cfg, grads, opt, params, step, **kw):
+        flat = S.flat_keys(grads)
+        if len(out["grad_norms"]) < norms:
+            out["grad_norms"].append({k: torch.linalg.vector_norm(g)
+                                      for k, g in flat.items()})
+        if len(out["grads"]) < keep:
+            if p0 and out["p0"] is None:
+                out["p0"] = {k: t.clone()
+                             for k, t in S.flat_keys(params).items()}
+            out["grads"].append({k: g.clone() for k, g in flat.items()})
+        return inner(opt_cfg, grads, opt, params, step, **kw)
+    LS.apply_updates_ = take
+    return lambda: setattr(LS, "apply_updates_", inner)
+
+
 def _mtrain_twin(torch, dev, part, shape, run=None):
     """The one-process twin of (m1) (``make_ddp_step`` under
     :class:`ShardedCapacity`) or (m2) (the K = 2 local-SGD block, its
     first sync's int8 payloads and scales kept on the host), the stub
-    inputs seeded (:class:`SeededExtras`): losses, walls, peak, drops and
-    the final params on the host (one replica)."""
+    inputs seeded (:class:`SeededExtras`): losses, walls, peak, drops,
+    the final params on the host (one replica), each gradient leaf's norm
+    at each step of the first block (replica by replica under (m2)), and
+    under (m2) with AdamW those gradients and the params they started
+    from, on the host."""
     from repro_torch import sharding as S
     from repro_torch import tree as T
     from repro_torch.core import compression
@@ -5542,6 +5616,10 @@ def _mtrain_twin(torch, dev, part, shape, run=None):
                     {k: s.cpu() for k, s in S.flat_keys(got[1]).items()})
             return got
         compression.compress_tree = capture
+    # the first block's optimizer steps: K = 2 replicas of H steps (m2)
+    calls = 1 if part == "m1" else 2 * MTRAIN_M2_H
+    untake = _take_grads(torch, out, calls, calls if (
+        part == "m2" and cfg.optimizer.name == "adamw") else 0, p0=True)
     import contextlib
     try:
         with DropCounter() as drops, (ShardedCapacity() if part == "m1"
@@ -5557,8 +5635,15 @@ def _mtrain_twin(torch, dev, part, shape, run=None):
                     out["aux"].append(float(metrics["aux"]))
     finally:
         compression.compress_tree = inner
+        untake()
     out["drops"] = drops.dropped
     out["peak"] = _peak(torch, dev)
+    out["grad_norms"] = [{k: float(n) for k, n in x.items()}
+                         for x in out["grad_norms"]]
+    out["grads"] = [{k: g.cpu() for k, g in x.items()}
+                    for x in out["grads"]]
+    if out["p0"] is not None:
+        out["p0"] = {k: t.cpu() for k, t in out["p0"].items()}
     params = state["params"]
     if part == "m2":
         params = T.map(lambda t: t[0], params)
@@ -5593,6 +5678,8 @@ def _mtrain_job(torch, part, shape, run, tmp, timer, t_start):
     seeded stub inputs with every collective timed, the slots dropped and
     the paths taken, the sync's CUDA-event time, the quant launches of the
     counted run, the peak; (m2)'s first sync's int8 blocks and scales;
+    each gradient leaf's block's norm at the first step, and under (m2)
+    with AdamW the first block's gradient blocks;
     this rank's blocks of the final params (every rank of pod 0; rank 0
     also the whole leaves), with a digest of every block. Arrays go to
     ``tmp`` (one .npy each, named in the result): the parent maps them
@@ -5659,6 +5746,8 @@ def _mtrain_job(torch, part, shape, run, tmp, timer, t_start):
         events.append((start, end))
         return got
     compression.compress_tree, SY.sync_point = capture, timed_sync
+    untake = _take_grads(torch, out, 1, MTRAIN_M2_H if (
+        part == "m2" and cfg.optimizer.name == "adamw") else 0, p0=False)
     timer.take(fsdp)
     out["t_ready"] = time.time() - t_start
     try:
@@ -5682,7 +5771,11 @@ def _mtrain_job(torch, part, shape, run, tmp, timer, t_start):
             out["paths"] = dict(moe.PATHS)
     finally:
         compression.compress_tree, SY.sync_point = inner_c, inner_s
+        untake()
     out["t_steps"] = time.time() - t_start - out["t_ready"]
+    out["grad_norms"] = {k: float(n) for k, n in out["grad_norms"][0].items()}
+    out["grads"] = [{k: save(f"g{j}_{k}", g) for k, g in x.items()}
+                    for j, x in enumerate(out["grads"])]
     out["drops"] = drops.dropped
     out["coll"] = timer.take(fsdp)
     out["sync_ms"] = [a.elapsed_time(b) for a, b in events]
@@ -5690,6 +5783,12 @@ def _mtrain_job(torch, part, shape, run, tmp, timer, t_start):
     flat, flat_specs = S.flat_keys(state["params"]), S.flat_keys(specs)
     out["n_leaves"] = len(flat)
     out["n_split"] = sum(1 for s in flat_specs.values() if any(s))
+    # the params a rank holds (one replica's under (m2)) and the whole
+    # model's, both f32
+    out["weights"] = (sum(t.numel() * t.element_size()
+                          for t in flat.values()),
+                      sum(4 * math.prod(p.shape) for p in
+                          S.flat_keys(model.param_defs()).values()))
     keep = part == "m1" or mesh.rank("pod") == 0
     out["blocks"] = {k: save(f"p_{k}", t[0] if part == "m2" else t)
                      for k, t in flat.items()
@@ -5754,17 +5853,99 @@ def _mtrain_hold(torch, dev, label, one, ranks, mesh_cfg):
     return rel_loss, rel
 
 
-def _payload_against_twin(torch, dev, ranks, twin, mesh_cfg):
+def _grad_norms_against_twin(label, one, ranks, part):
+    """Each gradient leaf's norm at the first step (each replica's under
+    (m2)) against the twin's: the ranks' blocks' norms put together (each
+    block once) within MTRAIN_REL of the twin's plus 1e-6 of the whole
+    tree's (a leaf below that is f32 noise beside the rest). A leaf summed
+    over the wrong ranks, or
+    divided by the wrong count, misses it by a factor of the mesh's. AdamW
+    hides such a factor from the losses and the params (its update is
+    lr·m̂/(√v̂ + eps) an element, whatever the gradient's scale). Returns
+    (the largest |Δ| over its bound, the whole tree's norm relative to the
+    twin's)."""
+    from repro_torch import sharding as S
+    step = MTRAIN_M2_H if part == "m2" else 1
+    blocks = {}
+    for r in ranks:
+        pod = r["coords"]["pod"] if part == "m2" else 0
+        for key, spec in r["specs"].items():
+            coord = tuple(r["coords"][a] for a in sorted(S.spec_axes(spec)))
+            blocks.setdefault((pod, key), {})[coord] = r["grad_norms"][key]
+    worst, sq = 0.0, [0.0, 0.0]
+    for (pod, key), got in sorted(blocks.items()):
+        mesh_n = math.sqrt(sum(n * n for n in got.values()))
+        twins = one["grad_norms"][pod * step]
+        twin_n = twins[key]
+        bound = MTRAIN_REL * twin_n + 1e-6 * math.sqrt(
+            sum(n * n for n in twins.values()))
+        check(abs(mesh_n - twin_n) <= bound,
+              f"{label}: {key}'s gradient norm at the first step (replica "
+              f"{pod}) {mesh_n} against the twin's {twin_n} (bound {bound})")
+        worst = max(worst, abs(mesh_n - twin_n) / bound)
+        sq[0] += mesh_n * mesh_n
+        sq[1] += twin_n * twin_n
+    return worst, abs(math.sqrt(sq[0]) / math.sqrt(sq[1]) - 1.0)
+
+
+def _norms_line(worst, norm_rel):
+    return (f"the first step's gradient norms a leaf within "
+            f"{worst:.3f} of their bounds of the twin's (MTRAIN_REL and 1e-6 "
+            f"of the tree's), the tree's rel {norm_rel:.3e}")
+
+
+def _adamw_sum(opt, grads):
+    """The sum of AdamW's updates lr·m̂/(√v̂ + eps) an element over steps of
+    ``grads`` (one tensor a step, from zero moments, no weight decay, a
+    constant lr), in f64: ``optim._leaf_update_``'s, exactly but for its
+    f32 rounding."""
+    m = v = u = 0.0
+    for t, g in enumerate(grads, 1):
+        g = g.double()
+        m = opt.beta1 * m + (1 - opt.beta1) * g
+        v = opt.beta2 * v + (1 - opt.beta2) * g * g
+        u = u + opt.learning_rate * (m / (1 - opt.beta1 ** t)) / (
+            (v / (1 - opt.beta2 ** t)).sqrt() + opt.eps)
+    return u
+
+
+def _payload_against_twin(torch, dev, ranks, twin, mesh_cfg, opt):
     """The ranks' first-sync int8 blocks and scales against the twin's
     (K, …) payload: int8 values that differ, the largest |dq|, the largest
-    relative scale difference; and whether the model ranks of a replica
-    packed each leaf with one scale (the whole leaf's)."""
+    relative scale difference; whether the model ranks of a replica packed
+    each leaf with one scale (the whole leaf's); and each value's allowance
+    ``D`` in steps, past the one step that rounding gives. Under sgd ``D``
+    is 0: the update is lr·g, and the gradients' last-bit differences move
+    a value by a small share of a step. Under AdamW (``opt``) the update
+    is lr·m̂/(√v̂ + eps) an element: where a gradient element is itself
+    near its last bits (a sum that cancels) that difference moves the
+    update by up to 2·lr a step. There ``D`` is what AdamW makes of the
+    two gradients (the ranks' blocks of the first block's H steps and the
+    twin's, :func:`_adamw_sum` of each), plus the f32 rounding of the
+    updates and the params, over the rank's step, plus the two scales'
+    difference (127 steps times it at most). A value may differ by
+    1 + ``D`` steps (``over`` counts those past it), and the values that
+    differ may number 1e-4 of them, as under sgd, plus Σ min(1, the
+    predicted difference in steps) (``expected``: AdamW's normalization
+    moves a value across a .5 boundary about as often as its predicted
+    move is a share of a step; the rounding and the scales' difference are
+    left to the 1e-4, as under sgd).
+    Under AdamW also the gradient blocks' relative L2 against the twin's
+    at each step (``grad_rel``) and the values whose ``D`` is a step or
+    more (``loose``)."""
     from repro_torch import sharding as S
-    twin_q, twin_s = twin
-    differ = values = max_dq = 0
-    scale_rel = 0.0
+    twin_q, twin_s = twin["payload"]
+    adamw = opt.name == "adamw"
+    if adamw:
+        assert not (opt.weight_decay or opt.grad_clip or opt.warmup_steps
+                    or opt.schedule != "constant"), opt
+    h = MTRAIN_M2_H
+    differ = values = max_dq = over = loose = 0
+    scale_rel = expected = 0.0
+    grad_sq = np.zeros((2, h))
     for r in ranks:
         paths, scales = r["payload"]
+        pod = r["coords"]["pod"]
         for key, path in paths.items():
             spec = ("pod",) + tuple(r["specs"][key])
             want = S.block_of(twin_q[key], spec, r["coords"],
@@ -5774,19 +5955,49 @@ def _payload_against_twin(torch, dev, ranks, twin, mesh_cfg):
             differ += int((dq > 0).sum())
             values += dq.numel()
             max_dq = max(max_dq, int(dq.max()))
-            w = float(twin_s[key][r["coords"]["pod"]])
-            scale_rel = max(scale_rel, abs(scales[key] - w) / abs(w))
-            del want, dq
+            w = float(twin_s[key][pod])
+            rel = abs(scales[key] - w) / abs(w)
+            scale_rel = max(scale_rel, rel)
+            allow = torch.zeros((), device=dev)
+            if adamw:
+                def block(t):
+                    return S.block_of(t, spec[1:], r["coords"],
+                                      mesh_cfg).to(dev)
+                mine = [_load_array(torch, dev, x[key]) for x in r["grads"]]
+                theirs = [block(x[key]) for x in
+                          twin["grads"][pod * h:(pod + 1) * h]]
+                for j, (a, b) in enumerate(zip(mine, theirs)):
+                    grad_sq[0, j] += float((a.double() - b).square().sum())
+                    grad_sq[1, j] += float(b.double().square().sum())
+                lr = opt.learning_rate
+                # each side's H steps round p to f32 (half its spacing at
+                # |p| < |p0| + 2·H·lr a step) and its update (2^-20 lr)
+                ulp = torch.exp2((torch.frexp(block(twin["p0"][key]).abs()
+                                              + 2 * h * lr).exponent
+                                  - 24).double())
+                rounding = h * ulp + 2 * h * lr * 2.0 ** -20
+                moved = (_adamw_sum(opt, mine) - _adamw_sum(opt, theirs)
+                         ).abs() / scales[key]
+                allow = moved + rounding / scales[key] + 127 * rel
+                loose += int((allow >= 1).sum())
+                expected += float(moved.clamp(max=1.0).sum())
+                del mine, theirs, ulp, rounding, moved
+            over += int((dq > 1 + allow).sum())
+            del want, dq, allow
     one_scale = all(
         a["payload"][1] == b["payload"][1] for a in ranks for b in ranks
         if a["coords"]["pod"] == b["coords"]["pod"])
-    return dict(differ=differ, values=values, max_dq=max_dq,
+    grad_rel = ([float(x) for x in np.sqrt(grad_sq[0] / grad_sq[1])]
+                if adamw else None)
+    return dict(differ=differ, values=values, max_dq=max_dq, over=over,
+                expected=expected, loose=loose, grad_rel=grad_rel,
                 scale_rel=scale_rel, one_scale=one_scale)
 
 
-def _quant_shard_rows(torch, dev, shape):
-    """The shard path's quant entry points on the card: at small shapes
-    and at ``shape`` (the main path's expert block), the amax and the pack
+def _quant_shard_rows(torch, dev, shape, others=()):
+    """The shard path's quant entry points on the card: at small shapes,
+    at ``others`` (more of the main path's blocks) and at ``shape`` (the
+    main path's expert block), the amax and the pack
     given it bitwise the plain version's, a leaf packed block by block with
     the blocks' max amax bitwise the whole-leaf quantization (also a leaf
     of two main-path blocks, as (m2)'s two model ranks hold the expert
@@ -5796,7 +6007,8 @@ def _quant_shard_rows(torch, dev, shape):
     import warnings
     from repro_torch.kernels.quant import ops, ref
     from repro_torch.kernels.quant.ops import amax_work, quantize_work
-    for i, rshape in enumerate([(4, 33, 7), (2, 1_000_003), (3, 1)]):
+    for i, rshape in enumerate([(4, 33, 7), (2, 1_000_003), (3, 1),
+                                *others]):
         x = torch.from_numpy(np.random.default_rng(400 + i).normal(
             size=rshape).astype(np.float32)).to(dev)
         a = ops.amax(x, rows=True)
@@ -5907,6 +6119,8 @@ def _mtrain_log_ranks(label, unit, ranks, one, spawn_s, held_s):
     log(f"{label} rank 0's collectives a {unit}: "
         f"{_coll_line(ranks[0]['coll'], len(one['walls']))} (each waited "
         f"for on both sides, host clock)")
+    log(f"{label} {_weights_line(ranks)}, f32; the moments and the sync "
+        f"state split as their params")
     peaks = [r["peak"] for r in ranks]
     log(f"{label} peak memory a rank "
         f"{[round(p / 2**30, 2) for p in peaks]} GiB, {sum(peaks) / 1e9:.2f} "
@@ -5946,7 +6160,8 @@ def _lookup(cfg, tokens: int) -> str:
 def _mtrain_check_ddp(torch, dev, label, one, ranks, shape, run, twin_s,
                       spawn_s):
     """(m1)'s checks and log lines: the MoE's paths a rank, then
-    :func:`_mtrain_hold` against the twin."""
+    :func:`_mtrain_hold` and :func:`_grad_norms_against_twin` against the
+    twin."""
     cfg = _mtrain_cfg("m1", shape, run=run)
     rows, seq = shape
     t0 = time.perf_counter()
@@ -5957,6 +6172,7 @@ def _mtrain_check_ddp(torch, dev, label, one, ranks, shape, run, twin_s,
         check(r["paths"] == paths, f"{label}: rank {r['rank']} paths "
               f"{r['paths']}, expected {paths}")
     rel_loss, rel = _mtrain_hold(torch, dev, label, one, ranks, cfg.mesh)
+    worst, norm_rel = _grad_norms_against_twin(label, one, ranks, "m1")
     log(f"{label} DDP on (data {MTRAIN_M1_MESH[0]}, model "
         f"{MTRAIN_M1_MESH[1]}), {cfg.optimizer.name} lr "
         f"{cfg.optimizer.learning_rate}, {rows} x {seq} tokens a step (T = "
@@ -5966,7 +6182,8 @@ def _mtrain_check_ddp(torch, dev, label, one, ranks, shape, run, twin_s,
         f"{' under the sharded capacity rule' if cfg.model.is_moe else ''}"
         f"), rel {rel_loss:.3e} (bound {MTRAIN_REL}); aux {ranks[0]['aux']} "
         f"against {one['aux']}; params rel L2 {rel:.3e} (bound "
-        f"{MTRAIN_REL}); paths a rank {ranks[0]['paths']}; slots dropped "
+        f"{MTRAIN_REL}); {_norms_line(worst, norm_rel)}; paths a rank "
+        f"{ranks[0]['paths']}; slots dropped "
         f"{sum(r['drops'] for r in ranks)} over the ranks, the twin "
         f"{one['drops']}; twin {twin_s:.1f} s, the ranks' spawn and run "
         f"{spawn_s:.1f} s")
@@ -5977,7 +6194,9 @@ def _mtrain_check_ddp(torch, dev, label, one, ranks, shape, run, twin_s,
 def _mtrain_check_local(torch, dev, label, one, ranks, shape, run, twin_s,
                         spawn_s):
     """(m2)'s checks and log lines: the MoE's paths and drops a rank, the
-    first sync's payloads against the twin's, the quant launches a rank
+    first sync's payloads against the twin's (:func:`_payload_against_twin`),
+    each gradient leaf's norm at the first step against the twin's
+    (:func:`_grad_norms_against_twin`), the quant launches a rank
     (2 x leaves x blocks, the amax and the pack given it once a split
     leaf a block), :func:`_mtrain_hold`. Returns each rank's launches."""
     cfg = _mtrain_cfg("m2", shape, run=run)
@@ -5990,12 +6209,16 @@ def _mtrain_check_local(torch, dev, label, one, ranks, shape, run, twin_s,
     for r in ranks:
         check(r["paths"] == paths, f"{label}: rank {r['rank']} paths "
               f"{r['paths']}, expected {paths}")
-    pay = _payload_against_twin(torch, dev, ranks, one["payload"], mesh_cfg)
+    pay = _payload_against_twin(torch, dev, ranks, one, mesh_cfg,
+                                cfg.optimizer)
     check(pay["one_scale"], f"{label}: the model ranks of a replica packed "
                             f"a leaf with different scales")
-    check(pay["max_dq"] <= 1 and pay["differ"] <= 1e-4 * pay["values"]
-          and pay["scale_rel"] <= MTRAIN_REL,
+    check(pay["over"] == 0
+          and pay["differ"] <= 1e-4 * pay["values"] + pay["expected"]
+          and pay["scale_rel"] <= MTRAIN_REL
+          and all(x <= MTRAIN_REL for x in pay["grad_rel"] or ()),
           f"{label}: the first sync's payloads against the twin's {pay}")
+    worst, norm_rel = _grad_norms_against_twin(label, one, ranks, "m2")
     mesh_drops = sum(r["drops"] for r in ranks)
     check(mesh_drops == MTRAIN_M2_MESH[2] * one["drops"],
           f"{label}: slots dropped {mesh_drops}, expected the twin's "
@@ -6022,8 +6245,15 @@ def _mtrain_check_local(torch, dev, label, one, ranks, shape, run, twin_s,
         f"maxed; split leaves {split or 'none'}, the rest packed whole); "
         f"against the twin's (whose deltas differ in their last bits: the "
         f"mesh sums the gradient in another order) {pay['differ']} of "
-        f"{pay['values']} int8 values differ (max |dq| {pay['max_dq']}), "
-        f"scales rel {pay['scale_rel']:.3e}; quant launches a rank "
+        f"{pay['values']} int8 values differ (max |dq| {pay['max_dq']}; "
+        f"allowed 1e-4 of them plus {pay['expected']:.1f}, past 1 + D "
+        f"steps {pay['over']}"
+        + (f"; AdamW: D a step or more at {pay['loose']} values, the "
+           f"gradient blocks rel L2 "
+           f"{[f'{x:.3e}' for x in pay['grad_rel']]} a step (bound "
+           f"{MTRAIN_REL})" if pay["grad_rel"] else "")
+        + f"), scales rel {pay['scale_rel']:.3e}; "
+        f"{_norms_line(worst, norm_rel)}; quant launches a rank "
         f"{launches} (expected quant 2 x {ranks[0]['n_leaves']} leaves x "
         f"{blocks} blocks, amax and given {ranks[0]['n_split']} "
         f"split leaves x {blocks}); sync "
@@ -6089,8 +6319,12 @@ def phase_mesh_train(torch, dev):
                      ("m2", MTRAIN_M2_SHAPE, None)],
         lambda part, _: f"mesh_train ({part})")[2][1]
     e_loc = cfg.moe.num_experts // MTRAIN_M2_MESH[2]
+    # (m2)'s blocks a rank: an expert table's, and the query projection's
+    # (its heads over model)
+    wq = MTRAIN_DEPTH * cfg.d_model * cfg.n_heads * cfg.resolved_head_dim
     amax_row, given_row = _quant_shard_rows(
-        torch, dev, (1, MTRAIN_DEPTH * e_loc * cfg.d_model * cfg.d_ff))
+        torch, dev, (1, MTRAIN_DEPTH * e_loc * cfg.d_model * cfg.d_ff),
+        [(1, wq // MTRAIN_M2_MESH[2])])
     amax_row["launches"] = sum(x["amax"] for x in launches)
     given_row["launches"] = sum(x["given"] for x in launches)
     log(f"mesh_train: phase {time.perf_counter() - t_phase:.1f} s")
@@ -6116,7 +6350,7 @@ def phase_mesh_train_families(torch, dev):
         f"GiB free on the card at the start")
     jobs = []
     for run in MTF_RUNS:
-        arch, depth, n1, n2, _, opt = run
+        arch, depth, n1, n2 = run[:4]
         full = get_arch(arch)
         cfg = _mtrain_cfg("m1", n1, run=run).model
         extra = {"vlm": f", {cfg.num_image_tokens} seeded patch positions "
@@ -6126,7 +6360,7 @@ def phase_mesh_train_families(torch, dev):
         log(f"mesh_train_families: {arch} ({cfg.family}) at its published "
             f"widths (d_model {cfg.d_model}, vocab {cfg.vocab_size}), "
             f"{'all' if depth is None else depth} of {full.n_layers} layers"
-            f"{extra}, f32, remat full, {opt}")
+            f"{extra}, f32, remat full")
         jobs += [("m1", n1, run)] + ([("m2", n2, run)] if n2 else [])
     twin_s, spawn_s, launches = _mtrain_jobs(
         torch, dev, jobs, lambda part, run: f"mesh_train_families "
@@ -6139,6 +6373,33 @@ def phase_mesh_train_families(torch, dev):
     return totals
 
 
+def probe_train_adamw(torch, dev):
+    """``--probe-train-adamw``: phase mesh_train's (m1) and paligemma's
+    (n1) of MTF_RUNS, both AdamW, on the 4 ranks alone (no twin): each
+    run's losses, step wall, weight bytes and peak a rank, or the error it
+    raised (out of memory)."""
+    pali = next(r for r in MTF_RUNS if r[0] == "paligemma-3b")
+    for shape, run in [(MTRAIN_M1_SHAPE, None), (pali[2], pali)]:
+        label = (f"probe {MESH_ARCH if run is None else run[0]} (m1) adamw, "
+                 f"{shape[0]} x {shape[1]} tokens")
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                ranks = [r[0] for r in _mtrain_spawn([("m1", shape, run)],
+                                                     tmp)]
+                peaks = [r["peak"] for r in ranks]
+                log(f"{label}, the 4 ranks: losses "
+                    f"{[r['losses'] for r in ranks]}, a step "
+                    f"{max(r['walls'][0] for r in ranks):.3f} s (max over "
+                    f"the ranks), {_weights_line(ranks)}; peak a rank "
+                    f"{[round(p / 2**30, 2) for p in peaks]} GiB, "
+                    f"{sum(peaks) / 1e9:.2f} GB in all")
+            except Exception as exc:    # noqa: BLE001 - logged, the probe
+                log(f"{label}, the 4 ranks: {type(exc).__name__}: "
+                    f"{str(exc)[:400]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def probe_vlm_t32k(torch, dev):
     """``--probe-vlm-t32k``: paligemma-3b's (n1) at each shape of
     VLM_PROBE_SHAPES, the one-process twin, then the 4 ranks (nothing held
@@ -6146,7 +6407,7 @@ def probe_vlm_t32k(torch, dev):
     raised (out of memory)."""
     run = next(r for r in MTF_RUNS if r[0] == "paligemma-3b")
     for rows, seq in VLM_PROBE_SHAPES:
-        label = (f"probe paligemma-3b (n1) {run[-1]}, {rows} x {seq} text "
+        label = (f"probe paligemma-3b (n1) adamw, {rows} x {seq} text "
                  f"tokens (T = {rows * seq})")
         try:
             one = _mtrain_twin(torch, dev, "m1", (rows, seq), run)
@@ -6392,6 +6653,10 @@ def main() -> int:
         phase_mesh_families(torch, dev)
         done("mesh_families")
         log("--mesh-serve-only: the other phases skipped, no result line")
+        return 0
+    if "--probe-train-adamw" in sys.argv[1:]:
+        probe_train_adamw(torch, dev)
+        log("--probe-train-adamw: the phases skipped, no result line")
         return 0
     if "--probe-vlm-t32k" in sys.argv[1:]:
         probe_vlm_t32k(torch, dev)

@@ -28,7 +28,7 @@ wait for the write. ``restore`` reads that file on every rank and scatters
 it back (:func:`repro_torch.core.local_sgd.scatter_replicas`). With
 ``axis=None`` the state is the same on every rank (data parallelism's):
 rank 0 writes it as it is, and every rank reads it back as it is. On a mesh
-with a model axis a rank holds its blocks of some leaves (``specs``, the
+with a model axis a rank holds its blocks of the leaves (``specs``, the
 specs of its share, :func:`repro_torch.core.local_sgd.rank_state_specs`):
 ``save`` also puts the blocks back together over the replica's ranks
 (:func:`repro_torch.core.local_sgd.gather_shards`), so the file is the

@@ -19,8 +19,8 @@ processes each rank holds one replica, a ``(1, …)`` leaf, and quantizes it
 alone (through the quant kernel on the card); the payloads meet in
 :func:`allgather_mean_dequant`.
 
-On a mesh with a model axis a rank holds only its block of some leaves (the
-expert and embedding tables, :func:`repro_torch.sharding.train_specs`). Such
+On a mesh with a model axis a rank holds only its block of most leaves
+(:func:`repro_torch.sharding.train_specs`). Such
 a leaf is quantized with the whole leaf's scale, as the reference's
 per-tensor ``amax`` over a sharded leaf is global: the block's amax
 (:func:`repro_torch.kernels.quant.ops.amax`), its max over the ranks that

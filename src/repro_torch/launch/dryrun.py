@@ -20,9 +20,9 @@ at once, counted on the meta device) in place of XLA's memory analysis, and
 ``hbm_bytes`` counted, and ``roofline`` from
 :func:`repro_torch.launch.roofline.compute_terms` at H100 rates. A cell
 counts the one-card call. A train cell's ``state_bytes_per_card`` is the
-state as a rank of its mesh holds it (the expert and embedding tables,
-their moments and sync state at their shard shapes, the rest whole:
-:mod:`repro_torch.launch.specs`); a serving cell's weights are whole.
+state as a rank of its mesh holds it (every leaf, its moments and sync
+state at their shard shapes: :mod:`repro_torch.launch.specs`); a serving
+cell's weights are whole.
 """
 from __future__ import annotations
 

@@ -61,33 +61,20 @@ from repro_torch.runtime import graphs as G
 
 def serving_rules(cfg: ModelConfig, mesh, max_len: int) -> S.ShardingRules:
     """The rules a serving engine runs under on ``mesh`` (axes ``data`` and
-    ``model``): the default rules, with each logical dim the engine shards
-    held whole where a size of it does not divide its mesh axes (the vocab,
-    d_model, the experts, the cache's ``max_len``, the attention's query
-    and KV heads, the MLP's d_ff and the Mamba2 mixers' d_inner, both
-    ``mlp``, and their heads), so the model code reads from the rules how a
-    rank holds each of them. ``act_seq`` is fitted per call, on the length
-    of the sequence at hand (:func:`repro_torch.models.layers.act_shards`:
-    a prefill's, or a decode step's one token, held whole)."""
+    ``model``): the default rules, with each dim of
+    :func:`repro_torch.sharding.model_dims` and the cache's ``max_len``
+    held whole where a size of it does not divide its mesh axes, so the
+    model code reads from the rules how a rank holds each of them (the
+    trainer's rules fit the same dims,
+    :func:`repro_torch.sharding.training_rules`). ``act_seq`` is fitted per
+    call, on the length of the sequence at hand
+    (:func:`repro_torch.models.layers.act_shards`: a prefill's, or a decode
+    step's one token, held whole)."""
     if tuple(mesh.axes) != ("data", "model"):
         raise ValueError(f"serving takes a (data, model) mesh, not "
                          f"{mesh.axes}")
-    dims = {"vocab": cfg.vocab_size, "embed": cfg.d_model,
-            "cache_seq": max_len}
-    if cfg.is_moe:
-        dims.update(experts=cfg.moe.num_experts, expert_embed=cfg.d_model)
-    mlp = []
-    if cfg.family != "ssm":
-        dims.update(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads)
-    if cfg.family in ("dense", "vlm", "audio", "hybrid"):
-        mlp.append(cfg.d_ff)
-    if cfg.family in ("ssm", "hybrid"):
-        d_inner = cfg.ssm.expand * cfg.d_model
-        mlp.append(d_inner)
-        dims["ssm_heads"] = d_inner // cfg.ssm.head_dim
-    if mlp:
-        dims["mlp"] = mlp
-    return S.fitted_rules(mesh_config(mesh.shape, mesh.axes), mesh, dims)
+    return S.fitted_rules(mesh_config(mesh.shape, mesh.axes), mesh,
+                          {**S.model_dims(cfg), "cache_seq": max_len})
 
 
 class ServeEngine:

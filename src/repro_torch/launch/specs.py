@@ -18,11 +18,11 @@ give (:mod:`repro_torch.sharding`). A cell counts the one-card call: the
 whole model run on its rows, so along the model axis the cards repeat each
 other's work, which the record's ``useful_ratio`` shows (the mesh paths'
 collectives cannot run on one process). A train cell's state is counted at
-the shapes a rank of the cell's mesh holds it in: the expert and embedding
-tables, their optimizer moments and their sync state at the shard shapes
+the shapes a rank of the cell's mesh holds it in: every leaf, its optimizer
+moments and its sync state at the shard shape
 :func:`repro_torch.sharding.train_specs` gives under
-:func:`repro_torch.sharding.training_rules`, every other leaf whole, as the
-trainer on a mesh with a model axis holds them. Serving cells count the
+:func:`repro_torch.sharding.training_rules`, as the trainer on a mesh with
+a model axis holds them. Serving cells count the
 weights whole (a ``ServeEngine(mesh=)`` rank holds its shard of every
 weight, as ``sharding.serve_specs`` gives it, and of the cache).
 The collectives a card's call would make across the mesh (the gradients'
@@ -264,9 +264,9 @@ def build_cell(arch: str, shape_name: str, mesh_cfg: MeshConfig, *,
         batch = _inputs(cfg, "train", b, cell.seq,
                         getattr(torch, cfg.dtype))
         n_data = sizes.get(mesh_cfg.data_axis, 1)
-        notes = ("state as a rank holds it: the expert and embedding "
-                 "tables, their moments and sync state at train_specs' "
-                 "shard shapes, the rest whole; the one-card call counted")
+        notes = ("state as a rank holds it: every leaf, its moments and "
+                 "sync state at train_specs' shard shapes; the one-card "
+                 "call counted")
         if not local:
             state = LS.state_of(params, tcfg)
             step = LS.make_ddp_step(model, tcfg)

@@ -30,10 +30,10 @@ hierarchical``):
 
 ``--model M`` adds a model axis of M ranks: a ``(pod, data, model)`` mesh
 under a replica strategy, a ``(data, model)`` mesh of ``world / M`` data
-ranks under ``sync_every_step``; each rank then holds its shards of the
-expert and embedding tables and their optimizer and sync state, and the
-step reaches the MoE's and the embedding's mesh paths
-(:mod:`repro_torch.core.local_sgd`; every family):
+ranks under ``sync_every_step``; each rank then holds its shard of every
+leaf as the reference's training rules split it, and of its optimizer and
+sync state, and the step runs tensor and sequence parallel with a
+vocab-parallel CE (:mod:`repro_torch.core.local_sgd`; every family):
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --backend gloo --arch phi3.5-moe-42b-a6.6b --smoke --device cpu \

@@ -27,9 +27,11 @@ the tied table through :func:`repro_torch.models.layers.unembed`.
 
 ``loss`` encodes the frames, runs the decoder over the tokens without a
 cache and takes the CE on the tied embedding (plain attention only, as the
-reference trains); under mesh rules on the whole table, gathered from the
-rank's shard (:func:`repro_torch.models.layers.whole_table`), whose
-gradient the gathers' transposes carry back to the shard. ``remat`` other
+reference trains); under mesh rules (the trainer's) both stacks run tensor
+and sequence parallel as the prefill's do, and the CE is vocab-parallel on
+the rank's table shard (:func:`repro_torch.models.losses.ce_loss`; the
+whole table's loss), the collectives' transposes carrying the gradient
+back to the shards. ``remat`` other
 than ``"none"`` checkpoints each layer of both stacks whole where a
 gradient is taken, as the reference's ``jax.checkpoint`` of its scan bodies
 does for any such value: ``"dots"`` is a full checkpoint here.
@@ -170,14 +172,17 @@ class EncDecModel(LM):
     def decode_fwd(self, params: L.Params, tokens: torch.Tensor,
                    enc_out: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) over the encoder output → the decoder's final
-        hidden (B, S, D), with no cache (the loss's path)."""
-        x = L.embed(params["embed"], tokens, self.dtype)
-        b, s, _ = x.shape
+        hidden (B, S, D), with no cache (the loss's path); under mesh rules
+        that split S the residual is this rank's act_seq chunk, gathered
+        after the final norm."""
+        b, s = tokens.shape
+        seq = L.act_shards(s)
+        x = L.embed(params["embed"], tokens, self.dtype, seq)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         layer = self._remat(self._dec_layer)
         for lp in L.layer_list(params["dec_layers"]):
-            x = layer(lp, x, positions, enc_out)
-        return self._norm(params["final_norm"], x)
+            x = layer(lp, x, positions, enc_out, False, seq)
+        return L.seq_gather(self._norm(params["final_norm"], x), seq)
 
     # --------------------------------------------------------------- train
     def loss(self, params: L.Params, batch
@@ -188,8 +193,8 @@ class EncDecModel(LM):
         self._check_trainable()
         enc_out = self.encode(params, batch["frames"])
         x = self.decode_fwd(params, batch["tokens"], enc_out)
-        loss = ce_loss(x, L.whole_table(params["embed"]["embedding"]),
-                       batch["targets"], chunk=self.cfg.ce_chunk)
+        loss = ce_loss(x, params["embed"]["embedding"], batch["targets"],
+                       chunk=self.cfg.ce_chunk)
         return loss, {"ce": loss}
 
     # ------------------------------------------------------------- serving

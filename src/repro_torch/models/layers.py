@@ -30,9 +30,14 @@ decode step, S = 1) the same partial sums are summed over model. A rank
 holds a split weight as its column shard (``w_gate``/``w_up``: the
 ``mlp`` dim over model) or row shard (``w_down``), and each d_model dim
 as its FSDP slice over data, gathered before use (:func:`fsdp`). Which
-dims split is read from the rules (:func:`tp_group`); the trainer's rules
-hold them whole, and its leaves are whole, so its layers run as on one
-process on its rows.
+dims split is read from the rules (:func:`tp_group`): the serving engine's
+and the trainer's alike. Under autograd every collective on the way is
+differentiable, its backward its transpose
+(:mod:`repro_torch.core.collectives`): the sequence gather's a
+sum-scatter, :func:`tp_sum`'s sum-scatter a gather (its all-reduce an
+all-reduce), the FSDP gather's a sum-scatter over data, and a norm on the
+act_seq chunk leaves its scale the chunk's part of the gradient, which the
+trainer sums over the ranks that hold the scale.
 """
 from __future__ import annotations
 
@@ -411,23 +416,6 @@ def embed_sharded(table: torch.Tensor, tokens: torch.Tensor,
     tab = data.gather_dim(table, 1) if split_d else table
     x = _masked_lookup(tab, tokens, model.index * tab.shape[0])
     return model.sum_scatter_dim(x, 1).to(dtype)
-
-
-def whole_table(table: torch.Tensor) -> torch.Tensor:
-    """The whole (V, D) embedding table: ``table`` as it is, or under mesh
-    rules this rank's (V/M, D/Dn) shard gathered over data and model (the
-    gathers' transposes, sum-scatters, carry its gradient back to the
-    shard). The training loss of a tied model takes its logits from it."""
-    rules = current_rules()
-    if rules is None or rules.mesh is None:
-        return table
-    from repro_torch.core.collectives import mesh_groups
-    data, model = mesh_groups(rules)
-    if rules.mesh_axes_for("embed"):
-        table = data.gather_dim(table, 1)
-    if rules.mesh_axes_for("vocab"):
-        table = model.gather_dim(table, 0)
-    return table
 
 
 def unembed(params: Params, x: torch.Tensor, tied: bool) -> torch.Tensor:

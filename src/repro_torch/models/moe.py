@@ -18,10 +18,10 @@ reference does:
 
 On a mesh a rank holds its data shard of the batch and its shards of the
 expert tables (experts→model, d_model→data) and of the router
-(d_model→data, experts→model on a serving rank, gathered whole before the
-router product: routing needs every expert's logit; whole on a training
-rank). Its tokens are its act_seq chunk of the sequence where the serving
-prefill splits it (``seq``, :func:`repro_torch.models.layers.act_shards`:
+(d_model→data, experts→model; gathered whole before the router product:
+routing needs every expert's logit). Its tokens are its act_seq chunk of
+the sequence where a prefill or a training sequence splits it (``seq``,
+:func:`repro_torch.models.layers.act_shards`:
 the token shard the all-to-all path takes as it is), else the whole
 sequence, replicated over the model axis; it gets back the output of the
 tokens it was given.

@@ -385,10 +385,11 @@ class SSMModel(LM):
     only, so serving only) or ``"torch"`` (:func:`ssd_chunked`, the
     reference's model path, which it trains with). ``remat``: any value but
     ``"none"`` checkpoints each block where a gradient is taken, as the
-    reference does. Under mesh rules (``ServeEngine(mesh=)``) the prefill
-    and decode run on this rank's rows through the mesh embedding, the
-    mixers on the rank's heads (:func:`mamba_fwd`) with the residual in the
-    act_seq layout between them, and the logits from the rank's shard of
+    reference does. Under mesh rules (``ServeEngine(mesh=)``, and the
+    trainer's) the prefill, decode and loss run on this rank's rows through
+    the mesh embedding, the mixers on the rank's heads (:func:`mamba_fwd`)
+    with the residual in the act_seq layout between them, and the logits
+    (the loss's vocab-parallel CE) from the rank's shard of
     ``out_embedding``."""
 
     def __init__(self, cfg: ModelConfig, *, ssd_impl: str = "kernel",

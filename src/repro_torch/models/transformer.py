@@ -23,9 +23,11 @@ its loss adds the mean over the layers of their load-balance terms;
 prefix-LM mask and takes its loss over the text positions.
 
 Under mesh rules (the serving engine's on a ``(data, model)`` mesh,
-:class:`repro_torch.launch.serve.ServeEngine`) a rank holds its data shard
+:class:`repro_torch.launch.serve.ServeEngine`, and the trainer's,
+:func:`repro_torch.sharding.training_rules`) a rank holds its data shard
 of the batch (the VLM's patches too) and its shard of every weight. A
-prefill whose length splits over the model axis keeps the residual stream
+prefill or a training sequence whose length splits over the model axis
+keeps the residual stream
 in the act_seq layout between layers (:func:`repro_torch.models.layers.
 act_shards`: the rank's chunk of the sequence, from the embedding to the
 final norm, where it is gathered for the logits); the attention (the flash
@@ -33,8 +35,9 @@ kernel on the rank's heads) and the dense MLP are tensor parallel, the MoE
 takes the chunk as its token shard (:func:`repro_torch.models.moe.
 moe_ffn`), and the prefill writes this rank's chunk of the cache. A decode
 step's one token is whole on every rank: its products are tensor parallel,
-their partial sums summed over model. The trainer's rules hold these dims
-whole, so its layers run as on one process on its rows.
+their partial sums summed over model. The loss takes the vocab-parallel CE
+on the rank's table shard (:func:`repro_torch.models.losses.ce_loss`); the
+collectives' transposes carry the gradient back to every shard.
 """
 from __future__ import annotations
 
@@ -194,11 +197,22 @@ class LM:
         act_seq chunk of it."""
         return L.embed(params["embed"], batch["tokens"], self.dtype, seq)
 
+    def _train_seq(self, batch):
+        """The act_seq split of a training sequence (the model group, or
+        None): :func:`repro_torch.models.layers.act_shards` of its length,
+        the positions before the tokens included."""
+        return L.act_shards(self.positions_before()
+                            + batch["tokens"].shape[1])
+
     def _ce(self, params: L.Params, batch, mask=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(mean next-token NLL of ``batch``'s targets, {"ce": it}) through
-        ``backbone``, over the positions of ``mask`` (all without one)."""
-        x = self.backbone(params, self._embed_inputs(params, batch))
+        ``backbone``, over the positions of ``mask`` (all without one);
+        under mesh rules the residual in the act_seq layout where the
+        sequence splits."""
+        seq = self._train_seq(batch)
+        x = self.backbone(params, self._embed_inputs(params, batch, seq),
+                          seq=seq)
         loss = self._nll(params, x, batch["targets"], mask)
         return loss, {"ce": loss}
 
@@ -212,9 +226,10 @@ class LM:
     def _nll(self, params: L.Params, x: torch.Tensor, targets: torch.Tensor,
              mask=None) -> torch.Tensor:
         """The mean NLL of ``targets`` under final hidden ``x`` (chunked
-        by ``ce_chunk``)."""
-        table = L.whole_table(params["embed"]["embedding"]) \
-            if self.cfg.tie_embeddings else params["out_embedding"]
+        by ``ce_chunk``; vocab-parallel on a rank's table shard under mesh
+        rules, :func:`repro_torch.models.losses.ce_loss`)."""
+        table = params["embed"]["embedding"] if self.cfg.tie_embeddings \
+            else params["out_embedding"]
         return ce_loss(x, table, targets, mask=mask, chunk=self.cfg.ce_chunk)
 
     def _logits_last(self, params: L.Params, x_last: torch.Tensor
@@ -339,8 +354,10 @@ class DecoderLM(LM):
         self._check_trainable()
         if not self.cfg.is_moe:
             return self._ce(params, batch, batch.get("loss_mask"))
-        x, aux = self.backbone(params, self._embed_inputs(params, batch),
-                               return_aux=True)
+        seq = self._train_seq(batch)
+        x, aux = self.backbone(params,
+                               self._embed_inputs(params, batch, seq),
+                               return_aux=True, seq=seq)
         ce = self._nll(params, x, batch["targets"], batch.get("loss_mask"))
         return (ce + self.cfg.moe.load_balance_coef * aux,
                 {"ce": ce, "aux": aux})
@@ -398,7 +415,9 @@ class PrefixVLM(DecoderLM):
         "patches": (B, P, D)} → (mean NLL over the text positions, {"ce":
         it}); no ``loss_mask``, as in the reference."""
         self._check_trainable()
-        x = self.backbone(params, self._embed_inputs(params, batch))
+        seq = self._train_seq(batch)
+        x = self.backbone(params, self._embed_inputs(params, batch, seq),
+                          seq=seq)
         loss = self._nll(params, x[:, self.positions_before():],
                          batch["targets"])
         return loss, {"ce": loss}

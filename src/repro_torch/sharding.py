@@ -23,17 +23,19 @@ together.
 
 The reference's ``constrain`` and ``sharding_for`` have no counterpart:
 they hand a spec to XLA's SPMD partitioner, and PyTorch's eager program has
-none. So a rank holds a weight either whole or as the slice its mesh path
-reads, and the model code computes on what it holds: serving on a mesh
-holds every leaf as ``spec_for`` gives it (:func:`serve_specs`; the dense
-layers tensor and sequence parallel, each d_model dim FSDP over data) and
-the decode cache by its own axes
-(:class:`repro_torch.launch.serve.ServeEngine`); the trainer on a mesh with
-a model axis holds its shards of the expert and embedding tables, of their
-optimizer moments and of their sync state and every other leaf whole
-(:func:`training_rules`, :func:`train_specs`,
-:mod:`repro_torch.core.local_sgd`), and on a mesh without one shards no
-weights and splits the batch over its ranks.
+none. So a rank holds each weight as the slice its mesh path reads, and the
+model code computes on what it holds. Serving and training on a mesh with a
+model axis both hold every leaf as ``spec_for`` gives it under rules fitted
+to the model's dims (:func:`model_dims`; :func:`serve_specs`,
+:func:`train_specs`): the attention's heads, the MLP's columns, the Mamba2
+mixers' heads, the vocab and the experts over model, each d_model dim over
+data (FSDP), a dim held whole where it does not divide; the layers run
+tensor and sequence parallel (:mod:`repro_torch.models.layers`). The
+serving engine holds the decode cache by its own axes
+(:class:`repro_torch.launch.serve.ServeEngine`); the trainer holds its
+optimizer moments and sync state as their params
+(:mod:`repro_torch.core.local_sgd`), and on a mesh without a model axis
+shards no weights and splits the batch over its ranks.
 """
 from __future__ import annotations
 
@@ -210,14 +212,14 @@ def rules_for(mesh_cfg: MeshConfig, mesh=None,
 
 
 def fitted_rules(mesh_cfg: MeshConfig, mesh,
-                 dims: Mapping[str, Union[int, Sequence[int]]],
-                 whole: Sequence[str] = ()) -> ShardingRules:
+                 dims: Mapping[str, Union[int, Sequence[int]]]
+                 ) -> ShardingRules:
     """:func:`rules_for` with each logical dim of ``dims`` (name → its size,
     or the sizes of every dim of that name) held whole where a size does
-    not divide its mesh axes, and each name of ``whole`` held whole, so the
-    model code reads from the rules how a rank holds it."""
+    not divide its mesh axes, so the model code reads from the rules how a
+    rank holds it."""
     rules = rules_for(mesh_cfg, mesh)
-    held = {name: () for name in whole}
+    held = {}
     for name, sizes in dims.items():
         sizes = (sizes,) if isinstance(sizes, int) else tuple(sizes)
         if not all(rules.would_shard(name, n) for n in sizes):
@@ -225,34 +227,56 @@ def fitted_rules(mesh_cfg: MeshConfig, mesh,
     return rules_for(mesh_cfg, mesh, held)
 
 
-# the logical dims of tensor and sequence parallelism (Megatron's heads,
-# MLP columns, Mamba2 heads and the act_seq residual), which serving splits
-# over the model axis and the trainer holds whole (:func:`training_rules`)
-TP_DIMS = ("heads", "kv_heads", "mlp", "ssm_heads", "act_seq")
+def model_dims(cfg) -> Dict[str, Union[int, Tuple[int, ...]]]:
+    """The logical dims of a model (``cfg`` a ``ModelConfig``) that a rank
+    on a mesh holds split where they divide their mesh axes, by name → the
+    size of each dim of that name (:func:`fitted_rules`' table): the
+    vocab, d_model, the experts and the expert tables' d_model, the
+    attention's query and KV heads, ``mlp`` (the MLP's d_ff and the Mamba2
+    mixers' d_inner together: a mixer's columns are its heads') and the
+    mixers' heads. The serving engine's rules
+    (:func:`repro_torch.launch.serve.serving_rules`) and the trainer's
+    (:func:`training_rules`) both fit these."""
+    dims: Dict[str, Union[int, Tuple[int, ...]]] = {
+        "vocab": cfg.vocab_size, "embed": cfg.d_model}
+    if cfg.is_moe:
+        dims.update(experts=cfg.moe.num_experts, expert_embed=cfg.d_model)
+    mlp = []
+    if cfg.family != "ssm":
+        dims.update(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads)
+    if cfg.family in ("dense", "vlm", "audio", "hybrid"):
+        mlp.append(cfg.d_ff)
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner = cfg.ssm.expand * cfg.d_model
+        mlp.append(d_inner)
+        dims["ssm_heads"] = d_inner // cfg.ssm.head_dim
+    if mlp:
+        dims["mlp"] = tuple(mlp)
+    return dims
 
 
 def training_rules(cfg, mesh) -> Optional[ShardingRules]:
     """The rules a trainer (``cfg`` a ``TrainConfig``) runs under on
-    ``mesh`` (a live :class:`repro_torch.launch.mesh.Mesh`), or None where
-    the mesh has no model axis (the trainer then splits only the batch).
-    The default rules with the vocab, d_model and the experts held whole
-    where they do not divide their axes (as :func:`fitted_rules`) and the
-    dims of :data:`TP_DIMS` held whole: the trainer runs its dense layers
-    whole on a rank's rows (their split is ROADMAP §1 (iii) item 19 (h)'s
-    training half); under a replica strategy the replica axis stripped, as
-    the reference's local-SGD block strips its manual axis."""
+    ``mesh`` (a live :class:`repro_torch.launch.mesh.Mesh`, or anything
+    :func:`axis_sizes` reads), or None where the mesh has no model axis
+    (the trainer then splits only the batch). The reference's training
+    rules (``rules_for(cfg.mesh, mesh)``) with the dims of
+    :func:`model_dims` held whole where a size of them does not divide its
+    mesh axes (as :func:`fitted_rules`), so that the model code reads from
+    the rules how a rank holds each: the attention's heads, the MLP's
+    columns, the Mamba2 mixers' heads and the vocab over model, each
+    d_model dim over data, the residual's ``act_seq`` over model where a
+    sequence's length divides the axis (decided per call,
+    :func:`repro_torch.models.layers.act_shards`). Under a replica strategy
+    the replica axis is stripped, as the reference's local-SGD block
+    strips its manual axis."""
     if mesh is None or cfg.mesh.model_axis not in axis_sizes(mesh):
         return None
     if cfg.mesh.data_axis not in axis_sizes(mesh):
         raise ValueError(f"a trainer on a mesh with a model axis needs a "
                          f"data axis too (of 1 rank where the batch is not "
                          f"split): {mesh!r}")
-    model = cfg.model
-    dims = {"vocab": model.vocab_size, "embed": model.d_model}
-    if model.is_moe:
-        dims.update(experts=model.moe.num_experts,
-                    expert_embed=model.d_model)
-    rules = fitted_rules(cfg.mesh, mesh, dims, whole=TP_DIMS)
+    rules = fitted_rules(cfg.mesh, mesh, model_dims(cfg.model))
     if cfg.sync.strategy in ("periodic", "hierarchical"):
         rules = strip_axes(rules, {cfg.mesh.replica_axis or "pod"})
     return rules
@@ -416,53 +440,34 @@ def unshard_tree(trees: Sequence, specs, mesh):
 
 
 # ---------------------------------------------------------------------------
-# what a serving and a training rank hold sharded
+# what a serving and a training rank hold
 # ---------------------------------------------------------------------------
 
-# the leaves a training rank holds as its shards, by the last two keys of
-# their path: the tables the trainer's mesh paths read sharded (the MoE's
-# expert tables, the embedding). Every other leaf is held whole: the
-# trainer's dense layers run whole on a rank's rows until ROADMAP §1 (iii)
-# item 19 (h)'s training half splits them as serving does.
-TRAIN_SHARDED = (("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down"),
-                 ("embed", "embedding"))
-
-
 def serve_specs(defs, rules: ShardingRules):
-    """The tree of specs a serving rank holds a model's params under:
+    """The tree of specs of a model's params under ``rules``:
     ``rules.spec_for`` of every leaf's logical axes and shape, as the
-    reference places its serving params (``sharding_for`` on every leaf).
-    ``defs`` is the model's ``param_defs()`` (its leaves carry ``logical``
-    and ``shape``)."""
-    return _specs(defs, rules, lambda path: True)
+    reference places its params (``sharding_for`` of every leaf when it
+    serves, ``state_shardings`` when it trains). A serving rank holds its
+    params so, and a training rank each layer of its replica's
+    (:func:`train_specs`). ``defs`` is the model's ``param_defs()`` (its
+    leaves carry ``logical`` and ``shape``)."""
+    return _map_defs(defs, lambda p: rules.spec_for(p.logical, p.shape))
 
 
-def _specs(defs, rules: ShardingRules, sharded):
-    """``rules.spec_for`` of each leaf whose path ``sharded`` takes, ``()``
-    (whole) for the others."""
-    def walk(node, path):
-        if isinstance(node, Mapping):
-            return {k: walk(v, path + (k,)) for k, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
-        if sharded(path):
-            return rules.spec_for(node.logical, node.shape)
-        return ()
-    return walk(defs, ())
-
-
-def train_leaf_specs(defs, rules: ShardingRules):
-    """The tree of specs a training rank draws one replica's per-layer
-    params under: ``rules.spec_for`` of each :data:`TRAIN_SHARDED` leaf,
-    ``()`` (whole) for every other leaf."""
-    return _specs(defs, rules, lambda path: path[-2:] in TRAIN_SHARDED)
+def _map_defs(node, fn):
+    if isinstance(node, Mapping):
+        return {k: _map_defs(v, fn) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map_defs(v, fn) for v in node]
+    return fn(node)
 
 
 def train_specs(defs, rules: ShardingRules):
     """The tree of specs a training rank holds one replica's params under,
-    in the trainer's layout: :func:`train_leaf_specs`, each layer stack (a
-    list in ``defs``) one dict of ``(depth, …)`` leaves whose depth dim
-    stays whole (the spec's first entry ``None``)."""
+    in the trainer's layout: :func:`serve_specs`, each layer stack (a list
+    in ``defs``) one dict of ``(depth, …)`` leaves whose depth dim stays
+    whole (the spec's first entry ``None``; the reference's ``layers``
+    dim, which no mesh axis takes)."""
     def stack(node):
         if isinstance(node, Mapping):
             return {k: stack(v) for k, v in node.items()}
@@ -475,7 +480,7 @@ def train_specs(defs, rules: ShardingRules):
                 lambda spec, _: (None,) + spec if any(spec) else (),
                 first, first)
         return node
-    return stack(train_leaf_specs(defs, rules))
+    return stack(serve_specs(defs, rules))
 
 
 def flat_keys(tree, prefix: str = "") -> Dict[str, Any]:

@@ -8,11 +8,16 @@ for phi3.5-moe smoke in f32 at T = 32,768 tokens (its ``_moe_ffn_sharded``
 and ``_embed_sharded``) and at T = 256 (the one-hot MoE and the masked
 lookup), each MoE case with ``grad_clip`` 0.05 (below the norm) and the gradient of its loss
 under the mesh rules; and ``make_local_sgd_block`` on (pod 2, data 1, model
-2), int8 ``periodic``, momentum, two blocks. One
+2), int8 ``periodic``, momentum, two blocks; and its ``ce_loss`` under
+its rules on (2, 2), with the gradients of the hidden and the table. One
 ``repro_torch.launch.mesh.spawn`` of 4 gloo CPU ranks runs the port's from
 the same initial states and batches (``interop.rank_train_state_from_jax``),
-then the sharded quantize of a leaf, a checkpoint written on the model mesh
-and the trainer's CLI with ``--model 2`` (phi3.5-moe and zamba2-1.2b).
+every leaf held as the reference's training rules split it, then the
+vocab-parallel CE on each rank's rows and table shard, the sharded
+quantize of a leaf, a checkpoint written on the model mesh and the
+trainer's CLI with ``--model 2`` (phi3.5-moe and zamba2-1.2b). In the test
+process the trainer's specs are held to the reference's
+``state_shardings`` specs for every family.
 
 Bounds: the dense case the reference's own (``tests/test_distributed.py::
 TestDDPStep``): loss relative 1e-3, params rtol 2e-3 / atol 2e-4. The MoE
@@ -25,7 +30,8 @@ residual ``ef`` there by that step: every ``ef`` value within its
 replica's scale of the reference's, and at most 1e-4 of them off by more
 than 1e-2 of it. The sharded
 quantize, the checkpoint and its replay bitwise; the mesh's global norm
-against the whole gradient tree's relative 1e-6.
+against the whole gradient tree's relative 1e-6. The CE: the loss
+relative 1e-5, its gradients within 1e-5 of the reference's largest.
 """
 import json
 import os
@@ -55,6 +61,11 @@ LOCAL = dict(arch="phi3.5-moe-42b-a6.6b", rows=4, seq=32, seed=3, h=2,
              blocks=2, sync=dict(strategy="periodic", period=2,
                                  compression="int8"),
              opt=dict(name="momentum", learning_rate=0.05))
+# the vocab-parallel CE on (data 2, model 2): (rows, seq, d_model, vocab,
+# chunk, masked prefix or None, seed); the odd vocab is held whole
+CE = {"whole": (4, 32, 16, 512, 0, None, 20),
+      "chunked_text": (4, 32, 16, 512, 8, 12, 21),
+      "odd_vocab": (4, 32, 16, 509, 8, None, 22)}
 DDP_MESH = M.mesh_config((2, 2), ("data", "model"))
 LOCAL_MESH = M.mesh_config((2, 1, 2), ("pod", "data", "model"))
 # the CLI on the MoE and on one of the SSM, hybrid, VLM and audio families
@@ -122,6 +133,26 @@ for tag, c in CASES.items():
         dump(f"{tag}/metrics", metrics)
         dump(f"{tag}/final", state["params"])
 
+from repro.models.losses import ce_loss
+for tag, (rows, seq, d, v, chunk, prefix, seed) in json.loads(
+        '''__CE__''').items():
+    rng = np.random.default_rng(seed)
+    inp = {"x": rng.normal(size=(rows, seq, d)).astype(np.float32),
+           "table": rng.normal(size=(v, d)).astype(np.float32),
+           "targets": rng.integers(0, v, (rows, seq)).astype(np.int32)}
+    mask = None
+    if prefix is not None:
+        inp["mask"] = np.repeat(np.arange(seq)[None] >= prefix, rows,
+                                0).astype(np.float32)
+        mask = jnp.asarray(inp["mask"])
+    dump(f"ce/{tag}/in", inp)
+    with jax.set_mesh(mesh), use_rules(rules):
+        fn = jax.jit(jax.value_and_grad(
+            lambda x, t: ce_loss(x, t, jnp.asarray(inp["targets"]), mask,
+                                 chunk), argnums=(0, 1)))
+        loss, (gx, gt) = fn(jnp.asarray(inp["x"]), jnp.asarray(inp["table"]))
+    dump(f"ce/{tag}/out", {"loss": loss, "x": gx, "table": gt})
+
 c = LOCAL
 model_cfg = dataclasses.replace(get_smoke(c["arch"]), dtype="float32")
 mesh3 = jax.make_mesh((2, 1, 2), ("pod", "data", "model"),
@@ -175,6 +206,7 @@ def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("mesh_train") / "reference.npz"
     code = (REFERENCE.replace("__CASES__", json.dumps(CASES))
             .replace("__LOCAL__", json.dumps(LOCAL))
+            .replace("__CE__", json.dumps(CE))
             .replace("__OUT__", str(path)))
     assert "OK" in run_with_devices(code, n_devices=4, timeout=900)
     with np.load(path) as data:
@@ -194,6 +226,8 @@ def ranks(reference, ckpt_dir):
              for tag in CASES}
     batches = {tag: _subtree(reference, f"{tag}/batch") for tag in CASES}
     inits["local"] = _subtree(reference, "local/init")
+    inits["ce"] = {tag: (_subtree(reference, f"ce/{tag}/in"), CE[tag][4])
+                   for tag in CE}
     batches["local"] = [_subtree(reference, f"local/batch/{b}")
                         for b in range(LOCAL["blocks"])]
     return M.spawn(R.mesh_train_cases, 4, backend="gloo", device="cpu",
@@ -281,14 +315,19 @@ def _layers():
 def test_moe_ddp_every_leaf_matches_reference(reference, ranks, tag, what):
     """Every leaf's gradient (this rank's block of the reduced gradient)
     and param after one clipped step, put back together, against the
-    reference's unsharded ones; the expert and embedding tables are held
-    as shards, the rest whole."""
+    reference's unsharded ones; every leaf held as ``spec_for`` splits it
+    (the attention's heads, the experts and the vocab over model, d_model
+    over data; the norms' scales over data)."""
     specs = _ddp_specs(ranks, tag)
     flat_specs = _flat(specs)
     assert flat_specs["layers.moe.w_gate"] == (None, "model", "data")
     assert flat_specs["layers.moe.w_down"] == (None, "model", None, "data")
+    assert flat_specs["layers.moe.router"] == (None, "data", "model")
+    assert flat_specs["layers.attn.wq"] == (None, "data", "model")
+    assert flat_specs["layers.attn.wo"] == (None, "model", None, "data")
+    assert flat_specs["layers.ln1.scale"] == (None, "data")
     assert flat_specs["embed.embedding"] == ("model", "data")
-    assert flat_specs["out_embedding"] == ()
+    assert flat_specs["out_embedding"] == ("model", "data")
     got = _flat(_whole(ranks, ("ddp", tag, what), specs, DDP_MESH))
     want = _flat(_subtree(reference, f"{tag}/{what}"))
     assert sorted(got) == sorted(want)
@@ -312,6 +351,32 @@ def test_global_norm_of_the_mesh_is_the_whole_trees(reference, ranks, tag):
     assert abs(ranks[0]["ddp"][tag]["norm"] - want) <= 1e-4 * want
     # the clip is active: the step's param delta is the clipped norm's
     assert want > CASES[tag]["opt"]["grad_clip"]
+
+
+@pytest.mark.parametrize("tag", sorted(CE))
+def test_vocab_parallel_ce_matches_reference(reference, ranks, tag):
+    """``losses.ce_loss`` under the trainer's rules on (data 2, model 2):
+    each rank's rows of the final hidden and its (V/2, D/2) shard of the
+    table (the odd vocab's (V, D/2): held whole over model), unchunked and
+    in checkpointed chunks, over a text mask; against the reference's
+    ``ce_loss`` under its rules on 4 devices. The mean of the ranks'
+    losses at relative 1e-5; the gradients of the hidden and of the table,
+    each rank's summed over the ranks that hold the same block and divided
+    by the 4 (the trainer's reduction), put back together, within 1e-5 of
+    the reference's largest."""
+    rows, seq, d, v, *_ = CE[tag]
+    want = _subtree(reference, f"ce/{tag}/out")
+    got = [o["ce"][tag] for o in ranks]
+    loss = np.mean([g["loss"] for g in got])
+    assert abs(loss - want["loss"]) <= 1e-5 * abs(want["loss"]), (loss,
+                                                                   want)
+    spec = tuple(got[0]["spec"])
+    assert spec == (("model", "data") if v % 2 == 0 else (None, "data"))
+    for key, spec_k in (("x", ("data",)), ("table", spec)):
+        whole = S.unshard_tree([g[key] for g in got], spec_k, DDP_MESH)
+        scale = np.abs(want[key]).max()
+        err = np.abs(whole - want[key]).max()
+        assert err <= 1e-5 * scale, (key, err, scale)
 
 
 @pytest.mark.parametrize("impl", ["torch", "kernel"])
@@ -434,30 +499,111 @@ def test_cli_trains_on_a_model_mesh(ranks, arch):
     assert all(o["cli"][arch] == "" for o in ranks[1:])
 
 
-# the leaves a training rank holds split on a (data 2, model 2) mesh, and
-# their specs: the embedding table and the MoE's expert tables; every other
-# leaf whole (the trainer's dense layers run whole on a rank's rows, while
-# serving splits them)
-TRAIN_SPLIT = {"embed.embedding": ("model", "data"),
-               "layers.moe.w_gate": (None, "model", "data"),
-               "layers.moe.w_up": (None, "model", "data"),
-               "layers.moe.w_down": (None, "model", None, "data")}
+class _FakeMesh:
+    """axis_names/devices.shape stand-in for the reference's rules."""
+
+    def __init__(self, shape, names):
+        self.axis_names = names
+        self.devices = np.zeros(shape)
+
+
+def _held(spec, sizes, skip=0):
+    """A spec with its first ``skip`` entries dropped and every mesh axis
+    of one rank taken out (a split into one block places as whole), the
+    trailing whole entries trimmed."""
+    out = []
+    for entry in tuple(spec)[skip:]:
+        axes = tuple(a for a in S.entry_axes(entry) if sizes[a] > 1)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
 
 
 @pytest.mark.parametrize("arch", R.FAMILY_ARCHS + ("qwen3-moe-235b-a22b",))
 def test_trainer_specs_are_unchanged_by_serving_tp(arch):
-    """The trainer's specs on a (2, 2) mesh: exactly the embedding and the
-    expert tables split, every other leaf whole, whatever the serving
-    rules split; its rules hold heads, kv_heads, mlp, ssm_heads and act_seq
-    whole."""
-    from repro_torch.config import TrainConfig, get_smoke
+    """The trainer holds every leaf as the serving engine's rules split it
+    and as the reference's trainer places it: on (data 2, model 2) under
+    DDP and on (pod 2, data 1, model 2) under int8 local SGD with AdamW,
+    every params, moments and sync leaf's spec (``local_sgd.state_specs``
+    of ``sharding.train_specs``) is the reference's ``state_shardings``
+    spec of it (``rules_for`` on the mesh, ``spec_for`` of each leaf's
+    logical axes and shape; the replica dim, which the rank holds one row
+    of, and mesh axes of one rank aside), and each layer's is the serving
+    rules' ``serve_specs`` (the cache's length aside, both fit the same
+    dims, ``sharding.model_dims``)."""
+    import jax
+    import torch
+    from repro.config import MeshConfig as JMeshConfig
+    from repro.config import OptimizerConfig as JOpt
+    from repro.config import SyncConfig as JSync
+    from repro.config import TrainConfig as JTrainConfig
+    from repro.config import get_smoke as jget_smoke
+    from repro.core import local_sgd as JLS
+    from repro.models.registry import build_model as jbuild
+    from repro.sharding import rules_for as jrules_for
+    from repro_torch.config import (MeshConfig, OptimizerConfig, SyncConfig,
+                                    TrainConfig, get_smoke)
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.launch.serve import serving_rules
+    from repro_torch.models import layers as TL
     from repro_torch.models.registry import build_model
-    cfg = TrainConfig(model=get_smoke(arch), mesh=DDP_MESH)
-    rules = S.training_rules(cfg, DDP_MESH)
-    for name in S.TP_DIMS:
-        assert rules.mesh_axes_for(name) == (), name
-    specs = _flat(S.train_specs(build_model(cfg.model).param_defs(), rules))
-    want = {k: TRAIN_SPLIT.get(k, ()) for k in specs}
-    assert specs == want
-    assert set(TRAIN_SPLIT) & set(specs) == (
-        set(TRAIN_SPLIT) if cfg.model.is_moe else {"embed.embedding"})
+    is_tuple = (lambda x: isinstance(x, tuple)
+                and all(isinstance(e, (str, type(None))) for e in x))
+    for shape, names in (((2, 2), ("data", "model")),
+                         ((2, 1, 2), ("pod", "data", "model"))):
+        local = "pod" in names
+        sync = dict(strategy="periodic", period=2, compression="int8") \
+            if local else {}
+        kw = dict(shape=shape, axis_names=names,
+                  replica_axis="pod" if local else "")
+        jcfg = JTrainConfig(model=jget_smoke(arch), mesh=JMeshConfig(**kw),
+                            optimizer=JOpt(name="adamw"),
+                            sync=JSync(**sync))
+        jmodel = jbuild(jcfg.model)
+        jstate = jax.eval_shape(lambda: JLS.init_state(
+            jmodel, jcfg, jax.random.key(0), replicas=2 if local else 0))
+        axes = JLS.build_state_axes(jmodel, jcfg, replicated=local)
+        rules = jrules_for(jcfg.mesh, _FakeMesh(shape, names))
+        want = jax.tree.map(lambda la, x: tuple(rules.spec_for(la, x.shape)),
+                            {k: axes[k] for k in ("params", "opt", "sync")},
+                            {k: jstate[k] for k in ("params", "opt", "sync")},
+                            is_leaf=is_tuple)
+
+        cfg = TrainConfig(model=get_smoke(arch), mesh=MeshConfig(**kw),
+                          optimizer=OptimizerConfig(name="adamw"),
+                          sync=SyncConfig(**sync))
+        model = build_model(cfg.model)
+        defs = model.param_defs()
+        rules_t = S.training_rules(cfg, cfg.mesh)
+        param_specs = S.train_specs(defs, rules_t)
+        state = LS.state_of(TL.empty_params(defs, torch.float32, "meta"),
+                            cfg, 2 if local else 0)
+        got = LS.state_specs(state, param_specs, local)
+        sizes = dict(zip(names, shape))
+        skip = 1 if local else 0
+        got_flat = {k: _held(v, sizes, skip) for k, v in
+                    _flat({k: got[k] for k in want}).items()}
+        want_flat = {k: _held(v, sizes, skip) for k, v in
+                     _flat(want).items()}
+        assert got_flat == want_flat, (shape, {
+            k: (got_flat.get(k), v) for k, v in want_flat.items()
+            if got_flat.get(k) != v})
+        # the serving layout, layer by layer
+        serve = _flat(S.serve_specs(defs, serving_rules(
+            cfg.model, _Sized((shape[-2], shape[-1])), 64)))
+        for key, spec in _flat(param_specs).items():
+            parts = key.split(".")
+            layer = (".".join([parts[0], "0"] + parts[1:])
+                     if parts[0] in TL.STACKS else key)
+            assert _held(spec, sizes, 1 if parts[0] in TL.STACKS else 0) \
+                == _held(serve[layer], sizes), (shape, key)
+
+
+class _Sized:
+    """A (data, model) mesh's axes and shape, as ``serving_rules`` reads
+    them."""
+
+    def __init__(self, shape):
+        self.axes, self.shape = ("data", "model"), shape

@@ -396,8 +396,9 @@ def test_remat_recompute_without_the_callers_rules(ranks, tag):
 def test_encdec_loss_on_a_mesh_takes_the_whole_table(ranks, tag):
     """``EncDecModel.loss`` under the mesh rules on a rank's shard of the
     tied table (vocab over model, d_model over data; the odd vocab whole
-    over model) takes its CE over the whole table, gathered: the loss of
-    the rank's rows, as ``value_and_grad`` took it."""
+    over model) takes the whole table's CE, vocab-parallel on the shard
+    (the d_model slice gathered over data): the loss of the rank's rows,
+    as ``value_and_grad`` took it."""
     for o in ranks:
         got = o["ddp"][tag]
         assert isinstance(got["direct_loss"], float), got["direct_loss"]

@@ -333,11 +333,14 @@ def test_block_counted_as_one_step_and_repeats():
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
 def test_train_cell_counts_the_state_a_rank_holds(mesh):
     """A train cell on a mesh with a model axis counts its state at the
-    shapes a rank holds it in: phi3.5-moe's expert tables (16 experts over
-    the 16 model ranks, d_model over the 16 data ranks) and its embedding
-    table (vocab over model, d_model over data), with their moments and
-    sync state, a 256th each; every other leaf whole. On one card all of
-    it is whole."""
+    shapes a rank holds it in, every leaf as ``spec_for`` splits it, with
+    its moments and sync state: phi3.5-moe's query and output projections
+    (32 heads over the 16 model ranks, d_model over the 16 data ranks),
+    router and expert tables (16 experts over model, d_model over data)
+    and its embedding and output tables (vocab over model, d_model over
+    data) a 256th each; its KV projections (8 KV heads, held whole over
+    model) and its norms' scales a 16th (d_model over data). On one card
+    all of it is whole."""
     arch = "phi3.5-moe-42b-a6.6b"
     mesh_cfg = SP.MESHES[mesh]
     cell = SP.SHAPE_CELLS["train_4k"]
@@ -350,13 +353,13 @@ def test_train_cell_counts_the_state_a_rank_holds(mesh):
     state = LS.state_of(TL.empty_params(model.param_defs(), torch.float32,
                                         META), tcfg,
                         replicas=1 if replicated else 0)
-    sharded = {"w_gate", "w_up", "w_down", "embedding"}
+    over_data = {"wk", "wv", "scale"}
 
     def held(tree, path=()):
         if isinstance(tree, dict):
             return sum(held(v, path + (k,)) for k, v in tree.items())
         n = tree.numel() * tree.element_size()
-        return n // 256 if path[-1] in sharded else n
+        return n // 16 if path[-1] in over_data else n // 256
     want = sum(held(state[k]) for k in ("params", "opt", "sync"))
     h = tcfg.sync.period if replicated else 1
     batch = built.state_bytes - want

@@ -1150,6 +1150,33 @@ def _train_cfg(kw, mesh_cfg, sync=None):
                                        global_batch=kw["rows"]))
 
 
+def _ce_case(inp, mesh, model_g, chunk):
+    """``ce_loss`` under the trainer's rules for the table's dims on this
+    rank's rows of ``inp["x"]`` and its shard of ``inp["table"]``: its
+    loss, the table's spec, and the gradients of its rows and of its
+    shard, each summed over the ranks that hold the same block and divided
+    by the mesh's 4 ranks (``local_sgd.Within``'s reduction)."""
+    from repro_torch import sharding as S
+    from repro_torch.models.losses import ce_loss
+    v, d = inp["table"].shape
+    rules = S.fitted_rules(M.mesh_config((2, 2), ("data", "model")), mesh,
+                           {"vocab": v, "embed": d})
+    spec = rules.spec_for(("vocab", "embed"), (v, d))
+    x = _data_rows(inp["x"], mesh).clone().requires_grad_()
+    table = S.shard_of(torch.as_tensor(inp["table"]), spec,
+                       mesh).clone().requires_grad_()
+    mask = _data_rows(inp["mask"], mesh) if "mask" in inp else None
+    with S.use_rules(rules):
+        loss = ce_loss(x, table, _data_rows(inp["targets"], mesh).long(),
+                       mask, chunk)
+    gx, gt = torch.autograd.grad(loss, [x, table])
+    model_g.sum_(gx)
+    if "model" not in S.spec_axes(spec):
+        model_g.sum_(gt)
+    return {"loss": float(loss), "spec": spec,
+            "x": (gx / 4).numpy(), "table": (gt / 4).numpy()}
+
+
 def mesh_train_cases(cases, local, inits, batches, ckpt_dir, cli_argv):
     """The trainer on a (data 2, model 2) mesh of CPU ranks from the
     reference's initial states (``interop.rank_train_state_from_jax``):
@@ -1209,10 +1236,13 @@ def mesh_train_cases(cases, local, inits, batches, ckpt_dir, cli_argv):
         got["final"] = _np(state["params"])
         out["ddp"][tag] = got
 
-    # the sharded quantize of one leaf: this rank's block, the whole
-    # leaf's scale
     data_g, model_g = (CL.Group(mesh.group(a), mesh.device, mesh.backend)
                        for a in ("data", "model"))
+    out["ce"] = {tag: _ce_case(inp, mesh, model_g, chunk)
+                 for tag, (inp, chunk) in inits["ce"].items()}
+
+    # the sharded quantize of one leaf: this rank's block, the whole
+    # leaf's scale
     leaf = torch.from_numpy(np.random.default_rng(5).normal(
         size=(2, 2, 4, 16, 8)).astype(np.float32) * 3.0)
     spec = (None, None, "model", "data")
